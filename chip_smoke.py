@@ -9,15 +9,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build: the kernels from `sos_tpu_torch/csrc/` with nvcc, timed;
-3. kernels: K1-K4 at the main path's shapes (128 clips), each against
-   its plain PyTorch version on the card, with the kernel's, the plain
-   version's and the library call's times and the kernel's bound;
+3. kernels: K1-K4 and K6-K7 at the main path's shapes (128 clips),
+   each against its plain PyTorch version on the card (K6 and K7
+   exactly, in every loader and epilogue form the main path runs), with
+   the kernel's, the plain version's and the library call's times and
+   the kernel's bound; K5 at every shape of the int8 GEMM sweep (the
+   port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
+   `torch._int_mm`'s;
 4. main path: the full-width pipeline (`ExperimentConfig()` defaults,
-   weights from a seeded generator) on 2 clips in the f32 profile, on
-   the card and on the CPU (plain versions), compared; every kernel's
-   launch count must have risen during the card run;
-5. throughput: `__call__` on 128 clips in the f32 and bf16 profiles,
-   median of 10 timed calls, in audio-seconds per second.
+   weights from a seeded generator) on 2 clips in the f32 profile and
+   in the int8 profile, on the card and on the CPU (plain versions),
+   compared; every kernel's launch count must have risen during the card
+   run. The int8 profile calibrates once on the CPU, writes the scale
+   file and the card pipeline loads it;
+5. throughput: `__call__` on 128 clips in the f32, bf16 and int8
+   profiles, median of 10 timed calls (the int8 profile's calibrating
+   first call excluded), in audio-seconds per second, with a
+   torch.profiler breakdown.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -26,9 +34,11 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,13 +53,20 @@ from sos_tpu_torch.kernels import LAUNCHES, library, reset_launches
 from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
+from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
+                                         inpaint_conv_int8,
+                                         inpaint_conv_int8_plain, up_pads)
+from sos_tpu_torch.ops.int8_gemm import (int8_matmul_nt, int8_matmul_plain,
+                                         narrow_n_sweep, sweep_operands)
 from sos_tpu_torch.ops.lstm import bilstm_recurrence, bilstm_recurrence_plain
 
 SEED = 0
 BATCH = 128          # clips in the kernel and throughput phases
 CLIP = 28000         # samples per 2 s clip at 14 kHz
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, HBM3
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, int8
+# tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -58,7 +75,8 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `reps` calls."""
+    """Mean device time of one call of `fn`, from CUDA events around
+    `reps` calls after `warmup` untimed ones."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -72,8 +90,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -109,8 +127,8 @@ def phase_kernels(gen: torch.Generator):
     out_len = (frames - 1) * hop
 
     def record(name, source, replaces, err, ok, tol, ms, plain_ms, lib_ms,
-               flops, nbytes, **extra):
-        bound_ms, bound_by = bound(flops, nbytes)
+               flops, nbytes, peak=PEAK_FP32_FLOPS, **extra):
+        bound_ms, bound_by = bound(flops, nbytes, peak)
         log(f"{name}: max_abs_err {err:.3e} (tolerance {tol}) "
             f"{'ok' if ok else 'FAILED'}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  library "
@@ -222,7 +240,159 @@ def phase_kernels(gen: torch.Generator):
            k4["err"], k4["ok"], "atol 5e-5", k4["ms"], k4["plain_ms"],
            k4["library_ms"], k4["flops"], k4["bytes"],
            shape="T60/H100 + T178/H200 at B 128 (sum of the two)")
-    return rows
+
+    # K5 — int8 GEMM at every shape of the narrow-N sweep, its own path:
+    # exact against the plain version on the sweep's operands, then the
+    # sweep itself with the counts set to 0
+    k5_err, k5_exact = 0.0, True
+    for m, k, n, a, bt in sweep_operands(dev, SEED):
+        got, ref = int8_matmul_nt(a, bt), int8_matmul_plain(a, bt.t())
+        k5_exact = k5_exact and bool(torch.equal(got, ref))
+        k5_err = max(k5_err, float((got.double() - ref.double()).abs().max()))
+    reset_launches()
+    sweep = narrow_n_sweep(time_ms, dev, seed=SEED)
+    torch.cuda.synchronize()
+    k5_launches = LAUNCHES["int8_gemm"]
+    for r in sweep:
+        lib = ("refused" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms {r['library_tops']:.1f} TOPS")
+        log(f"int8_gemm M{r['m']} K{r['k']} N{r['n']}: kernel "
+            f"{r['ms']:.4f} ms {r['tops']:.1f} TOPS  torch._int_mm {lib}  "
+            f"plain {r['plain_ms']:.4f} ms  bound "
+            f"{bound(r['ops'], r['bytes'], PEAK_INT8_OPS)[0]:.4f} ms")
+    lib_ms = [r["library_ms"] for r in sweep]
+    record("int8_gemm", "sos_tpu_torch/csrc/int8_gemm.cu",
+           "experiments/mosaic_narrow_n.py:36", k5_err, k5_exact,
+           "exact", sum(r["ms"] for r in sweep),
+           sum(r["plain_ms"] for r in sweep),
+           None if None in lib_ms else sum(lib_ms),
+           sum(r["ops"] for r in sweep), sum(r["bytes"] for r in sweep),
+           PEAK_INT8_OPS,
+           shape="M4096 K1280 N 48/64/128/256/512 + M 48/64/128 K1280 N4096 "
+                 "(sum of the 8)")
+
+    # K6 and K7 — int8 convolutions at full width
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, source, replaces, cases in (
+            ("int8_conv", "sos_tpu_torch/csrc/int8_conv.cu",
+             "sos_tpu/models/quant.py:136", K6_CASES),
+            ("int8_inpaint", "sos_tpu_torch/csrc/int8_conv.cu",
+             "sos_tpu/models/quant.py:457", K7_CASES)):
+        total = {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+                 "err": 0.0, "exact": True}
+        for case in cases:
+            res = int8_conv_case(name, case, cgen, dev)
+            for key in ("ms", "plain_ms", "ops", "bytes"):
+                total[key] += res[key]
+            total["err"] = max(total["err"], res["err"])
+            total["exact"] = total["exact"] and res["exact"]
+        record(name, source, replaces, total["err"], total["exact"], "exact",
+               total["ms"], total["plain_ms"], None, total["ops"],
+               total["bytes"], PEAK_INT8_OPS,
+               shape=" + ".join(c[0] for c in cases) + " at B 128 (sum)")
+    return rows, k5_launches
+
+
+# K6 cases: (label, Cin, Cout, kernel, dilation, F, T, float32 out); the
+# first is the byte-gather loader (Cin 2), the last the float epilogue
+K6_CASES = (
+    ("enc_x block 0 2->96 1x7", 2, 96, (1, 7), (1, 1), 256, 178, False),
+    ("enc_x block 7 96->96 5x5 d(32,1)", 96, 96, (5, 5), (32, 1), 256, 178,
+     False),
+    ("detector block 10 48->48 5x5 d(4,4)", 48, 48, (5, 5), (4, 4), 256, 178,
+     False),
+    ("enc_x proj 96->8 1x1 float32 out", 96, 8, (1, 1), (1, 1), 256, 178,
+     True),
+)
+# K7 cases: (label, kind, k, stride, dilation, Cin, Cout, F, T); a_in is
+# the byte-gather loader (Cin 2)
+K7_CASES = (
+    ("a_in 2->64 k5", "down", 5, 1, 1, 2, 64, 256, 178),
+    ("a_d1 64->128 k5 s2", "down", 5, 2, 1, 64, 128, 256, 178),
+    ("mid_dil16 256->256 k3 d16", "down", 3, 1, 16, 256, 256, 64, 45),
+    ("mid_up 256->128 k3 s2 transposed", "up", 3, 2, 1, 256, 128, 64, 45),
+)
+
+
+def int8_conv_case(kernel: str, case, gen: torch.Generator,
+                   dev: torch.device):
+    """One K6 or K7 shape at BATCH clips: exact against the plain
+    version, then kernel, plain and (for context) cuDNN bf16 conv times.
+    Bound counts the real multiply-adds (for the transposed conv, not the
+    inserted zeros) at the int8 peak."""
+    out_f32 = False
+    if kernel == "int8_conv":
+        label, cin, cout, ks, dil, h, w, out_f32 = case
+        kh, kw = ks
+        ho, wo = h, w
+        ops = 2.0 * BATCH * ho * wo * cout * kh * kw * cin
+
+        def run(x, fn=conv_same_int8):
+            return fn(x, wq, ws, b, ks, dil, out_f32)
+
+        plain = lambda x: run(x, conv_same_int8_plain)  # noqa: E731
+        pads = ((kh - 1) // 2 * dil[0], (kw - 1) // 2 * dil[1])
+        ctx = lambda: torch.nn.functional.conv2d(  # noqa: E731
+            xb, wb, padding=pads, dilation=dil)
+    else:
+        label, kind, k, st, d, cin, cout, h, w = case
+        kh = kw = k
+        if kind == "down":
+            pad = (k - 1) // 2 * d
+            ho, wo = ((n + 2 * pad - d * (k - 1) - 1) // st + 1 for n in (h, w))
+            ops = 2.0 * BATCH * ho * wo * cout * k * k * cin
+            ctx = lambda: torch.nn.functional.conv2d(  # noqa: E731
+                xb, wb, stride=st, padding=pad, dilation=d)
+        else:
+            lo, hi = up_pads(k)
+            ho, wo = ((n - 1) * st + lo + hi - k + 2 for n in (h, w))
+            ops = 2.0 * BATCH * h * w * cout * k * k * cin
+            ctx = lambda: torch.nn.functional.conv_transpose2d(  # noqa: E731
+                xb, wb.transpose(0, 1), stride=st, padding=(k - 1) // 2,
+                output_padding=1)
+        alpha = torch.tensor([0.25], device=dev)
+
+        def run(x, fn=inpaint_conv_int8):
+            return fn(x, wq, ws, b, alpha, kind, k, st, d)
+
+        plain = lambda x: run(x, inpaint_conv_int8_plain)  # noqa: E731
+    taps_cin = kh * kw * cin
+    kpad = -(-taps_cin // 64) * 64
+    wq = torch.randint(-127, 128, (cout, kpad), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq[:, taps_cin:] = 0
+    ws = (torch.rand(cout, generator=gen, device=dev) + 0.5) * 0.01 \
+        / taps_cin ** 0.5
+    b = torch.randn(cout, generator=gen, device=dev) * 20
+    x = torch.randint(-127, 128, (BATCH, h, w, cin), generator=gen,
+                      device=dev, dtype=torch.int8)
+    got, ref = run(x), plain(x)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, ref))
+    err = float((got.float() - ref.float()).abs().max())
+    del got, ref
+    ms = time_ms(lambda: run(x))
+    plain_ms = time_ms(lambda: plain(x), reps=1, warmup=0)
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wb = torch.randn(cout, cin, kh, kw, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    ctx_ms = time_ms(ctx)
+    del xb, wb
+    nbytes = float(BATCH * h * w * cin
+                   + BATCH * ho * wo * cout * (4 if out_f32 else 1)
+                   + cout * kpad + 8 * cout)
+    bound_ms, by = bound(ops, nbytes, PEAK_INT8_OPS)
+    log(f"{kernel} {label}: ({BATCH}, {h}, {w}, {cin}) -> ({BATCH}, {ho}, "
+        f"{wo}, {cout}); exact {exact} (max |err| "
+        f"{err:.3e})  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS)  plain "
+        f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  cuDNN bf16 conv "
+        f"at this shape (context, not the same function) {ctx_ms:.4f} ms")
+    if not exact:
+        raise RuntimeError(f"{kernel} {label}: kernel disagrees with its "
+                           "plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
+            "err": err, "exact": exact}
 
 
 def make_clips(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -245,33 +415,62 @@ def pick_threshold(prob: torch.Tensor) -> float:
     return float((p[k] + p[k + 1]) / 2)
 
 
+MAIN_PATH_KERNELS = {
+    "f32": ("stft", "mask_gate", "crm_istft", "bilstm"),
+    "int8": ("stft", "mask_gate", "crm_istft", "bilstm", "int8_conv",
+             "int8_inpaint"),
+}
+
+
 def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
-                    gen: torch.Generator):
-    """Full-width f32 pipeline on 2 clips: card vs CPU, launch counts."""
+                    gen: torch.Generator, profile: str):
+    """Full-width pipeline on 2 clips: card vs CPU, launch counts. The
+    int8 profile calibrates on the CPU, which writes the scale file that
+    the card pipeline then loads, so both run the same scales."""
     x = make_clips(2, gen)
-    host = FusedDenoisePipeline(cfg, det_state, den_state, profile="f32",
-                                device="cpu")
-    with torch.no_grad():
-        prob = torch.sigmoid(host.detector(stft(x)))
-    threshold = pick_threshold(prob)
-    host.threshold = threshold
-    card = FusedDenoisePipeline(cfg, det_state, den_state, threshold=threshold,
-                                profile="f32")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "int8_calibration.json")
+        kwargs = {"calibration_path": path} if profile == "int8" else {}
+        host = FusedDenoisePipeline(cfg, det_state, den_state,
+                                    profile=profile, device="cpu", **kwargs)
+        with torch.no_grad():
+            if profile == "int8":
+                t0 = time.perf_counter()
+                host.detect_bits(x)  # the first batch calibrates
+                log(f"int8 calibration on the CPU (2 clips) "
+                    f"{time.perf_counter() - t0:.1f} s, scale file written "
+                    f"{os.path.exists(path)}")
+                prob = torch.sigmoid(host._quant_det.logits_cat(
+                    stft_cat(x), host.num_frames))
+            else:
+                prob = torch.sigmoid(host.detector(stft(x)))
+        threshold = pick_threshold(prob)
+        host.threshold = threshold
+        card = FusedDenoisePipeline(cfg, det_state, den_state,
+                                    threshold=threshold, profile=profile,
+                                    **kwargs)
+        if profile == "int8" and not (
+                card.ensure_calibrated() and
+                card._quant.calibration_state()
+                == host._quant.calibration_state()):
+            raise RuntimeError("int8: the card pipeline did not load the "
+                               "CPU's scale file")
     reset_launches()
     y_card, bits_card = card(x)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    log(f"main path launches: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    log(f"main path {profile} launches: {launches}")
+    missing = [k for k in MAIN_PATH_KERNELS[profile] if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"main path never launched: {missing}")
+        raise RuntimeError(f"main path {profile} never launched: {missing}")
 
     y_host, bits_host = host(x)
     margin = (prob - threshold).abs()
     clear = margin > 1e-3
     bits_card = bits_card.cpu()
     if not torch.equal(bits_card[clear], bits_host[clear]):
-        raise RuntimeError("main path: card and CPU bits differ off the threshold")
+        raise RuntimeError(f"main path {profile}: card and CPU bits differ "
+                           "off the threshold")
     if torch.equal(bits_card, bits_host):
         y_cmp = y_card.cpu()
     else:  # a frame within 1e-3 of the threshold flipped: same bits then
@@ -279,19 +478,23 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
     diff = float((y_cmp - y_host).abs().max())
     finite = bool(torch.isfinite(y_card).all())
     voiced = int(bits_host.sum())
-    log(f"main path f32 (2 clips): waveform {tuple(y_card.shape)} finite "
-        f"{finite}, max |card - cpu| {diff:.3e} (tolerance 1e-3), threshold "
-        f"{threshold:.6f}, bits voiced {voiced}/{bits_host.numel()}, "
+    log(f"main path {profile} (2 clips): waveform {tuple(y_card.shape)} "
+        f"finite {finite}, max |card - cpu| {diff:.3e} (tolerance 1e-3), "
+        f"threshold {threshold:.6f}, bits voiced {voiced}/{bits_host.numel()}, "
         f"min margin {float(margin.min()):.3e}, bits equal "
         f"{bool(torch.equal(bits_card, bits_host))}")
     if not finite or tuple(y_card.shape) != (2, 27966) or not diff <= 1e-3:
-        raise RuntimeError("main path: card output disagrees with the CPU")
+        raise RuntimeError(f"main path {profile}: card output disagrees "
+                           "with the CPU")
     return launches
 
 
 # device-time categories of one pipeline call, matched on kernel names
 # in this order (cuDNN's FFT convolutions run pointwise_mult_and_sum)
 CATEGORIES = (
+    ("K5 int8_gemm", ("RowMajorA",)),
+    ("K6 int8_conv", ("SamePad>",)),
+    ("K7 int8_inpaint", ("InpaintPad>",)),
     ("K1 stft", ("ReflectFrames",)),
     ("K3 crm_istft", ("MaskedSpectrum", "overlap_add_env")),
     ("K2 mask_gate", ("mask_gate_kernel",)),
@@ -347,11 +550,15 @@ def profile_call(pipe, x):
 def phase_throughput(cfg: ExperimentConfig, det_state, den_state,
                      gen: torch.Generator):
     x = make_clips(BATCH, gen).cuda()
-    for profile in ("f32", "bf16"):
+    for profile in ("f32", "bf16", "int8"):
         pipe = FusedDenoisePipeline(cfg, det_state, den_state, profile=profile)
-        for _ in range(2):
+        for i in range(2):  # int8: the first call calibrates
+            t0 = time.perf_counter()
             pipe(x)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            if profile == "int8" and i == 0:
+                log(f"throughput int8: calibrating first call "
+                    f"{(time.perf_counter() - t0) * 1e3:.1f} ms (not timed)")
         times = []
         for _ in range(10):
             t0 = time.perf_counter()
@@ -384,12 +591,20 @@ def main() -> int:
     phase_card()
     phase_build()
     gen = torch.Generator().manual_seed(SEED)
-    rows = phase_kernels(gen)
+    rows, k5_launches = phase_kernels(gen)
+    if k5_launches == 0:
+        raise RuntimeError("the int8 GEMM sweep never launched K5")
 
     cfg = ExperimentConfig()
     det_state = init_state_dict(SilenceDetector(cfg.detector), gen)
     den_state = init_state_dict(JointDenoiser(cfg.denoiser), gen)
-    launches = phase_main_path(cfg, det_state, den_state, gen)
+    # each kernel's launches on its own path: K1-K4 on the f32 main path,
+    # K6-K7 on the int8 main path, K5 in the GEMM sweep
+    launches = phase_main_path(cfg, det_state, den_state, gen, "f32")
+    int8_launches = phase_main_path(cfg, det_state, den_state, gen, "int8")
+    launches.update(int8_conv=int8_launches["int8_conv"],
+                    int8_inpaint=int8_launches["int8_inpaint"],
+                    int8_gemm=k5_launches)
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_throughput(cfg, det_state, den_state, gen)

@@ -8,28 +8,44 @@ On the card every step between the models is a hand-written kernel and
 the convolutions are cuDNN's; on the CPU (`device="cpu"`) every wrapper
 runs its plain PyTorch version.
 
+The int8 profile (`profile="int8"`, `models/quant.py`) runs the same
+dataflow with int8-resident conv trunks: the detector trunk and both
+ContextAggNet encoders on kernel K6, the InpaintNet on K7, one packed
+STFT feeding both stages. Its static activation scales come from a
+calibration on the first batch it sees (the mixed spectrum stands in
+for both inputs), or from `calibration_path`, a JSON file of the schema
+`{"denoiser": scales, "detector": scales}` that `sos_tpu` writes and
+reads too, so one scale file serves both packages.
+
 Numerics: `sos_tpu` runs its matmuls at Precision.HIGHEST and its convs
 at Precision.DEFAULT, which is exact fp32 on the CPU it is compared on.
-cuDNN defaults to TF32, so every call runs inside
-`torch.backends.cudnn.flags(enabled=True, allow_tf32=False)` with
-`torch.backends.cuda.matmul.allow_tf32 = False`: the fp32 parts of both
-profiles stay exact fp32 (the bf16 profile's convs are bf16 anyway).
+cuDNN defaults to TF32, so every call runs inside `exact_fp32`: the fp32
+parts of every profile stay exact fp32 (the bf16 profile's convs are
+bf16 anyway).
 
-The int8 profile and `shard()` are not ported yet.
+`shard()` is not ported yet.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Mapping, Tuple
+import json
+import logging
+import os
+import tempfile
+import threading
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.dsp.mixing import mask_gate
-from sos_tpu_torch.dsp.stft import crm_istft, stft_cat
+from sos_tpu_torch.dsp.stft import crm_istft, stft, stft_cat
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
+from sos_tpu_torch.models.layers import exact_fp32, resolve_device
+from sos_tpu_torch.models.quant import (CALIBRATION_SCHEMA_ERRORS,
+                                        QuantizedDenoiser, QuantizedDetector,
+                                        parse_calibration_file)
 
 # -- int16 wire format -----------------------------------------------------
 # 16-bit PCM decodes to exact multiples of 1/32768, so shipping waveform
@@ -62,35 +78,6 @@ def _wire_out(y: torch.Tensor) -> torch.Tensor:
                        -32768.0, 32767.0).to(torch.int16)
 
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller
-    asks for the CPU. Raises when a CUDA device is asked for and none is
-    available; it never carries on on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run the plain PyTorch "
-                               "versions on the CPU")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
-    return dev
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """Full-fp32 matmuls and convolutions (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(
-                enabled=True, benchmark=torch.backends.cudnn.benchmark,
-                allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _nchw(spec_cat: torch.Tensor) -> torch.Tensor:
     """Packed STFT (B, T, 2F) -> NCHW (B, 2, F, T) view."""
     b, t, two_f = spec_cat.shape
@@ -104,20 +91,21 @@ class FusedDenoisePipeline:
                  denoiser_state: Mapping, threshold: float = 0.5,
                  clip_seconds: float = 2.0, profile: str = "f32",
                  wire_dtype: str = "float32", bf16_head_proj: bool = True,
-                 device="cuda"):
-        """`profile`: "f32" (reference-exact) or "bf16" (bf16 conv trunks;
-        with `bf16_head_proj`, bf16 LSTM input projections).
+                 calibration_path: Optional[str] = None, device="cuda"):
+        """`profile`: "f32" (reference-exact), "bf16" (bf16 conv trunks;
+        with `bf16_head_proj`, bf16 LSTM input projections) or "int8"
+        (int8 conv trunks and InpaintNet, bf16 LSTM input projections
+        with `bf16_head_proj`; calibrates on its first batch).
         `detector_state` / `denoiser_state`: the models' state_dicts
         (`models/convert.py` makes them from `sos_tpu` variables).
         `wire_dtype`: "float32" | "int16", the dtype the denoised
         waveform is returned in; inputs may be f32 or int16 either way.
+        `calibration_path` (int8): JSON file of the activation scales,
+        loaded when present, written after the first self-calibration
+        otherwise.
         `device`: "cuda" (default) or "cpu"."""
-        if profile == "int8":
-            raise NotImplementedError(
-                "the int8 profile is not ported yet (ROADMAP.md queue 1 "
-                "item 7, with the int8 conv kernels of queue 2 items 4-5)")
-        if profile not in ("f32", "bf16"):
-            raise ValueError(f"profile must be f32|bf16, got {profile!r}")
+        if profile not in ("f32", "bf16", "int8"):
+            raise ValueError(f"profile must be f32|bf16|int8, got {profile!r}")
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32|int16, "
                              f"got {wire_dtype!r}")
@@ -126,6 +114,22 @@ class FusedDenoisePipeline:
         self.profile = profile
         self.wire_dtype = wire_dtype
         self.threshold = threshold
+        self.clip_samples = int(clip_seconds * cfg.data.sample_rate)
+        self.num_frames = int(clip_seconds * cfg.data.frame_rate)
+        self.ratio = cfg.data.sample_rate / cfg.data.frame_rate
+        self._calibration_path = calibration_path
+        # serializes the first-batch int8 calibration between threads
+        self._calibration_lock = threading.Lock()
+        self._quant = self._quant_det = None
+        self.detector = self.denoiser = None
+        if profile == "int8":
+            self._quant = QuantizedDenoiser(cfg.denoiser, denoiser_state,
+                                            bf16_head_proj=bf16_head_proj,
+                                            device=self.device)
+            self._quant_det = QuantizedDetector(cfg.detector, detector_state,
+                                                bf16_head_proj=bf16_head_proj,
+                                                device=self.device)
+            return
         compute_dtype = {"f32": "float32", "bf16": "bfloat16"}[profile]
         # the f32 profile never takes the bf16 head: it is the exact one
         head_bf16 = bf16_head_proj and profile == "bf16"
@@ -135,9 +139,6 @@ class FusedDenoisePipeline:
                              (self.denoiser, denoiser_state)):
             model.load_state_dict(state)
             model.to(self.device).eval()
-        self.clip_samples = int(clip_seconds * cfg.data.sample_rate)
-        self.num_frames = int(clip_seconds * cfg.data.frame_rate)
-        self.ratio = cfg.data.sample_rate / cfg.data.frame_rate
 
     def _nf(self, n_samples: int) -> int:
         """Bits for an n-sample window: the pinned count for a clip, the
@@ -158,7 +159,10 @@ class FusedDenoisePipeline:
         return stft_cat(y, scfg.n_fft, scfg.hop_length, scfg.win_length)
 
     def _bits(self, mixed_cat: torch.Tensor, num_frames: int) -> torch.Tensor:
-        logits = self.detector.forward_nchw(_nchw(mixed_cat), num_frames)
+        if self._quant_det is not None:
+            logits = self._quant_det.logits_cat(mixed_cat, num_frames)
+        else:
+            logits = self.detector.forward_nchw(_nchw(mixed_cat), num_frames)
         return (torch.sigmoid(logits) >= self.threshold).float()
 
     def _denoise(self, mixed: torch.Tensor, mixed_cat: torch.Tensor,
@@ -167,8 +171,11 @@ class FusedDenoisePipeline:
         gated = mask_gate(mixed, bits, self.ratio,
                           self.cfg.data.despeckle_min_run)
         gated_cat = self._stft(gated)
-        _, crm_cat = self.denoiser.forward_packed(_nchw(mixed_cat),
-                                                  _nchw(gated_cat))
+        if self._quant is not None:
+            crm_cat = self._quant.crm_cat(mixed_cat, gated_cat)
+        else:
+            _, crm_cat = self.denoiser.forward_packed(_nchw(mixed_cat),
+                                                      _nchw(gated_cat))
         return crm_istft(crm_cat, mixed_cat, scfg.n_fft, scfg.hop_length,
                          scfg.win_length)
 
@@ -182,6 +189,7 @@ class FusedDenoisePipeline:
         """mixed: (B, clip_samples) -> (denoised (B, (T-1)*hop), bits (B, frames))."""
         mixed = self._ingest(mixed)
         self._check_clip(mixed)
+        self._maybe_calibrate(mixed)
         with exact_fp32():
             mixed_cat = self._stft(mixed)
             bits = self._bits(mixed_cat, self.num_frames)
@@ -192,6 +200,7 @@ class FusedDenoisePipeline:
         """(B, n) -> thresholded bits (B, _nf(n)); n is normally
         clip_samples, longer for a streaming detector-context halo."""
         mixed = self._ingest(mixed)
+        self._maybe_calibrate(mixed)
         with exact_fp32():
             return self._bits(self._stft(mixed), self._nf(mixed.shape[-1]))
 
@@ -200,6 +209,113 @@ class FusedDenoisePipeline:
         """Denoise with externally supplied (e.g. reconciled) bits."""
         mixed = self._ingest(mixed)
         self._check_clip(mixed)
+        self._maybe_calibrate(mixed)
         bits = torch.as_tensor(bits, device=self.device).float()
         with exact_fp32():
             return self._emit(self._denoise(mixed, self._stft(mixed), bits))
+
+    # -- int8 calibration ------------------------------------------------
+
+    def ensure_calibrated(self) -> bool:
+        """True when the pipeline can run with its final numerics: not
+        int8, already calibrated, or persisted scales loaded here. Does
+        not self-calibrate (the first real batch does that)."""
+        if self._quant is None or self._quant._calibrated:
+            return True
+        return bool(self._calibration_path and
+                    self.load_calibration_file(self._calibration_path))
+
+    def load_calibration_file(self, path: str, strict: bool = False) -> bool:
+        """Load persisted int8 scales. Non-strict: a missing, truncated or
+        wrong-schema file logs a warning and returns False (the pipeline
+        then self-calibrates and rewrites it). Strict: raises ValueError
+        naming the file and the problem. A rejected file leaves the
+        scales the pipeline had before."""
+        def _fail(msg):
+            if strict:
+                raise ValueError(f"calibration file {path}: {msg}")
+            logging.getLogger(__name__).warning(
+                "calibration file %s: %s — self-calibrating instead",
+                path, msg)
+            return False
+
+        state, problem = parse_calibration_file(path)
+        if state is None:
+            return _fail(problem)
+        if "denoiser" not in state:
+            return _fail(
+                'missing the "denoiser" key (expected the schema this '
+                "pipeline writes: {'denoiser': scales, 'detector': scales})")
+        quant, quant_det = self._quant, self._quant_det
+        snap_den = quant.calibration_state() if quant._calibrated else None
+        snap_det = (quant_det.calibration_state() if quant_det._calibrated
+                    else None)
+
+        def _restore():
+            for q, snap in ((quant, snap_den), (quant_det, snap_det)):
+                if snap is not None:
+                    q.load_calibration(snap)
+                else:
+                    q._calibrated = False
+
+        try:
+            quant.load_calibration(state["denoiser"])
+            if "detector" not in state:
+                _restore()
+                return _fail('missing the "detector" scales this two-stage '
+                             "pipeline needs")
+            quant_det.load_calibration(state["detector"])
+        except CALIBRATION_SCHEMA_ERRORS as exc:
+            _restore()
+            return _fail(f"wrong scale schema ({type(exc).__name__}: {exc})")
+        return True
+
+    def _maybe_calibrate(self, mixed: torch.Tensor) -> None:
+        if self._quant is None or self._quant._calibrated:
+            return
+        with self._calibration_lock:
+            if self._quant._calibrated:  # lost the race: already done
+                return
+            self._calibrate_locked(mixed)
+
+    def _calibrate_locked(self, mixed: torch.Tensor) -> None:
+        """Load the scale file, or calibrate on `mixed` (its spectrum is
+        both denoiser inputs: an upper bound for the gated observation)
+        and publish the scales first-writer-wins: the complete file goes
+        to a temporary name and is hard-linked into place, which fails if
+        another process published first; the loser adopts the winner's
+        scales, so concurrent processes converge on one scale set."""
+        path = self._calibration_path
+        if path and self.load_calibration_file(path):
+            return
+        scfg = self.cfg.stft
+        with exact_fp32():
+            spec = stft(mixed, scfg.n_fft, scfg.hop_length, scfg.win_length)
+        if not self._quant._calibrated:
+            self._quant.calibrate([(spec, spec)])
+        if not self._quant_det._calibrated:
+            self._quant_det.calibrate([spec])
+        if not path:
+            return
+        state = {"denoiser": self._quant.calibration_state(),
+                 "detector": self._quant_det.calibration_state()}
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                                   suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as fp:
+                json.dump(state, fp, indent=1)
+            try:
+                os.link(tmp, path)
+            except FileExistsError:
+                if not self.load_calibration_file(path):
+                    # the existing file is the unreadable one rejected
+                    # above: overwrite it
+                    os.replace(tmp, path)
+            except OSError:
+                # no hard links on this filesystem: atomic but
+                # last-writer-wins, then adopt whatever file won
+                os.replace(tmp, path)
+                self.load_calibration_file(path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)

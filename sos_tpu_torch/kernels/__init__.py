@@ -7,6 +7,12 @@ plain PyTorch versions sit in the module of the op they replace:
   K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate
   K3 `dsp/stft.py`   `crm_istft`      cRM recover + complex multiply + iSTFT
   K4 `ops/lstm.py`   `bilstm_recurrence`  BiLSTM recurrence, both directions
+  K5 `ops/int8_gemm.py` `int8_matmul_nt`  int8 GEMM, int32 out
+  K6 `ops/int8_conv.py` `conv_same_int8`  int8 SAME conv + requantize
+  K7 `ops/int8_conv.py` `inpaint_conv_int8`  int8 InpaintNet conv + PReLU
+     requantize
+
+K5-K7 share one int8 tensor-core tile (`csrc/int8_mma.cuh`).
 """
 
 from sos_tpu_torch.kernels.build import (  # noqa: F401

@@ -48,12 +48,21 @@ SIGNATURES = {
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, step_mask (or NULL), out,
     # B, T, H, stream
     "sos_bilstm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # a (M, K), b^T (N, K), out, M, N, K, stream
+    "sos_int8_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    # x, w, w_s, bias, out, B, H, W, Cin, Cout, kh, kw, dh, dw, kpad,
+    # out_f32, stream
+    "sos_int8_conv_same": (_P, _P, _P, _P, _P) + (_I,) * 11 + (_P,),
+    # x, w, w_s, bias, alpha, out, B, H, W, Cin, Ho, Wo, Cout, k, stride,
+    # dil, pad, up, kpad, stream
+    "sos_int8_conv_inpaint": (_P,) * 6 + (_I,) * 13 + (_P,),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
 # (one per wrapper call; K3's wrapper issues two CUDA launches).
 LAUNCHES: Dict[str, int] = {"stft": 0, "mask_gate": 0, "crm_istft": 0,
-                            "bilstm": 0}
+                            "bilstm": 0, "int8_gemm": 0, "int8_conv": 0,
+                            "int8_inpaint": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -5,7 +5,9 @@ statistics); the `valid_t` length-bucketing variants are not ported yet.
 Parameters are float32; the forward casts them to the input's dtype, as
 flax's `dtype=compute_dtype` does, so a bf16 input runs a bf16 conv.
 The convolutions are cuDNN's (`sos_tpu` leaves them to XLA's stock
-conv); the caller decides about TF32 (see `infer/fused.py`).
+conv); the caller decides about TF32: `exact_fp32` turns it off for
+matmuls and convolutions, as `infer/fused.py` and the int8 calibration
+do.
 
 * :class:`ConvBlock`     Conv2d("same" dilated padding) + BN + ReLU.
 * :class:`DownConvBlock` ReflectionPad + strided Conv2d + BN + PReLU.
@@ -15,12 +17,42 @@ conv); the caller decides about TF32 (see `infer/fused.py`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """Full-fp32 matmuls and convolutions (no TF32) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    asks for the CPU. Raises when a CUDA device is asked for and none is
+    available; it never carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the plain PyTorch "
+                               "versions on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
+    return dev
 
 
 def _uniform(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -123,8 +123,8 @@ def test_wire_codec_matches():
 
 def test_bad_arguments_raise(env):
     _, port_cfg, _, _, det_state, den_state, _ = env
-    with pytest.raises(NotImplementedError, match="int8"):
-        FusedDenoisePipeline(port_cfg, det_state, den_state, profile="int8",
+    with pytest.raises(ValueError, match="profile"):
+        FusedDenoisePipeline(port_cfg, det_state, den_state, profile="fp8",
                              device="cpu")
     with pytest.raises(ValueError, match="wire_dtype"):
         FusedDenoisePipeline(port_cfg, det_state, den_state,

@@ -28,7 +28,7 @@ from sos_tpu_torch.kernels import LAUNCHES
 from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
-from sos_tpu_torch.ops import lstm
+from sos_tpu_torch.ops import int8_conv, int8_gemm, lstm
 
 RATIO = 14000 / 30.0
 
@@ -92,6 +92,37 @@ def test_wrappers_refuse_other_devices():
         lstm.bilstm_recurrence(*(torch.empty(2, 5, 16, device=meta),) * 2,
                                *(torch.empty(16, 4, device=meta),) * 2)
     assert LAUNCHES == before
+
+
+def test_int8_wrappers_refuse_other_devices():
+    meta = torch.device("meta")
+    before = dict(LAUNCHES)
+    x = torch.empty(2, 16, 16, 32, dtype=torch.int8, device=meta)
+    w = torch.empty(8, 64, dtype=torch.int8, device=meta)
+    v = torch.empty(8, device=meta)
+    with pytest.raises(ValueError, match="meta"):
+        int8_gemm.int8_matmul(torch.empty(32, 64, dtype=torch.int8, device=meta),
+                              torch.empty(64, 8, dtype=torch.int8, device=meta))
+    with pytest.raises(ValueError, match="meta"):
+        int8_conv.conv_same_int8(x, w, v, v, (1, 1), (1, 1))
+    with pytest.raises(ValueError, match="meta"):
+        int8_conv.inpaint_conv_int8(x, w, v, v, torch.empty(1, device=meta),
+                                    "down", 1, 1, 1)
+    assert LAUNCHES == before
+
+
+def _int8(shape, gen, device):
+    return torch.randint(-127, 128, shape, generator=gen,
+                         dtype=torch.int8).to(device)
+
+
+def _epilogue_params(cout, taps_cin, gen, device):
+    """Weights and a dequant scale that spread outputs over the int8 range."""
+    w = _int8((cout, -(-taps_cin // 64) * 64), gen, "cpu")
+    w[:, taps_cin:] = 0
+    w_s = (torch.rand(cout, generator=gen) + 0.5) * 0.01 / taps_cin ** 0.5
+    b = torch.randn(cout, generator=gen) * 20
+    return w.to(device), w_s.to(device), b.to(device)
 
 
 @pytest.mark.cuda
@@ -159,3 +190,86 @@ def test_small_pipeline_card_matches_cpu(cuda_device):
                                                  "crm_istft", "bilstm"))
     torch.testing.assert_close(y.cpu(), host.denoise_with_bits(x, bits),
                                atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 1280, 48), (48, 1280, 4096),
+                                   (257, 144, 10)])
+def test_int8_matmul_kernel_exact(cuda_device, m, k, n):
+    gen = torch.Generator().manual_seed(m + n)
+    a, b = _int8((m, k), gen, cuda_device), _int8((k, n), gen, cuda_device)
+    assert torch.equal(int8_gemm.int8_matmul(a, b),
+                       int8_gemm.int8_matmul_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw", [
+    (2, 48, (1, 7), (1, 1), False, (256, 178)),
+    (48, 48, (5, 5), (32, 1), False, (256, 178)),
+    (96, 96, (5, 5), (32, 32), False, (64, 80)),
+    (96, 8, (1, 1), (1, 1), True, (256, 60)),
+    (6, 4, (7, 1), (1, 1), False, (30, 20)),
+])
+def test_int8_conv_same_kernel_exact(cuda_device, cin, cout, ks, dil,
+                                     out_f32, hw):
+    gen = torch.Generator().manual_seed(cin * cout)
+    x = _int8((2, *hw, cin), gen, cuda_device)
+    w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil, out_f32)
+    ref = int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil, out_f32)
+    assert got.shape == ref.shape == (2, *hw, cout)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,k,s,d,cin,cout,hw", [
+    ("down", 5, 1, 1, 2, 64, (256, 178)),
+    ("down", 5, 2, 1, 64, 128, (256, 178)),
+    ("down", 3, 1, 16, 256, 256, (64, 45)),
+    ("down", 3, 2, 1, 256, 256, (128, 89)),
+    ("up", 3, 2, 1, 256, 128, (32, 23)),
+    ("up", 3, 2, 1, 6, 4, (9, 7)),
+])
+def test_inpaint_conv_kernel_exact(cuda_device, kind, k, s, d, cin, cout, hw):
+    gen = torch.Generator().manual_seed(cin + cout + d)
+    x = _int8((2, *hw, cin), gen, cuda_device)
+    w, w_s, b = _epilogue_params(cout, k * k * cin, gen, cuda_device)
+    alpha = torch.tensor([0.2], device=cuda_device)
+    got = int8_conv.inpaint_conv_int8(x, w, w_s, b, alpha, kind, k, s, d)
+    ref = int8_conv.inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, s, d)
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_small_int8_pipeline_card_matches_cpu(cuda_device):
+    """The int8 profile at small widths: card (K1-K7) against the CPU
+    (plain versions) with the same scales."""
+    ks, dils = ((1, 7), (5, 5)), ((1, 1), (2, 2))
+    cfg = ExperimentConfig(
+        detector=DetectorModelConfig(nf=16, outf=2, kernel_sizes=ks,
+                                     dilations=dils, lstm_hidden=4,
+                                     fc_hidden=4),
+        denoiser=DenoiserModelConfig(nf_mixed=32, nf_noise=16, outf_mixed=8,
+                                     outf_noise=4, kernel_sizes=ks,
+                                     dilations=dils, lstm_hidden=8,
+                                     fc_hidden=16, inpaint_ch=(16, 32, 64)),
+        data=DataConfig())
+    gen = torch.Generator().manual_seed(0)
+    det = init_state_dict(SilenceDetector(cfg.detector), gen)
+    den = init_state_dict(JointDenoiser(cfg.denoiser), gen)
+    x = torch.randn(2, 28000, generator=gen) * 0.2
+    bits = (torch.rand(2, 60, generator=gen) < 0.5).float()
+    host = FusedDenoisePipeline(cfg, det, den, profile="int8", device="cpu")
+    host.detect_bits(x)  # calibrates
+    card = FusedDenoisePipeline(cfg, det, den, profile="int8",
+                                device=cuda_device)
+    card._quant.load_calibration(host._quant.calibration_state())
+    card._quant_det.load_calibration(host._quant_det.calibration_state())
+    before = dict(LAUNCHES)
+    y = card.denoise_with_bits(x, bits)
+    assert all(LAUNCHES[k] > before[k] for k in (
+        "stft", "mask_gate", "crm_istft", "bilstm", "int8_conv",
+        "int8_inpaint"))
+    torch.testing.assert_close(y.cpu(), host.denoise_with_bits(x, bits),
+                               atol=1e-3, rtol=0)
