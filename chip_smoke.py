@@ -46,8 +46,9 @@ import torch
 
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.dsp.mixing import mask_gate, mask_gate_plain
-from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain, padded_window,
-                                    stft, stft_cat, stft_cat_plain)
+from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain,
+                                    device_pfa_tables, padded_window, stft,
+                                    stft_cat, stft_cat_plain)
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline
 from sos_tpu_torch.kernels import LAUNCHES, library, reset_launches
 from sos_tpu_torch.kernels.build import build
@@ -68,6 +69,9 @@ CLIP = 28000         # samples per 2 s clip at 14 kHz
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# least seconds of untimed calls before a timing, so that the card's clocks
+# have risen before a kernel of a few microseconds is timed
+WARM_S = 0.05
 
 
 def log(msg: str) -> None:
@@ -76,10 +80,15 @@ def log(msg: str) -> None:
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call of `fn`, from CUDA events around
-    `reps` calls after `warmup` untimed ones."""
+    `reps` calls after `warmup` untimed ones. Unless `warmup` is 0, the
+    untimed calls go on for at least `WARM_S` seconds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while warmup and time.perf_counter() - t0 < WARM_S:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -93,6 +102,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def pfa_flops_per_frame(inverse: bool) -> float:
+    """fp32 operations of one frame of K1 (forward) or K3 (inverse) as
+    csrc/pfa.cuh factorizes the 510-point real DFT: an N-point pass in the
+    conjugate-pair form is 8h^2 + 14h (h = (N-1)/2), 15 + 51 + 85 of them;
+    K1 adds the window (510) and the real split (16 a bin); K3 the cRM
+    recover and complex product (20 a bin), the inverse split (12 a
+    point), the window (510) and the overlap-add with the envelope divide
+    (9 an output sample, 158 a frame)."""
+    def dft(n):
+        h = (n - 1) // 2
+        return 8 * h * h + 14 * h
+    passes = 15 * dft(17) + 51 * dft(5) + 85 * dft(3)
+    if not inverse:
+        return passes + 510 + 16 * 256
+    return passes + 20 * 256 + 12 * 255 + 510 + 9 * 158
 
 
 def within(kernel: torch.Tensor, plain: torch.Tensor, atol: float,
@@ -142,19 +168,26 @@ def phase_kernels(gen: torch.Generator):
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms, **extra})
 
+    # K1 and K3 are bounded by the work of their function, whatever
+    # computes it: bytes in and out once (the FFT tables included) and
+    # the factorized transform's fp32 operations
+    table_bytes = 4.0 * sum(t.numel() for t in device_pfa_tables(dev))
+
     # K1 — STFT: (128, 28000) -> (128, 178, 512)
     y = (torch.randn(BATCH, CLIP, generator=gen) * 0.3).to(dev)
     got, ref = stft_cat(y), stft_cat_plain(y)
     torch.cuda.synchronize()
     err, ok = within(got, ref, 1e-4, 1e-4)
     window = torch.from_numpy(padded_window(nf, win).astype(np.float32)).to(dev)
+    flops = BATCH * frames * pfa_flops_per_frame(inverse=False)
+    log(f"stft: factorized transform {flops / 1e9:.3f} GFLOP fp32")
     record("stft", "sos_tpu_torch/csrc/stft.cu", "sos_tpu/dsp/stft.py:139",
            err, ok, "atol 1e-4 + rtol 1e-4",
            time_ms(lambda: stft_cat(y)), time_ms(lambda: stft_cat_plain(y)),
            time_ms(lambda: torch.stft(y, nf, hop, window=window, center=True,
                                       pad_mode="reflect", return_complex=True)),
-           2.0 * BATCH * frames * nf * 2 * bins,
-           4.0 * (BATCH * CLIP + nf * 2 * bins + BATCH * frames * 2 * bins),
+           flops,
+           4.0 * (BATCH * CLIP + BATCH * frames * 2 * bins) + table_bytes,
            shape="y (128, 28000) -> (128, 178, 512)")
 
     # K2 — bits -> mask -> gate: bits (128, 60), mixed (128, 28000)
@@ -178,15 +211,17 @@ def phase_kernels(gen: torch.Generator):
     torch.cuda.synchronize()
     err, ok = within(got, ref, 1e-4, 1e-4)
     clean = torch.complex(spec[..., :bins], spec[..., bins:]).transpose(1, 2)
+    flops = BATCH * frames * pfa_flops_per_frame(inverse=True)
+    log(f"crm_istft: factorized transform {flops / 1e9:.3f} GFLOP fp32")
     record("crm_istft", "sos_tpu_torch/csrc/crm_istft.cu",
            "sos_tpu/dsp/stft.py:169", err, ok, "atol 1e-4 + rtol 1e-4",
            time_ms(lambda: crm_istft(crm, spec)),
            time_ms(lambda: crm_istft_plain(crm, spec)),
            time_ms(lambda: torch.istft(clean, nf, hop, window=window,
                                        center=True)),
-           2.0 * BATCH * frames * 2 * bins * nf,
-           4.0 * (2 * BATCH * frames * 2 * bins + 2 * bins * nf
-                  + BATCH * out_len),
+           flops,
+           4.0 * (2 * BATCH * frames * 2 * bins + BATCH * out_len + out_len)
+           + table_bytes,
            shape="crm, spec (128, 178, 512) -> (128, 27966)")
 
     # K4 — BiLSTM recurrence: detector T60/H100 and denoiser T178/H200
@@ -495,8 +530,8 @@ CATEGORIES = (
     ("K5 int8_gemm", ("RowMajorA",)),
     ("K6 int8_conv", ("SamePad>",)),
     ("K7 int8_inpaint", ("InpaintPad>",)),
-    ("K1 stft", ("ReflectFrames",)),
-    ("K3 crm_istft", ("MaskedSpectrum", "overlap_add_env")),
+    ("K1 stft", ("stft_analysis_pfa",)),
+    ("K3 crm_istft", ("crm_synthesis_pfa",)),
     ("K2 mask_gate", ("mask_gate_kernel",)),
     ("K4 bilstm", ("bilstm_kernel",)),
     ("elementwise (BN, activations, casts, copies)",

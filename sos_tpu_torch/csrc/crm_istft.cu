@@ -1,5 +1,5 @@
-// K3 — cRM recover + complex multiply + iSTFT (synthesis GEMM, overlap-add,
-// window-square envelope divide, trim).
+// K3 — cRM recover + complex multiply + iSTFT (inverse real DFT, window,
+// overlap-add, window-square envelope divide, trim), one launch.
 //
 // Replaces sos_tpu/dsp/crm.py `apply_compressed_crm` / `crm_sigmoid_recover`
 // (:45-51, :91-98) and sos_tpu/dsp/stft.py `istft` / `istft_packed`
@@ -7,17 +7,24 @@
 // complex product into the (B*T, 512) x (512, 510) synthesis matmul on the
 // MXU, then overlap-adds with shifted adds.
 //
-// Two launches, one kernel in the port's count:
-//  1. A GEMM whose A tile is computed on load: the denoiser's sigmoid
-//     output (B, T, 2*bins) and the packed mixed STFT (B, T, 2*bins) give
-//     recover(crm) * spec in the complex field; the product with the
-//     synthesis matrix lands in a (B*T, n_fft) frames scratch.
-//  2. Overlap-add at `hop` in sos_tpu's summation order (chunk 0 first),
-//     division by the host-built window-square envelope behind the
-//     `env > FLT_MIN` guard, and the n_fft/2 trim per side.
+// Here each block owns the output samples of kHops consecutive hops of one
+// clip and computes the kHops + 3 frames that touch them (a 510-sample
+// frame spans 4 hops), so the overlap-add happens in shared memory and no
+// frame is written to device memory; 3 frames in kHops + 3 are computed
+// twice, by neighbouring blocks. Per frame: the cRM and spectrum rows
+// arrive by 16-byte cp.async; each cRM value is recovered once and the
+// masked spectrum formed (the imaginary parts of bin 0 and bin 255 are
+// dropped, as numpy's irfft and `_synthesis_matrix` do); the inverse split
+// packs the 256 bins into 255 complex points, the inverse 17-, 5- and
+// 3-point passes (pfa.cuh) give x[2m] + i x[2m+1], and the last pass
+// stores the samples in order, scaled by the window / 510. Then the
+// overlap-add in sos_tpu's order (chunk 0 first), the division by the
+// host-built envelope behind the `env > FLT_MIN` guard and the n_fft/2
+// trim per side.
 //
-// Bound on an H100: fp32 FMA of launch 1 (11.9 GFLOP at 128 clips) over
-// ~93 MB read; launch 2 is a bytes-bound pass over the frames.
+// Bound on an H100: bytes. At 128 clips cRM and spectrum (93.3 MB) in and
+// the waveform (14.3 MB) out take 0.032 ms at 3.35 TB/s; the factorized
+// transform is about 18 kflop a frame.
 //
 // The recover keeps sos_tpu's epsilon placement with a = 0.1, b = 0
 // (the pipeline's defaults): 1/a * (log(o / (1 - o + 1e-8) + 1e-10) + b).
@@ -25,9 +32,20 @@
 // FMAs, so the masked spectrum is bit-equal to the plain version's.
 #include <cfloat>
 
-#include "sgemm.cuh"
+#include "pfa.cuh"
 
 namespace {
+
+using namespace sos;
+
+constexpr int kHops = 13;            // output hops per block
+constexpr int kFrames = kHops + 3;   // frames that touch them
+constexpr int kRow = 2 * kBins;      // packed [re | im] row, 512 floats
+constexpr int kThreads = 256;
+static_assert(kThreads == kBins, "one thread a bin");
+// per frame: the cRM row (later the masked spectrum) and the spectrum row
+// (later the frame's 255 complex points)
+constexpr size_t kSmem = (size_t)kFrames * 2 * kRow * sizeof(float);
 
 __device__ __forceinline__ float crm_recover(float o) {
   const float den = __fadd_rn(__fsub_rn(1.0f, o), 1e-8f);
@@ -35,57 +53,133 @@ __device__ __forceinline__ float crm_recover(float o) {
   return __fmul_rn(10.0f, __fadd_rn(logf(ratio), 0.0f));
 }
 
-struct MaskedSpectrum {
-  const float* crm;   // (B*T, 2*bins) sigmoid-compressed cRM [re | im]
-  const float* spec;  // (B*T, 2*bins) mixed STFT [re | im]
-  int bins;
+__global__ void __launch_bounds__(kThreads, 3)
+crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
+                  const float* __restrict__ tab, const int* __restrict__ slots,
+                  const float* __restrict__ env, float* __restrict__ out, int T,
+                  int out_len) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, b = blockIdx.y, h0 = blockIdx.x * kHops;
+  const int t_lo = h0 - 3;  // frame of local index 0
+  const auto live = [=](int f) { return t_lo + f >= 0 && t_lo + f < T; };
+  float2* frames = reinterpret_cast<float2*>(smem + kRow);  // stride kRow float2
 
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    const size_t row = (size_t)m * 2 * bins;
-    const int f = k < bins ? k : k - bins;
-    const float rr = crm_recover(__ldg(crm + row + f));
-    const float ri = crm_recover(__ldg(crm + row + bins + f));
-    const float mr = __ldg(spec + row + f);
-    const float mi = __ldg(spec + row + bins + f);
-    return k < bins ? __fsub_rn(__fmul_rn(rr, mr), __fmul_rn(ri, mi))
-                    : __fadd_rn(__fmul_rn(rr, mi), __fmul_rn(ri, mr));
+  // the envelope of the block's output samples, fetched while the rows arrive
+  constexpr int kOut = kHops * kHop, kPerThread = (kOut + kThreads - 1) / kThreads;
+  float e[kPerThread];
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int i = tid + u * kThreads, j = h0 * kHop + i - kPad;
+    e[u] = (i < kOut && j >= 0 && j < out_len) ? __ldg(env + j) : 0.f;
   }
-};
 
-__global__ void overlap_add_env(const float* __restrict__ frames,
-                                const float* __restrict__ env,
-                                float* __restrict__ out, int T, int n_fft,
-                                int hop, int pad, int out_len) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= out_len) return;
-  const int b = blockIdx.y;
-  const int p = j + pad;  // index in the untrimmed signal
-  const int q = p / hop, r = p - q * hop;
-  const int n_chunks = (n_fft + hop - 1) / hop;
-  float acc = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {  // chunk c of frame q - c
-    const int t = q - c, n = c * hop + r;
-    if (t >= 0 && t < T && n < n_fft)
-      acc += __ldg(frames + ((size_t)b * T + t) * n_fft + n);
+  // the wrapper hands over 16-byte aligned crm and spec, so every row is
+  constexpr int kChunks = kRow / 4;  // 16-byte chunks a row
+  for (int i = tid; i < kFrames * 2 * kChunks; i += kThreads) {
+    const int f = i / (2 * kChunks), r = i - f * (2 * kChunks);
+    if (!live(f)) continue;
+    const int which = r / kChunks, c = r - which * kChunks;
+    const float* src = (which ? spec : crm) + ((size_t)b * T + t_lo + f) * kRow + 4 * c;
+    cp_async16(smem + (2 * f + which) * kRow + 4 * c, src);
   }
-  const float e = __ldg(env + j);
-  out[(size_t)b * out_len + j] = e > FLT_MIN ? acc / e : acc;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Thread k takes bin k of every frame in the next two steps, four frames
+  // at a time (loads first, for the latency). Frames outside the clip run
+  // on stale shared memory, and nothing reads their results.
+  const int k = tid;
+  constexpr int kGroup = 4;
+  static_assert(kFrames % kGroup == 0, "whole groups of frames");
+
+  // masked spectrum recover(crm) * spec, over the cRM row
+#pragma unroll
+  for (int f0 = 0; f0 < kFrames; f0 += kGroup) {
+    float cr[kGroup], ci[kGroup], mr[kGroup], mi[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const float* x = smem + 2 * (f0 + u) * kRow;
+      cr[u] = x[k];
+      ci[u] = x[kBins + k];
+      mr[u] = x[kRow + k];
+      mi[u] = x[kRow + kBins + k];
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      float* x = smem + 2 * (f0 + u) * kRow;
+      const float rr = crm_recover(cr[u]), ri = crm_recover(ci[u]);
+      x[k] = __fsub_rn(__fmul_rn(rr, mr[u]), __fmul_rn(ri, mi[u]));
+      x[kBins + k] = (k == 0 || k == kBins - 1)
+                         ? 0.f
+                         : __fadd_rn(__fmul_rn(rr, mi[u]), __fmul_rn(ri, mr[u]));
+    }
+  }
+  __syncthreads();
+
+  // inverse split: Z[k] = (X[k] + conj X[255-k]) + i (X[k] - conj X[255-k]) W^-k,
+  // k < 255, into the frame's points over the (consumed) spectrum row
+  if (k < kM) {
+    const float c = __ldg(tab + kTwiddle + 2 * k), s = __ldg(tab + kTwiddle + 2 * k + 1);
+    const int slot = __ldg(slots + kSlotIn + k);
+#pragma unroll
+    for (int f0 = 0; f0 < kFrames; f0 += kGroup) {
+      float ax[kGroup], ay[kGroup], bx[kGroup], by[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const float* x = smem + 2 * (f0 + u) * kRow;
+        ax[u] = x[k];
+        ay[u] = x[kBins + k];
+        bx[u] = x[kM - k];
+        by[u] = x[kBins + kM - k];
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const float dx = ax[u] - bx[u], dy = ay[u] + by[u];
+        const float wx = dx * c - dy * s, wy = dx * s + dy * c;
+        frames[(f0 + u) * kRow + slot] =
+            make_float2((ax[u] + bx[u]) - wy, (ay[u] - by[u]) + wx);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the last pass stores x[2m] + i x[2m+1] windowed and scaled, in sample
+  // order, over the (consumed) masked-spectrum row
+  const float* swin = tab + kSynthWindow;
+  pfa255<true>(frames, kRow, kFrames, tab, live, [=](int f, int slot, float2 v) {
+    const int m = __ldg(slots + kOutIndex + slot);
+    reinterpret_cast<float2*>(smem + 2 * f * kRow)[m] =
+        make_float2(v.x * __ldg(swin + 2 * m), v.y * __ldg(swin + 2 * m + 1));
+  });
+
+  // overlap-add: output sample j is untrimmed sample p = j + 255, in hop
+  // p / 158, which takes chunk c of frame (p / 158) - c, c = 0..3
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int i = tid + u * kThreads, j = h0 * kHop + i - kPad;
+    if (i >= kOut || j < 0 || j >= out_len) continue;
+    const int dh = i / kHop, r = i - dh * kHop;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int f = dh + 3 - c, n = c * kHop + r;
+      if (n < kNfft && live(f)) acc += smem[2 * f * kRow + n];
+    }
+    out[(size_t)b * out_len + j] = e[u] > FLT_MIN ? acc / e[u] : acc;
+  }
 }
 
 }  // namespace
 
-extern "C" int sos_crm_istft(const float* crm, const float* spec,
-                             const float* mat, const float* env,
-                             float* frames, float* out, int B, int T,
-                             int bins, int n_fft, int hop, int pad,
-                             int out_len, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const MaskedSpectrum a{crm, spec, bins};
-  cudaError_t err = sos::launch_sgemm(a, mat, frames, B * T, n_fft, 2 * bins, s);
+extern "C" int sos_crm_istft(const float* crm, const float* spec, const float* tab,
+                             const int* slots, const float* env, float* out, int B,
+                             int T, int out_len, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      crm_synthesis_pfa, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kThreads = 256;
-  const dim3 grid((out_len + kThreads - 1) / kThreads, B);
-  overlap_add_env<<<grid, kThreads, 0, s>>>(frames, env, out, T, n_fft, hop,
-                                            pad, out_len);
+  const int hops = (out_len + kPad - 1) / kHop + 1;  // hops holding output samples
+  const dim3 grid((hops + kHops - 1) / kHops, B);
+  crm_synthesis_pfa<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      crm, spec, tab, slots, env, out, T, out_len);
   return (int)cudaGetLastError();
 }

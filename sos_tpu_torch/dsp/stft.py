@@ -7,14 +7,18 @@ dense DFT matmuls with the same float64-built matrices as `sos_tpu`.
 
 Two kernels live here:
 
-* K1 `stft_cat`: framing + DFT GEMM, `(B, L)` -> packed `(B, T, 2F)` =
-  [re | im] (`csrc/stft.cu`);
+* K1 `stft_cat`: framing + windowed real DFT, `(B, L)` -> packed
+  `(B, T, 2F)` = [re | im] (`csrc/stft.cu`);
 * K3 `crm_istft`: cRM recover + complex multiply + iSTFT, packed cRM and
   packed mixed STFT -> waveform (`csrc/crm_istft.cu`).
 
-Each wrapper runs its plain PyTorch version (`*_plain`) on a CPU tensor
-and launches its kernel on a CUDA tensor. The plain products run in full
-fp32 (`sos_tpu` uses Precision.HIGHEST): callers on the card keep
+Both kernels compute the 510-point real DFT as a 255-point complex
+prime-factor FFT (3 * 5 * 17, `csrc/pfa.cuh`) from the tables that
+`pfa_tables` builds here in float64; they take only the geometry of every
+config (n_fft 510, hop 158, win 400). Each wrapper runs its plain PyTorch
+version (`*_plain`, the dense DFT matmuls) on a CPU tensor and launches
+its kernel on a CUDA tensor. The plain products run in full fp32
+(`sos_tpu` uses Precision.HIGHEST): callers on the card keep
 `torch.backends.cuda.matmul.allow_tf32` False.
 
 Layout convention of the public functions: spectrograms `(..., F, T, 2)`
@@ -24,7 +28,7 @@ as in `sos_tpu`; the packed form is `(..., T, 2F)`.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 
 from sos_tpu_torch.config import HOP_LENGTH, N_FFT, WIN_LENGTH
 from sos_tpu_torch.dsp.crm import crm_sigmoid_recover
-from sos_tpu_torch.kernels import launch
+from sos_tpu_torch.kernels import aligned16, launch
 
 
 def hann_window(win_length: int, dtype=np.float64) -> np.ndarray:
@@ -95,6 +99,73 @@ def _device_table(name: str, n_fft: int, win_length: int,
     table = {"analysis": _analysis_matrix,
              "synthesis": _synthesis_matrix}[name](n_fft, win_length)
     return torch.from_numpy(table).to(device)
+
+
+PFA_FACTORS = (3, 5, 17)  # 255 = n_fft / 2 complex points, coprime factors
+# the kernels' float table, in this order (offsets in csrc/pfa.cuh)
+PFA_FLOAT_TABLES = ("twiddle", "dft3", "dft5", "dft17", "window",
+                    "synth_window")
+PFA_INT_TABLES = ("slot_in", "slot_out", "out_index")
+
+
+def _check_kernel_geometry(n_fft: int, hop_length: int, win_length: int,
+                           name: str) -> None:
+    """K1 and K3 are compiled for (n_fft, hop, win) = (510, 158, 400)."""
+    if (n_fft, hop_length, win_length) != (N_FFT, HOP_LENGTH, WIN_LENGTH):
+        raise ValueError(
+            f"{name}: the kernel takes the STFT geometry n_fft {N_FFT}, hop "
+            f"{HOP_LENGTH}, win {WIN_LENGTH}, got {n_fft}, {hop_length}, "
+            f"{win_length}; run other geometries on the CPU")
+
+
+def _cos_sin(angles: np.ndarray) -> np.ndarray:
+    return np.stack([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def pfa_tables() -> Dict[str, np.ndarray]:
+    """The tables of K1's and K3's prime-factor real DFT, built in float64
+    for the one geometry the kernels take (n_fft 510, win 400).
+
+    * `slot_in[m]`: where complex point m of a frame (x[2m] + i x[2m+1])
+      sits in the [3][5][17] Good-Thomas array, m = (85 n1 + 51 n2 + 15 n3)
+      mod 255 at slot n1*85 + n2*17 + n3 (int32);
+    * `slot_out[k]`: the slot where DFT bin k comes out, k = (85 k1 +
+      51 k2 + 120 k3) mod 255 (int32), and `out_index`, its inverse;
+    * `dft3`, `dft5`, `dft17`: (cos, sin)(2 pi m / N), m < N;
+    * `twiddle`: (cos, sin)(2 pi k / 510), k < 256, of the real split;
+    * `window`: the analysis window (`padded_window`); `synth_window`:
+      the window / 510 of the inverse.
+    """
+    half = N_FFT // 2
+    idx = np.indices(PFA_FACTORS).reshape(len(PFA_FACTORS), -1)  # slot order
+    slot = np.arange(half)
+    tables = {}
+    for name, coef in (("slot_in", [half // n for n in PFA_FACTORS]),
+                       ("slot_out", [half // n * pow(half // n, -1, n)
+                                     for n in PFA_FACTORS])):
+        index = (np.asarray(coef)[:, None] * idx).sum(axis=0) % half
+        table = np.empty(half, dtype=np.int32)
+        table[index] = slot
+        tables[name] = table
+    tables["out_index"] = np.argsort(tables["slot_out"]).astype(np.int32)
+    for n in PFA_FACTORS:
+        tables[f"dft{n}"] = _cos_sin(2.0 * np.pi * np.arange(n) / n)
+    tables["twiddle"] = _cos_sin(2.0 * np.pi * np.arange(half + 1) / N_FFT)
+    window = padded_window(N_FFT, WIN_LENGTH)
+    tables["window"] = window.astype(np.float32)
+    tables["synth_window"] = (window / N_FFT).astype(np.float32)
+    return tables
+
+
+@functools.lru_cache(maxsize=8)
+def device_pfa_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pfa_tables` packed as the kernels read them: (floats, slots)."""
+    tables = pfa_tables()
+    floats = np.concatenate([tables[k].ravel() for k in PFA_FLOAT_TABLES])
+    slots = np.concatenate([tables[k] for k in PFA_INT_TABLES])
+    return (torch.from_numpy(floats).to(device),
+            torch.from_numpy(slots).to(device))
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -168,6 +239,7 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
     """
     if y.device.type == "cpu":
         return stft_cat_plain(y, n_fft, hop_length, win_length)
+    _check_kernel_geometry(n_fft, hop_length, win_length, "stft_cat")
     if y.device.type != "cuda":
         raise ValueError(f"stft_cat: unsupported device {y.device}")
     pad = n_fft // 2
@@ -178,14 +250,14 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
     y2 = y.float().reshape(-1, length).contiguous()
     batch, frames = y2.shape[0], 1 + length // hop_length
     n_out = 2 * (n_fft // 2 + 1)
-    mat = _device_table("analysis", n_fft, win_length, y.device)
+    tab, slots = device_pfa_tables(y.device)
     out = torch.empty((batch, frames, n_out), dtype=torch.float32,
                       device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     with torch.cuda.device(y.device):
-        launch("stft", "sos_stft", y2.data_ptr(), mat.data_ptr(),
-               out.data_ptr(), batch, length, frames, n_fft, hop_length, pad,
-               n_out, stream)
+        launch("stft", "sos_stft", y2.data_ptr(), tab.data_ptr(),
+               slots.data_ptr(), out.data_ptr(), batch, length, frames,
+               stream)
     return out.reshape(*lead, frames, n_out)
 
 
@@ -258,6 +330,7 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
     """
     if crm.device.type == "cpu" and spec.device.type == "cpu":
         return crm_istft_plain(crm, spec, n_fft, hop_length, win_length)
+    _check_kernel_geometry(n_fft, hop_length, win_length, "crm_istft")
     bins = n_fft // 2 + 1
     if crm.device.type != "cuda" or spec.device != crm.device:
         raise ValueError(f"crm_istft: tensors on {crm.device} and "
@@ -266,23 +339,20 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
         raise ValueError(f"crm_istft: expected two (B, T, {2 * bins}) "
                          f"tensors, got {tuple(crm.shape)} and "
                          f"{tuple(spec.shape)}")
-    crm = crm.float().contiguous()
-    spec = spec.float().contiguous()
+    crm, spec = aligned16(crm.float()), aligned16(spec.float())
     batch, num_frames, _ = crm.shape
-    pad = n_fft // 2
     out_len = (num_frames - 1) * hop_length
+    out = torch.empty((batch, out_len), dtype=torch.float32, device=crm.device)
+    if out_len == 0:
+        return out
     env = _device_envelope(num_frames, n_fft, hop_length, win_length,
                            crm.device)
-    mat = _device_table("synthesis", n_fft, win_length, crm.device)
-    frames = torch.empty((batch * num_frames, n_fft), dtype=torch.float32,
-                         device=crm.device)
-    out = torch.empty((batch, out_len), dtype=torch.float32, device=crm.device)
+    tab, slots = device_pfa_tables(crm.device)
     stream = torch.cuda.current_stream(crm.device).cuda_stream
     with torch.cuda.device(crm.device):
         launch("crm_istft", "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
-               mat.data_ptr(), env.data_ptr(), frames.data_ptr(),
-               out.data_ptr(), batch, num_frames, bins, n_fft, hop_length,
-               pad, out_len, stream)
+               tab.data_ptr(), slots.data_ptr(), env.data_ptr(),
+               out.data_ptr(), batch, num_frames, out_len, stream)
     return out
 
 

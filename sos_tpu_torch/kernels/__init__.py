@@ -3,9 +3,10 @@
 The kernels themselves live in `sos_tpu_torch/csrc/`; their wrappers and
 plain PyTorch versions sit in the module of the op they replace:
 
-  K1 `dsp/stft.py`   `stft_cat`       STFT (framing + DFT GEMM)
+  K1 `dsp/stft.py`   `stft_cat`       STFT (prime-factor real FFT)
   K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate
   K3 `dsp/stft.py`   `crm_istft`      cRM recover + complex multiply + iSTFT
+     (inverse prime-factor FFT, overlap-add)
   K4 `ops/lstm.py`   `bilstm_recurrence`  BiLSTM recurrence, both directions
   K5 `ops/int8_gemm.py` `int8_matmul_nt`  int8 GEMM, int32 out
   K6 `ops/int8_conv.py` `conv_same_int8`  int8 SAME conv + requantize
@@ -17,6 +18,7 @@ K5-K7 share one int8 tensor-core tile (`csrc/int8_mma.cuh`).
 
 from sos_tpu_torch.kernels.build import (  # noqa: F401
     LAUNCHES,
+    aligned16,
     launch,
     library,
     reset_launches,

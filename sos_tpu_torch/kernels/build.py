@@ -37,14 +37,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # y, analysis matrix, out, B, L, T, n_fft, hop, pad, n_out, stream
-    "sos_stft": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # y, PFA float table, PFA slots, out, B, L, T, stream
+    "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _P),
     # mixed, bits, body_frame, gap_pair, out, B, L, num_frames, stream
     "sos_mask_gate": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # crm, spec, synthesis matrix, envelope, frames scratch, out,
-    # B, T, bins, n_fft, hop, pad, out_len, stream
-    "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _P),
+    # crm, spec, PFA float table, PFA slots, envelope, out, B, T, out_len,
+    # stream
+    "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, step_mask (or NULL), out,
     # B, T, H, stream
     "sos_bilstm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -59,7 +58,7 @@ SIGNATURES = {
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
-# (one per wrapper call; K3's wrapper issues two CUDA launches).
+# (one CUDA launch per wrapper call).
 LAUNCHES: Dict[str, int] = {"stft": 0, "mask_gate": 0, "crm_istft": 0,
                             "bilstm": 0, "int8_gemm": 0, "int8_conv": 0,
                             "int8_inpaint": 0}
@@ -136,6 +135,13 @@ def library() -> ctypes.CDLL:
             lib.sos_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def aligned16(x: "torch.Tensor") -> "torch.Tensor":
+    """`x` contiguous and 16-byte aligned, for kernels that copy it in
+    16-byte chunks: a view at an odd offset is cloned."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def launch(kernel: str, symbol: str, *args) -> None:

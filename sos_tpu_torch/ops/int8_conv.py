@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sos_tpu_torch.kernels import launch
+from sos_tpu_torch.kernels import aligned16, launch
 
 K_ALIGN = 64  # the kernel's reduction stage, in int8 values
 
@@ -112,12 +112,6 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
         raise ValueError(f"{name}: w_s and b must be ({cout},)")
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernels' vector loads)."""
-    x = x.contiguous()
-    return x.clone() if x.data_ptr() % 16 else x
-
-
 def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
@@ -151,7 +145,7 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
         return conv_same_int8_plain(x, w, w_s, b, ksize, dilation, out_f32)
     (kh, kw), (dh, dw) = ksize, dilation
     _check("conv_same_int8", x, w, w_s, b, kh * kw)
-    x = _aligned(x)
+    x = aligned16(x)
     bsz, h, wid, cin = x.shape
     cout = w.shape[0]
     out = torch.empty((bsz, h, wid, cout),
@@ -217,7 +211,7 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
         return inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, stride,
                                        dilation)
     _check("inpaint_conv_int8", x, w, w_s, b, k * k, (alpha,))
-    x = _aligned(x)
+    x = aligned16(x)
     bsz, h, wid, cin = x.shape
     pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, wid)
     cout = w.shape[0]

@@ -24,7 +24,7 @@ from sos_tpu_torch.config import (DataConfig, DenoiserModelConfig,
                                   DetectorModelConfig, ExperimentConfig)
 from sos_tpu_torch.dsp import mixing, stft
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline
-from sos_tpu_torch.kernels import LAUNCHES
+from sos_tpu_torch.kernels import LAUNCHES, aligned16
 from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
@@ -125,9 +125,29 @@ def _epilogue_params(cout, taps_cin, gen, device):
     return w.to(device), w_s.to(device), b.to(device)
 
 
+def test_stft_kernels_refuse_other_geometries():
+    """K1 and K3 are built for n_fft 510, hop 158, win 400: any other
+    geometry off the CPU raises before a launch."""
+    meta = torch.device("meta")
+    before = dict(LAUNCHES)
+    for kw in ({"n_fft": 512}, {"hop_length": 128}, {"win_length": 510}):
+        with pytest.raises(ValueError, match="geometry"):
+            stft.stft_cat(torch.empty(2, 28000, device=meta), **kw)
+        with pytest.raises(ValueError, match="geometry"):
+            stft.crm_istft(torch.empty(2, 178, 512, device=meta),
+                           torch.empty(2, 178, 512, device=meta), **kw)
+    assert LAUNCHES == before
+
+
+STFT_SHAPES = [(b, n) for b in (1, 3, 5) for n in (28000, 14000 + 97)]
+
+
 @pytest.mark.cuda
-def test_stft_kernel_matches_plain(cuda_device):
-    y = torch.randn(3, 28000, device=cuda_device) * 0.3
+@pytest.mark.parametrize("batch,length", STFT_SHAPES)
+def test_stft_kernel_matches_plain(cuda_device, batch, length):
+    y = torch.randn(batch, length, device=cuda_device) * 0.3
+    y[:, :255:17] += 3.0  # spikes where the reflect padding reads
+    y[:, -255::19] -= 3.0
     torch.testing.assert_close(stft.stft_cat(y), stft.stft_cat_plain(y),
                                atol=1e-4, rtol=1e-4)
 
@@ -141,11 +161,43 @@ def test_mask_gate_kernel_exact(cuda_device):
 
 
 @pytest.mark.cuda
-def test_crm_istft_kernel_matches_plain(cuda_device):
-    spec = stft.stft_cat_plain(torch.randn(3, 28000, device=cuda_device) * 0.3)
-    crm = torch.rand(spec.shape, device=cuda_device) * 0.96 + 0.02
-    torch.testing.assert_close(stft.crm_istft(crm, spec),
-                               stft.crm_istft_plain(crm, spec),
+@pytest.mark.parametrize("batch,length", STFT_SHAPES)
+def test_crm_istft_kernel_matches_plain(cuda_device, batch, length):
+    spec = stft.stft_cat_plain(
+        torch.randn(batch, length, device=cuda_device) * 0.3)
+    crm = torch.rand(spec.shape, device=cuda_device) * 0.98 + 0.01
+    crm.view(-1)[::7] = 0.01
+    crm.view(-1)[3::7] = 0.99
+    before = LAUNCHES["crm_istft"]
+    got = stft.crm_istft(crm, spec)
+    assert LAUNCHES["crm_istft"] == before + 1
+    torch.testing.assert_close(got, stft.crm_istft_plain(crm, spec),
+                               atol=1e-4, rtol=1e-4)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_aligned16_clones_only_misaligned_views():
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 12)
+    assert aligned16(x) is x
+    view = _misaligned(x)
+    assert view.data_ptr() % 16 == 4
+    out = aligned16(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, x)
+
+
+@pytest.mark.cuda
+def test_crm_istft_kernel_takes_misaligned_views(cuda_device):
+    spec = stft.stft_cat_plain(torch.randn(2, 28000, device=cuda_device) * 0.3)
+    crm = torch.rand(spec.shape, device=cuda_device) * 0.98 + 0.01
+    got = stft.crm_istft(_misaligned(crm), _misaligned(spec))
+    torch.testing.assert_close(got, stft.crm_istft_plain(crm, spec),
                                atol=1e-4, rtol=1e-4)
 
 
