@@ -11,11 +11,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
 2. build: the kernels from `sos_tpu_torch/csrc/` with nvcc, timed;
 3. kernels: K1-K4 and K6-K7 at the main path's shapes (128 clips),
    each against its plain PyTorch version on the card (K6 and K7
-   exactly, in every loader and epilogue form the main path runs), with
-   the kernel's, the plain version's and the library call's times and
-   the kernel's bound; K5 at every shape of the int8 GEMM sweep (the
+   exactly, in every loader and epilogue form the main path runs, K6 on
+   both its routes: the wgmma halo tile and the mma.sync gather), with
+   the kernel's, the plain version's and the library call's times, TOPS
+   and the kernel's bound; K5 at every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
-   `torch._int_mm`'s;
+   `torch._int_mm`'s, called eagerly and replayed from a CUDA graph
+   (device time without the host's dispatch);
 4. main path: the full-width pipeline (`ExperimentConfig()` defaults,
    weights from a seeded generator) on 2 clips in the f32 profile and
    in the int8 profile, on the card and on the CPU (plain versions),
@@ -55,10 +57,11 @@ from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
-                                         inpaint_conv_int8,
+                                         halo_plan, inpaint_conv_int8,
                                          inpaint_conv_int8_plain, up_pads)
-from sos_tpu_torch.ops.int8_gemm import (int8_matmul_nt, int8_matmul_plain,
-                                         narrow_n_sweep, sweep_operands)
+from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
+                                         int8_matmul_plain, narrow_n_sweep,
+                                         sweep_operands)
 from sos_tpu_torch.ops.lstm import bilstm_recurrence, bilstm_recurrence_plain
 
 SEED = 0
@@ -97,6 +100,25 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn` without the host's share: `reps`
+    calls captured in a CUDA graph (after 3 eager warm-up calls on a side
+    stream), the graph's replay timed by `time_ms`, divided by `reps`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, reps=5, warmup=2) / reps
+    del graph
+    return ms
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -291,10 +313,24 @@ def phase_kernels(gen: torch.Generator):
     for r in sweep:
         lib = ("refused" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms {r['library_tops']:.1f} TOPS")
-        log(f"int8_gemm M{r['m']} K{r['k']} N{r['n']}: kernel "
+        plan = gemm_plan(r["m"], r["n"], r["k"])
+        log(f"int8_gemm M{r['m']} K{r['k']} N{r['n']} (tile 64x{plan.bn}, "
+            f"{plan.blocks} blocks): kernel "
             f"{r['ms']:.4f} ms {r['tops']:.1f} TOPS  torch._int_mm {lib}  "
             f"plain {r['plain_ms']:.4f} ms  bound "
             f"{bound(r['ops'], r['bytes'], PEAK_INT8_OPS)[0]:.4f} ms")
+    # the same calls without the host's dispatch: device time alone, for
+    # K5 and torch._int_mm (logged; the record keeps the eager times)
+    g_k5, g_lib = 0.0, 0.0
+    for m, k, n, a, bt in sweep_operands(dev, SEED):
+        k5_g = graph_ms(lambda: int8_matmul_nt(a, bt))
+        lib_g = graph_ms(lambda: torch._int_mm(a, bt.t()))
+        g_k5, g_lib = g_k5 + k5_g, g_lib + lib_g
+        log(f"int8_gemm M{m} K{k} N{n} in a CUDA graph: kernel {k5_g:.4f} ms "
+            f"{2.0 * m * k * n / k5_g / 1e9:.1f} TOPS  torch._int_mm "
+            f"{lib_g:.4f} ms {2.0 * m * k * n / lib_g / 1e9:.1f} TOPS")
+    log(f"int8_gemm sweep sum in CUDA graphs: kernel {g_k5:.4f} ms  "
+        f"torch._int_mm {g_lib:.4f} ms")
     lib_ms = [r["library_ms"] for r in sweep]
     record("int8_gemm", "sos_tpu_torch/csrc/int8_gemm.cu",
            "experiments/mosaic_narrow_n.py:36", k5_err, k5_exact,
@@ -325,6 +361,8 @@ def phase_kernels(gen: torch.Generator):
                total["ms"], total["plain_ms"], None, total["ops"],
                total["bytes"], PEAK_INT8_OPS,
                shape=" + ".join(c[0] for c in cases) + " at B 128 (sum)")
+    for case in K6_LOGGED_CASES:  # checked and logged, outside the sum
+        int8_conv_case("int8_conv", case, cgen, dev)
     return rows, k5_launches
 
 
@@ -338,6 +376,12 @@ K6_CASES = (
      False),
     ("enc_x proj 96->8 1x1 float32 out", 96, 8, (1, 1), (1, 1), 256, 178,
      True),
+)
+# further K6 cases, logged beside the sum (which stays comparable with
+# earlier runs): the widest halo
+K6_LOGGED_CASES = (
+    ("enc_x block 13 96->96 5x5 d(32,32)", 96, 96, (5, 5), (32, 32), 256,
+     178, False),
 )
 # K7 cases: (label, kind, k, stride, dilation, Cin, Cout, F, T); a_in is
 # the byte-gather loader (Cin 2)
@@ -355,10 +399,12 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     version, then kernel, plain and (for context) cuDNN bf16 conv times.
     Bound counts the real multiply-adds (for the transposed conv, not the
     inserted zeros) at the int8 peak."""
-    out_f32 = False
+    out_f32, route = False, "mma.sync gather"
     if kernel == "int8_conv":
         label, cin, cout, ks, dil, h, w, out_f32 = case
         kh, kw = ks
+        if not out_f32 and halo_plan(w, cin, cout, ks, dil) is not None:
+            route = "wgmma halo tile"
         ho, wo = h, w
         ops = 2.0 * BATCH * ho * wo * cout * kh * kw * cin
 
@@ -418,8 +464,8 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
                    + BATCH * ho * wo * cout * (4 if out_f32 else 1)
                    + cout * kpad + 8 * cout)
     bound_ms, by = bound(ops, nbytes, PEAK_INT8_OPS)
-    log(f"{kernel} {label}: ({BATCH}, {h}, {w}, {cin}) -> ({BATCH}, {ho}, "
-        f"{wo}, {cout}); exact {exact} (max |err| "
+    log(f"{kernel} {label} [{route}]: ({BATCH}, {h}, {w}, {cin}) -> "
+        f"({BATCH}, {ho}, {wo}, {cout}); exact {exact} (max |err| "
         f"{err:.3e})  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS)  plain "
         f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  cuDNN bf16 conv "
         f"at this shape (context, not the same function) {ctx_ms:.4f} ms")
@@ -527,8 +573,8 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
 # device-time categories of one pipeline call, matched on kernel names
 # in this order (cuDNN's FFT convolutions run pointwise_mult_and_sum)
 CATEGORIES = (
-    ("K5 int8_gemm", ("RowMajorA",)),
-    ("K6 int8_conv", ("SamePad>",)),
+    ("K5 int8_gemm", ("gemm_tma_s8",)),
+    ("K6 int8_conv", ("conv_halo_s8", "SamePad>")),
     ("K7 int8_inpaint", ("InpaintPad>",)),
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K3 crm_istft", ("crm_synthesis_pfa",)),

@@ -17,10 +17,13 @@
 // pads `_up_pads(3)` = (1, 2). Epilogue: `prelu(acc * w_s + b)`,
 // rounded and clipped to int8.
 //
-// Both are the implicit GEMM of int8_mma.cuh: row m is an output
-// position (b, oh, ow) of the NHWC output, k = tap * Cin + ci runs over
-// the receptive field (tap = i * kw + j), and the loader below gathers
-// A(m, k) from the NHWC int8 input:
+// K6's blocks with Cin % 16 == 0 and a spatial kernel run on the Hopper
+// tile (int8_wgmma.cuh), with the halo design below
+// (`sos_int8_conv_same_halo`). K7, and K6's Cin = 2 first layers and 1x1
+// projections (`sos_int8_conv_same`), are the implicit GEMM of
+// int8_mma.cuh: row m is an output position (b, oh, ow) of the NHWC
+// output, k = tap * Cin + ci runs over the receptive field (tap = i * kw
+// + j), and the loader below gathers A(m, k) from the NHWC int8 input:
 //
 //   SAME      ih = oh + i*d - pad, zero outside [0, H)
 //   reflect   ih = oh*s + i*d - pad, i < 0 -> -i, i >= H -> 2H-2-i
@@ -40,8 +43,14 @@
 // Bound on an H100: int8 tensor-core operations. One 96-ch 5x5 block at
 // 128 clips is 2 * (128*256*178) * 96 * 2400 = 2.7e12 operations
 // against 1.1 GB of int8 in and out: 1.36 ms by operations, 0.33 ms by
-// bytes at 3.35 TB/s. Only the 1x1 projections are bound by bytes.
+// bytes at 3.35 TB/s. Only the 1x1 projections are bound by bytes. The
+// gather moves K = 2400 bytes of A from L2 per output position of such a
+// block (14 GB at 128 clips); the halo tile moves the input row once per
+// tap row (Cin x L bytes, L <= 320) and the weights' tap row (Cout x kw x
+// Cin bytes) once per output row: about 10.6 GB a 96-ch block, of which
+// 7.5 GB are weights (dilation 1 in H; fewer where taps fall outside).
 #include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -149,7 +158,283 @@ cudaError_t conv(const int8_t* x, const int8_t* w, int B, Pad h, Pad wd,
   return sos8::launch_igemm(a, w, kpad, M, Cout, kpad, epi, stream);
 }
 
+// ---- K6 on the Hopper tile: a halo of input rows, tap-shifted reads ------
+//
+// For Cin % 16 == 0 (every trunk block but the Cin = 2 first layers and
+// the 1x1 projections, which stay on the gather above), a block owns
+// whole output rows (b, oh), cut into segments of up to 192 positions
+// (3 x m64, one consumer warpgroup each; 178 positions pad to 192). For
+// each kh tap i it TMA-loads the input row ih = oh + i*dh - pad_h once,
+// with its W halo, L = seg + (kw-1)*dw positions, from a 4D map (C, W,
+// H, B) in boxes of 16 channels x up to 256 positions, into planes
+// [16-channel chunk][position][16 B]. Zero SAME padding comes from TMA's
+// out-of-bounds fill in W; a row ih outside [0, H) is a tap row the
+// block skips. The A operand of kw tap j is then the same planes read
+// from position j*dw on: a descriptor start j*dw*16 bytes further, LBO
+// the plane length (the next 16 channels), SBO 128 bytes (8 positions).
+// No 16-byte chunk of input is fetched twice for one output row, and the
+// loop has no division.
+//
+// B for tap row i is its (Cout, kw*Cin) slice of the packed weights,
+// TMA-loaded plane by plane (16 k bytes x Cout). wgmma takes k in steps
+// of 32 bytes, i.e. two planes: the wrapper (ops/int8_conv.py
+// `halo_plan`) pairs the row's 16-byte chunks (j, c) into steps, each
+// with the A offset of its lower chunk and the LBO to its higher one, and
+// loads the B planes in step order. When a tap row has an odd number of
+// chunks (Cin 48 or 16), the last one pairs with a pad plane of A and a
+// zero plane of B.
+//
+// The block is persistent: it walks items (b, oh, segment) with a stride
+// of the grid, and its producer thread runs up to `stages` tap rows
+// ahead, across items, while the consumers multiply and run the
+// requantize epilogue (sos8::EpiRequant, the exact arithmetic of the
+// gather path, on the wgmma fragment's rows and columns).
+
+constexpr int kMaxSteps = 24;
+constexpr int kConsumers = 3;
+constexpr int kHaloThreads = 32 * (4 * kConsumers + 1);
+
+struct HaloPlan {
+  int H, W, Cin, kh, dh, pad_h, pad_w, kchunks_row;
+  int seg_len, nseg, mt, lbox, nbox, lp, row_bytes, hq;
+  int b_offset, stage_bytes, stages, steps, b_bytes, items;
+  int a_off[kMaxSteps], a_lbo[kMaxSteps];  // 16-byte units
+  int b_chunk[2 * kMaxSteps];  // weight chunk of each B plane, -1 = zeros
+};
+
+// Rows r < R of item (b, oh0 + r) whose kh tap i reads an input row
+// inside [0, H), as bits.
+template <int R>
+__device__ __forceinline__ int tap_rows(const HaloPlan& p, int oh0, int i) {
+  int bits = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ih = oh0 + r + i * p.dh - p.pad_h;
+    if (oh0 + r < p.H && ih >= 0 && ih < p.H) bits |= 1 << r;
+  }
+  return bits;
+}
+
+// N = Cout; R output rows (b, oh0 .. oh0 + R - 1) per item share each tap
+// row's weights.
+template <int N, int R>
+__global__ void __launch_bounds__(kHaloThreads, 1)
+conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap, const HaloPlan p,
+             const sos8::EpiRequant epi) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.stages * p.stage_bytes);
+  uint64_t* empty = full + p.stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // B planes with no weights behind them are never loaded: zero them once
+  for (int s = 0; s < p.stages; ++s)
+    for (int pl = 0; pl < 2 * p.steps; ++pl)
+      if (p.b_chunk[pl] < 0) {
+        int4* z = reinterpret_cast<int4*>(smem + s * p.stage_bytes +
+                                          p.b_offset + pl * N * 16);
+        for (int i = tid; i < N; i += blockDim.x) z[i] = sos8::zero16();
+      }
+  sosw::fence_proxy_async();
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      sosw::mbar_init(&full[s], 1);
+      sosw::mbar_init(&empty[s], 4 * p.mt);
+    }
+    sosw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {  // producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const int seg = item % p.nseg, t = item / p.nseg;
+        const int oh0 = t % p.hq * R, b = t / p.hq;
+        const int w0 = seg * p.seg_len - p.pad_w;  // halo origin
+        for (int i = 0; i < p.kh; ++i) {
+          const int rows = tap_rows<R>(p, oh0, i);
+          if (rows == 0) continue;
+          sosw::mbar_wait(&empty[stage], phase ^ 1);
+          sosw::mbar_expect_tx(&full[stage],
+                               __popc(rows) * p.Cin * p.lp + p.b_bytes);
+          uint8_t* st = smem + stage * p.stage_bytes;
+          for (int r = 0; r < R; ++r) {
+            if (!(rows >> r & 1)) continue;
+            const int ih = oh0 + r + i * p.dh - p.pad_h;
+            for (int c = 0; c < p.Cin / 16; ++c)
+              for (int h = 0; h < p.nbox; ++h)
+                sosw::tma_load_4d(
+                    st + r * p.row_bytes + (c * p.lp + h * p.lbox) * 16, &xmap,
+                    &full[stage], 16 * c, w0 + h * p.lbox, ih, b);
+          }
+          const int kc = i * p.kchunks_row;
+          for (int pl = 0; pl < 2 * p.steps; ++pl)
+            if (p.b_chunk[pl] >= 0)
+              sosw::tma_load_2d(st + p.b_offset + pl * N * 16, &wmap,
+                                &full[stage], 16 * (kc + p.b_chunk[pl]), 0);
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;  // consumer warpgroup = m64 tile of the segment
+  if (wg >= p.mt) return;
+  int acc[R][N / 2];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[r][i] = 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  const uint32_t sbase = sosw::smem_u32(smem);
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const int seg = item % p.nseg, t = item / p.nseg;
+    const int oh0 = t % p.hq * R, b = t / p.hq;
+    int started = 0;  // rows whose sums have begun (the first wgmma overwrites)
+    for (int i = 0; i < p.kh; ++i) {
+      const int rows = tap_rows<R>(p, oh0, i);
+      if (rows == 0) continue;
+      sosw::mbar_wait(&full[stage], phase);
+      const uint32_t st = sbase + stage * p.stage_bytes;
+      const uint32_t bb = st + p.b_offset;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!(rows >> r & 1)) continue;
+        const uint32_t a = st + r * p.row_bytes + wg * 64 * 16;
+        int scale = started >> r & 1;
+        sosw::fence_acc(acc[r]);
+        sosw::wgmma_fence();
+        for (int s = 0; s < p.steps; ++s) {
+          const uint64_t da =
+              sosw::make_desc(a + p.a_off[s] * 16, p.a_lbo[s], 8);
+          const uint64_t db = sosw::make_desc(bb + 2 * s * N * 16, N, 8);
+          sosw::Wgmma<N>::mma(acc[r], da, db, scale);
+          scale = 1;
+        }
+        sosw::wgmma_commit();
+      }
+      started |= rows;
+      sosw::wgmma_wait_all();
+#pragma unroll
+      for (int r = 0; r < R; ++r) sosw::fence_acc(acc[r]);
+      __syncwarp();
+      if (lane == 0) sosw::mbar_arrive(&empty[stage]);
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    const int pos = seg * p.seg_len + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (oh0 + r >= p.H) continue;
+      const int m = ((b * p.H) + oh0 + r) * p.W + pos;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int n = 8 * j + 2 * (lane & 3);
+        if (pos < p.W) epi(m, n, acc[r][4 * j], acc[r][4 * j + 1]);
+        if (pos + 8 < p.W) epi(m + 8, n, acc[r][4 * j + 2], acc[r][4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int N, int R>
+cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
+                        int kpad, const HaloPlan& p, const sos8::EpiRequant& epi,
+                        cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t C = p.Cin, W = p.W, H = p.H;
+  const cuuint64_t xdims[4] = {C, W, H, (cuuint64_t)B};
+  const cuuint64_t xstrides[3] = {C, W * C, H * W * C};
+  const cuuint32_t xbox[4] = {16, (cuuint32_t)p.lbox, 1, 1};
+  const cuuint64_t wdims[2] = {(cuuint64_t)kpad, (cuuint64_t)Cout};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)kpad};
+  const cuuint32_t wbox[2] = {16, (cuuint32_t)Cout};
+  cudaError_t err = sosw::make_map(&xmap, x, 4, xdims, xstrides, xbox);
+  if (err == cudaSuccess) err = sosw::make_map(&wmap, w, 2, wdims, wstrides, wbox);
+  const int smem = p.stages * p.stage_bytes + 2 * p.stages * 8 + 128;
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = sosw::resident_blocks(conv_halo_s8<N, R>, kHaloThreads, smem,
+                                &blocks);
+  if (err != cudaSuccess) return err;
+  if (blocks == 0) return cudaErrorInvalidConfiguration;
+  conv_halo_s8<N, R><<<blocks < p.items ? blocks : p.items, kHaloThreads,
+                       smem, stream>>>(xmap, wmap, p, epi);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K6 on the Hopper tile (Cin % 16 == 0, int8 out). `plan` (host memory)
+// is ops/int8_conv.py `halo_plan`'s int32 vector: seg_len, nseg, lbox,
+// nbox, a_planes, steps, stage_bytes, stages, rows, then a_off[steps],
+// a_lbo[steps] and b_chunk[2 * steps].
+extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
+                                       const float* ws, const float* bias,
+                                       int8_t* out, const int* plan, int B,
+                                       int H, int W, int Cin, int Cout, int kh,
+                                       int kw, int dh, int dw, int kpad,
+                                       void* stream) {
+  HaloPlan p;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.kh = kh;
+  p.dh = dh;
+  p.pad_h = (kh - 1) / 2 * dh;
+  p.pad_w = (kw - 1) / 2 * dw;
+  p.kchunks_row = kw * Cin / 16;
+  p.seg_len = plan[0];
+  p.nseg = plan[1];
+  p.lbox = plan[2];
+  p.nbox = plan[3];
+  const int a_planes = plan[4];
+  p.steps = plan[5];
+  p.stage_bytes = plan[6];
+  p.stages = plan[7];
+  const int rows = plan[8];
+  const int* steps = plan + 9;
+  if (Cin % 16 || p.steps > kMaxSteps || p.seg_len % 64 ||
+      p.seg_len > 64 * kConsumers || p.stages < 1 ||
+      rows != (Cout <= 48 ? 4 : 2))
+    return (int)cudaErrorInvalidValue;
+  p.mt = p.seg_len / 64;
+  p.lp = p.lbox * p.nbox;
+  p.row_bytes = a_planes * p.lp * 16;
+  p.b_offset = rows * p.row_bytes;
+  p.hq = (H + rows - 1) / rows;
+  p.items = B * p.hq * p.nseg;
+  int b_loaded = 0;
+  for (int s = 0; s < p.steps; ++s) {
+    p.a_off[s] = steps[s];
+    p.a_lbo[s] = steps[p.steps + s];
+    for (int h = 0; h < 2; ++h) {
+      p.b_chunk[2 * s + h] = steps[2 * p.steps + 2 * s + h];
+      b_loaded += p.b_chunk[2 * s + h] >= 0;
+    }
+  }
+  p.b_bytes = b_loaded * Cout * 16;
+  const sos8::EpiRequant epi{ws, bias, nullptr, out, Cout};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (Cout) {
+    case 16: return (int)launch_halo<16, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 32: return (int)launch_halo<32, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 48: return (int)launch_halo<48, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 96: return (int)launch_halo<96, 2>(x, w, B, Cout, kpad, p, epi, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // K6: SAME conv, stride 1; int8 out (requantized) or float32 out (proj).
 extern "C" int sos_int8_conv_same(const int8_t* x, const int8_t* w,

@@ -1,14 +1,16 @@
-// One int8 tensor-core tile and the implicit GEMM built on it (K5-K7).
+// The mma.sync int8 tile and the implicit GEMM built on it: K7, and K6's
+// Cin = 2 first layers and 1x1 projections. K5 and K6's other blocks run
+// on the Hopper tile of int8_wgmma.cuh.
 //
 //   C (M, N) = A (M, K) * B^T,  A and B int8, C int32 (exact).
 //
 // A(m, k) comes from a loader functor that hands out 16 contiguous k
-// bytes of row m: K5 reads a plain row-major matrix, K6 and K7 gather a
-// convolution's receptive field from an NHWC int8 activation (zero SAME
-// padding, reflect padding, or the lhs-dilated form of a transposed
-// conv). So the im2col matrix never exists in device memory. B is read
-// (N, K) with k contiguous, which is the layout `mma ... .col` wants: the
-// conv weights are laid out so once on the host.
+// bytes of row m: K6 and K7 gather a convolution's receptive field from
+// an NHWC int8 activation (zero SAME padding, reflect padding, or the
+// lhs-dilated form of a transposed conv). So the im2col matrix never
+// exists in device memory. B is read (N, K) with k contiguous, which is
+// the layout `mma ... .col` wants: the conv weights are laid out so once
+// on the host.
 //
 // Tile: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. Integer sums
 // are exact in any order, so the tiling and k order are free and the
@@ -21,8 +23,8 @@
 // banks.
 //
 // Bound on an H100: int8 tensor-core operations (1,979 dense TOPS) at
-// the main path's shapes. This first design uses mma.sync, not wgmma,
-// and no TMA; those are later work.
+// the main path's shapes, which legacy mma.sync cannot reach (only
+// wgmma can); K7's move to the Hopper tile is later work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,15 +50,6 @@ __device__ __forceinline__ int4 zero16() { return make_int4(0, 0, 0, 0); }
 
 // ---- epilogues: (row m, even column n, accumulators of n and n+1) ------
 
-struct EpiInt32 {  // K5: the raw int32 product
-  int* out;
-  int ldo;
-  __device__ __forceinline__ void operator()(int m, int n, int v0,
-                                             int v1) const {
-    *reinterpret_cast<int2*>(out + (size_t)m * ldo + n) = make_int2(v0, v1);
-  }
-};
-
 // acc * w_s + b, in that order and without contraction into an FMA, as
 // sos_tpu writes it (`acc.astype(f32) * w_s + b`).
 __device__ __forceinline__ float dequant(int acc, const float* ws,
@@ -76,7 +69,8 @@ __device__ __forceinline__ int8_t requant(float y) {
   return (int8_t)fminf(fmaxf(rintf(y), -127.f), 127.f);
 }
 
-struct EpiRequant {  // K6 and K7: int8 out (1/s_out is folded into w_s, b)
+struct EpiRequant {  // K6 and K7: int8 out (1/s_out is folded into w_s, b);
+                    // also the Hopper tile's K6 epilogue
   const float* ws;
   const float* bias;
   const float* alpha;
@@ -210,7 +204,7 @@ igemm_s8(ALoad a_load, const int8_t* __restrict__ b, int ldb, int M, int N,
 }
 
 // BN for N output columns: 16 for the narrow 1x1 projections, 48 for the
-// 48- and 96-channel trunks, 64 otherwise (64-512 channels, GEMM columns).
+// 48- and 96-channel trunks, 64 otherwise (64-256 channels).
 inline int pick_bn(int N) {
   if (N <= 16) return 16;
   if (N % 48 == 0 && N <= 96) return 48;

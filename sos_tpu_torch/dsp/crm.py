@@ -11,6 +11,7 @@ Layout: spectrograms are `(..., F, T, 2)` with real/imag last.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -23,10 +24,28 @@ def complex_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([ar * br - ai * bi, ar * bi + ai * br], dim=-1)
 
 
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log that gives the same bits in every process.
+
+    `torch.log` on the CPU goes to MKL's vector math, whose first call in
+    a fresh process can run one thread's chunk on a less accurate path
+    (float32: up to 1.4e-4 relative near log 0; float64: about 5e-13),
+    so CPU tensors take numpy's log instead."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.log(x.numpy()))
+    return torch.log(x)
+
+
 def crm_sigmoid_recover(o: torch.Tensor, a: float = 0.1,
                         b: float = 0.0) -> torch.Tensor:
-    """Inverse of the sigmoid cRM compression (transform.py:97-99)."""
-    return 1.0 / a * (torch.log(o / (1.0 - o + _EPS) + 1e-10) + b)
+    """Inverse of the sigmoid cRM compression (transform.py:97-99).
+
+    Evaluated in float64 and rounded once to `o`'s dtype, so each value
+    is within an ulp or so of the exact one, and identical from one run
+    to the next."""
+    x = o.double()
+    y = 1.0 / a * (_log(x / (1.0 - x + _EPS) + 1e-10) + b)
+    return y.to(o.dtype)
 
 
 def apply_mask_complex(noisy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

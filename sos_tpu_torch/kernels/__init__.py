@@ -13,7 +13,9 @@ plain PyTorch versions sit in the module of the op they replace:
   K7 `ops/int8_conv.py` `inpaint_conv_int8`  int8 InpaintNet conv + PReLU
      requantize
 
-K5-K7 share one int8 tensor-core tile (`csrc/int8_mma.cuh`).
+K5 and K6's blocks with Cin % 16 == 0 run on the Hopper int8 tile
+(`csrc/int8_wgmma.cuh`: wgmma fed by TMA); K7 and K6's other blocks on
+the `mma.sync` tile (`csrc/int8_mma.cuh`).
 """
 
 from sos_tpu_torch.kernels.build import (  # noqa: F401
@@ -21,5 +23,6 @@ from sos_tpu_torch.kernels.build import (  # noqa: F401
     aligned16,
     launch,
     library,
+    on_device,
     reset_launches,
 )

@@ -3,7 +3,9 @@
 Every `csrc/*.cu` is compiled by its own nvcc process, all started
 together, for sm_90a; the objects are linked into one shared library
 under `<repo>/build/sos_tpu_torch/`, named by a hash of the sources and
-flags so that an edited source builds anew. The sources have a plain C
+flags so that an edited source builds anew; the compilers' output
+(`-Xptxas=-v`: each kernel's registers, shared memory and spills) is
+kept beside it in a `.log` file of the same name. The sources have a plain C
 interface and include no PyTorch header, which keeps the build to
 seconds. Each C entry point launches on the stream it is given,
 allocates nothing, and returns `cudaGetLastError()`; `launch` raises if
@@ -19,6 +21,7 @@ fast versions' error).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,7 +35,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sos_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p)
@@ -47,11 +50,14 @@ SIGNATURES = {
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, step_mask (or NULL), out,
     # B, T, H, stream
     "sos_bilstm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # a (M, K), b^T (N, K), out, M, N, K, stream
-    "sos_int8_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
+    "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
     # x, w, w_s, bias, out, B, H, W, Cin, Cout, kh, kw, dh, dw, kpad,
     # out_f32, stream
     "sos_int8_conv_same": (_P, _P, _P, _P, _P) + (_I,) * 11 + (_P,),
+    # x, w, w_s, bias, out, plan (host int32), B, H, W, Cin, Cout, kh, kw,
+    # dh, dw, kpad, stream
+    "sos_int8_conv_same_halo": (_P,) * 6 + (_I,) * 10 + (_P,),
     # x, w, w_s, bias, alpha, out, B, H, W, Cin, Ho, Wo, Cout, k, stride,
     # dil, pad, up, kpad, stream
     "sos_int8_conv_inpaint": (_P,) * 6 + (_I,) * 13 + (_P,),
@@ -102,11 +108,14 @@ def build() -> Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, logs = [], []
         for src, _, proc in procs:
             out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out.decode(errors='replace')}")
             if proc.returncode != 0:
-                errors.append(f"{src.name}:\n{out.decode(errors='replace')}")
+                errors.append(logs[-1])
+        # ptxas' registers, shared memory and spills of every kernel
+        target.with_suffix(".log").write_text("\n".join(logs))
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         lib = Path(tmp) / target.name
@@ -142,6 +151,22 @@ def aligned16(x: "torch.Tensor") -> "torch.Tensor":
     16-byte chunks: a view at an odd offset is cloned."""
     x = x.contiguous()
     return x.clone() if x.data_ptr() % 16 else x
+
+
+@contextlib.contextmanager
+def on_device(device: "torch.device"):
+    """Make `device` current for a launch (only if it is not already) and
+    yield the handle of its current stream, read as an int as Triton's
+    launcher does: building a `torch.cuda.Stream` and switching devices
+    on every call cost more host time than a small kernel takes."""
+    import torch
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        yield torch._C._cuda_getCurrentRawStream(index)
+        return
+    with torch.cuda.device(index):
+        yield torch._C._cuda_getCurrentRawStream(index)
 
 
 def launch(kernel: str, symbol: str, *args) -> None:

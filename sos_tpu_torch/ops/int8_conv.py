@@ -2,11 +2,14 @@
 
 Port of the convolutions of `sos_tpu/models/quant.py`:
 
-* K6 `conv_same_int8` (`csrc/int8_conv.cu` `sos_int8_conv_same`):
-  `_conv_same` + the epilogue of `_run_encoder_int8` (:136-197), a
-  dilated SAME conv, stride 1, then `relu(acc * w_s + b)` rounded half
-  to even and clipped to int8, or left float32 for the last (1x1 proj)
-  block of a trunk.
+* K6 `conv_same_int8` (`csrc/int8_conv.cu`): `_conv_same` + the
+  epilogue of `_run_encoder_int8` (:136-197), a dilated SAME conv,
+  stride 1, then `relu(acc * w_s + b)` rounded half to even and clipped
+  to int8, or left float32 for the last (1x1 proj) block of a trunk.
+  Blocks with Cin % 16 == 0 and a spatial kernel run on the Hopper tile
+  (`sos_int8_conv_same_halo`, wgmma on TMA-loaded input-row halos, its
+  launch plan from `halo_plan`); the Cin = 2 first layers and the 1x1
+  projections run on the `mma.sync` gather (`sos_int8_conv_same`).
 * K7 `inpaint_conv_int8` (`sos_int8_conv_inpaint`): the conv of
   `QuantizedDenoiser._inpaint_block_int8` (:457-517), a conv over a
   reflect-padded input ("down", stride 1/2, dilation 1-16) or the k3 s2
@@ -28,13 +31,15 @@ for bit.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sos_tpu_torch.kernels import aligned16, launch
+from sos_tpu_torch.kernels import aligned16, launch, on_device
 
 K_ALIGN = 64  # the kernel's reduction stage, in int8 values
 
@@ -120,6 +125,118 @@ def _ptrs(*tensors):
 # K6 — SAME conv (conv trunks)
 # ---------------------------------------------------------------------------
 
+# the kernel's wgmma widths: the trunks' (48, 96) and the small test models'
+HALO_COUTS = (16, 32, 48, 96)
+HALO_SEG = 192        # output positions of a block: 3 warpgroups x m64
+HALO_MAX_STEPS = 24   # k32 steps of one tap row the kernel holds
+HALO_MAX_STAGES = 4
+HALO_SMEM = 232448 - 256  # an H100 block's shared memory, less barriers
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """Launch plan of K6's Hopper tile for one geometry (lengths in
+    positions, offsets in 16-byte shared-memory rows).
+
+    An item of a block is `rows` output rows (b, oh0 .. oh0 + rows - 1)
+    x `seg_len` output positions; a row has `nseg` segments. For each kh
+    tap that one of its rows keeps (`tap_rows`), a stage holds, per kept
+    row r, the halo from input position `origin(seg)` on: `nbox` TMA
+    boxes of `lbox` positions per 16-channel plane, `lp = nbox * lbox`
+    positions a plane, `a_planes` planes (one more than Cin / 16 when a
+    pad plane is needed), from row `r * row_rows` of the stage; then the
+    B planes. `steps[s] = (a_off, a_lbo, b0, b1)`: k32 step s of a tap row
+    reads A rows a_off + p and a_off + a_lbo + p of the row's region (p
+    the output position in the segment) and the weight chunks b0 and b1
+    of the tap row (-1: a zero plane)."""
+    seg_len: int
+    nseg: int
+    pad_w: int
+    lbox: int
+    nbox: int
+    a_planes: int
+    rows: int
+    steps: Tuple[Tuple[int, int, int, int], ...]
+    stage_bytes: int
+    stages: int
+    vector: np.ndarray = dataclasses.field(compare=False, repr=False)
+
+    @property
+    def lp(self) -> int:
+        return self.nbox * self.lbox
+
+    @property
+    def row_rows(self) -> int:
+        """16-byte rows of one output row's halo region in a stage."""
+        return self.a_planes * self.lp
+
+    def origin(self, seg: int) -> int:
+        """First input position of segment `seg`'s halo."""
+        return seg * self.seg_len - self.pad_w
+
+    def box_starts(self, seg: int) -> List[int]:
+        """Input position at which each TMA box of a plane starts."""
+        return [self.origin(seg) + h * self.lbox for h in range(self.nbox)]
+
+    def tap_rows(self, oh0: int, i: int, h: int, kh: int,
+                 dh: int) -> List[Tuple[int, int]]:
+        """(r, input row) of the item's rows that kh tap i keeps: output
+        rows inside [0, h) whose input row is too (outside it is SAME
+        zeros, skipped). No row kept: the item skips the tap row."""
+        pad = (kh - 1) // 2 * dh
+        return [(r, oh0 + r + i * dh - pad) for r in range(self.rows)
+                if oh0 + r < h and 0 <= oh0 + r + i * dh - pad < h]
+
+
+@functools.lru_cache(maxsize=None)
+def halo_plan(w: int, cin: int, cout: int, ksize: Tuple[int, int],
+              dilation: Tuple[int, int]) -> Optional[HaloPlan]:
+    """K6's Hopper-tile plan for an input `w` positions wide, or None for
+    the shapes that stay on the `mma.sync` gather (Cin not a multiple of
+    16, a 1x1 kernel, a width the kernel has no wgmma for, or a tap row
+    too large for its shared memory). Output rows of an item share each
+    tap row's weights: four at Cout <= 48, two at 96 (a thread's
+    accumulators, rows x Cout / 2, stay within 96)."""
+    (kh, kw), (_, dw) = ksize, dilation
+    if cin % 16 or (kh, kw) == (1, 1) or cout not in HALO_COUTS:
+        return None
+    rows = 4 if cout <= 48 else 2
+    seg_len = min(HALO_SEG, -(-w // 64) * 64)
+    length = seg_len + (kw - 1) * dw
+    nbox = -(-length // 256)                   # a TMA box spans <= 256
+    lbox = (-(-length // nbox) + 7) // 8 * 8  # 128-byte aligned planes
+    lp = nbox * lbox
+    cpt = cin // 16                            # 16-byte chunks of a tap
+
+    def addr(jc):  # first A row of chunk c of kw tap j
+        return jc[1] * lp + jc[0] * dw
+
+    chunks = [(j, c) for j in range(kw) for c in range(cpt)]
+    steps = []
+    for s in range(0, len(chunks), 2):
+        pair = sorted(chunks[s:s + 2], key=addr)
+        lo = pair[0]
+        if len(pair) == 2:
+            hi = pair[1]
+            steps.append((addr(lo), addr(hi) - addr(lo), lo[0] * cpt + lo[1],
+                          hi[0] * cpt + hi[1]))
+        else:  # an odd chunk out: its partner is the pad plane x zeros
+            steps.append((addr(lo), (cpt - lo[1]) * lp, lo[0] * cpt + lo[1],
+                          -1))
+    a_planes = cpt + len(chunks) % 2
+    stage_bytes = -(-(rows * a_planes * lp * 16 + 2 * len(steps) * cout * 16)
+                    // 1024) * 1024
+    stages = min(HALO_MAX_STAGES, HALO_SMEM // (stage_bytes + 16))
+    if len(steps) > HALO_MAX_STEPS or stages < 2:
+        return None
+    nseg = -(-w // seg_len)
+    vector = np.array([seg_len, nseg, lbox, nbox, a_planes, len(steps),
+                       stage_bytes, stages, rows]
+                      + [s[0] for s in steps] + [s[1] for s in steps]
+                      + [b for s in steps for b in s[2:]], np.int32)
+    return HaloPlan(seg_len, nseg, (kw - 1) // 2 * dw, lbox, nbox, a_planes,
+                    rows, tuple(steps), stage_bytes, stages, vector)
+
 
 def conv_same_int8_plain(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                          b: torch.Tensor, ksize: Tuple[int, int],
@@ -145,19 +262,26 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
         return conv_same_int8_plain(x, w, w_s, b, ksize, dilation, out_f32)
     (kh, kw), (dh, dw) = ksize, dilation
     _check("conv_same_int8", x, w, w_s, b, kh * kw)
-    x = aligned16(x)
+    # both routes read x as packed NHWC and w as rows kpad bytes apart:
+    # `aligned16` copies a strided or misaligned view to contiguous rows
+    x, w = aligned16(x), aligned16(w)
     bsz, h, wid, cin = x.shape
     cout = w.shape[0]
     out = torch.empty((bsz, h, wid, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        launch("int8_conv", "sos_int8_conv_same",
-               *_ptrs(x, w.contiguous(), w_s.contiguous(), b.contiguous(),
-                      out),
-               bsz, h, wid, cin, cout, kh, kw, dh, dw, w.shape[1],
-               int(out_f32), stream)
+    plan = None if out_f32 else halo_plan(wid, cin, cout, tuple(ksize),
+                                          tuple(dilation))
+    ptrs = _ptrs(x, w, w_s.contiguous(), b.contiguous(), out)
+    with on_device(x.device) as stream:
+        if plan is not None:
+            launch("int8_conv", "sos_int8_conv_same_halo", *ptrs,
+                   plan.vector.ctypes.data, bsz, h, wid, cin, cout, kh, kw,
+                   dh, dw, w.shape[1], stream)
+        else:
+            launch("int8_conv", "sos_int8_conv_same", *ptrs, bsz, h, wid,
+                   cin, cout, kh, kw, dh, dw, w.shape[1], int(out_f32),
+                   stream)
     return out
 
 

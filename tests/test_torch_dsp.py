@@ -7,6 +7,10 @@ test_torch_kernels.py; their FFT algorithm on the CPU: test_torch_fft.py.
 """
 
 import importlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -108,6 +112,54 @@ def test_crm_recover_and_apply_match(spec):
         tcrm.apply_compressed_crm(torch.from_numpy(spec), torch.from_numpy(o)).numpy(),
         np.asarray(jcrm.apply_compressed_crm(jnp.asarray(spec), jnp.asarray(o))),
         rtol=1e-5, atol=1e-5)  # atol: re = rr*mr - ri*mi cancels near 0
+
+
+_RECOVER_IN_FRESH_PROCESS = """
+import sys
+import numpy as np
+import torch
+from sos_tpu_torch.dsp.crm import crm_sigmoid_recover
+o = np.random.default_rng(13).uniform(0.01, 0.99, (2, 256, 178, 2)).astype(np.float32)
+np.save(sys.argv[1], crm_sigmoid_recover(torch.from_numpy(o)).numpy())
+assert "jax" not in sys.modules
+"""
+
+
+def test_crm_recover_same_bytes_in_fresh_processes(tmp_path):
+    """The plain recover gives identical bytes in every fresh process
+    (no JAX imported), each within 1e-5 of the float64 value: torch's
+    CPU log once computed one thread's chunk off by up to 4e-4 on its
+    first call in a process."""
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(repo), os.environ.get("PYTHONPATH")))))
+    outs = [tmp_path / f"recover_{i}.npy" for i in range(8)]
+    procs = [subprocess.Popen([sys.executable, "-c", _RECOVER_IN_FRESH_PROCESS,
+                               str(out)], cwd=repo, env=env)
+             for out in outs]
+    assert [p.wait(timeout=120) for p in procs] == [0] * len(procs)
+    o = np.random.default_rng(13).uniform(0.01, 0.99, (2, 256, 178, 2)).astype(np.float32)
+    od = o.astype(np.float64)
+    exact = 10.0 * np.log(od / (1.0 - od + 1e-8) + 1e-10)
+    results = [np.load(out) for out in outs]
+    assert results[0].dtype == np.float32 and results[0].shape == o.shape
+    for got in results:
+        assert got.tobytes() == results[0].tobytes()
+        assert np.abs(got - exact).max() <= 1e-5
+    # the same bytes in this process too
+    assert (tcrm.crm_sigmoid_recover(torch.from_numpy(o)).numpy().tobytes()
+            == results[0].tobytes())
+
+
+def test_crm_istft_plain_uses_the_recover(monkeypatch):
+    """K3's plain path recovers through `dsp/crm.py`'s function."""
+    calls = []
+    real = tstft.crm_sigmoid_recover
+    monkeypatch.setattr(tstft, "crm_sigmoid_recover",
+                        lambda o: calls.append(o.shape) or real(o))
+    o = torch.full((1, 178, 512), 0.5)
+    tstft.crm_istft_plain(o, torch.zeros(1, 178, 512))
+    assert calls == [(1, 178, 256), (1, 178, 256)]
 
 
 def test_crm_istft_matches_sos_tpu(clips):

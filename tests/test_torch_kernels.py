@@ -192,6 +192,18 @@ def test_aligned16_clones_only_misaligned_views():
     assert out.data_ptr() % 16 == 0 and torch.equal(out, x)
 
 
+@pytest.mark.parametrize("view", ["transposed", "column slice"])
+def test_aligned16_copies_strided_views_to_rows(view):
+    """The TMA kernels (K5, K6) read rows a fixed number of bytes apart:
+    `aligned16` hands them a strided view as contiguous rows."""
+    x = torch.arange(-64, 64, dtype=torch.int8).reshape(8, 16)
+    v = x.t() if view == "transposed" else x[:, 4:12]
+    assert not v.is_contiguous()
+    out = aligned16(v)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 0
+    assert torch.equal(out, v)
+
+
 @pytest.mark.cuda
 def test_crm_istft_kernel_takes_misaligned_views(cuda_device):
     spec = stft.stft_cat_plain(torch.randn(2, 28000, device=cuda_device) * 0.3)
@@ -245,25 +257,64 @@ def test_small_pipeline_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4096, 1280, 48), (48, 1280, 4096),
-                                   (257, 144, 10)])
+@pytest.mark.parametrize("m,k,n", [*int8_gemm.SWEEP_SHAPES, (257, 144, 10)])
 def test_int8_matmul_kernel_exact(cuda_device, m, k, n):
+    """K5 at every shape of the sweep and a ragged one: through
+    `int8_matmul` with a `(K, N)` B and a column-major (strided) A, and
+    through `int8_matmul_nt` with B in the kernel's `(N, K)` layout."""
     gen = torch.Generator().manual_seed(m + n)
     a, b = _int8((m, k), gen, cuda_device), _int8((k, n), gen, cuda_device)
-    assert torch.equal(int8_gemm.int8_matmul(a, b),
-                       int8_gemm.int8_matmul_plain(a, b))
+    ref = int8_gemm.int8_matmul_plain(a, b)
+    strided = a.t().contiguous().t()
+    assert not strided.is_contiguous()
+    assert torch.equal(int8_gemm.int8_matmul(strided, b), ref)
+    assert torch.equal(int8_gemm.int8_matmul_nt(a, b.t().contiguous()), ref)
+
+
+def _trunk_geometries():
+    """(Cin, Cout, kernel, dilation) of every trunk block after the first
+    (the denoiser schedule holds the detector's), at 48 and 96 channels."""
+    cfg = DenoiserModelConfig()
+    return [(c, c, ks, dil) for c in (48, 96)
+            for ks, dil in list(zip(cfg.kernel_sizes, cfg.dilations))[1:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("cin,cout,ks,dil", _trunk_geometries())
+def test_int8_conv_same_halo_kernel_exact(cuda_device, batch, cin, cout, ks,
+                                          dil):
+    """K6's Hopper tile at every trunk geometry; 80 rows, so that the
+    32-row dilations both skip and keep tap rows; ragged batches."""
+    assert int8_conv.halo_plan(178, cin, cout, ks, dil) is not None
+    gen = torch.Generator().manual_seed(cin + 7 * dil[0] + dil[1] + ks[1])
+    x = _int8((batch, 80, 178, cin), gen, cuda_device)
+    w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    before = LAUNCHES["int8_conv"]
+    got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil)
+    assert LAUNCHES["int8_conv"] == before + 1
+    assert torch.equal(got, int8_conv.conv_same_int8_plain(x, w, w_s, b, ks,
+                                                           dil))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw", [
     (2, 48, (1, 7), (1, 1), False, (256, 178)),
+    (2, 96, (1, 7), (1, 1), False, (256, 178)),
     (48, 48, (5, 5), (32, 1), False, (256, 178)),
     (96, 96, (5, 5), (32, 32), False, (64, 80)),
+    (96, 96, (5, 5), (32, 32), False, (256, 178)),
     (96, 8, (1, 1), (1, 1), True, (256, 60)),
+    (48, 4, (1, 1), (1, 1), True, (256, 178)),
     (6, 4, (7, 1), (1, 1), False, (30, 20)),
+    (16, 16, (5, 5), (2, 2), False, (30, 20)),
+    (32, 32, (7, 1), (1, 1), False, (40, 300)),
 ])
 def test_int8_conv_same_kernel_exact(cuda_device, cin, cout, ks, dil,
                                      out_f32, hw):
+    """Both K6 routes: the Hopper tile (Cin % 16 == 0, spatial kernels,
+    here also narrow widths and a row of two segments) and the gather
+    (Cin 2 and 6, the 1x1 float32 projections)."""
     gen = torch.Generator().manual_seed(cin * cout)
     x = _int8((2, *hw, cin), gen, cuda_device)
     w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
@@ -271,6 +322,25 @@ def test_int8_conv_same_kernel_exact(cuda_device, cin, cout, ks, dil,
     ref = int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil, out_f32)
     assert got.shape == ref.shape == (2, *hw, cout)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,ks,dil", [(96, 96, (5, 5), (32, 1)),
+                                             (2, 48, (1, 7), (1, 1))])
+def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
+                                                   ks, dil):
+    """Both K6 routes on an input that is a channel slice of a wider
+    tensor and weights that are a column slice of a wider packing."""
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = _int8((2, 64, 178, cin + 16), gen, cuda_device)[..., 16:]
+    w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    wide = torch.zeros(cout, w.shape[1] + 64, dtype=torch.int8,
+                       device=cuda_device)
+    wide[:, 64:] = w
+    w_view = wide[:, 64:]
+    assert not x.is_contiguous() and not w_view.is_contiguous()
+    assert torch.equal(int8_conv.conv_same_int8(x, w_view, w_s, b, ks, dil),
+                       int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil))
 
 
 @pytest.mark.cuda
