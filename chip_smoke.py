@@ -12,7 +12,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
 3. kernels: K1-K4 and K6-K7 at the main path's shapes (128 clips),
    each against its plain PyTorch version on the card (K6 and K7
    exactly, in every loader and epilogue form the main path runs, K6 on
-   both its routes: the wgmma halo tile and the mma.sync gather), with
+   both its routes: the wgmma halo tile and the mma.sync gather; K7 on
+   its wgmma tile, down, stride-2 and sub-pixel up blocks), with
    the kernel's, the plain version's and the library call's times, TOPS
    and the kernel's bound; K5 at every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
@@ -58,7 +59,8 @@ from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
                                          halo_plan, inpaint_conv_int8,
-                                         inpaint_conv_int8_plain, up_pads)
+                                         inpaint_conv_int8_plain, inpaint_plan,
+                                         up_pads)
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
@@ -347,7 +349,7 @@ def phase_kernels(gen: torch.Generator):
     for name, source, replaces, cases in (
             ("int8_conv", "sos_tpu_torch/csrc/int8_conv.cu",
              "sos_tpu/models/quant.py:136", K6_CASES),
-            ("int8_inpaint", "sos_tpu_torch/csrc/int8_conv.cu",
+            ("int8_inpaint", "sos_tpu_torch/csrc/int8_inpaint.cu",
              "sos_tpu/models/quant.py:457", K7_CASES)):
         total = {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                  "err": 0.0, "exact": True}
@@ -363,6 +365,8 @@ def phase_kernels(gen: torch.Generator):
                shape=" + ".join(c[0] for c in cases) + " at B 128 (sum)")
     for case in K6_LOGGED_CASES:  # checked and logged, outside the sum
         int8_conv_case("int8_conv", case, cgen, dev)
+    for case in K7_LOGGED_CASES:
+        int8_conv_case("int8_inpaint", case, cgen, dev)
     return rows, k5_launches
 
 
@@ -384,12 +388,21 @@ K6_LOGGED_CASES = (
      178, False),
 )
 # K7 cases: (label, kind, k, stride, dilation, Cin, Cout, F, T); a_in is
-# the byte-gather loader (Cin 2)
+# the Cin = 2 input block (padded to 16 channels on the tile)
 K7_CASES = (
     ("a_in 2->64 k5", "down", 5, 1, 1, 2, 64, 256, 178),
     ("a_d1 64->128 k5 s2", "down", 5, 2, 1, 64, 128, 256, 178),
     ("mid_dil16 256->256 k3 d16", "down", 3, 1, 16, 256, 256, 64, 45),
     ("mid_up 256->128 k3 s2 transposed", "up", 3, 2, 1, 256, 128, 64, 45),
+)
+# further K7 cases, logged beside the sum (which stays comparable with
+# earlier runs): every other distinct block but the mid dilations 1-8
+K7_LOGGED_CASES = (
+    ("a_d2 128->128 k5", "down", 5, 1, 1, 128, 128, 128, 89),
+    ("mid0 256->256 k3 s2", "down", 3, 2, 1, 256, 256, 128, 89),
+    ("up1_conv 256->128 k3", "down", 3, 1, 1, 256, 128, 128, 89),
+    ("up1_up 128->64 k3 s2 transposed", "up", 3, 2, 1, 128, 64, 128, 89),
+    ("up2_conv 128->64 k3", "down", 3, 1, 1, 128, 64, 256, 178),
 )
 
 
@@ -418,6 +431,15 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     else:
         label, kind, k, st, d, cin, cout, h, w = case
         kh = kw = k
+        plan = inpaint_plan(kind, k, st, d, h, w, cin, cout)
+        if plan is not None:
+            route = (f"wgmma halo tile, {len(plan.phases)} phase(s), "
+                     f"{plan.rows} row(s) x pitch {plan.pitch} in "
+                     f"{plan.mt} m64 ({plan.m_share():.3f} of m rows used), "
+                     f"n {plan.n} x {plan.n_tiles}, {plan.groups} channel "
+                     f"group(s) a tap; L2->SM "
+                     f"{plan.tile_bytes(BATCH) / 1e9:.3f} GB, gather "
+                     f"{plan.gather_bytes(BATCH, h, w, cin) / 1e9:.3f} GB")
         if kind == "down":
             pad = (k - 1) // 2 * d
             ho, wo = ((n + 2 * pad - d * (k - 1) - 1) // st + 1 for n in (h, w))
@@ -574,8 +596,9 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
 # in this order (cuDNN's FFT convolutions run pointwise_mult_and_sum)
 CATEGORIES = (
     ("K5 int8_gemm", ("gemm_tma_s8",)),
+    ("K7 int8_inpaint", ("inpaint_halo_s8", "InpaintPad>")),
+    ("K7 int8_inpaint's gather (W reflect, phases)", ("inpaint_gather_s8",)),
     ("K6 int8_conv", ("conv_halo_s8", "SamePad>")),
-    ("K7 int8_inpaint", ("InpaintPad>",)),
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K3 crm_istft", ("crm_synthesis_pfa",)),
     ("K2 mask_gate", ("mask_gate_kernel",)),
@@ -621,7 +644,7 @@ def profile_call(pipe, x):
     cats = {}
     for name, ms in kernels.items():
         cats[_category(name)] = cats.get(_category(name), 0.0) + ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "categories_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),

@@ -19,9 +19,10 @@
 //
 // K6's blocks with Cin % 16 == 0 and a spatial kernel run on the Hopper
 // tile (int8_wgmma.cuh), with the halo design below
-// (`sos_int8_conv_same_halo`). K7, and K6's Cin = 2 first layers and 1x1
-// projections (`sos_int8_conv_same`), are the implicit GEMM of
-// int8_mma.cuh: row m is an output position (b, oh, ow) of the NHWC
+// (`sos_int8_conv_same_halo`); K7's on the same tile in int8_inpaint.cu.
+// K6's Cin = 2 first layers and 1x1 projections (`sos_int8_conv_same`),
+// and the K7 shapes ops/int8_conv.py `inpaint_plan` refuses
+// (`sos_int8_conv_inpaint`), are the implicit GEMM of int8_mma.cuh: row m is an output position (b, oh, ow) of the NHWC
 // output, k = tap * Cin + ci runs over the receptive field (tap = i * kw
 // + j), and the loader below gathers A(m, k) from the NHWC int8 input:
 //
@@ -453,8 +454,9 @@ extern "C" int sos_int8_conv_same(const int8_t* x, const int8_t* w,
   return (int)conv(x, w, B, h, wd, H, W, Cin, Cout, kh, kw, kpad, epi, st);
 }
 
-// K7: reflect-padded down conv (up = 0) or lhs-dilated up conv (up = 1,
-// stride = lhs dilation, pad = the leading pad, flipped weights).
+// K7 on the gather, for the shapes `inpaint_plan` refuses: reflect-padded
+// down conv (up = 0) or lhs-dilated up conv (up = 1, stride = lhs
+// dilation, pad = the leading pad, flipped weights).
 extern "C" int sos_int8_conv_inpaint(const int8_t* x, const int8_t* w,
                                      const float* ws, const float* bias,
                                      const float* alpha, int8_t* out, int B,

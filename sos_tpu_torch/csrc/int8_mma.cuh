@@ -1,6 +1,7 @@
-// The mma.sync int8 tile and the implicit GEMM built on it: K7, and K6's
-// Cin = 2 first layers and 1x1 projections. K5 and K6's other blocks run
-// on the Hopper tile of int8_wgmma.cuh.
+// The mma.sync int8 tile and the implicit GEMM built on it: K6's Cin = 2
+// first layers and 1x1 projections, and the K7 shapes that K7's Hopper
+// tile does not take. K5, K6's other blocks and K7 run on the Hopper tile
+// of int8_wgmma.cuh.
 //
 //   C (M, N) = A (M, K) * B^T,  A and B int8, C int32 (exact).
 //
@@ -24,7 +25,7 @@
 //
 // Bound on an H100: int8 tensor-core operations (1,979 dense TOPS) at
 // the main path's shapes, which legacy mma.sync cannot reach (only
-// wgmma can); K7's move to the Hopper tile is later work.
+// wgmma can).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,5 +1,5 @@
 // The Hopper int8 tile: wgmma on operands that TMA brings into a ring of
-// shared-memory stages (K5, and K6's blocks with Cin % 16 == 0).
+// shared-memory stages (K5, K6's blocks with Cin % 16 == 0, and K7).
 //
 //   C (M, N) = A (M, K) * B^T,  A and B int8, C int32 (exact).
 //
@@ -127,6 +127,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -336,17 +348,20 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tiled int8 map over a tensor of `rank` dimensions, innermost first:
 // `dims[i]` elements, `strides[i]` bytes between neighbours along
-// dimension i + 1, boxes of `box[i]` elements. Out-of-bounds reads give 0.
+// dimension i + 1, boxes of `box[i]` elements (of which a box takes every
+// `steps[i]`-th, default 1). Out-of-bounds reads give 0.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
                             const cuuint32_t* box,
                             CUtensorMapSwizzle swizzle =
-                                CU_TENSOR_MAP_SWIZZLE_NONE) {
+                                CU_TENSOR_MAP_SWIZZLE_NONE,
+                            const cuuint32_t* steps = nullptr) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
-                        const_cast<void*>(base), dims, strides, box, ones,
+                        const_cast<void*>(base), dims, strides, box,
+                        steps == nullptr ? ones : steps,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -61,6 +61,9 @@ SIGNATURES = {
     # x, w, w_s, bias, alpha, out, B, H, W, Cin, Ho, Wo, Cout, k, stride,
     # dil, pad, up, kpad, stream
     "sos_int8_conv_inpaint": (_P,) * 6 + (_I,) * 13 + (_P,),
+    # x, xg (gather scratch or NULL), w, w_s, bias, alpha, out, plan (host
+    # int32), B, H, W, Cin, Cout, kpad, stream
+    "sos_int8_inpaint_halo": (_P,) * 8 + (_I,) * 6 + (_P,),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel

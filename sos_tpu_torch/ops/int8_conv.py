@@ -10,11 +10,15 @@ Port of the convolutions of `sos_tpu/models/quant.py`:
   (`sos_int8_conv_same_halo`, wgmma on TMA-loaded input-row halos, its
   launch plan from `halo_plan`); the Cin = 2 first layers and the 1x1
   projections run on the `mma.sync` gather (`sos_int8_conv_same`).
-* K7 `inpaint_conv_int8` (`sos_int8_conv_inpaint`): the conv of
+* K7 `inpaint_conv_int8` (`csrc/int8_inpaint.cu`): the conv of
   `QuantizedDenoiser._inpaint_block_int8` (:457-517), a conv over a
   reflect-padded input ("down", stride 1/2, dilation 1-16) or the k3 s2
   transposed conv as an lhs-dilated conv with the flipped kernel and
   pads `up_pads(k)` ("up"), then `prelu(acc * w_s + b)` requantized.
+  Every full-width InpaintNet block runs on the Hopper tile
+  (`sos_int8_inpaint_halo`, its launch plan from `inpaint_plan`; up
+  blocks as four sub-pixel convs); the shapes the plan refuses on the
+  `mma.sync` gather (`sos_int8_conv_inpaint`).
 
 Layouts: activations NHWC `(B, H, W, C)` int8, contiguous; weights
 packed once by `pack_weight` into `(Cout, Kpad)` int8 with k = (i * kw +
@@ -305,6 +309,259 @@ def _inpaint_geometry(kind: str, k: int, s: int, d: int, h: int, w: int):
     return (lo, (h - 1) * s + lo + hi - k + 2, (w - 1) * s + lo + hi - k + 2)
 
 
+INPAINT_TILE_N = (16, 32, 64, 128)  # the kernel's wgmma widths
+INPAINT_M = 192        # m rows of an item: 3 consumer warpgroups x m64
+INPAINT_MAX_TAPS = 5   # kh taps of one output phase
+INPAINT_MAX_STAGES = 4
+INPAINT_SMEM = 232448 - 1024  # less the slack that aligns stages to 1 KB
+
+
+def subpixel_taps(k: int, ph: int) -> List[Tuple[int, int]]:
+    """(kernel tap i, input offset di) of output phase `ph` of the k x k
+    s2 transposed conv, from its lhs-dilated form: output 2a + ph reads
+    the flipped tap i at dilated position 2a + ph + i - lo, which is input
+    a + di when even and an inserted zero when odd. For k 3: phase 0
+    {(1, 0)}, phase 1 {(0, 0), (2, 1)}."""
+    lo = up_pads(k)[0]
+    return [(i, (ph + i - lo) // 2) for i in range(k)
+            if (ph + i - lo) % 2 == 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class InpaintPhase:
+    """One output phase of K7's Hopper tile: output row oh * os + ph,
+    column ow * os + pw (os 2 for up blocks, else 1; down blocks have
+    the one phase (0, 0)). `taps[t] = (i, off)`: stage t of a channel
+    group reads input row `oh * s_h + off` (reflected for down blocks,
+    zeros at H or beyond for up blocks) and the weights of kernel row i.
+    `boxes[x]`: B box x of a stage holds the 8 weight chunks (16 k bytes
+    each, 128-byte swizzled) from chunk boxes[x] of the kernel row on
+    (the kernel adds the channel group's first chunk). `steps[s] =
+    (a_off, a_lbo, box, slot)`: k32 step s reads A rows a_off + m and
+    a_off + a_lbo + m of the stage (m the item's m row) and chunks slot
+    and slot + 1 of B box `box`."""
+    ph: int
+    pw: int
+    taps: Tuple[Tuple[int, int], ...]
+    boxes: Tuple[int, ...]
+    steps: Tuple[Tuple[int, int, int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class InpaintPlan:
+    """Launch plan of K7's Hopper tile for one geometry (lengths in
+    positions, offsets in 16-byte shared-memory rows).
+
+    A stride-s down block reads its input in s W phase planes: plane p
+    holds padded columns p, p + s, ... Blocks with Cin % 16 != 0 (the
+    Cin = 2 input blocks) first copy the input (`gather`) into `(B, H,
+    nph * wh, cin_pad)`: column p * wh + q holds column q * nph + p of the
+    input reflect-padded by `pad_w` in W (zeros past the padded width),
+    channels zero-padded to `cin_pad` (the weights too, by
+    `pad_weight_channels`). The other blocks read their input as it is
+    (`wh` = 1): phase p's box takes every nph-th column from column p -
+    `lead` on, and for a down block (`lead` = `pad_w`) a patch warp
+    overwrites the pad_w padded columns at each end, which TMA filled
+    with zeros, with their reflections from the box's interior (in the
+    same phase plane). An item is `rows` output rows of one output
+    phase, one batch entry and one `n`-wide tile of Cout; output row r of
+    the item lies at m rows r * pitch .. r * pitch + wo - 1 of the item's
+    `mt` m64 tiles (the rows between are dropped in the epilogue). A
+    stage is one kh tap x one group of `cg` 16-channel chunks: per (W
+    phase p, chunk c) a plane of `rows * pitch` positions, `(p * cg + c)
+    * plane` on, in which output row r's `pitch` positions sit at r *
+    pitch (one TMA box a W phase holds all the rows' planes, or one box a
+    row and chunk where a row is reflected in H); from row `cg * nph *
+    plane` to `a_rows` zeros (the partner of a chunk with no neighbour,
+    and the slack the last m64 tile's reads reach); then, from byte
+    `b_offset`, the phase's B boxes of `n` x 128 bytes."""
+    kind: str
+    n: int
+    n_tiles: int
+    gather: bool
+    lead: int
+    s_h: int       # input rows per output row (a down block's stride)
+    cin_pad: int
+    nph: int
+    wh: int
+    pad_w: int
+    pitch: int
+    rows: int
+    mt: int
+    cg: int
+    groups: int
+    a_rows: int
+    b_offset: int
+    stage_bytes: int
+    stages: int
+    ho: int
+    wo: int
+    phases: Tuple[InpaintPhase, ...]
+    vector: np.ndarray = dataclasses.field(compare=False, repr=False)
+
+    @property
+    def plane(self) -> int:
+        return self.rows * self.pitch
+
+    def m_share(self) -> float:
+        """Share of the item's m rows that hold an output (full items)."""
+        return self.rows * self.wo / (64 * self.mt)
+
+    def tile_bytes(self, batch: int) -> int:
+        """Bytes the tile's TMA loads bring from L2 into shared memory for
+        `batch` inputs: per item and stage, the rows' boxes and the B
+        boxes."""
+        a = self.rows * self.cg * self.nph * self.pitch * 16
+        items = batch * -(-self.ho // self.rows) * self.n_tiles
+        return items * self.groups * sum(
+            len(f.taps) * (a + len(f.boxes) * self.n * 128)
+            for f in self.phases)
+
+    def gather_bytes(self, batch: int, h: int, w: int, cin: int) -> int:
+        """Device-memory bytes of the copy pass (`gather`): x read, the
+        copy written (and read again by the tile's loads)."""
+        if not self.gather:
+            return 0
+        return batch * h * (w * cin + self.nph * self.wh * self.cin_pad)
+
+
+def _inpaint_phases(kind, k, stride, dilation, pad):
+    """[(ph, pw, [(i, row offset)], [(j, W phase plane, offset)])] of
+    the output phases of one block."""
+    if kind == "down":
+        return [(0, 0, [(i, i * dilation - pad) for i in range(k)],
+                 [(j, j * dilation % stride, j * dilation // stride)
+                  for j in range(k)])]
+    return [(ph, pw, subpixel_taps(k, ph),
+             [(j, 0, dj) for j, dj in subpixel_taps(k, pw)])
+            for ph in (0, 1) for pw in (0, 1)]
+
+
+def _inpaint_steps(wtaps, cg, cpt, nph, plane):
+    """(boxes, steps) of one stage of a phase: its chunks in k order,
+    paired into k32 steps where two neighbours in k lie in one B box at an
+    even slot and the second's A rows lie above the first's (a
+    descriptor's LBO is positive); a chunk with no such neighbour pairs
+    with the zero rows. A box starts at a chunk that no open box holds at
+    an even slot."""
+    def addr(ch):  # first A row of chunk (k16, j, p, off, c)
+        return (ch[2] * cg + ch[4]) * plane + ch[3]
+    chunks = sorted((j * cpt + c, j, p, off, c) for j, p, off in wtaps
+                    for c in range(cg))
+    boxes, steps, t = [], [], 0
+    while t < len(chunks):
+        lo = chunks[t]
+        slot = lo[0] - boxes[-1] if boxes else -1
+        if not 0 <= slot < 8 or slot % 2:
+            boxes.append(lo[0])
+            slot = 0
+        hi = chunks[t + 1] if t + 1 < len(chunks) else None
+        if hi is not None and hi[0] == lo[0] + 1 and addr(hi) > addr(lo):
+            steps.append((addr(lo), addr(hi) - addr(lo), len(boxes) - 1,
+                          slot))
+            t += 2
+        else:
+            steps.append((addr(lo), cg * nph * plane + lo[3] - addr(lo),
+                          len(boxes) - 1, slot))
+            t += 1
+    return boxes, steps
+
+
+@functools.lru_cache(maxsize=None)
+def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
+                 w: int, cin: int, cout: int) -> Optional[InpaintPlan]:
+    """K7's Hopper-tile plan, or None for the shapes that stay on the
+    `mma.sync` gather: a Cout the tile has no width for (not a multiple of
+    16 up to 128, or of 128 above), a kernel wider than 5 taps, an output
+    row that does not fit one item's 192 m rows with its halo, up blocks
+    other than stride 2 with Cin % 16 == 0, or a stage too large for two
+    in shared memory. Cin = 2 (the input blocks) is padded to 16 channels
+    with zero weights behind them."""
+    n = min(cout, 128)
+    if n not in INPAINT_TILE_N or cout % n or k > INPAINT_MAX_TAPS:
+        return None
+    pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, w)
+    if kind == "up":
+        if stride != 2 or cin % 16 or min(d for ph in (0, 1)
+                                          for _, d in subpixel_taps(k, ph)) < 0:
+            return None
+        nph, cin_pad, wh, gather, lead = 1, cin, 1, False, 0
+        ho, wo = h, w
+    else:
+        nph, cin_pad, wh, gather, lead = stride, cin, 1, False, pad
+    s_h = stride if kind == "down" else 1
+    phases = _inpaint_phases(kind, k, stride, dilation, pad)
+    max_off = max(off for *_, wt in phases for _, _, off in wt)
+    pitch = -(-(wo + max_off) // 8) * 8   # 128-byte aligned boxes
+    if pitch > INPAINT_M:
+        return None
+    if kind == "down" and (cin % 16 or nph * pitch > 256):
+        # copy first: channels padded, or a W phase wider than a TMA box
+        # spans at a traversal stride (256 columns)
+        cin_pad, gather, lead = -(-cin // 16) * 16, True, 0
+        wh = -(-(w + 2 * pad) // stride)
+    rows = min(INPAINT_M // pitch, ho)
+    mt = -(-rows * pitch // 64)
+    plane = rows * pitch
+    cpt = cin_pad // 16
+
+    # the channel group that moves the fewest bytes a stage per input
+    # chunk with at least two stages a block (more stages on a tie)
+    best = None
+    for cg in (c for c in range(1, cpt + 1)
+               if cpt % c == 0 and (c % 2 == 0 or c == cpt)):
+        plans = [_inpaint_steps(wt, cg, cpt, nph, plane)
+                 for *_, wt in phases]
+        n_steps = max(len(st) for _, st in plans)
+        n_boxes = max(len(bx) for bx, _ in plans)
+        reach = max(a + lbo for _, st in plans for a, lbo, _, _ in st) \
+            + 64 * mt
+        a_rows = -(-max(cg * nph * plane, reach) // 8) * 8
+        b_offset = -(-a_rows * 16 // 1024) * 1024  # swizzle atoms: 1 KB
+        stage_bytes = b_offset + n_boxes * n * 128
+        stages = min(INPAINT_MAX_STAGES, INPAINT_SMEM // (stage_bytes + 24))
+        if n_steps > HALO_MAX_STEPS or stages < 2:
+            continue
+        moved = sum(rows * cg * nph * pitch * 16 + len(bx) * n * 128
+                    for bx, _ in plans) / cg
+        key = (moved, -stages)
+        if best is None or key < best[0]:
+            best = (key, cg, plans, a_rows, b_offset, stage_bytes, stages)
+    if best is None:
+        return None
+    _, cg, plans, a_rows, b_offset, stage_bytes, stages = best
+    phase_plans = tuple(InpaintPhase(ph, pw, tuple(ht), tuple(bx), tuple(st))
+                        for (ph, pw, ht, _), (bx, st) in zip(phases, plans))
+    vector = [n, cout // n, len(phases), nph, wh, pad, cin_pad, pitch,
+              rows, mt, cg, cpt // cg, k * cpt, a_rows, b_offset,
+              stage_bytes, stages, ho, wo, s_h, int(kind == "down"),
+              int(gather), lead]
+    for f in phase_plans:
+        taps = list(f.taps) + [(0, 0)] * (INPAINT_MAX_TAPS - len(f.taps))
+        pad_s = HALO_MAX_STEPS - len(f.steps)
+        vector += [f.ph, f.pw, len(f.taps), len(f.steps), len(f.boxes)]
+        vector += [i for i, _ in taps] + [off for _, off in taps]
+        vector += [s[0] for s in f.steps] + [0] * pad_s
+        vector += [s[1] for s in f.steps] + [0] * pad_s
+        vector += [bx * n * 8 + sl for _, _, bx, sl in f.steps] + [0] * pad_s
+        vector += list(f.boxes) + [0] * (HALO_MAX_STEPS - len(f.boxes))
+    return InpaintPlan(kind, n, cout // n, gather, lead, s_h, cin_pad, nph,
+                       wh, pad, pitch, rows, mt, cg, cpt // cg, a_rows,
+                       b_offset, stage_bytes, stages, ho, wo, phase_plans,
+                       np.array(vector, np.int32))
+
+
+def pad_weight_channels(w: torch.Tensor, k: int, cin: int,
+                        cin_pad: int) -> torch.Tensor:
+    """Packed `(Cout, Kpad)` for `cin` channels -> packed for `cin_pad`
+    channels, zeros behind the real ones (the tile's Cin = 2 blocks)."""
+    cout, taps = w.shape[0], k * k
+    out = w.new_zeros((cout, -(-taps * cin_pad // K_ALIGN) * K_ALIGN))
+    out[:, :taps * cin_pad].view(cout, taps, cin_pad)[..., :cin] = \
+        w[:, :taps * cin].reshape(cout, taps, cin)
+    return out
+
+
 def inpaint_conv_int8_plain(x: torch.Tensor, w: torch.Tensor,
                             w_s: torch.Tensor, b: torch.Tensor,
                             alpha: torch.Tensor, kind: str, k: int,
@@ -335,16 +592,30 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
         return inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, stride,
                                        dilation)
     _check("inpaint_conv_int8", x, w, w_s, b, k * k, (alpha,))
-    x = aligned16(x)
+    # both routes read x as packed NHWC and w as rows kpad bytes apart
+    x, w = aligned16(x), aligned16(w)
     bsz, h, wid, cin = x.shape
     pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, wid)
     cout = w.shape[0]
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        launch("int8_inpaint", "sos_int8_conv_inpaint",
-               *_ptrs(x, w.contiguous(), w_s.contiguous(), b.contiguous(),
-                      alpha.float().contiguous(), out),
-               bsz, h, wid, cin, ho, wo, cout, k, stride, dilation, pad,
-               int(kind == "up"), w.shape[1], stream)
+    plan = inpaint_plan(kind, k, stride, dilation, h, wid, cin, cout)
+    scalars = (w_s.contiguous(), b.contiguous(), alpha.float().contiguous())
+    with on_device(x.device) as stream:
+        if plan is None:
+            launch("int8_inpaint", "sos_int8_conv_inpaint",
+                   *_ptrs(x, w, *scalars, out), bsz, h, wid, cin, ho, wo,
+                   cout, k, stride, dilation, pad, int(kind == "up"),
+                   w.shape[1], stream)
+            return out
+        # the copied input (channels padded), written by the entry
+        # point's first kernel
+        xg = (torch.empty((bsz, h, plan.nph * plan.wh, plan.cin_pad),
+                          dtype=torch.int8, device=x.device)
+              if plan.gather else None)
+        if plan.cin_pad != cin:
+            w = pad_weight_channels(w, k, cin, plan.cin_pad)
+        launch("int8_inpaint", "sos_int8_inpaint_halo", x.data_ptr(),
+               None if xg is None else xg.data_ptr(),
+               *_ptrs(w, *scalars, out), plan.vector.ctypes.data, bsz, h,
+               wid, cin, cout, w.shape[1], stream)
     return out

@@ -162,6 +162,286 @@ def test_halo_plan_shapes(w, cin, ks, dil, nseg, nbox, rows):
         (plan.nseg - 1) * plan.seg_len - (ks[1] - 1) // 2 * dil[1]
 
 
+def _inpaint_geometries(ch):
+    """(block, kind, k, stride, dilation, Cin, Cout, H, W) of every
+    distinct InpaintNet block at full size (F 256 x T 178) for the
+    channel widths `ch` (sos_tpu/models/quant.py SPEC)."""
+    c0, c1, c2 = ch
+    return [
+        ("a_in", "down", 5, 1, 1, 2, c0, 256, 178),
+        ("a_d1", "down", 5, 2, 1, c0, c1, 256, 178),
+        ("a_d2", "down", 5, 1, 1, c1, c1, 128, 89),
+        ("mid0", "down", 3, 2, 1, 2 * c1, c2, 128, 89),
+        *[(f"mid_dil{d}", "down", 3, 1, d, c2, c2, 64, 45)
+          for d in (1, 2, 4, 8, 16)],
+        ("mid_up", "up", 3, 2, 1, c2, c1, 64, 45),
+        ("up1_conv", "down", 3, 1, 1, 2 * c1, c1, 128, 89),
+        ("up1_up", "up", 3, 2, 1, c1, c0, 128, 89),
+        ("up2_conv", "down", 3, 1, 1, 2 * c0, c0, 256, 178),
+    ]
+
+
+INPAINT_FULL = _inpaint_geometries((64, 128, 256))
+INPAINT_SMALL = _inpaint_geometries((16, 32, 64))  # the card test's model
+
+
+def test_inpaint_route_covers_every_block():
+    """At full width every InpaintNet block has a Hopper-tile plan (Cin 2
+    padded to 16 channels), and the small test model's too. Up blocks run
+    as four sub-pixel phases with 9 taps per 4 outputs, not the lhs-dilated
+    form's 36."""
+    for name, kind, k, s, d, cin, cout, h, w in INPAINT_FULL + INPAINT_SMALL:
+        plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, cin, cout)
+        assert plan is not None, name
+        if kind == "up":
+            assert len(plan.phases) == 4 and not plan.gather
+            assert sum(len(f.taps) * len(_w_taps(f, plan))
+                       for f in plan.phases) == 9
+        else:
+            assert len(plan.phases) == 1
+            assert plan.gather == (cin % 16 != 0)
+            assert plan.lead == (0 if plan.gather else (k - 1) // 2 * d)
+            assert plan.cin_pad == max(cin, 16)
+
+
+def _chunks(f, plan):
+    """Weight chunks (of the kernel row, group 0) that phase `f`'s steps
+    multiply by input: both of a step's, or only the first where the
+    second meets the zero rows."""
+    used = []
+    for a_off, a_lbo, bx, slot in f.steps:
+        used.append(f.boxes[bx] + slot)
+        if a_off + a_lbo < plan.cg * plan.nph * plan.plane:
+            used.append(f.boxes[bx] + slot + 1)
+    return used
+
+
+def _w_taps(f, plan):
+    """kw taps (j) whose weight chunks phase `f`'s steps read."""
+    return {c // (plan.cin_pad // 16) for c in _chunks(f, plan)}
+
+
+def _in_row(plan, h, oh, off):
+    """The input row a kernel's tap row loads (as `in_row` in the kernel:
+    reflected for down blocks, TMA zeros at h or beyond for up blocks and
+    for rows past the output)."""
+    if oh >= plan.ho:
+        return h
+    u = oh * plan.s_h + off
+    return _reflect(u, h) if plan.kind == "down" else u
+
+
+def _stage_rows(plan, h, oh0, off):
+    """Input row of each of an item's rows in a stage, as the kernel's
+    producer loads them: rows oh0 * s_h + off + r * s_h in one box (TMA
+    zeros outside [0, h)) unless a row the item outputs is reflected in H;
+    then one box a row (`_in_row`)."""
+    lo = oh0 * plan.s_h + off
+    last = min(oh0 + plan.rows, plan.ho) - 1
+    if plan.kind != "down" or (lo >= 0 and last * plan.s_h + off < h):
+        return [lo + r * plan.s_h for r in range(plan.rows)]
+    return [_in_row(plan, h, oh0 + r, off) for r in range(plan.rows)]
+
+
+def _reflect(u, n):
+    u = -u if u < 0 else u
+    return 2 * n - 2 - u if u >= n else u
+
+
+def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
+                         rng) -> np.ndarray:
+    """int64 NHWC sums of K7's Hopper tile, read as the kernel reads them.
+
+    A down block's input is first gathered as `inpaint_gather_s8` writes
+    it. Then per output phase, item (`plan.rows` output rows, one n-tile)
+    and stage (kh tap x channel group): the stage starts as stale bytes
+    (random) but for its zero rows, each kept row's TMA box of
+    `plan.pitch` positions lands in every (chunk, W phase) plane (zeros
+    out of bounds), the B boxes hold 8 weight chunks each (zeros past
+    Kpad), and the k32 steps read A rows a_off + m and a_off + a_lbo + m
+    for the item's m rows, times chunks slot and slot + 1 of their box.
+    Output row r of the item is m rows r * pitch .. r * pitch + wo - 1."""
+    bsz, h, wid, cin = x.shape
+    cout = w.shape[0]
+    if plan.cin_pad != cin:
+        w = int8_conv.pad_weight_channels(torch.from_numpy(w), k, cin,
+                                          plan.cin_pad).numpy()
+    w = np.concatenate([w, np.zeros((cout, 256), np.int8)], 1)  # past Kpad
+    kpad = w.shape[1] - 256
+    if plan.gather:
+        cols = plan.nph * plan.wh
+        xs = np.zeros((bsz, h, cols, plan.cin_pad), np.int8)
+        for col in range(cols):
+            u = col % plan.wh * plan.nph + col // plan.wh
+            if u < wid + 2 * plan.pad_w:
+                iw = abs(u - plan.pad_w)
+                xs[:, :, col, :cin] = x[:, :, iw if iw < wid else
+                                        2 * wid - 2 - iw]
+    else:
+        xs = x
+    os_ = 2 if len(plan.phases) > 1 else 1
+    out = np.zeros((bsz, plan.ho * os_, plan.wo * os_, cout), np.int64)
+    m = np.arange(64 * plan.mt)
+    r_of, ow_of = m // plan.pitch, m % plan.pitch
+    cpt = plan.cin_pad // 16
+    zero_from = plan.cg * plan.nph * plan.plane
+    for f in plan.phases:
+        for oh0 in range(0, plan.ho, plan.rows):
+            keep = (r_of < plan.rows) & (oh0 + r_of < plan.ho) \
+                & (ow_of < plan.wo)
+            for nt in range(plan.n_tiles):
+                wn = w[nt * plan.n:(nt + 1) * plan.n]
+                acc = np.zeros((bsz, m.size, plan.n), np.int64)
+                for i, off in f.taps:
+                    for g in range(plan.groups):
+                        stage = rng.integers(-128, 128, (bsz, plan.a_rows, 16)
+                                             ).astype(np.float32)
+                        stage[:, zero_from:] = 0
+                        for r, ih in enumerate(_stage_rows(plan, h, oh0, off)):
+                            for c in range(plan.cg):
+                                for q in range(plan.nph):
+                                    at = (q * plan.cg + c) * plan.plane \
+                                        + r * plan.pitch
+                                    box = np.zeros((bsz, plan.pitch, 16))
+                                    col0 = q * plan.wh - plan.lead
+                                    step = 1 if plan.gather else plan.nph
+                                    ch = 16 * (g * plan.cg + c)
+                                    for e in range(plan.pitch):
+                                        col = col0 + e * step
+                                        if 0 <= ih < h and \
+                                                0 <= col < xs.shape[2]:
+                                            box[:, e] = xs[:, ih, col,
+                                                           ch:ch + 16]
+                                    _patch_reflect(box, plan.lead, wid,
+                                                   plan.nph, q)
+                                    stage[:, at:at + plan.pitch] = box
+                        kc = i * k * cpt + g * plan.cg
+                        for a_off, a_lbo, bx, slot in f.steps:
+                            a = np.concatenate([stage[:, a_off + m],
+                                                stage[:, a_off + a_lbo + m]],
+                                               -1)
+                            k0 = 16 * (kc + f.boxes[bx] + slot)
+                            assert 16 * (kc + f.boxes[bx] + 8) <= kpad + 256
+                            bmat = wn[:, k0:k0 + 32].astype(np.float32)
+                            # exact: a step's sums stay below 2^24
+                            acc += (a @ bmat.T).astype(np.int64)
+                oh = oh0 + r_of[keep]
+                out[:, oh * os_ + f.ph, ow_of[keep] * os_ + f.pw,
+                    nt * plan.n:(nt + 1) * plan.n] = acc[:, keep]
+    return out
+
+
+def _patch_reflect(box, pad, wid, s, q):
+    """The kernel's patch warp on W phase q's box of one row (down blocks
+    that read their input as it is): padded column v of the pad at
+    either end, TMA's zero at position v // s when v % s == q, becomes
+    its reflection v2, from the same phase plane's interior."""
+    for e in range(2 * pad):
+        v = e if e < pad else wid + e
+        v2 = 2 * pad - e if e < pad else 2 * (wid + pad - 1) - v
+        if v % s == q:
+            assert v2 % s == q and pad <= v2 < wid + pad
+            box[:, v // s] = box[:, v2 // s]
+
+
+def _inpaint_reference_acc(x, w, kind, k, s, d):
+    xd = torch.from_numpy(x).permute(0, 3, 1, 2).double()
+    wd = int8_conv.unpack_weight(torch.from_numpy(w), k, k, x.shape[-1])
+    if kind == "down":
+        pad = (k - 1) // 2 * d
+        return torch.nn.functional.conv2d(
+            torch.nn.functional.pad(xd, (pad,) * 4, mode="reflect"), wd,
+            stride=s, dilation=d)
+    lo, hi = int8_conv.up_pads(k)
+    return torch.nn.functional.conv2d(int8_conv.lhs_dilate(xd, s, lo, hi), wd)
+
+
+def _check_inpaint_plan(plan):
+    assert plan.pitch % 8 == 0 and plan.pitch <= 192
+    assert plan.rows * plan.pitch <= 64 * plan.mt <= 192
+    assert plan.stages >= 2
+    assert plan.stages * (plan.stage_bytes + 24) <= int8_conv.INPAINT_SMEM
+    assert plan.cg * plan.groups * 16 == plan.cin_pad
+    boxes = max(len(f.boxes) for f in plan.phases)
+    assert plan.b_offset % 1024 == 0 and plan.b_offset >= plan.a_rows * 16
+    assert plan.stage_bytes % 1024 == 0
+    assert plan.stage_bytes >= plan.b_offset + boxes * plan.n * 128
+    cpt = plan.cin_pad // 16
+    for f in plan.phases:
+        assert len(f.taps) <= int8_conv.INPAINT_MAX_TAPS
+        assert len(f.steps) <= int8_conv.HALO_MAX_STEPS
+        for a_off, a_lbo, _, slot in f.steps:
+            assert 0 < a_lbo < 1 << 14  # the descriptor's 14-bit LBO
+            assert a_off + a_lbo + 64 * plan.mt <= plan.a_rows
+            assert slot % 2 == 0 and 0 <= slot < 8
+        # every chunk of the group's kw taps once
+        assert sorted(_chunks(f, plan)) == sorted(
+            j * cpt + c for j in _w_taps(f, plan) for c in range(plan.cg))
+
+
+def _inpaint_case(kind, k, s, d, cin, cout, h, w, batch, seed):
+    rng = np.random.default_rng(seed)
+    plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, cin, cout)
+    _check_inpaint_plan(plan)
+    x = rng.integers(-127, 128, (batch, h, w, cin), dtype=np.int8)
+    taps = k * k * cin
+    wq = np.zeros((cout, -(-taps // 64) * 64), np.int8)
+    wq[:, :taps] = rng.integers(-127, 128, (cout, taps), dtype=np.int8)
+    acc = emulate_inpaint_conv(x, wq, k, plan, rng)
+    ref = _inpaint_reference_acc(x, wq, kind, k, s, d)
+    np.testing.assert_array_equal(acc, ref.permute(0, 2, 3, 1).numpy())
+    w_s = torch.from_numpy((rng.random(cout, np.float32) + 0.5) * 0.01
+                           / np.float32(taps ** 0.5))
+    b = torch.from_numpy(rng.standard_normal(cout, np.float32) * 20)
+    alpha = torch.tensor([0.2])
+    got = int8_conv._epilogue(torch.from_numpy(acc).permute(0, 3, 1, 2)
+                              .double(), w_s, b, alpha, False)
+    assert torch.equal(got, int8_conv.inpaint_conv_int8_plain(
+        torch.from_numpy(x), torch.from_numpy(wq), w_s, b, alpha, kind, k, s,
+        d))
+
+
+def _test_rows(kind, k, s, d, batch):
+    """Rows enough to reach both H edges and the interior between them;
+    odd at batch 1, even at batch 3 (up blocks: 7 and 8)."""
+    if kind == "up":
+        return 7 if batch == 1 else 8
+    pad = (k - 1) // 2 * d
+    return (2 * pad + 3) * s + (batch == 3)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("name,kind,k,s,d,cin,cout,h,w", INPAINT_FULL,
+                         ids=[g[0] for g in INPAINT_FULL])
+def test_inpaint_plan_reads_give_the_plain_conv(batch, name, kind, k, s, d,
+                                                cin, cout, h, w):
+    """K7's plan at every InpaintNet geometry, at the real widths."""
+    _inpaint_case(kind, k, s, d, cin, cout, _test_rows(kind, k, s, d, batch),
+                  w, batch, seed=cin + cout + 7 * d + s + batch)
+
+
+@pytest.mark.parametrize("name,kind,k,s,d,cin,cout,h,w", INPAINT_SMALL,
+                         ids=[g[0] for g in INPAINT_SMALL])
+def test_inpaint_plan_small_model_gives_the_plain_conv(name, kind, k, s, d,
+                                                       cin, cout, h, w):
+    """K7's plan at the small card-test model's widths (16, 32, 64)."""
+    _inpaint_case(kind, k, s, d, cin, cout, _test_rows(kind, k, s, d, 3),
+                  w, 2, seed=cin * cout + d)
+
+
+@pytest.mark.parametrize("kind,k,s,d,cin,cout,h,w", [
+    ("down", 3, 1, 4, 32, 32, 5, 5),    # pad = W - 1 = H - 1: widest reflect
+    ("down", 5, 2, 1, 16, 16, 3, 3),    # stride 2, pad = W - 1
+    ("up", 3, 2, 1, 32, 16, 1, 1),      # one input position
+    ("up", 3, 2, 1, 64, 256, 6, 7),     # odd W, even H, two n-tiles
+    ("up", 3, 2, 1, 16, 32, 5, 4),      # Cin 16: odd chunk counts
+    ("down", 5, 2, 1, 2, 16, 9, 11),    # Cin 2 padded to 16, stride 2
+    ("down", 3, 1, 2, 6, 32, 8, 8),     # Cin 6 padded to 16, stride 1
+])
+def test_inpaint_plan_edges(kind, k, s, d, cin, cout, h, w):
+    _inpaint_case(kind, k, s, d, cin, cout, h, w, 2, seed=h * w + d)
+
+
 @pytest.mark.parametrize("m,k,n", int8_gemm.SWEEP_SHAPES)
 def test_gemm_plan_tile_sums_give_the_plain_product(m, k, n):
     """K5's plan at every sweep shape: its tiles cover (M, N), and the

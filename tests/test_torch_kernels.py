@@ -343,24 +343,73 @@ def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
                        int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil))
 
 
+# every distinct full-width InpaintNet block (sos_tpu/models/quant.py SPEC
+# at channels 64/128/256, F 256 x T 178): kind, k, stride, dilation, Cin,
+# Cout, (H, W)
+INPAINT_FULL = [
+    ("down", 5, 1, 1, 2, 64, (256, 178)),      # a_in, b_in
+    ("down", 5, 2, 1, 64, 128, (256, 178)),    # a_d1, b_d1
+    ("down", 5, 1, 1, 128, 128, (128, 89)),    # a_d2, b_d2
+    ("down", 3, 2, 1, 256, 256, (128, 89)),    # mid0
+    *[("down", 3, 1, d, 256, 256, (64, 45)) for d in (1, 2, 4, 8, 16)],
+    ("up", 3, 2, 1, 256, 128, (64, 45)),       # mid_up
+    ("down", 3, 1, 1, 256, 128, (128, 89)),    # up1_conv
+    ("up", 3, 2, 1, 128, 64, (128, 89)),       # up1_up
+    ("down", 3, 1, 1, 128, 64, (256, 178)),    # up2_conv
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,k,s,d,cin,cout,hw", [
-    ("down", 5, 1, 1, 2, 64, (256, 178)),
-    ("down", 5, 2, 1, 64, 128, (256, 178)),
-    ("down", 3, 1, 16, 256, 256, (64, 45)),
-    ("down", 3, 2, 1, 256, 256, (128, 89)),
-    ("up", 3, 2, 1, 256, 128, (32, 23)),
-    ("up", 3, 2, 1, 6, 4, (9, 7)),
+@pytest.mark.parametrize("batch,kind,k,s,d,cin,cout,hw", [
+    *[(bt, *g) for g in INPAINT_FULL for bt in (1, 3)],
+    (2, "up", 3, 2, 1, 256, 128, (32, 23)),   # odd W
+    (2, "up", 3, 2, 1, 128, 64, (33, 21)),    # odd H and W
+    (2, "down", 3, 1, 4, 32, 32, (5, 5)),     # reflect pad = W - 1
+    (2, "down", 3, 2, 2, 6, 32, (21, 14)),    # Cin 6 padded to 16
+    (2, "up", 3, 2, 1, 6, 4, (9, 7)),         # gather: Cout 4
+    (2, "down", 5, 2, 1, 2, 8, (30, 20)),     # gather: Cout 8
 ])
-def test_inpaint_conv_kernel_exact(cuda_device, kind, k, s, d, cin, cout, hw):
-    gen = torch.Generator().manual_seed(cin + cout + d)
-    x = _int8((2, *hw, cin), gen, cuda_device)
+def test_inpaint_conv_kernel_exact(cuda_device, batch, kind, k, s, d, cin,
+                                   cout, hw):
+    """K7 on the Hopper tile at every full-width InpaintNet block, and on
+    the gather for the Couts the tile has no width for."""
+    gen = torch.Generator().manual_seed(cin + cout + d + batch)
+    x = _int8((batch, *hw, cin), gen, cuda_device)
     w, w_s, b = _epilogue_params(cout, k * k * cin, gen, cuda_device)
     alpha = torch.tensor([0.2], device=cuda_device)
+    assert (int8_conv.inpaint_plan(kind, k, s, d, *hw, cin, cout) is None) \
+        == (cout % 16 != 0)
+    before = LAUNCHES["int8_inpaint"]
     got = int8_conv.inpaint_conv_int8(x, w, w_s, b, alpha, kind, k, s, d)
+    assert LAUNCHES["int8_inpaint"] == before + 1
     ref = int8_conv.inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, s, d)
     assert got.shape == ref.shape
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,k,s,d,cin,cout,hw", [
+    ("down", 3, 1, 16, 256, 256, (64, 45)),
+    ("down", 5, 2, 1, 64, 128, (64, 178)),
+    ("up", 3, 2, 1, 256, 128, (64, 45)),
+    ("down", 5, 1, 1, 2, 64, (64, 178)),
+])
+def test_inpaint_conv_kernel_takes_strided_views(cuda_device, kind, k, s, d,
+                                                 cin, cout, hw):
+    """K7 on an input that is a channel slice of a wider tensor and weights
+    that are a column slice of a wider packing."""
+    gen = torch.Generator().manual_seed(cin + cout + d)
+    x = _int8((2, *hw, cin + 16), gen, cuda_device)[..., 16:]
+    w, w_s, b = _epilogue_params(cout, k * k * cin, gen, cuda_device)
+    wide = torch.zeros(cout, w.shape[1] + 64, dtype=torch.int8,
+                       device=cuda_device)
+    wide[:, 64:] = w
+    w_view = wide[:, 64:]
+    alpha = torch.tensor([0.2], device=cuda_device)
+    assert not x.is_contiguous() and not w_view.is_contiguous()
+    assert torch.equal(
+        int8_conv.inpaint_conv_int8(x, w_view, w_s, b, alpha, kind, k, s, d),
+        int8_conv.inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, s, d))
 
 
 @pytest.mark.cuda
