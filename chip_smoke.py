@@ -10,6 +10,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
 1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build: the kernels from `sos_tpu_torch/csrc/` with nvcc, timed;
 3. kernels: K1-K4 and K6-K7 at the main path's shapes (128 clips),
+   K1-K3 also in CUDA graphs (device time without the host's dispatch),
+   K4 per case with its plan (rows a block, cluster, blocks) and the
+   card's answer to cudaOccupancyMaxActiveClusters, beside cuDNN's
+   `nn.LSTM` in fp32 less its identity input projections (its library
+   time) and with TF32 allowed,
    each against its plain PyTorch version on the card (K6 and K7
    exactly, in every loader and epilogue form the main path runs, K6 on
    both its routes: the wgmma halo tile and the mma.sync gather; K7 on
@@ -56,7 +61,7 @@ from sos_tpu_torch.infer.fused import FusedDenoisePipeline
 from sos_tpu_torch.kernels import LAUNCHES, library, reset_launches
 from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
-from sos_tpu_torch.models.layers import init_state_dict
+from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
                                          halo_plan, inpaint_conv_int8,
                                          inpaint_conv_int8_plain, inpaint_plan,
@@ -64,7 +69,8 @@ from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
-from sos_tpu_torch.ops.lstm import bilstm_recurrence, bilstm_recurrence_plain
+from sos_tpu_torch.ops.lstm import (bilstm_recurrence, bilstm_recurrence_plain,
+                                    max_active_clusters, recurrence_plan)
 
 SEED = 0
 BATCH = 128          # clips in the kernel and throughput phases
@@ -204,7 +210,8 @@ def phase_kernels(gen: torch.Generator):
     err, ok = within(got, ref, 1e-4, 1e-4)
     window = torch.from_numpy(padded_window(nf, win).astype(np.float32)).to(dev)
     flops = BATCH * frames * pfa_flops_per_frame(inverse=False)
-    log(f"stft: factorized transform {flops / 1e9:.3f} GFLOP fp32")
+    log(f"stft: factorized transform {flops / 1e9:.3f} GFLOP fp32; device "
+        f"{graph_ms(lambda: stft_cat(y)):.4f} ms (in a CUDA graph)")
     record("stft", "sos_tpu_torch/csrc/stft.cu", "sos_tpu/dsp/stft.py:139",
            err, ok, "atol 1e-4 + rtol 1e-4",
            time_ms(lambda: stft_cat(y)), time_ms(lambda: stft_cat_plain(y)),
@@ -220,12 +227,15 @@ def phase_kernels(gen: torch.Generator):
     got, ref = mask_gate(y, bits, ratio), mask_gate_plain(y, bits, ratio)
     torch.cuda.synchronize()
     exact = bool(torch.equal(got, ref))
+    k2_ms = time_ms(lambda: mask_gate(y, bits, ratio))
+    log(f"mask_gate: device {graph_ms(lambda: mask_gate(y, bits, ratio)):.4f} "
+        f"ms (in a CUDA graph), eager {k2_ms:.4f} ms")
     record("mask_gate", "sos_tpu_torch/csrc/mask_gate.cu",
            "sos_tpu/dsp/mixing.py:285", float((got - ref).abs().max()), exact,
-           "exact", time_ms(lambda: mask_gate(y, bits, ratio)),
+           "exact", k2_ms,
            time_ms(lambda: mask_gate_plain(y, bits, ratio)), None,
            BATCH * CLIP * 4.0,
-           4.0 * (2 * BATCH * CLIP + BATCH * 60 + 2 * CLIP),
+           4.0 * (2 * BATCH * CLIP + BATCH * 60 + CLIP),
            shape="bits (128, 60), mixed (128, 28000) -> (128, 28000)")
 
     # K3 — cRM recover + iSTFT: (128, 178, 512) x 2 -> (128, 27966)
@@ -236,7 +246,9 @@ def phase_kernels(gen: torch.Generator):
     err, ok = within(got, ref, 1e-4, 1e-4)
     clean = torch.complex(spec[..., :bins], spec[..., bins:]).transpose(1, 2)
     flops = BATCH * frames * pfa_flops_per_frame(inverse=True)
-    log(f"crm_istft: factorized transform {flops / 1e9:.3f} GFLOP fp32")
+    log(f"crm_istft: factorized transform {flops / 1e9:.3f} GFLOP fp32; "
+        f"device {graph_ms(lambda: crm_istft(crm, spec)):.4f} ms (in a CUDA "
+        "graph)")
     record("crm_istft", "sos_tpu_torch/csrc/crm_istft.cu",
            "sos_tpu/dsp/stft.py:169", err, ok, "atol 1e-4 + rtol 1e-4",
            time_ms(lambda: crm_istft(crm, spec)),
@@ -258,11 +270,21 @@ def phase_kernels(gen: torch.Generator):
         bnd = 1.0 / hidden ** 0.5
         w_f = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
         w_b = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
+        plan = recurrence_plan(BATCH, hidden)
+        held = max_active_clusters(plan)
+        clusters = plan.blocks // plan.cluster
+        log(f"bilstm T{steps}/H{hidden} plan: {plan.bt} rows a block, "
+            f"cluster {plan.cluster}, {plan.blocks} blocks ({clusters} "
+            f"clusters) of {plan.threads} threads, units "
+            f"{[n for _, n in plan.units]}, {plan.smem_bytes} B shared; "
+            f"cudaOccupancyMaxActiveClusters {held} -> "
+            f"{'one wave' if clusters <= held else 'MORE THAN ONE WAVE'}")
         got = bilstm_recurrence(xp_f, xp_b, w_f, w_b)
         ref = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
         torch.cuda.synchronize()
         err, ok = within(got, ref, 5e-5, 0.0)
-        # cuDNN on the same function: identity input weights, zero biases
+        # cuDNN on the same function: identity input weights, zero biases;
+        # it also runs the two identity input projections, timed apart
         lstm = torch.nn.LSTM(g4, hidden, batch_first=True,
                              bidirectional=True).to(dev)
         with torch.no_grad():
@@ -278,17 +300,26 @@ def phase_kernels(gen: torch.Generator):
         def cudnn():
             with torch.no_grad():
                 return lstm(xp_f)
+
+        def projections():
+            return torch.matmul(xp_f, eye), torch.matmul(xp_f, eye)
         ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b))
         plain_ms = time_ms(lambda: bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b),
                            reps=3, warmup=1)
-        lib_ms = time_ms(cudnn)
+        with exact_fp32():
+            fp32_ms, proj_ms = time_ms(cudnn), time_ms(projections)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            tf32_ms = time_ms(cudnn)
+        lib_ms = fp32_ms - proj_ms
         flops = 2.0 * BATCH * steps * (2 * hidden * g4 + 10 * hidden)
         nbytes = 4.0 * (2 * BATCH * steps * g4 + 2 * g4 * hidden
                         + BATCH * steps * 2 * hidden)
         log(f"bilstm T{steps}/H{hidden}: max_abs_err {err:.3e} (tolerance "
             f"atol 5e-5) {'ok' if ok else 'FAILED'}  kernel {ms:.4f} ms "
             f"({ms / steps * 1e3:.2f} us/step)  plain {plain_ms:.4f} ms  "
-            f"cuDNN {lib_ms:.4f} ms")
+            f"cuDNN nn.LSTM fp32 {fp32_ms:.4f} ms (TF32 allowed: "
+            f"{tf32_ms:.4f} ms) - its identity input projections fp32 "
+            f"{proj_ms:.4f} ms = recurrence {lib_ms:.4f} ms (library_ms)")
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("flops", flops),
                          ("bytes", nbytes)):
@@ -602,7 +633,7 @@ CATEGORIES = (
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K3 crm_istft", ("crm_synthesis_pfa",)),
     ("K2 mask_gate", ("mask_gate_kernel",)),
-    ("K4 bilstm", ("bilstm_kernel",)),
+    ("K4 bilstm", ("bilstm_cluster_kernel",)),
     ("elementwise (BN, activations, casts, copies)",
      ("elementwise_kernel", "copy_kernel", "CatArrayBatchedCopy")),
     ("convolutions", ("conv", "cudnn", "fprop", "dgrad", "winograd",

@@ -9,53 +9,126 @@
 //
 // with pair[f] = (1-bits[f]) * (1-bits[f+1]) for interior gaps and
 // pair[F-1] = 1-bits[F-1] for the final gap + tail. The geometry (which
-// frame's body covers sample i, which gap it is) comes from two int32
-// tables the host builds in float64 from `frame_sample_matrix` and
-// `_despeckle_gap_matrix`, exactly as sos_tpu does; -1 means "none". The
-// device never recomputes f * ratio in float32.
+// frame's body covers sample i, which gap it is) is one int32 word a
+// sample, two int16 halves (body frame low, gap pair high; -1 = none),
+// that the host builds in float64 from `frame_sample_matrix` and
+// `_despeckle_gap_matrix`, exactly as sos_tpu does. The device never
+// recomputes f * ratio in float32.
 //
 // Values are 0/1 masks times `mixed`, so the result equals the plain
 // version exactly.
 //
-// Bound on an H100: bytes. Per sample it reads mixed and two table
-// entries (the tables and bits stay in L1/L2) and writes one float: at
-// 128 clips x 28000 samples, ~29 MB of traffic, ~9 us at 3.35 TB/s.
-// One thread per sample, a 2-D grid (samples, clips), coalesced.
+// Bound on an H100: bytes. mixed is read and out written once (28.7 MB
+// at 128 clips x 28000 samples, ~8.6 us at 3.35 TB/s). Design: a block
+// covers a span of samples for kRows clip rows, so it reads the span's
+// geometry once for all of them; the rows' 1 - bits sit in shared
+// memory; a thread moves four samples (16 bytes) of each row, its
+// kRows loads issued before any store. Rows whose length is not a
+// multiple of 4 (or pointers off 16 bytes) take the scalar route, one
+// sample a thread.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-__global__ void mask_gate_kernel(const float* __restrict__ mixed,
-                                 const float* __restrict__ bits,
-                                 const int* __restrict__ body_frame,
-                                 const int* __restrict__ gap_pair,
-                                 float* __restrict__ out, int L, int F) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L) return;
-  const int b = blockIdx.y;
-  const float* row_bits = bits + (size_t)b * F;
-  const int f = __ldg(body_frame + i);
-  const int g = __ldg(gap_pair + i);
+constexpr int kThreads = 256;
+constexpr int kRows = 8;
+
+__device__ __forceinline__ float gate_of(const float* inv, int word, int F) {
+  const int f = (int)(short)(word & 0xffff);
+  const int g = word >> 16;
   float m = 0.f;
-  if (f >= 0) m = 1.f - __ldg(row_bits + f);
+  if (f >= 0) m = inv[f];
   if (g >= 0) {
-    float p = 1.f - __ldg(row_bits + g);
-    if (g < F - 1) p *= 1.f - __ldg(row_bits + g + 1);
+    float p = inv[g];
+    if (g < F - 1) p *= inv[g + 1];
     m += p;
   }
-  const size_t idx = (size_t)b * L + i;
-  out[idx] = __ldg(mixed + idx) * m;
+  return m;
+}
+
+// grid (spans of kThreads * VEC samples, groups of kRows rows);
+// dynamic shared memory kRows * F floats
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    mask_gate_kernel(const float* __restrict__ mixed,
+                     const float* __restrict__ bits,
+                     const int* __restrict__ geom, float* __restrict__ out,
+                     int B, int L, int F) {
+  extern __shared__ float inv[];  // (rows, F): 1 - bits
+  const int r0 = blockIdx.y * kRows;
+  const int rows = min(kRows, B - r0);
+  for (int i = threadIdx.x; i < rows * F; i += kThreads)
+    inv[i] = 1.f - __ldg(bits + (size_t)r0 * F + i);
+  __syncthreads();
+  const int v = blockIdx.x * kThreads + threadIdx.x;
+  if constexpr (VEC == 4) {
+    if (v >= (L >> 2)) return;
+    const int4 w = __ldg(reinterpret_cast<const int4*>(geom) + v);
+    const float4* src = reinterpret_cast<const float4*>(mixed + (size_t)r0 * L) + v;
+    float4* dst = reinterpret_cast<float4*>(out + (size_t)r0 * L) + v;
+    const int row4 = L >> 2;
+    float4 x[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows) x[r] = __ldg(src + (size_t)r * row4);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) break;
+      const float* row_inv = inv + r * F;
+      float4 y;
+      y.x = x[r].x * gate_of(row_inv, w.x, F);
+      y.y = x[r].y * gate_of(row_inv, w.y, F);
+      y.z = x[r].z * gate_of(row_inv, w.z, F);
+      y.w = x[r].w * gate_of(row_inv, w.w, F);
+      dst[(size_t)r * row4] = y;
+    }
+  } else {
+    if (v >= L) return;
+    const int w = __ldg(geom + v);
+    float x[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows) x[r] = __ldg(mixed + (size_t)(r0 + r) * L + v);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) break;
+      out[(size_t)(r0 + r) * L + v] = x[r] * gate_of(inv + r * F, w, F);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int VEC>
+cudaError_t launch(const float* mixed, const float* bits, const int* geom,
+                   float* out, int B, int L, int F, cudaStream_t stream) {
+  const int smem = kRows * F * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mask_gate_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int units = VEC == 4 ? L / 4 : L;
+  const dim3 grid((units + kThreads - 1) / kThreads, (B + kRows - 1) / kRows);
+  mask_gate_kernel<VEC><<<grid, kThreads, smem, stream>>>(mixed, bits, geom,
+                                                          out, B, L, F);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int sos_mask_gate(const float* mixed, const float* bits,
-                             const int* body_frame, const int* gap_pair,
-                             float* out, int B, int L, int num_frames,
-                             void* stream) {
-  constexpr int kThreads = 256;
-  const dim3 grid((L + kThreads - 1) / kThreads, B);
-  mask_gate_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      mixed, bits, body_frame, gap_pair, out, L, num_frames);
+                             const int* geom, float* out, int B, int L,
+                             int num_frames, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = (L & 3) == 0 && aligned16(mixed) && aligned16(out) &&
+                   aligned16(geom);
+  const cudaError_t err =
+      vec ? launch<4>(mixed, bits, geom, out, B, L, num_frames, s)
+          : launch<1>(mixed, bits, geom, out, B, L, num_frames, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,9 @@ Reproduces the reference's mask quirks (m1 tools.py:770-792) exactly as
   frames are silent, and the final gap + tail flips iff the last frame is.
 
 Kernel K2 (`mask_gate`, `csrc/mask_gate.cu`) fuses the mask with the gate
-multiply `mixed * mask`. Its geometry tables are built here on the host
-in float64 from the same matrices `sos_tpu` uses.
+multiply `mixed * mask`. Its geometry table (two int16 halves a sample)
+is built here on the host in float64 from the same matrices `sos_tpu`
+uses.
 
 Not ported yet: the >2^24-element gather-map path (`_frame_sample_maps`)
 and `mix_at_snr`; the slice's 60 x 28000 clips never reach them.
@@ -20,16 +21,18 @@ and `mix_at_snr`; the slice's 60 x 28000 clips never reach them.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
-from sos_tpu_torch.kernels import launch
+from sos_tpu_torch.kernels import aligned16, launch, on_device
 
 # Above this many (num_frames * num_samples) elements sos_tpu swaps the
 # dense matrices for O(num_samples) gather maps; that path is not ported.
 _DENSE_MASK_MAX_ELEMS = 1 << 24
+# K2 keeps 8 rows of bits in a block's 227 KB of shared memory
+_MAX_GATE_FRAMES = 232448 // (8 * 4)
 
 
 def _check_dense(num_frames: int, num_samples: int) -> None:
@@ -95,10 +98,15 @@ def _column_owner(mat: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _gate_tables(num_frames: int, num_samples: int, ratio: float,
-                 min_run: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2's geometry: per sample, the frame whose body covers it and the
-    gap pair that gates it (int32, -1 = none), on `device`."""
+                 min_run: int, device: torch.device) -> torch.Tensor:
+    """K2's geometry on `device`: one int32 word a sample, the frame whose
+    body covers it in the low int16 and the gap pair that gates it in the
+    high int16 (-1 = none; frames < 32,768)."""
     _check_dense(num_frames, num_samples)
+    if num_frames > _MAX_GATE_FRAMES:
+        raise ValueError(f"mask_gate: {num_frames} frames exceed the "
+                         f"kernel's {_MAX_GATE_FRAMES} (int16 tables, one "
+                         "block's shared memory)")
     gap = _despeckle_gap_matrix(num_frames, num_samples, ratio, min_run)
     if gap is None:
         raise NotImplementedError(
@@ -107,7 +115,8 @@ def _gate_tables(num_frames: int, num_samples: int, ratio: float,
             "the CPU")
     body = _column_owner(frame_sample_matrix(num_frames, num_samples, ratio))
     pair = _column_owner(gap)
-    return (torch.from_numpy(body).to(device), torch.from_numpy(pair).to(device))
+    words = (pair.astype(np.int64) << 16) | (body.astype(np.int64) & 0xFFFF)
+    return torch.from_numpy(words.astype(np.int32)).to(device)
 
 
 def despeckle_mask(mask: torch.Tensor, min_run: int = 5) -> torch.Tensor:
@@ -166,14 +175,14 @@ def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
                          f"{tuple(bits.shape)}")
     batch, length = mixed.shape
     num_frames = bits.shape[1]
-    body, pair = _gate_tables(num_frames, length, ratio, despeckle_min_run,
-                              mixed.device)
-    mixed = mixed.float().contiguous()
+    geom = _gate_tables(num_frames, length, ratio, despeckle_min_run,
+                        mixed.device)
+    # `aligned16`: 16-byte rows for the kernel's four-sample route
+    mixed = aligned16(mixed.float())
     bits = bits.float().contiguous()
     out = torch.empty_like(mixed)
-    stream = torch.cuda.current_stream(mixed.device).cuda_stream
-    with torch.cuda.device(mixed.device):
+    with on_device(mixed.device) as stream:
         launch("mask_gate", "sos_mask_gate", mixed.data_ptr(),
-               bits.data_ptr(), body.data_ptr(), pair.data_ptr(),
-               out.data_ptr(), batch, length, num_frames, stream)
+               bits.data_ptr(), geom.data_ptr(), out.data_ptr(), batch,
+               length, num_frames, stream)
     return out

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from sos_tpu_torch.config import HOP_LENGTH, N_FFT, WIN_LENGTH
 from sos_tpu_torch.dsp.crm import crm_sigmoid_recover
-from sos_tpu_torch.kernels import aligned16, launch
+from sos_tpu_torch.kernels import aligned16, launch, on_device
 
 
 def hann_window(win_length: int, dtype=np.float64) -> np.ndarray:
@@ -253,8 +253,7 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
     tab, slots = device_pfa_tables(y.device)
     out = torch.empty((batch, frames, n_out), dtype=torch.float32,
                       device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    with torch.cuda.device(y.device):
+    with on_device(y.device) as stream:
         launch("stft", "sos_stft", y2.data_ptr(), tab.data_ptr(),
                slots.data_ptr(), out.data_ptr(), batch, length, frames,
                stream)
@@ -348,8 +347,7 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
     env = _device_envelope(num_frames, n_fft, hop_length, win_length,
                            crm.device)
     tab, slots = device_pfa_tables(crm.device)
-    stream = torch.cuda.current_stream(crm.device).cuda_stream
-    with torch.cuda.device(crm.device):
+    with on_device(crm.device) as stream:
         launch("crm_istft", "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
                tab.data_ptr(), slots.data_ptr(), env.data_ptr(),
                out.data_ptr(), batch, num_frames, out_len, stream)

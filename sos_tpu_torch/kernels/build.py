@@ -42,14 +42,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # y, PFA float table, PFA slots, out, B, L, T, stream
     "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # mixed, bits, body_frame, gap_pair, out, B, L, num_frames, stream
-    "sos_mask_gate": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mixed, bits, geometry (body | gap << 16), out, B, L, num_frames,
+    # stream
+    "sos_mask_gate": (_P, _P, _P, _P, _I, _I, _I, _P),
     # crm, spec, PFA float table, PFA slots, envelope, out, B, T, out_len,
     # stream
     "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, step_mask (or NULL), out,
-    # B, T, H, stream
-    "sos_bilstm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # B, T, H, then the plan: rows a block, cluster, units a block, kp,
+    # threads, shared bytes; stream
+    "sos_bilstm": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # rows a block, cluster, threads, shared bytes, int* count
+    "sos_bilstm_max_clusters": (_I,) * 4 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
     "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
     # x, w, w_s, bias, out, B, H, W, Cin, Cout, kh, kw, dh, dw, kpad,

@@ -5,8 +5,10 @@
   a bf16 product with an fp32 output when `bf16_proj=True` (sos_tpu's
   `preferred_element_type=f32`).
 * The recurrence is kernel K4 (`bilstm_recurrence`, `csrc/bilstm.cu`),
-  both directions in one launch; its plain version runs `lstm_scan` once
-  per direction.
+  both directions in one launch, laid out by `recurrence_plan`: batch
+  rows tiled per block, W_hh held in shared memory (split over a
+  thread block cluster at H 200); its plain version runs `lstm_scan`
+  once per direction.
 
 Gate order is torch's (i, f, g, o); carries are fp32. Parameters keep
 torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
@@ -14,13 +16,15 @@ torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from sos_tpu_torch.kernels import launch
+from sos_tpu_torch.kernels import aligned16, launch, library, on_device
 
 
 def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
@@ -62,12 +66,177 @@ def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
     return torch.cat([hs_f, hs_b], dim=-1).transpose(0, 1)
 
 
+# Shared memory a block may use on an H100, the blocks of one wave, and
+# the clusters of 4 it holds at once at one block an SM
+# (`cudaOccupancyMaxActiveClusters` on an H100 80GB HBM3, logged by
+# chip_smoke.py)
+SMEM_LIMIT = 232448
+BLOCK_SLOTS = 132
+CLUSTER4_SLOTS = 30
+# K4's plan classes, tried in order: (largest hidden, batch rows a block
+# (the fewest whose clusters fit one wave), blocks a cluster); the first
+# whose shared memory fits takes the shape. Each (rows, cluster) pair is
+# one instantiation in csrc/bilstm.cu (`SOS_BILSTM_PLANS`).
+PLAN_CLASSES = ((32, (4,), 1), (None, (2,), 1), (None, (8, 10, 12), 4))
+K_SPLIT = 4         # lanes 4j .. 4j+3 share unit j
+_MAX_THREADS = 512  # csrc/bilstm.cu kMaxThreads
+
+
+def _unit_runs(hidden: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
+    """(first unit, count) of each rank: quads of 4 units split evenly,
+    the `hidden % 4` left over to the last rank (so runs start on 4s)."""
+    quads, rem = divmod(hidden, 4)
+    base, extra = divmod(quads, cluster)
+    runs = []
+    for r in range(cluster):
+        u0 = 4 * (r * base + min(r, extra))
+        n = 4 * (base + (r < extra)) + (rem if r == cluster - 1 else 0)
+        runs.append((u0, n))
+    return tuple(runs)
+
+
+@dataclass(frozen=True)
+class RecurrencePlan:
+    """How K4 lays a `(batch, hidden)` recurrence out on the card.
+
+    A block takes `bt` batch rows of one direction; a cluster of
+    `cluster` blocks shares those rows, rank r owning hidden units
+    `units[r]` and W_hh's four gate columns of each, kept in shared
+    memory as rows of `kp` floats (`ustride` rows a gate) for all T
+    steps. Lanes 4j .. 4j+3 sum unit j's gates over the float4 columns
+    `q, q + 4, ...` of their k split q, then a butterfly over the four
+    lanes leaves each with all four gates of `rows_per_lane` rows
+    (`lane_rows`), whose cells it updates. Step s reads h buffer
+    `parity(s)[0]` and writes its h into every rank's buffer
+    `parity(s)[1]`.
+    """
+    batch: int
+    hidden: int
+    bt: int
+    cluster: int
+    units: Tuple[Tuple[int, int], ...]
+    kp: int
+
+    ks = K_SPLIT
+
+    @property
+    def umax(self) -> int:
+        return max(n for _, n in self.units)
+
+    @property
+    def ustride(self) -> int:
+        """Units a block lays out: `umax` rounded up to a warp's 8."""
+        return -(-self.umax // 8) * 8
+
+    @property
+    def threads(self) -> int:
+        return K_SPLIT * self.ustride
+
+    @property
+    def rows_per_lane(self) -> int:
+        """Cell rows a lane updates: each butterfly step halves a lane's
+        rows while they are even and all-reduces them when odd."""
+        rows = self.bt
+        for _ in range(2):
+            rows = rows // 2 if rows % 2 == 0 else rows
+        return rows
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.batch // self.bt)
+
+    @property
+    def blocks(self) -> int:
+        return 2 * self.tiles * self.cluster
+
+    @property
+    def owners(self) -> int:
+        """Lanes that update cells: all, or every other one when the
+        butterfly's last step all-reduces (an odd count of rows left)."""
+        return self.threads if (self.bt // 2) % 2 == 0 else self.threads // 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """W_hh slice | h (2 parities) | xp prefetch (2 parities, a slot
+        set per owner lane)."""
+        return 4 * (4 * self.ustride * self.kp + 2 * self.bt * self.kp
+                    + 2 * self.rows_per_lane * 4 * self.owners)
+
+    def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
+        """(unit, tile rows) whose cells thread `tid` of rank `rank`
+        updates, as the kernel assigns them after the butterfly; an empty
+        range for a lane that updates none."""
+        lane, unit = tid & 31, tid >> 2
+        row0, rows, owner = 0, self.bt, True
+        for bit in (2, 1):  # the butterfly's steps: lanes ^ 2, then ^ 1
+            if rows % 2 == 0:
+                rows //= 2
+                row0 += rows if lane & bit else 0
+            else:
+                owner = owner and not lane & bit
+        if unit >= self.units[rank][1] or not owner:
+            return unit, range(0)
+        return unit, range(row0, row0 + rows)
+
+    def gate_columns(self, rank: int) -> List[int]:
+        """Columns of the `(.., 4H)` gates (and of xp, which the block
+        prefetches) that rank `rank` owns: gates i, f, g, o of its units."""
+        u0, n = self.units[rank]
+        return [g * self.hidden + u for g in range(4)
+                for u in range(u0, u0 + n)]
+
+    def rows(self, tile: int) -> range:
+        """Batch rows of `tile`; the last tile may be ragged."""
+        return range(tile * self.bt, min(self.batch, (tile + 1) * self.bt))
+
+    @staticmethod
+    def parity(step: int) -> Tuple[int, int]:
+        """(h buffer read, h buffer written) at `step`."""
+        return step & 1, (step + 1) & 1
+
+
+def recurrence_plan(batch: int, hidden: int) -> RecurrencePlan:
+    """K4's plan for a shape, from (batch, hidden) alone. Raises
+    `ValueError` for a hidden size no class fits."""
+    # rows of kp floats, kp = 16 (mod 32): the float4 reads of two units'
+    # four k splits (a quarter warp) land on 32 distinct banks
+    kp = 16 + -(-max(hidden - 16, 0) // 32) * 32
+    for largest, rows, cluster in PLAN_CLASSES:
+        if largest is not None and hidden > largest:
+            continue
+        if cluster > 1 and hidden < 4 * cluster:
+            continue  # every rank owns a quad of units
+        bt = rows[-1]
+        if cluster > 1:  # the fewest rows whose clusters fit one wave
+            bt = next((r for r in rows
+                       if 2 * -(-batch // r) <= CLUSTER4_SLOTS), rows[-1])
+        plan = RecurrencePlan(batch, hidden, bt, cluster,
+                              _unit_runs(hidden, cluster), kp)
+        if plan.smem_bytes <= SMEM_LIMIT and plan.threads <= _MAX_THREADS:
+            return plan
+    raise ValueError(f"bilstm_recurrence: hidden {hidden} fits no K4 plan "
+                     "(W_hh must fit the shared memory of a cluster of 4)")
+
+
+def max_active_clusters(plan: RecurrencePlan) -> int:
+    """`cudaOccupancyMaxActiveClusters` for the plan's kernel, block size
+    and shared memory on the current card (one wave holds this many)."""
+    count = ctypes.c_int(0)
+    rc = library().sos_bilstm_max_clusters(plan.bt, plan.cluster,
+                                           plan.threads, plan.smem_bytes,
+                                           ctypes.addressof(count))
+    if rc != 0:
+        raise RuntimeError(f"sos_bilstm_max_clusters: CUDA error {rc}")
+    return count.value
+
+
 def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
                       w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
                       step_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Both LSTM directions over hoisted projections -> `(B, T, 2H)`.
 
     Kernel K4 on CUDA tensors, `bilstm_recurrence_plain` on CPU tensors.
+    The launch follows `recurrence_plan`; a shape it refuses raises.
     """
     if xp_f.device.type == "cpu":
         return bilstm_recurrence_plain(xp_f, xp_b, w_hh_f, w_hh_b, step_mask)
@@ -79,12 +248,12 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
             or w_hh_b.shape != (gates, hidden)):
         raise ValueError("bilstm_recurrence: expected projections (B, T, 4H) "
                          "and w_hh (4H, H) for both directions")
-    if gates > 1024:
-        raise ValueError(f"bilstm_recurrence: 4H = {gates} threads exceed "
-                         "a block's 1024")
+    plan = recurrence_plan(batch, hidden)
     dev = xp_f.device
+    # torch's (4H, H) layout is the kernel's: a gate column's k contiguous,
+    # copied 16 bytes at a time
     tensors = [xp_f.float().contiguous(), xp_b.float().contiguous(),
-               w_hh_f.float().t().contiguous(), w_hh_b.float().t().contiguous()]
+               aligned16(w_hh_f.float()), aligned16(w_hh_b.float())]
     if any(t.device != dev for t in tensors):
         raise ValueError("bilstm_recurrence: tensors on different devices")
     mask = None
@@ -95,11 +264,11 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
                              f"({num_steps},), got {tuple(mask.shape)}")
     out = torch.empty((batch, num_steps, 2 * hidden), dtype=torch.float32,
                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with on_device(dev) as stream:
         launch("bilstm", "sos_bilstm", *(t.data_ptr() for t in tensors),
                None if mask is None else mask.data_ptr(), out.data_ptr(),
-               batch, num_steps, hidden, stream)
+               batch, num_steps, hidden, plan.bt, plan.cluster,
+               plan.ustride, plan.kp, plan.threads, plan.smem_bytes, stream)
     return out
 
 

@@ -222,10 +222,13 @@ def test_mask_gate_plain_is_mixed_times_sos_tpu_mask(clips):
 
 
 def test_gate_tables_rebuild_the_dense_mask():
-    """K2's host tables, evaluated with the kernel's formula in numpy,
-    give exactly the dense-path mask (the kernel itself needs a card)."""
-    body, pair = (t.numpy() for t in tmix._gate_tables(
-        60, CLIP, RATIO, 5, torch.device("cpu")))
+    """K2's host table (two int16 halves a sample), evaluated with the
+    kernel's formula in numpy, gives exactly the dense-path mask (the
+    kernel itself needs a card)."""
+    packed = tmix._gate_tables(60, CLIP, RATIO, 5, torch.device("cpu"))
+    assert packed.dtype == torch.int32 and packed.shape == (CLIP,)
+    words = packed.numpy()
+    body, pair = (words << 16) >> 16, words >> 16  # the kernel's int16 halves
     assert body.dtype == pair.dtype == np.int32
     assert not np.any((body >= 0) & (pair >= 0))  # bodies and gaps disjoint
     assert pair[-1] == 59 and np.count_nonzero(body < 0) == 60

@@ -153,11 +153,22 @@ def test_stft_kernel_matches_plain(cuda_device, batch, length):
 
 
 @pytest.mark.cuda
-def test_mask_gate_kernel_exact(cuda_device):
-    y = torch.randn(3, 28000, device=cuda_device)
-    bits = (torch.rand(3, 60, device=cuda_device) < 0.5).float()
-    assert torch.equal(mixing.mask_gate(y, bits, RATIO),
-                       mixing.mask_gate_plain(y, bits, RATIO))
+@pytest.mark.parametrize("batch,length,view", [
+    (3, 28000, "contiguous"), (128, 28000, "contiguous"),
+    (3, 14097, "contiguous"), (3, 28000, "misaligned"),
+    (9, 14097, "misaligned")])
+def test_mask_gate_kernel_exact(cuda_device, batch, length, view):
+    """K2 on its four-sample route (L % 4 == 0; a misaligned view is
+    copied to aligned rows) and its scalar route (L 14,097, 30 frames),
+    exact."""
+    y = torch.randn(batch, length, device=cuda_device)
+    frames = 30 * length // 14000
+    bits = (torch.rand(batch, frames, device=cuda_device) < 0.5).float()
+    before = LAUNCHES["mask_gate"]
+    got = mixing.mask_gate(_misaligned(y) if view == "misaligned" else y,
+                           bits, RATIO)
+    assert LAUNCHES["mask_gate"] == before + 1
+    assert torch.equal(got, mixing.mask_gate_plain(y, bits, RATIO))
 
 
 @pytest.mark.cuda
@@ -214,19 +225,51 @@ def test_crm_istft_kernel_takes_misaligned_views(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps,hidden,masked", [(60, 100, False),
-                                                  (178, 200, False),
-                                                  (20, 8, True)])
-def test_bilstm_kernel_matches_plain(cuda_device, steps, hidden, masked):
-    xp_f, xp_b = (torch.randn(4, steps, 4 * hidden, device=cuda_device)
-                  for _ in range(2))
-    w_f, w_b = ((torch.rand(4 * hidden, hidden, device=cuda_device) * 2 - 1)
-                / hidden ** 0.5 for _ in range(2))
+@pytest.mark.parametrize("batch,steps,hidden,masked", [
+    (4, 60, 100, False), (4, 178, 200, False), (4, 20, 8, True),
+    (128, 60, 100, False), (128, 178, 200, False), (128, 178, 200, True),
+    (9, 178, 200, False), (9, 60, 100, True), (3, 12, 16, True),
+    (160, 12, 200, True)])
+def test_bilstm_kernel_matches_plain(cuda_device, batch, steps, hidden,
+                                     masked):
+    """K4 at both main-path cases (B 128: H 100 in one block a tile, H
+    200 over a cluster of 4), masked, with a ragged last tile, and with
+    each tile height of the cluster class (8, 10 and 12 rows)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(batch + hidden)
+    xp_f, xp_b = (torch.randn(batch, steps, 4 * hidden, device=cuda_device,
+                              generator=gen) for _ in range(2))
+    w_f, w_b = ((torch.rand(4 * hidden, hidden, device=cuda_device,
+                            generator=gen) * 2 - 1) / hidden ** 0.5
+                for _ in range(2))
     mask = (torch.arange(steps, device=cuda_device) < steps - 3) if masked else None
+    before = LAUNCHES["bilstm"]
+    got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, mask)
+    assert LAUNCHES["bilstm"] == before + 1
     torch.testing.assert_close(
-        lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, mask),
-        lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, mask),
+        got, lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, mask),
         atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilstm_kernel_refuses_hidden_past_its_plan(cuda_device):
+    xp = torch.zeros(2, 5, 1200, device=cuda_device)
+    w = torch.zeros(1200, 300, device=cuda_device)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="fits no K4 plan"):
+        lstm.bilstm_recurrence(xp, xp, w, w)
+    assert LAUNCHES == before
+
+
+def test_kernel_wrappers_launch_through_on_device():
+    """K1-K7's wrappers take the current stream through `on_device`, not
+    through `torch.cuda.current_stream` and `torch.cuda.device`."""
+    import inspect
+    for fn in (stft.stft_cat, mixing.mask_gate, stft.crm_istft,
+               lstm.bilstm_recurrence, int8_gemm.int8_matmul_nt,
+               int8_conv.conv_same_int8, int8_conv.inpaint_conv_int8):
+        src = inspect.getsource(fn)
+        assert "on_device(" in src, fn.__name__
+        assert "current_stream" not in src and "torch.cuda.device(" not in src
 
 
 @pytest.mark.cuda
