@@ -33,7 +33,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
 5. throughput: `__call__` on 128 clips in the f32, bf16 and int8
    profiles, median of 10 timed calls (the int8 profile's calibrating
    first call excluded), in audio-seconds per second, with a
-   torch.profiler breakdown.
+   torch.profiler breakdown;
+6. serving: `StreamingDenoiser` at full width, 2 s / 0.5 s chunks, on
+   the card against the CPU in the f32 and int8 profiles (the int8 one
+   loading phase 4's scale file): a 5 s utterance (4 chunks, two-pass),
+   a 1.5 s one (the single-chunk fused call) and the 5 s one with a 6 s
+   detector context, each within 1e-3 with equal bits; a 20 s
+   `StreamingSession` pushed in 0.25 s pieces against offline `denoise`
+   within 1e-4 with equal bits; the launches of one width-16 two-pass
+   dispatch; then `ServeLoop` over WAV files with the real reader and
+   writer: a burst of 64 x 2 s requests in int8 with int16 transfer
+   after `warmup` (async dispatch against the synchronous path, twice
+   each), one profiled burst (device idle share, host stages), a lone
+   2 s request (p50 of 20) and 8 x 60 s long-form utterances in int8
+   and f32. Every figure is printed beside the card's name and power
+   limit; the K1-K4 (and int8 K6/K7) counts must rise.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -52,12 +66,15 @@ import time
 import numpy as np
 import torch
 
+from sos_tpu_torch.cli.serve import ServeLoop
 from sos_tpu_torch.config import ExperimentConfig
+from sos_tpu_torch.dsp import audio_io
 from sos_tpu_torch.dsp.mixing import mask_gate, mask_gate_plain
 from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain,
                                     device_pfa_tables, padded_window, stft,
                                     stft_cat, stft_cat_plain)
-from sos_tpu_torch.infer.fused import FusedDenoisePipeline
+from sos_tpu_torch.infer import StreamingDenoiser, StreamingSession
+from sos_tpu_torch.infer.fused import FusedDenoisePipeline, _nchw
 from sos_tpu_torch.kernels import LAUNCHES, library, reset_launches
 from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
@@ -157,11 +174,16 @@ def within(kernel: torch.Tensor, plain: torch.Tensor, atol: float,
     return float(err.max()), bool((err <= atol + rtol * plain.abs()).all())
 
 
+CARD = "card not queried"
+
+
 def phase_card():
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"python {sys.version.split()[0]}  device {torch.cuda.get_device_name(0)}")
 
@@ -557,38 +579,38 @@ MAIN_PATH_KERNELS = {
 
 
 def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
-                    gen: torch.Generator, profile: str):
+                    gen: torch.Generator, profile: str, workdir: str):
     """Full-width pipeline on 2 clips: card vs CPU, launch counts. The
-    int8 profile calibrates on the CPU, which writes the scale file that
-    the card pipeline then loads, so both run the same scales."""
+    int8 profile calibrates on the CPU, which writes the scale file
+    `workdir/int8_calibration.json` that the card pipeline (and the
+    serving phase) then loads, so all run the same scales."""
     x = make_clips(2, gen)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "int8_calibration.json")
-        kwargs = {"calibration_path": path} if profile == "int8" else {}
-        host = FusedDenoisePipeline(cfg, det_state, den_state,
-                                    profile=profile, device="cpu", **kwargs)
-        with torch.no_grad():
-            if profile == "int8":
-                t0 = time.perf_counter()
-                host.detect_bits(x)  # the first batch calibrates
-                log(f"int8 calibration on the CPU (2 clips) "
-                    f"{time.perf_counter() - t0:.1f} s, scale file written "
-                    f"{os.path.exists(path)}")
-                prob = torch.sigmoid(host._quant_det.logits_cat(
-                    stft_cat(x), host.num_frames))
-            else:
-                prob = torch.sigmoid(host.detector(stft(x)))
-        threshold = pick_threshold(prob)
-        host.threshold = threshold
-        card = FusedDenoisePipeline(cfg, det_state, den_state,
-                                    threshold=threshold, profile=profile,
-                                    **kwargs)
-        if profile == "int8" and not (
-                card.ensure_calibrated() and
-                card._quant.calibration_state()
-                == host._quant.calibration_state()):
-            raise RuntimeError("int8: the card pipeline did not load the "
-                               "CPU's scale file")
+    path = os.path.join(workdir, "int8_calibration.json")
+    kwargs = {"calibration_path": path} if profile == "int8" else {}
+    host = FusedDenoisePipeline(cfg, det_state, den_state,
+                                profile=profile, device="cpu", **kwargs)
+    with torch.no_grad():
+        if profile == "int8":
+            t0 = time.perf_counter()
+            host.detect_bits(x)  # the first batch calibrates
+            log(f"int8 calibration on the CPU (2 clips) "
+                f"{time.perf_counter() - t0:.1f} s, scale file written "
+                f"{os.path.exists(path)}")
+            prob = torch.sigmoid(host._quant_det.logits_cat(
+                stft_cat(x), host.num_frames))
+        else:
+            prob = torch.sigmoid(host.detector(stft(x)))
+    threshold = pick_threshold(prob)
+    host.threshold = threshold
+    card = FusedDenoisePipeline(cfg, det_state, den_state,
+                                threshold=threshold, profile=profile,
+                                **kwargs)
+    if profile == "int8" and not (
+            card.ensure_calibrated() and
+            card._quant.calibration_state()
+            == host._quant.calibration_state()):
+        raise RuntimeError("int8: the card pipeline did not load the "
+                           "CPU's scale file")
     reset_launches()
     y_card, bits_card = card(x)
     torch.cuda.synchronize()
@@ -719,6 +741,345 @@ def phase_throughput(cfg: ExperimentConfig, det_state, den_state,
         torch.cuda.empty_cache()
 
 
+# -- serving: StreamingDenoiser, StreamingSession, ServeLoop ------------------
+
+SR = 14000
+
+
+def card_note() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return f"[{CARD}]"
+
+
+def utterance(n: int, gen: torch.Generator) -> np.ndarray:
+    """Speech-like audio of n samples: tone bursts with gaps plus noise."""
+    t = torch.arange(n) / float(SR)
+    gate = (torch.sin(2 * np.pi * 1.5 * t) > 0).float()
+    noise = torch.randn(n, generator=gen) * 0.05
+    return (0.4 * torch.sin(2 * np.pi * 220.0 * t) * gate + noise).numpy()
+
+
+def chunk_starts(s, n: int):
+    return [0] if n <= s.chunk else list(range(0, n, s.stride))
+
+
+def window_probs(host, wav: np.ndarray) -> np.ndarray:
+    """The CPU detector's sigmoid over each detector window of `wav`,
+    the context frames cropped (no threshold)."""
+    pipe = host.pipeline
+    windows = torch.from_numpy(host._det_windows(wav, chunk_starts(host,
+                                                                   len(wav))))
+    nf = pipe._nf(windows.shape[1])
+    with torch.no_grad(), exact_fp32():
+        cat = stft_cat(windows)
+        if pipe._quant_det is not None:
+            logits = pipe._quant_det.logits_cat(cat, nf)
+        else:
+            logits = pipe.detector.forward_nchw(_nchw(cat), nf)
+    return torch.sigmoid(logits).numpy()[:, host.det_halo_frames:]
+
+
+def reconciled(s, arr: np.ndarray, n: int) -> np.ndarray:
+    starts = chunk_starts(s, n)
+    return s.reconcile_bits(arr, starts) if len(starts) > 1 else arr
+
+
+def denoise_recording_bits(s, wav: np.ndarray):
+    """`s.denoise(wav)` and the final bits it gated with: those handed
+    to `denoise_with_bits` (two-pass), or the detector's on the one
+    chunk (the single-chunk fused call)."""
+    n = len(wav)
+    if len(chunk_starts(s, n)) == 1:
+        chunk = np.zeros((1, s.chunk), np.float32)
+        chunk[0, :n] = wav
+        return s.denoise(wav), s._batched(s.pipeline.detect_bits, [chunk])
+    seen = []
+    real = s.pipeline.denoise_with_bits
+
+    def recording(mixed, bits):
+        seen.append(torch.as_tensor(bits).float().cpu())
+        return real(mixed, bits)
+
+    s.pipeline.denoise_with_bits = recording
+    try:
+        out = s.denoise(wav)
+    finally:
+        del s.pipeline.denoise_with_bits
+    return out, torch.cat(seen).numpy()[:len(chunk_starts(s, n))]
+
+
+def denoise_with_final_bits(s, wav: np.ndarray, bits: np.ndarray):
+    """`denoise` of one utterance with the given final bits."""
+    starts = chunk_starts(s, len(wav))
+    chunks = np.zeros((len(starts), s.chunk), np.float32)
+    for i, st in enumerate(starts):
+        seg = wav[st:st + s.chunk]
+        chunks[i, :len(seg)] = seg
+    out = s._batched(s.pipeline.denoise_with_bits, [chunks, bits])
+    return s._assemble(out, [(0, starts, len(wav))])[0]
+
+
+def serving_pair(cfg, det_state, den_state, profile, calib, **kw):
+    """(card, cpu) StreamingDenoisers of one profile (int8: both load the
+    scale file)."""
+    args = dict(profile=profile, **kw)
+    if profile == "int8":
+        args["calibration_path"] = calib
+    pair = (StreamingDenoiser(cfg, det_state, den_state, **args),
+            StreamingDenoiser(cfg, det_state, den_state, device="cpu",
+                              **args))
+    if not all(s.pipeline.ensure_calibrated() for s in pair):
+        raise RuntimeError("serving int8: the scale file did not load")
+    return pair
+
+
+def agreement(label, card, host, wav):
+    """Card against CPU on one utterance: bits equal off the threshold
+    (margin > 1e-3), waveform within 1e-3 (with the CPU's bits where a
+    frame within 1e-3 flipped). The margins cost a CPU detector pass, so
+    they are computed only when the bits differ."""
+    t0 = time.perf_counter()
+    y_card, bits_card = denoise_recording_bits(card, wav)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_host, bits_host = denoise_recording_bits(host, wav)
+    host_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(bits_card, bits_host))
+    note = ""
+    if not equal:
+        margin = reconciled(host, np.abs(window_probs(host, wav)
+                                         - host.pipeline.threshold), len(wav))
+        clear = margin > 1e-3
+        if not np.array_equal(bits_card[clear], bits_host[clear]):
+            raise RuntimeError(f"serving {label}: card and CPU bits differ "
+                               "off the threshold")
+        flipped = int((bits_card != bits_host).sum())
+        note = (f" ({flipped} frame(s) within 1e-3 of the threshold "
+                "flipped: the card reran with the CPU's bits)")
+        y_card = denoise_with_final_bits(card, wav, bits_host)
+    finite = bool(np.isfinite(y_card).all())
+    diff = float(np.abs(y_card - y_host).max())
+    want_len = len(wav) if len(wav) > card.chunk else min(len(wav),
+                                                          card.valid)
+    log(f"serving agreement {label}: {len(wav) / SR:.1f} s, "
+        f"{len(chunk_starts(card, len(wav)))} chunk(s), out {y_card.shape}, "
+        f"finite {finite}, max |card - cpu| {diff:.3e} (tolerance 1e-3), "
+        f"bits voiced {int(bits_host.sum())}/{bits_host.size}, bits equal "
+        f"{equal}{note}; card {card_s:.2f} s, cpu {host_s:.1f} s "
+        f"{card_note()}")
+    if not (finite and y_card.shape == (want_len,) and diff <= 1e-3
+            and 0 < bits_host.sum() < bits_host.size):
+        raise RuntimeError(f"serving {label}: card disagrees with the CPU")
+
+
+def session_check(label, card, wav):
+    """StreamingSession pushes of 0.25 s + flush against offline denoise
+    on the card: the same bits, waveform within 1e-4."""
+    offline, bits_offline = denoise_recording_bits(card, wav)
+    seen = []
+    real = card.pipeline.denoise_with_bits
+
+    def recording(mixed, bits):
+        seen.append(torch.as_tensor(bits).float().cpu())
+        return real(mixed, bits)
+
+    card.pipeline.denoise_with_bits = recording
+    try:
+        sess = StreamingSession(card)
+        step = SR // 4
+        outs = [sess.push(wav[i:i + step]) for i in range(0, len(wav), step)]
+        outs.append(sess.flush())
+    finally:
+        del card.pipeline.denoise_with_bits
+    got = np.concatenate(outs)
+    bits_session = torch.cat(seen).numpy()
+    diff = float(np.abs(got - offline).max())
+    equal = bool(np.array_equal(bits_session, bits_offline))
+    log(f"serving session {label}: {len(wav) / SR:.0f} s pushed in 0.25 s "
+        f"pieces, out {got.shape} (offline {offline.shape}), max |session - "
+        f"offline| {diff:.3e} (tolerance 1e-4), bits equal {equal} "
+        f"{card_note()}")
+    if got.shape != offline.shape or not diff <= 1e-4 or not equal:
+        raise RuntimeError(f"serving session {label}: differs from offline")
+
+
+class TimedIO:
+    """The real WAV reader and writer, timed: each request's wall runs
+    from the start of its input's decode to the end of its output's
+    write (the span of the OK line's wall, unrounded)."""
+
+    def __init__(self):
+        self.started, self.written = {}, {}
+        self.load_s = self.write_s = 0.0
+
+    def load(self, path):
+        t0 = time.perf_counter()
+        self.started[path] = t0
+        out = audio_io.load(path, sr=SR)
+        self.load_s += time.perf_counter() - t0
+        return out
+
+    def write(self, path, wav, sr):
+        t0 = time.perf_counter()
+        audio_io.write_wav(path, wav, sr)
+        self.written[path] = time.perf_counter()
+        self.write_s += self.written[path] - t0
+
+
+def serve_run(stream, lines, use_async=True):
+    """One `ServeLoop.run` over `lines` with the real WAV I/O; returns
+    (wall s, per-request walls s, the TimedIO)."""
+    emitted, io = [], TimedIO()
+    loop = ServeLoop(
+        denoise=stream.denoise, denoise_many=stream.denoise_many,
+        denoise_many_async=stream.denoise_many_async if use_async else None,
+        load=io.load, write=io.write, sample_rate=SR, emit=emitted.append)
+    t0 = time.perf_counter()
+    loop.run(iter(lines + ["QUIT"]))
+    wall = time.perf_counter() - t0
+    oks = [ln for ln in emitted if ln.startswith("OK ")]
+    if len(oks) != len(lines) or emitted[-1] != "BYE":
+        raise RuntimeError(f"serve: {len(oks)}/{len(lines)} OK, last line "
+                           f"{emitted[-1]!r}: {emitted[:3]}")
+    walls = [io.written[dst] - io.started[src]
+             for src, dst in (ln.split("\t") for ln in lines)]
+    return wall, walls, io
+
+
+def phase_serving(cfg: ExperimentConfig, det_state, den_state,
+                  gen: torch.Generator, workdir: str):
+    """StreamingDenoiser, StreamingSession and ServeLoop at full width
+    on the card; see the module docstring, phase 6."""
+    t_phase = time.perf_counter()
+    calib = os.path.join(workdir, "int8_calibration.json")
+    utt5, utt15 = utterance(5 * SR, gen), utterance(SR * 3 // 2, gen)
+    thresholds = {}
+    for profile in ("f32", "int8"):
+        card, host = serving_pair(cfg, det_state, den_state, profile, calib)
+        card_h, host_h = serving_pair(cfg, det_state, den_state, profile,
+                                      calib, detector_context_seconds=6.0)
+        # one threshold that splits the CPU detector's frames of utt5
+        threshold = pick_threshold(torch.from_numpy(window_probs(host, utt5)))
+        thresholds[profile] = threshold
+        for s in (card, host, card_h, host_h):
+            s.pipeline.threshold = threshold
+        # launches of one width-16 two-pass dispatch (detect, denoise)
+        chunks = np.stack([utterance(card.chunk, gen) for _ in range(16)])
+        reset_launches()
+        bits = card._batched(card.pipeline.detect_bits, [chunks])
+        card._batched(card.pipeline.denoise_with_bits, [chunks, bits])
+        torch.cuda.synchronize()
+        log(f"serving {profile} launches per width-16 two-pass dispatch: "
+            f"{dict(LAUNCHES)}")
+        reset_launches()
+        agreement(f"{profile} 5 s two-pass", card, host, utt5)
+        agreement(f"{profile} 1.5 s single chunk", card, host, utt15)
+        agreement(f"{profile} 5 s, 6 s detector context", card_h, host_h,
+                  utt5)
+        session_check(profile, card, utterance(20 * SR, gen))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        log(f"serving {profile} launches: {launches}")
+        missing = [k for k in MAIN_PATH_KERNELS[profile] if launches[k] == 0]
+        if missing:
+            raise RuntimeError(f"serving {profile} never launched: {missing}")
+        del card, host, card_h, host_h
+    log(f"serving agreement and session checks: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # serve traffic through ServeLoop with the real WAV reader and writer
+    wav_dir = os.path.join(workdir, "serve")
+    os.makedirs(wav_dir)
+
+    def requests(tag, seconds, count):
+        lines = []
+        for i in range(count):
+            src = os.path.join(wav_dir, f"{tag}{i}.wav")
+            audio_io.write_wav(src, utterance(int(seconds * SR), gen), SR)
+            lines.append(f"{src}\t{os.path.join(wav_dir, f'{tag}{i}_out.wav')}")
+        return lines
+
+    burst = requests("burst", 2.0, 64)
+    stream8 = StreamingDenoiser(cfg, det_state, den_state, profile="int8",
+                                calibration_path=calib,
+                                transfer_dtype="int16",
+                                threshold=thresholds["int8"])
+    t0 = time.perf_counter()
+    widths = stream8.warmup()
+    log(f"serve int8 (int16 transfer) warmup widths={widths} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if widths != [1, 2, 4, 8, 16]:
+        raise RuntimeError(f"serve warmup widths {widths}")
+    reset_launches()
+    for run in range(2):
+        for mode in ("async", "sync"):
+            wall, walls, io = serve_run(stream8, burst,
+                                        use_async=mode == "async")
+            log(f"serve burst int8 {mode} (run {run + 1}): 64 x 2 s requests "
+                f"in {wall:.3f} s -> {64 / wall:.1f} requests/s, "
+                f"{128 / wall:.1f} audio-s/s; request wall p50 "
+                f"{statistics.median(walls) * 1e3:.1f} ms, p99 "
+                f"{np.percentile(walls, 99) * 1e3:.1f} ms; WAV load "
+                f"{io.load_s:.3f} s, write {io.write_s:.3f} s {card_note()}")
+    burst_launches = dict(LAUNCHES)
+    log(f"serve burst launches: {burst_launches}")
+    if any(burst_launches[k] == 0 for k in MAIN_PATH_KERNELS["int8"]):
+        raise RuntimeError("serve burst did not run every int8 kernel")
+
+    # (d) one profiled async burst: device idle share, host stages
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        wall, _, io = serve_run(stream8, burst)
+        torch.cuda.synchronize()
+    device_ms, host_ops = 0.0, {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
+        elif evt.key.startswith("cuda") or evt.key in (
+                "aten::copy_", "aten::pin_memory", "aten::to",
+                "aten::empty"):
+            host_ops[evt.key] = evt.self_cpu_time_total / 1e3
+    top = sorted(host_ops.items(), key=lambda kv: -kv[1])[:6]
+    idle = (f"{max(0.0, 1 - device_ms / (wall * 1e3)):.3f}" if device_ms
+            else "not measured (the profiler saw no device time)")
+    log(f"serve burst profile (async, profiler on): wall {wall * 1e3:.1f} ms, "
+        f"device busy {device_ms:.1f} ms, device idle share {idle}; WAV load "
+        f"{io.load_s * 1e3:.1f} ms, write {io.write_s * 1e3:.1f} ms; host "
+        "runtime calls (self CPU ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in top) + f" {card_note()}")
+
+    # (c) a lone 2 s request at width 1, p50 over 20
+    lone = burst[:1]
+    walls = []
+    for _ in range(21):
+        walls += serve_run(stream8, lone)[1]
+    log(f"serve latency int8: lone 2 s request (width 1), p50 "
+        f"{statistics.median(walls[1:]) * 1e3:.1f} ms over 20 (min "
+        f"{min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}) "
+        f"{card_note()}")
+    del stream8
+
+    # (b) long-form: 60 s utterances, two-pass
+    for profile, count in (("int8", 8), ("f32", 8)):
+        stream = StreamingDenoiser(
+            cfg, det_state, den_state, profile=profile,
+            threshold=thresholds[profile],
+            calibration_path=calib if profile == "int8" else None)
+        stream.warmup()
+        long_lines = requests(f"long_{profile}", 60.0, count)
+        wall = serve_run(stream, long_lines)[0]
+        log(f"serve long-form {profile}: {count} x 60 s utterances "
+            f"(two-pass, 2 s / 0.5 s chunks) in {wall:.2f} s -> "
+            f"{count * 60 / wall:.1f} audio-s/s {card_note()}")
+        del stream
+        torch.cuda.empty_cache()
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -735,14 +1096,19 @@ def main() -> int:
     den_state = init_state_dict(JointDenoiser(cfg.denoiser), gen)
     # each kernel's launches on its own path: K1-K4 on the f32 main path,
     # K6-K7 on the int8 main path, K5 in the GEMM sweep
-    launches = phase_main_path(cfg, det_state, den_state, gen, "f32")
-    int8_launches = phase_main_path(cfg, det_state, den_state, gen, "int8")
-    launches.update(int8_conv=int8_launches["int8_conv"],
-                    int8_inpaint=int8_launches["int8_inpaint"],
-                    int8_gemm=k5_launches)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    phase_throughput(cfg, det_state, den_state, gen)
+    # (the serving path's own counts are checked and logged by its phase)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        launches = phase_main_path(cfg, det_state, den_state, gen, "f32",
+                                   workdir)
+        int8_launches = phase_main_path(cfg, det_state, den_state, gen,
+                                        "int8", workdir)
+        launches.update(int8_conv=int8_launches["int8_conv"],
+                        int8_inpaint=int8_launches["int8_inpaint"],
+                        int8_gemm=k5_launches)
+        for row in rows:
+            row["launches"] = launches[row["name"]]
+        phase_throughput(cfg, det_state, den_state, gen)
+        phase_serving(cfg, det_state, den_state, gen, workdir)
 
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

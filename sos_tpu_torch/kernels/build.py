@@ -71,12 +71,14 @@ SIGNATURES = {
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
-# (one CUDA launch per wrapper call).
+# (one CUDA launch per wrapper call), under a lock, since the serve loop
+# launches from two threads.
 LAUNCHES: Dict[str, int] = {"stft": 0, "mask_gate": 0, "crm_istft": 0,
                             "bilstm": 0, "int8_gemm": 0, "int8_conv": 0,
                             "int8_inpaint": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 
@@ -183,4 +185,5 @@ def launch(kernel: str, symbol: str, *args) -> None:
     if rc != 0:
         msg = lib.sos_error_string(rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
-    LAUNCHES[kernel] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -26,18 +27,36 @@ import torch.nn.functional as F
 from torch import nn
 
 
+_fp32_lock = threading.Lock()
+_fp32_users = 0
+_fp32_saved: Tuple[bool, bool] = (False, False)
+
+
 @contextlib.contextmanager
 def exact_fp32():
-    """Full-fp32 matmuls and convolutions (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full-fp32 matmuls and convolutions (no TF32) inside the block.
+
+    The TF32 switches are process-global, and the serve loop runs device
+    work on two threads at once, so the blocks share one reference
+    count under a lock: the first to enter saves both switches and turns
+    TF32 off, the last to leave restores them. Nested and concurrent
+    blocks never turn TF32 back on while any thread is inside one."""
+    global _fp32_users, _fp32_saved
+    with _fp32_lock:
+        if _fp32_users == 0:
+            _fp32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _fp32_users += 1
     try:
-        with torch.backends.cudnn.flags(
-                enabled=True, benchmark=torch.backends.cudnn.benchmark,
-                allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _fp32_lock:
+            _fp32_users -= 1
+            if _fp32_users == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _fp32_saved
 
 
 def resolve_device(device) -> torch.device:

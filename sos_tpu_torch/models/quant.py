@@ -32,6 +32,7 @@ off, so `calibrate` enters `exact_fp32` itself.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -46,7 +47,7 @@ from sos_tpu_torch.models.layers import TorchLinear, exact_fp32, resolve_device
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, inpaint_conv_int8,
                                          lhs_dilate, pack_weight, up_pads)
 from sos_tpu_torch.ops.lstm import BiLSTM
-from sos_tpu_torch.ops.resize import (_nearest_indices, nearest_resize_1d,
+from sos_tpu_torch.ops.resize import (nearest_index_tensor, nearest_resize_1d,
                                       nearest_resize_2d)
 
 _BN_EPS = 1e-5  # TorchBatchNorm: torch defaults
@@ -89,14 +90,21 @@ def _quantize_weight_folded(w_f: np.ndarray, s_in) -> Tuple[np.ndarray,
     return quantize_weight(w_eff.astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_tensor(scale: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(scale, dtype=torch.float32, device=device)
+
+
 def _quantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
     """`clip(round(x / scale))` to int8, contiguous.
 
     A true division, as sos_tpu's: the scale goes in as a tensor on x's
     device, because PyTorch's CUDA division by a CPU scalar multiplies by
-    its reciprocal instead, which rounds some values the other way."""
-    s = torch.tensor(scale, dtype=torch.float32, device=x.device)
-    q = torch.clamp(torch.round(x.float() / s), -127, 127)
+    its reciprocal instead, which rounds some values the other way. The
+    tensor is built once per scale and device (a fresh host copy would
+    make the launching thread wait for the stream to drain)."""
+    q = torch.clamp(torch.round(x.float() / _scale_tensor(scale, x.device)),
+                    -127, 127)
     return q.to(torch.int8).contiguous()
 
 
@@ -190,7 +198,7 @@ def _run_encoder_int8(enc: QuantEncoderParams, specs, x: torch.Tensor,
     views) is quantized once, every block runs K6, and the proj block
     returns float32 NHWC (the only f32 tensor: it feeds the float head).
 
-    `time_take` (int indices): subset the time axis of the int8 tensor
+    `time_take` (int64 index tensor on x's device): subset the time axis of the int8 tensor
     right before the final 1x1 proj block, which commutes with it."""
     assert enc.blocks, "finalize() must run before the first forward"
     h_q = _quantize_act(x, enc.act_scales[0])
@@ -200,9 +208,7 @@ def _run_encoder_int8(enc: QuantEncoderParams, specs, x: torch.Tensor,
             zip(enc.blocks, specs)):
         if i == last and time_take is not None:
             assert tuple(ks) == (1, 1), "time_take requires a 1x1 final block"
-            idx = torch.as_tensor(np.asarray(time_take, np.int64),
-                                  device=h_q.device)
-            h_q = h_q.index_select(2, idx)
+            h_q = h_q.index_select(2, time_take)
         out = conv_same_int8(h_q, w, w_s, b, ks, dil, out_f32=not requant)
         if requant:
             h_q = out
@@ -596,8 +602,8 @@ class QuantizedDetector:
         x = torch.relu(self.fc1(x))
         return self.fc2(x)[..., 0]
 
-    def _time_take(self, t_in: int, num_frames: int) -> np.ndarray:
-        return _nearest_indices(t_in, num_frames)
+    def _time_take(self, t_in: int, num_frames: int) -> torch.Tensor:
+        return nearest_index_tensor(t_in, num_frames, self.device)
 
     def _logits_nhwc(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         """Fixed-shape path: resample time on int8 BEFORE the 1x1 proj

@@ -3,10 +3,14 @@
 
 The source index is `floor(dst * in/out)`, computed once in float64 on
 the host and applied with `index_select`. `F.interpolate` is not used:
-its float scale can pick other indices than `sos_tpu`.
+its float scale can pick other indices than `sos_tpu`. The index tensor
+is kept on its device: a fresh host copy on every call would make the
+launching thread wait for the stream to drain.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -18,13 +22,21 @@ def _nearest_indices(in_len: int, out_len: int) -> np.ndarray:
     return np.minimum(idx, in_len - 1)
 
 
+@functools.lru_cache(maxsize=None)
+def nearest_index_tensor(in_len: int, out_len: int,
+                         device: torch.device) -> torch.Tensor:
+    """`_nearest_indices` as an int64 tensor on `device`, built once."""
+    idx = _nearest_indices(in_len, out_len).astype(np.int64)
+    return torch.from_numpy(idx).to(device)
+
+
 def nearest_resize_1d(x: torch.Tensor, out_len: int, dim: int) -> torch.Tensor:
     """Nearest-neighbour resize along `dim` with torch index semantics."""
     in_len = x.shape[dim]
     if in_len == out_len:
         return x
-    idx = torch.from_numpy(_nearest_indices(in_len, out_len).astype(np.int64))
-    return torch.index_select(x, dim, idx.to(x.device))
+    return torch.index_select(x, dim,
+                              nearest_index_tensor(in_len, out_len, x.device))
 
 
 def nearest_resize_2d(x: torch.Tensor, out_hw, h_dim: int,
