@@ -20,7 +20,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    both its routes: the wgmma halo tile and the mma.sync gather; K7 on
    its wgmma tile, down, stride-2 and sub-pixel up blocks), with
    the kernel's, the plain version's and the library call's times, TOPS
-   and the kernel's bound; K5 at every shape of the int8 GEMM sweep (the
+   and the kernel's bound; the length-bucketed cases of phase 7's path
+   the same way: K1 with center=False on 128 rows of a 1,024-frame
+   bucket (beside `torch.stft(center=False)`), K3 with per-row valid_t
+   over 2-1,024 frames at 16 rows, K4 with per-row lengths at T 1,024 /
+   H 200 and T 384 / H 100, 16 rows (beside cuDNN over a packed
+   sequence); K5 at every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
    `torch._int_mm`'s, called eagerly and replayed from a CUDA graph
    (device time without the host's dispatch);
@@ -47,7 +52,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    each), one profiled burst (device idle share, host stages), a lone
    2 s request (p50 of 20) and 8 x 60 s long-form utterances in int8
    and f32. Every figure is printed beside the card's name and power
-   limit; the K1-K4 (and int8 K6/K7) counts must rise.
+   limit; the K1-K4 (and int8 K6/K7) counts must rise;
+7. eval chain: 24 seeded utterances of 1.5-11 s with bitstreams, WAVs
+   and a noise bank go through `evaluate_detector` ->
+   `create_data_from_prediction` -> `evaluate_denoiser` on the card (f32,
+   buckets 256/512/1024, batch 8; the bucketed cases of K1, K3 and K4
+   must launch; the detector's threshold where its confidences are
+   sparsest, `valley_threshold`), each stage timed and the 11 metrics
+   finite; then the predictors alone in f32 and bf16, bucketed and exact
+   (audio-s/s for detect and denoise), with bucketed against exact within
+   1e-4 with equal bits, bf16 bits agreeing with f32 on at least 98 % of
+   frames, and the card against the CPU on the 2.0 s and 7.4 s
+   utterances within 1e-3 with equal bits.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -157,15 +173,16 @@ def pfa_flops_per_frame(inverse: bool) -> float:
     conjugate-pair form is 8h^2 + 14h (h = (N-1)/2), 15 + 51 + 85 of them;
     K1 adds the window (510) and the real split (16 a bin); K3 the cRM
     recover and complex product (20 a bin), the inverse split (12 a
-    point), the window (510) and the overlap-add with the envelope divide
-    (9 an output sample, 158 a frame)."""
+    point), the window (510) and the overlap-add with the window-square
+    envelope summed in place and divided by (17 an output sample, 158 a
+    frame)."""
     def dft(n):
         h = (n - 1) // 2
         return 8 * h * h + 14 * h
     passes = 15 * dft(17) + 51 * dft(5) + 85 * dft(3)
     if not inverse:
         return passes + 510 + 16 * 256
-    return passes + 20 * 256 + 12 * 255 + 510 + 9 * 158
+    return passes + 20 * 256 + 12 * 255 + 510 + 17 * 158
 
 
 def within(kernel: torch.Tensor, plain: torch.Tensor, atol: float,
@@ -278,7 +295,7 @@ def phase_kernels(gen: torch.Generator):
            time_ms(lambda: torch.istft(clean, nf, hop, window=window,
                                        center=True)),
            flops,
-           4.0 * (2 * BATCH * frames * 2 * bins + BATCH * out_len + out_len)
+           4.0 * (2 * BATCH * frames * 2 * bins + BATCH * out_len)
            + table_bytes,
            shape="crm, spec (128, 178, 512) -> (128, 27966)")
 
@@ -353,6 +370,8 @@ def phase_kernels(gen: torch.Generator):
            k4["library_ms"], k4["flops"], k4["bytes"],
            shape="T60/H100 + T178/H200 at B 128 (sum of the two)")
 
+    bucketed_cases(gen, dev, record, window, table_bytes)
+
     # K5 — int8 GEMM at every shape of the narrow-N sweep, its own path:
     # exact against the plain version on the sweep's operands, then the
     # sweep itself with the counts set to 0
@@ -421,6 +440,140 @@ def phase_kernels(gen: torch.Generator):
     for case in K7_LOGGED_CASES:
         int8_conv_case("int8_inpaint", case, cgen, dev)
     return rows, k5_launches
+
+
+def lstm_library_ms(xp_f, w_f, w_b, lengths, dev) -> float:
+    """cuDNN's fp32 `nn.LSTM` over the rows' valid steps (a packed
+    sequence) with identity input weights, less its two identity input
+    projections over the same steps: the recurrence alone, per-row
+    lengths included."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    g4, hidden = w_f.shape
+    lstm = torch.nn.LSTM(g4, hidden, batch_first=True,
+                         bidirectional=True).to(dev)
+    eye = torch.eye(g4, device=dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(eye)
+        lstm.weight_ih_l0_reverse.copy_(eye)
+        lstm.weight_hh_l0.copy_(w_f)
+        lstm.weight_hh_l0_reverse.copy_(w_b)
+        for b in (lstm.bias_ih_l0, lstm.bias_hh_l0, lstm.bias_ih_l0_reverse,
+                  lstm.bias_hh_l0_reverse):
+            b.zero_()
+    packed = pack_padded_sequence(xp_f, lengths.cpu(), batch_first=True,
+                                  enforce_sorted=False)
+
+    def cudnn():
+        with torch.no_grad():
+            return lstm(packed)
+
+    def projections():
+        return torch.matmul(packed.data, eye), torch.matmul(packed.data, eye)
+    with exact_fp32():
+        return time_ms(cudnn) - time_ms(projections)
+
+
+def bucketed_cases(gen, dev, record, window, table_bytes):
+    """The length-bucketed cases of K1, K3 and K4 (phase 7's path) at
+    full width: K1 center=False on 128 rows of a 1,024-frame bucket, K3
+    with per-row valid_t over 2-1,024 frames at 16 rows, K4 with per-row
+    lengths at T 1,024 / H 200 and T 384 / H 100, 16 rows. Bounds count
+    what these rows need: K3 reads the valid frames only, K4's operations
+    are those of the valid steps."""
+    nf, hop, bins, bucket = 510, 158, 256, 1024
+    need = (bucket - 1) * hop + nf
+    yb = (torch.randn(BATCH, need, generator=gen) * 0.3).to(dev)
+    got, ref = stft_cat(yb, center=False), stft_cat_plain(yb, center=False)
+    torch.cuda.synchronize()
+    err, ok = within(got, ref, 1e-4, 1e-4)
+    flops = BATCH * bucket * pfa_flops_per_frame(inverse=False)
+    log(f"stft_center_false: device "
+        f"{graph_ms(lambda: stft_cat(yb, center=False)):.4f} ms (in a CUDA "
+        "graph)")
+    record("stft_center_false", "sos_tpu_torch/csrc/stft.cu",
+           "sos_tpu/dsp/stft.py:139", err, ok, "atol 1e-4 + rtol 1e-4",
+           time_ms(lambda: stft_cat(yb, center=False)),
+           time_ms(lambda: stft_cat_plain(yb, center=False)),
+           time_ms(lambda: torch.stft(yb, nf, hop, window=window,
+                                      center=False, return_complex=True)),
+           flops, 4.0 * (BATCH * need + BATCH * bucket * 2 * bins)
+           + table_bytes,
+           shape=f"y (128, {need}) -> (128, 1024, 512), center=False")
+
+    rows = 16
+    spec = stft_cat_plain(yb[:rows], center=False)
+    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
+    valid_t = torch.randint(2, bucket + 1, (rows,), generator=gen)
+    valid_t[0] = bucket
+    frames_in = int(valid_t.sum())
+    valid_t = valid_t.to(dev)
+    got = crm_istft(crm, spec, valid_t=valid_t)
+    ref = crm_istft_plain(crm, spec, valid_t=valid_t)
+    torch.cuda.synchronize()
+    err, ok = within(got, ref, 1e-4, 1e-4)
+    out_len = (bucket - 1) * hop
+    # past (valid_t - 1) * hop a row divides by the envelope of partial
+    # frames (values the predictors cut off, large in sos_tpu too)
+    kept = max(float((got[b, :(v - 1) * hop] - ref[b, :(v - 1) * hop])
+                     .abs().max())
+               for b, v in enumerate(valid_t.tolist()))
+    log(f"crm_istft_valid_t: max_abs_err over the kept samples "
+        f"{kept:.3e}; valid frames {frames_in} of {rows * bucket}; "
+        f"device {graph_ms(lambda: crm_istft(crm, spec, valid_t=valid_t)):.4f}"
+        " ms (in a CUDA graph); no single PyTorch call takes per-row frame "
+        "counts (library n/a)")
+    record("crm_istft_valid_t", "sos_tpu_torch/csrc/crm_istft.cu",
+           "sos_tpu/dsp/stft.py:170", err, ok, "atol 1e-4 + rtol 1e-4",
+           time_ms(lambda: crm_istft(crm, spec, valid_t=valid_t)),
+           time_ms(lambda: crm_istft_plain(crm, spec, valid_t=valid_t)),
+           None, frames_in * pfa_flops_per_frame(inverse=True),
+           4.0 * (2 * frames_in * 2 * bins + rows * out_len + rows)
+           + table_bytes,
+           shape="crm, spec (16, 1024, 512), valid_t 2-1024 -> (16, 161634)")
+
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+          "bytes": 0.0, "err": 0.0, "ok": True}
+    for steps, hidden in ((1024, 200), (384, 100)):
+        g4 = 4 * hidden
+        xp_f = torch.randn(rows, steps, g4, generator=gen).to(dev)
+        xp_b = torch.randn(rows, steps, g4, generator=gen).to(dev)
+        bnd = 1.0 / hidden ** 0.5
+        w_f = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
+        w_b = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
+        lengths = torch.randint(1, steps + 1, (rows,), generator=gen)
+        lengths[0] = steps
+        valid = int(lengths.sum())
+        lengths = lengths.to(dev)
+        got = bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
+        ref = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+        torch.cuda.synchronize()
+        err, ok = within(got, ref, 5e-5, 0.0)
+        zeros = all(not bool(got[b, n:].any())
+                    for b, n in enumerate(lengths.tolist()))
+        ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths))
+        plain_ms = time_ms(lambda: bilstm_recurrence_plain(
+            xp_f, xp_b, w_f, w_b, lengths), reps=2, warmup=1)
+        lib_ms = lstm_library_ms(xp_f, w_f, w_b, lengths, dev)
+        flops = 2.0 * valid * (2 * hidden * g4 + 10 * hidden)
+        nbytes = 4.0 * (2 * valid * g4 + 2 * g4 * hidden
+                        + rows * steps * 2 * hidden + rows)
+        log(f"bilstm_lengths T{steps}/H{hidden}, 16 rows, {valid} valid "
+            f"steps of {rows * steps}: max_abs_err {err:.3e} (tolerance atol "
+            f"5e-5) {'ok' if ok else 'FAILED'}, padding steps zero {zeros}; "
+            f"kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us/step)  plain "
+            f"{plain_ms:.4f} ms  cuDNN packed fp32 recurrence {lib_ms:.4f} ms")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("flops", flops),
+                         ("bytes", nbytes)):
+            k4[key] += val
+        k4["err"] = max(k4["err"], err)
+        k4["ok"] = k4["ok"] and ok and zeros
+    record("bilstm_lengths", "sos_tpu_torch/csrc/bilstm.cu",
+           "sos_tpu/ops/lstm.py:28", k4["err"], k4["ok"], "atol 5e-5",
+           k4["ms"], k4["plain_ms"], k4["library_ms"], k4["flops"],
+           k4["bytes"],
+           shape="T1024/H200 + T384/H100 at B 16, per-row lengths (sum)")
 
 
 # K6 cases: (label, Cin, Cout, kernel, dilation, F, T, float32 out); the
@@ -570,6 +723,9 @@ def pick_threshold(prob: torch.Tensor) -> float:
     k = lo + int(torch.argmax(p[lo + 1:hi + 1] - p[lo:hi]))
     return float((p[k] + p[k + 1]) / 2)
 
+
+# the bucketed cases the eval chain (phase 7) must launch
+EVAL_KERNELS = ("stft_center_false", "crm_istft_valid_t", "bilstm_lengths")
 
 MAIN_PATH_KERNELS = {
     "f32": ("stft", "mask_gate", "crm_istft", "bilstm"),
@@ -1080,6 +1236,241 @@ def phase_serving(cfg: ExperimentConfig, det_state, den_state,
     log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- eval chain: DetectorPredictor, DenoiserPredictor, infer/evaluate --------
+
+EVAL_BUCKETS = (256, 512, 1024)
+EVAL_BATCH = 8
+EVAL_SNR_IDX = 3  # 0 dB
+EVAL_CPU_SECONDS = (2.0, 7.4)  # the corpus's first two, also run on the CPU
+EVAL_COUNT = 24
+
+
+def eval_corpus(root: str, gen: torch.Generator) -> str:
+    """24 seeded utterances of 1.5-11 s (2.0 and 7.4 s among them) as
+    WAVs, with bitstreams from their tone gate (voiced where the burst
+    sounds at the frame's centre), a dataset JSON, and four seeded 12 s
+    noise WAVs. Returns the dataset JSON's path."""
+    os.makedirs(os.path.join(root, "clips"))
+    os.makedirs(os.path.join(root, "noise"))
+    rest = 1.5 + torch.rand(EVAL_COUNT - 2, generator=gen).numpy() * 9.5
+    files = []
+    for i, dur in enumerate(list(EVAL_CPU_SECONDS) + [float(d) for d in rest]):
+        n = int(dur * SR)
+        path = os.path.join(root, "clips", f"u{i:02d}.wav")
+        audio_io.write_wav(path, utterance(n, gen), SR)
+        frames = int(dur * 30)
+        centres = (np.arange(frames) + 0.5) / 30.0
+        bits = "".join("1" if np.sin(2 * np.pi * 1.5 * c) > 0 else "0"
+                       for c in centres)
+        files.append({"path": path, "audio_path": path, "framerate": 30,
+                      "audio_sample_rate": SR, "audio_samples": n,
+                      "duration": dur, "num_frames": frames,
+                      "bit_stream": bits})
+    for i in range(4):
+        noise = (torch.randn(12 * SR, generator=gen) * 0.1).numpy()
+        audio_io.write_wav(os.path.join(root, "noise", f"n{i}.wav"), noise,
+                           SR)
+    ds_json = os.path.join(root, "ds.json")
+    with open(ds_json, "w") as fp:
+        json.dump({"dataset_path": os.path.join(root, "clips"),
+                   "num_videos": len(files), "files": files}, fp)
+    return ds_json
+
+
+def valley_threshold(conf) -> float:
+    """A threshold where the confidences are sparsest: inside the window
+    of 1 % of the frames, between the 10th and 90th percentiles, that
+    spans the widest range, at its widest gap. A trained detector's
+    confidences gather near 0 and 1 with few frames at its threshold;
+    random weights put them all in one narrow cloud, where bf16's
+    drift of about 1e-4 would flip most frames at the cloud's centre."""
+    p = np.sort(np.asarray(conf, np.float64))
+    n = len(p)
+    w = max(1, n // 100)
+    lo, hi = n // 10, 9 * n // 10 - w
+    k = lo + int(np.argmax(p[lo + w:hi + w] - p[lo:hi]))
+    j = k + int(np.argmax(p[k + 1:k + w + 1] - p[k:k + w]))
+    return float((p[j] + p[j + 1]) / 2)
+
+
+def timed(fn):
+    """(result, seconds) of `fn()` on the host clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_detect(pred, wavs, frames, batched=True):
+    """The exact mode item by item; the bucketed one in tiles of
+    EVAL_BATCH rows, or (`batched=False`) item by item."""
+    if pred.buckets is None or not batched:
+        return [pred.predict_waveform(w, n) for w, n in zip(wavs, frames)]
+    return pred.predict_batch(wavs, frames, batch_size=EVAL_BATCH)
+
+
+def run_denoise(pred, wavs, bits, batched=True):
+    if pred.buckets is None or not batched:
+        return [pred.denoise_waveform(w, b)["denoised"]
+                for w, b in zip(wavs, bits)]
+    return [o["denoised"] for o in pred.denoise_batch(
+        wavs, bits, batch_size=EVAL_BATCH, keys=("denoised",))]
+
+
+def phase_eval(cfg: ExperimentConfig, det_state, den_state,
+               gen: torch.Generator, workdir: str):
+    """The eval chain at full width on the card; see the module
+    docstring, phase 7. Returns the main path's launches."""
+    from sos_tpu_torch.data import NoiseBank
+    from sos_tpu_torch.infer import DenoiserPredictor, DetectorPredictor
+    from sos_tpu_torch.infer import evaluate
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "eval")
+    ds_json = eval_corpus(root, gen)
+    bank = NoiseBank.from_roots([os.path.join(root, "noise")], SR)
+    snr = cfg.data.snrs[EVAL_SNR_IDX]
+    det = DetectorPredictor(cfg, det_state, buckets=EVAL_BUCKETS)
+    den = DenoiserPredictor(cfg, den_state, buckets=EVAL_BUCKETS)
+
+    # random weights put every confidence near one value: a first pass
+    # picks the threshold (`valley_threshold`)
+    probe, probe_s = timed(lambda: evaluate.evaluate_detector(
+        cfg, det, ds_json, os.path.join(root, "probe"), noise_bank=bank,
+        snr_idx=EVAL_SNR_IDX, batch_size=EVAL_BATCH))
+    with open(probe) as fp:
+        conf = [float(c) for r in json.load(fp)["data"]
+                for c in r["confidence"]]
+    det.threshold = valley_threshold(conf)
+
+    reset_launches()
+    det_out = os.path.join(root, "det")
+    res, det_s = timed(lambda: evaluate.evaluate_detector(
+        cfg, det, ds_json, det_out, noise_bank=bank, snr_idx=EVAL_SNR_IDX,
+        batch_size=EVAL_BATCH))
+    pred_json, bridge_s = timed(
+        lambda: evaluate.create_data_from_prediction(cfg, res, noise_snr=snr))
+    den_res, den_s = timed(lambda: evaluate.evaluate_denoiser(
+        cfg, den, pred_json, os.path.join(root, "den"), snr=snr,
+        save_individual_results=False, batch_size=EVAL_BATCH))
+    launches = dict(LAUNCHES)
+    log(f"eval f32 chain launches: {launches}")
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"eval chain never launched: {missing}")
+    with open(res) as fp:
+        det_stats = json.load(fp)["prediction_statistics"]["all"]
+    with open(den_res) as fp:
+        den_stats = json.load(fp)["denoise_statistics"]
+    with open(ds_json) as fp:
+        audio_s = sum(f["duration"] for f in json.load(fp)["files"])
+    log(f"eval stages (f32, buckets {EVAL_BUCKETS}, batch {EVAL_BATCH}, "
+        f"{EVAL_COUNT} utterances, {audio_s:.1f} s of audio): threshold probe "
+        f"{probe_s:.2f} s, evaluate_detector {det_s:.2f} s, "
+        f"create_data_from_prediction {bridge_s:.2f} s, evaluate_denoiser "
+        f"{den_s:.2f} s (its metric suite is host numpy) {card_note()}")
+    log(f"eval detection statistics (threshold {det.threshold:.6f}): "
+        + ", ".join(f"{k} {v}" for k, v in det_stats.items()))
+    log("eval denoise statistics: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in den_stats.items()))
+    if len(den_stats) != 11 or not all(np.isfinite(v)
+                                       for v in den_stats.values()):
+        raise RuntimeError(f"eval: denoise statistics not finite: {den_stats}")
+
+    # the stage-2 inputs (recovered mixtures, predicted bits) for the
+    # mode and profile comparisons
+    with open(pred_json) as fp:
+        files = json.load(fp)["files"]
+    base = os.path.dirname(pred_json)
+    wavs = [audio_io.load(os.path.join(base, f["mixed_audio"]), sr=SR)[0]
+            for f in files]
+    bits = [f["recovered_prediction"] for f in files]
+    frames = [len(b) for b in bits]
+    results = {}
+    for profile in ("f32", "bf16"):
+        for mode, buckets in (("bucketed", EVAL_BUCKETS), ("exact", None)):
+            d = DetectorPredictor(cfg, det_state, threshold=det.threshold,
+                                  buckets=buckets, profile=profile)
+            n = DenoiserPredictor(cfg, den_state, buckets=buckets,
+                                  profile=profile)
+            run_detect(d, wavs[:2], frames[:2])  # warm-up
+            run_denoise(n, wavs[:2], bits[:2])
+            dets, d_s = timed(lambda: run_detect(d, wavs, frames))
+            dens, n_s = timed(lambda: run_denoise(n, wavs, bits))
+            results[(profile, mode)] = (dets, dens)
+            log(f"eval throughput {profile} {mode}: detect "
+                f"{audio_s / d_s:.1f} audio-s/s ({d_s:.2f} s), denoise "
+                f"{audio_s / n_s:.1f} audio-s/s ({n_s:.2f} s) {card_note()}")
+            del d, n
+            torch.cuda.empty_cache()
+
+    def near(conf):
+        return np.abs(conf - det.threshold) <= 1e-4
+
+    # bucketed against exact on the card, f32
+    (b_det, b_den), (e_det, e_den) = (results[("f32", "bucketed")],
+                                      results[("f32", "exact")])
+    conf_diff = max(float(np.abs(b[1] - e[1]).max())
+                    for b, e in zip(b_det, e_det))
+    bits_ok = all(np.array_equal(b[0][~near(e[1])], e[0][~near(e[1])])
+                  for b, e in zip(b_det, e_det))
+    wav_diff = max(float(np.abs(b - e).max()) for b, e in zip(b_den, e_den))
+    log(f"eval f32 bucketed vs exact on the card: confidences max |diff| "
+        f"{conf_diff:.3e}, waveforms max |diff| {wav_diff:.3e} (tolerance "
+        f"1e-4), bits equal off the threshold {bits_ok}")
+    if not (conf_diff <= 1e-4 and wav_diff <= 1e-4 and bits_ok):
+        raise RuntimeError("eval: bucketed and exact disagree on the card")
+    # bf16 against f32, bucketed; beside the gate, the agreement a
+    # threshold at the confidences' median would give (logged only)
+    flat = lambda dets, i: np.concatenate([d[i] for d in dets])
+    bf_conf, f_conf = (flat(results[("bf16", "bucketed")][0], 1),
+                       flat(b_det, 1))
+    agree = float((flat(results[("bf16", "bucketed")][0], 0)
+                   == flat(b_det, 0)).mean())
+    mid = float(np.median(f_conf))
+    agree_mid = float(((bf_conf >= mid) == (f_conf >= mid)).mean())
+    bf_diff = float(np.abs(bf_conf - f_conf).max())
+    log(f"eval bf16 vs f32 (bucketed): bits agree on {agree:.4f} of "
+        f"{len(f_conf)} frames (at least 0.98) at the threshold "
+        f"{det.threshold:.6f} ({float((f_conf < det.threshold).mean()):.3f} "
+        f"of the f32 confidences below it); at the median {mid:.6f} they "
+        f"would agree on {agree_mid:.4f}; confidences max |diff| "
+        f"{bf_diff:.3e}, f32 confidences 10-90 % {np.quantile(f_conf, 0.1):.6f}"
+        f"-{np.quantile(f_conf, 0.9):.6f}")
+    if agree < 0.98:
+        raise RuntimeError("eval: bf16 bits agree with f32 on fewer than "
+                           "98 % of frames")
+
+    # card (tiles of 8) against CPU (one item a call) on the 2.0 s and
+    # 7.4 s utterances, f32 bucketed
+    d_cpu = DetectorPredictor(cfg, det_state, threshold=det.threshold,
+                              buckets=EVAL_BUCKETS, device="cpu")
+    n_cpu = DenoiserPredictor(cfg, den_state, buckets=EVAL_BUCKETS,
+                              device="cpu")
+    t0 = time.perf_counter()
+    c_det = run_detect(d_cpu, wavs[:2], frames[:2], batched=False)
+    c_den = run_denoise(n_cpu, wavs[:2], bits[:2], batched=False)
+    cpu_s = time.perf_counter() - t0
+    for i, secs in enumerate(EVAL_CPU_SECONDS):
+        cd = float(np.abs(c_det[i][1] - b_det[i][1]).max())
+        equal = bool(np.array_equal(c_det[i][0][~near(c_det[i][1])],
+                                    b_det[i][0][~near(c_det[i][1])]))
+        wd = float(np.abs(c_den[i] - b_den[i]).max())
+        finite = bool(np.isfinite(b_den[i]).all())
+        log(f"eval card vs cpu, {secs} s utterance: confidences max |diff| "
+            f"{cd:.3e}, waveform {b_den[i].shape} finite {finite} max |diff| "
+            f"{wd:.3e} (tolerance 1e-3), bits equal off the threshold "
+            f"{equal}, voiced {int(b_det[i][0].sum())}/{len(b_det[i][0])}")
+        if not (cd <= 1e-3 and wd <= 1e-3 and equal and finite
+                and len(b_den[i]) == int(secs * SR) // 158 * 158):
+            raise RuntimeError(f"eval: card disagrees with the CPU at {secs} s")
+    log(f"eval phase: {time.perf_counter() - t_phase:.1f} s (CPU references "
+        f"{cpu_s:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1095,7 +1486,8 @@ def main() -> int:
     det_state = init_state_dict(SilenceDetector(cfg.detector), gen)
     den_state = init_state_dict(JointDenoiser(cfg.denoiser), gen)
     # each kernel's launches on its own path: K1-K4 on the f32 main path,
-    # K6-K7 on the int8 main path, K5 in the GEMM sweep
+    # K6-K7 on the int8 main path, K5 in the GEMM sweep, the bucketed
+    # cases of K1, K3 and K4 on the eval chain (phase 7)
     # (the serving path's own counts are checked and logged by its phase)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         launches = phase_main_path(cfg, det_state, den_state, gen, "f32",
@@ -1105,10 +1497,12 @@ def main() -> int:
         launches.update(int8_conv=int8_launches["int8_conv"],
                         int8_inpaint=int8_launches["int8_inpaint"],
                         int8_gemm=k5_launches)
-        for row in rows:
-            row["launches"] = launches[row["name"]]
         phase_throughput(cfg, det_state, den_state, gen)
         phase_serving(cfg, det_state, den_state, gen, workdir)
+        eval_launches = phase_eval(cfg, det_state, den_state, gen, workdir)
+        launches.update({k: eval_launches[k] for k in EVAL_KERNELS})
+        for row in rows:
+            row["launches"] = launches[row["name"]]
 
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

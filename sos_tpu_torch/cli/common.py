@@ -1,7 +1,8 @@
-"""Shared CLI plumbing of the serving entry points (the part of
-`sos_tpu/cli/common.py` that `serve` and `denoise` use): experiment
-dirs, config construction, checkpoint loading, the int8 scale-file
-convention."""
+"""Shared CLI plumbing of the serving and eval entry points (the part of
+`sos_tpu/cli/common.py` that `serve`, `denoise`, `predict_detector` and
+`predict_denoiser` use): experiment dirs, config construction, the
+flags, checkpoint loading, the int8 scale-file convention. The training
+and distributed flags come with the training slice."""
 
 from __future__ import annotations
 
@@ -15,15 +16,17 @@ from sos_tpu_torch.models.torch_import import (import_denoiser_checkpoint,
                                                import_detector_checkpoint)
 
 
-def experiment_dirs(cfg: ExperimentConfig,
-                    stage: str) -> Tuple[str, str, str]:
+def experiment_dirs(cfg: ExperimentConfig, stage: str,
+                    make: bool = True) -> Tuple[str, str, str]:
     """(exp_dir, log_dir, model_dir) under output_root/{name}_{stage},
-    `sos_tpu`'s layout, created."""
+    `sos_tpu`'s layout, created unless `make=False` (a path lookup, as
+    the detector CLI makes for the denoiser's scale file)."""
     exp_dir = os.path.join(cfg.output_root, f"{cfg.name}_{stage}")
     log_dir = os.path.join(exp_dir, "log")
     model_dir = os.path.join(exp_dir, "model")
-    os.makedirs(log_dir, exist_ok=True)
-    os.makedirs(model_dir, exist_ok=True)
+    if make:
+        os.makedirs(log_dir, exist_ok=True)
+        os.makedirs(model_dir, exist_ok=True)
     return exp_dir, log_dir, model_dir
 
 
@@ -46,10 +49,51 @@ def add_serving_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--denoiser_ckpt", type=str, default=None,
                         help="sos_tpu orbax checkpoint name: not readable "
                              "without JAX (use --denoiser_pth)")
+    add_device_arg(parser)
+
+
+def add_device_arg(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"),
                         help="cuda (default): the hand-written kernels on "
                              "the card; cpu: their plain PyTorch versions")
+
+
+def add_eval_args(parser: argparse.ArgumentParser,
+                  need_dataset: bool = True) -> None:
+    """The flags of the eval CLIs (`predict_detector`, `predict_denoiser`):
+    `sos_tpu`'s experiment, dataset and checkpoint flags, and the
+    device."""
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="sos_tpu orbax checkpoint ('latest' or an "
+                             "epoch): not readable without JAX (use --pth)")
+    parser.add_argument("--pth", type=str, default=None,
+                        help="reference-layout PyTorch checkpoint (.pth)")
+    parser.add_argument("--dataset_json", type=str, required=need_dataset,
+                        help="dataset JSON")
+    parser.add_argument("--noise_root", type=str, action="append",
+                        default=[],
+                        help="noise corpus root(s) (DEMAND/AudioSet style)")
+    parser.add_argument("--output_root", type=str, default="model_output")
+    parser.add_argument("--name", type=str, default="experiment")
+    parser.add_argument("--config_json", type=str, default=None,
+                        help="ExperimentConfig JSON file (CLI flags override)")
+    add_device_arg(parser)
+
+
+def load_pth_state(parser: argparse.ArgumentParser, args, stage: str):
+    """The `stage` ("detector" | "denoiser") state_dict from `--pth`.
+    Without one it is a usage error: `sos_tpu`'s orbax checkpoints
+    (`--ckpt`) need JAX to read."""
+    if args.pth is None:
+        parser.error(
+            "sos_tpu_torch reads reference-layout .pth checkpoints: pass "
+            "--pth. sos_tpu's orbax checkpoints (--ckpt) need JAX to read; "
+            "their import comes with the port's training slice "
+            "(ROADMAP.md queue 1 item 5)")
+    load = (import_detector_checkpoint if stage == "detector"
+            else import_denoiser_checkpoint)
+    return load(args.pth)
 
 
 def config_from_args(args) -> ExperimentConfig:

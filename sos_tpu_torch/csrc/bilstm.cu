@@ -5,6 +5,11 @@
 //   gates = xp[t] + h @ W_hh   (gate order i, f, g, o; f32 carries)
 //   c = f*c + i*g;  h = o*tanh(c);  optional step_mask zeroes h and c.
 // The input projection xp is hoisted out (a plain large product).
+// The mask is per row here: `lengths` (B,) zeroes row b's h and c at
+// steps >= lengths[b], so its backward direction starts fresh at
+// lengths[b] - 1 (sos_tpu's `BiLSTM(valid_len=)`, vmapped over the
+// length-bucketed predictors' rows, ops/lstm.py:89-120). A lane reads
+// its rows' lengths once, before the steps.
 //
 // Bound on an H100: the T steps are strictly sequential, so a step's
 // latency sets the time. A step is 2*B*H*4H multiply-adds (82 MFLOP at
@@ -128,7 +133,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                           const float* __restrict__ xp_b,
                           const float* __restrict__ whh_f,
                           const float* __restrict__ whh_b,
-                          const float* __restrict__ step_mask,
+                          const int* __restrict__ lengths,
                           float* __restrict__ out, int B, int T, int H,
                           int U, int kp) {
   static_assert(BT % 2 == 0, "rows a block: even");
@@ -204,11 +209,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int slot_id = kScatterB ? tid : tid >> 1;
   const float* xrow[RB];
   bool live[RB];
+  int len[RB];  // steps of the row (T without lengths)
 #pragma unroll
   for (int j = 0; j < RB; ++j) {
     const int b = b0 + row0 + j;
     live[j] = owner && b < B;
     xrow[j] = xp + (size_t)(live[j] ? b : 0) * T * G + u0 + u;
+    len[j] = (lengths != nullptr && live[j]) ? __ldg(lengths + b) : T;
   }
   auto prefetch = [&](int s) {
     const int t = dir ? T - 1 - s : s;
@@ -268,7 +275,6 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     butterfly<BT, 2>(acc, sa, lane);
     butterfly<RA, 1>(sa, sum, lane);
     cp_async_wait1();
-    const float valid = step_mask != nullptr ? __ldg(step_mask + t) : 1.f;
     const float* slot = xs + (size_t)(s & 1) * RB * 4 * nslots + slot_id;
     const int nxt = ((s + 1) & 1) * BT * kp + u0 + u;
     if (owner) {
@@ -284,9 +290,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         const float og = sigmoidf(gate[3]);
         c[j] = fg * c[j] + ig * gg;
         float hn = og * tanhf(c[j]);
-        if (step_mask != nullptr) {
-          hn *= valid;
-          c[j] *= valid;
+        if (t >= len[j]) {  // padding step of this row: h and c restart at 0
+          hn *= 0.f;
+          c[j] *= 0.f;
         }
         const int r = row0 + j;
 #pragma unroll
@@ -329,7 +335,7 @@ cudaLaunchConfig_t launch_config(dim3 grid, int threads, int smem,
 
 template <int BT, int C>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* whh_f,
-                   const float* whh_b, const float* step_mask, float* out,
+                   const float* whh_b, const int* lengths, float* out,
                    int B, int T, int H, int U, int kp, int threads,
                    int smem, cudaStream_t stream) {
   cudaError_t err = set_smem<BT, C>(smem);
@@ -340,7 +346,7 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* whh_f,
       launch_config<C>(dim3(C * tiles, 2), threads, smem, stream, &attr,
                        C > 1);
   return cudaLaunchKernelEx(&cfg, bilstm_cluster_kernel<BT, C>, xp_f, xp_b,
-                            whh_f, whh_b, step_mask, out, B, T, H, U, kp);
+                            whh_f, whh_b, lengths, out, B, T, H, U, kp);
 }
 
 template <int BT, int C>
@@ -362,14 +368,14 @@ cudaError_t max_clusters(int threads, int smem, int* count) {
 
 extern "C" int sos_bilstm(const float* xp_f, const float* xp_b,
                           const float* whh_f, const float* whh_b,
-                          const float* step_mask, float* out, int B, int T,
+                          const int* lengths, float* out, int B, int T,
                           int H, int bt, int cluster, int U, int kp,
                           int threads, int smem, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
 #define SOS_LAUNCH(BT, C)                                                   \
   if (bt == BT && cluster == C)                                             \
-    err = launch<BT, C>(xp_f, xp_b, whh_f, whh_b, step_mask, out, B, T, H, \
+    err = launch<BT, C>(xp_f, xp_b, whh_f, whh_b, lengths, out, B, T, H,   \
                         U, kp, threads, smem, s);
   SOS_BILSTM_PLANS(SOS_LAUNCH)
 #undef SOS_LAUNCH

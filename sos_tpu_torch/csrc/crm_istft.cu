@@ -19,8 +19,18 @@
 // 3-point passes (pfa.cuh) give x[2m] + i x[2m+1], and the last pass
 // stores the samples in order, scaled by the window / 510. Then the
 // overlap-add in sos_tpu's order (chunk 0 first), the division by the
-// host-built envelope behind the `env > FLT_MIN` guard and the n_fft/2
-// trim per side.
+// window-square envelope behind the `env > FLT_MIN` guard and the n_fft/2
+// trim per side. A sample's envelope is the sum of the at most 4 squared
+// window values of the frames that reach it, computed in place in the
+// same order (chunk 0 first, fp32, from 0), so it is bit-equal to the
+// envelope sos_tpu overlap-adds from a tiled window.
+//
+// Per-row `valid_t` (sos_tpu/dsp/stft.py:170-210 `istft(valid_t=)`, which
+// the length-bucketed denoiser vmaps over its rows, infer/denoise.py:
+// 203-228): row b's frames >= valid_t[b] count as absent, for the sum and
+// for the envelope alike (they are not even copied in), so the row's
+// samples below (valid_t - 1) * 158 are those of an unpadded iSTFT. Of
+// those, only the last 42 see an envelope other than the full one.
 //
 // Bound on an H100: bytes. At 128 clips cRM and spectrum (93.3 MB) in and
 // the waveform (14.3 MB) out take 0.032 ms at 3.35 TB/s; the factorized
@@ -56,22 +66,16 @@ __device__ __forceinline__ float crm_recover(float o) {
 __global__ void __launch_bounds__(kThreads, 3)
 crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
                   const float* __restrict__ tab, const int* __restrict__ slots,
-                  const float* __restrict__ env, float* __restrict__ out, int T,
+                  const int* __restrict__ valid_t, float* __restrict__ out, int T,
                   int out_len) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, b = blockIdx.y, h0 = blockIdx.x * kHops;
   const int t_lo = h0 - 3;  // frame of local index 0
-  const auto live = [=](int f) { return t_lo + f >= 0 && t_lo + f < T; };
+  // frames of this row: all T, or those below its valid_t
+  const int tv = valid_t != nullptr ? max(0, min(T, __ldg(valid_t + b))) : T;
+  const auto live = [=](int f) { return t_lo + f >= 0 && t_lo + f < tv; };
   float2* frames = reinterpret_cast<float2*>(smem + kRow);  // stride kRow float2
-
-  // the envelope of the block's output samples, fetched while the rows arrive
   constexpr int kOut = kHops * kHop, kPerThread = (kOut + kThreads - 1) / kThreads;
-  float e[kPerThread];
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int i = tid + u * kThreads, j = h0 * kHop + i - kPad;
-    e[u] = (i < kOut && j >= 0 && j < out_len) ? __ldg(env + j) : 0.f;
-  }
 
   // the wrapper hands over 16-byte aligned crm and spec, so every row is
   constexpr int kChunks = kRow / 4;  // 16-byte chunks a row
@@ -153,26 +157,33 @@ crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
   });
 
   // overlap-add: output sample j is untrimmed sample p = j + 255, in hop
-  // p / 158, which takes chunk c of frame (p / 158) - c, c = 0..3
+  // p / 158, which takes chunk c of frame (p / 158) - c, c = 0..3; the
+  // envelope sums the same frames' squared window values
+  const float* win = tab + kWindow;
 #pragma unroll
   for (int u = 0; u < kPerThread; ++u) {
     const int i = tid + u * kThreads, j = h0 * kHop + i - kPad;
     if (i >= kOut || j < 0 || j >= out_len) continue;
     const int dh = i / kHop, r = i - dh * kHop;
-    float acc = 0.f;
+    float acc = 0.f, e = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int f = dh + 3 - c, n = c * kHop + r;
-      if (n < kNfft && live(f)) acc += smem[2 * f * kRow + n];
+      if (n < kNfft && live(f)) {
+        const float w = __ldg(win + n);
+        acc += smem[2 * f * kRow + n];
+        e = __fadd_rn(e, __fmul_rn(w, w));
+      }
     }
-    out[(size_t)b * out_len + j] = e[u] > FLT_MIN ? acc / e[u] : acc;
+    out[(size_t)b * out_len + j] = e > FLT_MIN ? acc / e : acc;
   }
 }
 
 }  // namespace
 
+// valid_t: (B,) int32 frame counts, or NULL for all T frames of every row
 extern "C" int sos_crm_istft(const float* crm, const float* spec, const float* tab,
-                             const int* slots, const float* env, float* out, int B,
+                             const int* slots, const int* valid_t, float* out, int B,
                              int T, int out_len, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       crm_synthesis_pfa, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
@@ -180,6 +191,6 @@ extern "C" int sos_crm_istft(const float* crm, const float* spec, const float* t
   const int hops = (out_len + kPad - 1) / kHop + 1;  // hops holding output samples
   const dim3 grid((hops + kHops - 1) / kHops, B);
   crm_synthesis_pfa<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      crm, spec, tab, slots, env, out, T, out_len);
+      crm, spec, tab, slots, valid_t, out, T, out_len);
   return (int)cudaGetLastError();
 }

@@ -4,11 +4,17 @@
 // :213-236) together with `frame_signal` (:94-115): there, XLA pads the
 // waveform, frames it with strided reshapes and multiplies the frames by
 // the windowed (510, 512) DFT matrix on the MXU at Precision.HIGHEST.
+// Both of its cases: centered (pad 255, T = 1 + L / 158), and
+// `center=False` (pad 0), where the caller has reflect-padded and
+// zero-extended the buffer itself (the length-bucketed predictors,
+// sos_tpu/infer/detect.py:159-174) and frame f starts at f * 158 of it,
+// T = 1 + (L - 510) / 158.
 //
 // Here a block takes kFrames consecutive frames of one clip. Their span,
 // (kFrames-1)*158 + 510 contiguous samples, is copied into shared memory
 // once (16-byte cp.async; the numpy "reflect" of the centered padding only
-// where a 4-sample chunk crosses the clip's ends). The frames are windowed,
+// where a 4-sample chunk crosses the clip's ends, which with pad 0 no
+// chunk does). The frames are windowed,
 // packed as 255 complex points a frame in the Good-Thomas order, run
 // through the 17-, 5- and 3-point passes in shared memory (pfa.cuh) and
 // split into 256 bins, stored as coalesced rows of the packed
@@ -33,7 +39,8 @@ static_assert(kThreads == kBins, "one thread a bin");
 
 __global__ void __launch_bounds__(kThreads, 4)
 stft_analysis_pfa(const float* __restrict__ y, const float* __restrict__ tab,
-                  const int* __restrict__ slots, float* __restrict__ out, int L, int T) {
+                  const int* __restrict__ slots, float* __restrict__ out, int L, int T,
+                  int pad) {
   __shared__ __align__(16) float span[kSpan];
   __shared__ float2 buf[kFrames * kM];
   const int tid = threadIdx.x, b = blockIdx.y, t0 = blockIdx.x * kFrames;
@@ -41,7 +48,7 @@ stft_analysis_pfa(const float* __restrict__ y, const float* __restrict__ tab,
   const float* row = y + (size_t)b * L;
   // waveform index of the block's first padded sample, and the 4-aligned
   // index below it where the shared copy starts
-  const int start = t0 * kHop - kPad;
+  const int start = t0 * kHop - pad;
   const int a0 = start >= 0 ? (start & ~3) : -((-start + 3) & ~3);
   const int shift = start - a0;
   const int used = shift + (nf - 1) * kHop + kNfft;  // span[shift, used) is read
@@ -97,10 +104,13 @@ stft_analysis_pfa(const float* __restrict__ y, const float* __restrict__ tab,
 
 }  // namespace
 
+// pad: kPad (centered) or 0 (center=False)
 extern "C" int sos_stft(const float* y, const float* tab, const int* slots, float* out, int B,
-                        int L, int T, void* stream) {
+                        int L, int T, int pad, void* stream) {
+  if (pad != kPad && pad != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + kFrames - 1) / kFrames, B);
-  stft_analysis_pfa<<<grid, kThreads, 0, (cudaStream_t)stream>>>(y, tab, slots, out, L, T);
+  stft_analysis_pfa<<<grid, kThreads, 0, (cudaStream_t)stream>>>(y, tab, slots, out, L, T,
+                                                                 pad);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Bitstream -> silence sample mask -> gate (device half of `sos_tpu/dsp/mixing.py`).
+"""Bitstream -> silence sample mask -> gate (port of `sos_tpu/dsp/mixing.py`).
 
 Reproduces the reference's mask quirks (m1 tools.py:770-792) exactly as
 `sos_tpu` does:
@@ -14,14 +14,21 @@ multiply `mixed * mask`. Its geometry table (two int16 halves a sample)
 is built here on the host in float64 from the same matrices `sos_tpu`
 uses.
 
-Not ported yet: the >2^24-element gather-map path (`_frame_sample_maps`)
-and `mix_at_snr`; the slice's 60 x 28000 clips never reach them.
+The host numpy helpers of the eval chain (`*_np`, `truncate_padding`,
+`bandpass_filter`, `filter_bitstream`) are copied from `sos_tpu` as they
+are. `bitstream_to_sample_mask_np` expands bits with an O(num_samples)
+difference array, so the full-utterance predictors have no length
+limit; the dense device path (K2 and its plain version) keeps its 2^24
+limit.
+
+Not ported yet: the >2^24-element gather-map path of the device mask
+(`_frame_sample_maps`) and the jnp `mix_at_snr` of training.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +48,8 @@ def _check_dense(num_frames: int, num_samples: int) -> None:
     if num_frames * num_samples > _DENSE_MASK_MAX_ELEMS:
         raise NotImplementedError(
             "bitstream_to_sample_mask: the >2^24-element gather-map path "
-            "is not ported yet (ROADMAP.md queue 1 item 2)")
+            "is not ported yet (ROADMAP.md queue 1 item 3, queue 2 A1); "
+            "the eval chain's bitstream_to_sample_mask_np has no limit")
 
 
 @functools.lru_cache(maxsize=32)
@@ -111,7 +119,7 @@ def _gate_tables(num_frames: int, num_samples: int, ratio: float,
     if gap is None:
         raise NotImplementedError(
             "mask_gate: this clip geometry needs the generic despeckle, "
-            "which has no kernel yet (ROADMAP.md queue 2 item 2); run on "
+            "which has no kernel yet (ROADMAP.md queue 2 A1); run on "
             "the CPU")
     body = _column_owner(frame_sample_matrix(num_frames, num_samples, ratio))
     pair = _column_owner(gap)
@@ -186,3 +194,164 @@ def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
                bits.data_ptr(), geom.data_ptr(), out.data_ptr(), batch,
                length, num_frames, stream)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host numpy helpers of the eval chain (copied from sos_tpu as they are)
+# ---------------------------------------------------------------------------
+
+
+def signal_power_np(x: np.ndarray) -> np.ndarray:
+    return np.sum(np.abs(x ** 2))
+
+
+def mix_at_snr_np(
+    signal: np.ndarray,
+    noise: np.ndarray,
+    snr_db: float,
+    norm: Optional[float] = 0.5,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side reference-exact `add_signals` (m1 tools.py:804-843)."""
+    p_sig = signal_power_np(signal)
+    mixed = np.copy(signal)
+    if p_sig == 0:
+        new_noise = noise
+    else:
+        pn = p_sig / np.power(10.0, snr_db / 10.0)
+        ratio = np.sqrt(signal_power_np(noise)) / np.sqrt(pn)
+        new_noise = noise if ratio == 0 else noise / ratio
+    mixed = mixed + new_noise
+    if norm:
+        scale = np.max(np.abs(mixed)) / norm
+        if scale != 0:
+            return mixed / scale, signal / scale, new_noise / scale
+    return mixed, signal, new_noise
+
+
+def crop_noise_np(
+    noise: np.ndarray,
+    target_len: int,
+    start: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """Crop (and zero-pad) a noise track to `target_len` samples.
+
+    Reference `add_noise_to_audio` crop logic (m1 tools.py:846-866).
+    """
+    if start is None:
+        slack = len(noise) - target_len
+        if slack > 0:
+            rng = rng or np.random.default_rng()
+            start = int(rng.integers(0, slack + 1))
+        elif slack == 0:
+            start = 0
+        else:
+            raise ValueError(
+                f"noise shorter than target: {len(noise)} < {target_len}")
+    cropped = noise[start:start + target_len]
+    if len(cropped) < target_len:
+        cropped = np.concatenate(
+            [cropped, np.zeros(target_len - len(cropped), dtype=cropped.dtype)])
+    return cropped
+
+
+def bitstream_to_sample_mask_np(
+    bits: np.ndarray, ratio: float, num_samples: int, despeckle_min_run: int = 5
+) -> np.ndarray:
+    """Silence sample mask (1=silent) from per-frame bits (0=silent, 1=voiced).
+
+    Host-exact `convert_bitstreammask_to_audiomask` (m1 tools.py:770-792):
+    frame writes with the boundary gap, then runs shorter than
+    `despeckle_min_run` are flipped.
+    """
+    bits = np.asarray(bits, dtype=np.float32)
+    # O(num_samples) difference-array expansion — exactly `(1-bits) @ A`
+    # for the frame_sample_matrix geometry, WITHOUT materializing the
+    # dense (num_frames, num_samples) matrix: full-utterance eval calls
+    # this with whole-file lengths (a 60 s file at 14 kHz/30 fps would
+    # be an 1800 x 840000 ~ 6 GB matrix, and the lru_cache would pin 32
+    # of them). Frame bodies are disjoint, so a +/- at each body's
+    # [lo, hi) edges followed by a cumsum reproduces the matmul exactly.
+    num_frames = len(bits)
+    f = np.arange(num_frames, dtype=np.float64)
+    lo = (f * ratio).astype(np.int64)
+    hi = ((f + 1.0) * ratio - 1.0).astype(np.int64)  # 1-sample boundary gap
+    hi = np.clip(np.minimum(hi, num_samples), 0, None)
+    lo = np.minimum(lo, num_samples)
+    hi = np.maximum(hi, lo)
+    inv = 1.0 - bits
+    diff = np.zeros(num_samples + 1, dtype=np.float32)
+    np.add.at(diff, lo, inv)
+    np.add.at(diff, hi, -inv)
+    mask = np.cumsum(diff[:-1], dtype=np.float32)
+    return despeckle_mask_np(mask, despeckle_min_run)
+
+
+def despeckle_mask_np(mask: np.ndarray, min_run: int = 5) -> np.ndarray:
+    """Flip 0/1 runs shorter than `min_run` (based on the original runs)."""
+    mask = np.asarray(mask, dtype=np.float32).copy()
+    n = len(mask)
+    if n == 0:
+        return mask
+    change = np.ones(n, dtype=bool)
+    change[1:] = mask[1:] != mask[:-1]
+    run_id = np.cumsum(change) - 1
+    run_len = np.bincount(run_id)
+    flip = run_len[run_id] < min_run
+    mask[flip] = 1.0 - mask[flip]
+    return mask
+
+
+
+# Bitstream string helpers (host)
+
+
+def truncate_padding(bitstream: str) -> Tuple[int, int]:
+    """Indices (start, end) trimming leading/trailing '2' padding chars.
+
+    Reference `truncate` (m1 tools.py:270-274) returns (idx, -idx2); here
+    `end` is a normal positive end index. Raises if the stream has no '2'
+    padding on either side (callers fall back to the full span, matching
+    the reference's try/except at tools.py:305-309).
+    """
+    n = len(bitstream)
+    start = 0
+    while start < n and bitstream[start] == "2":
+        start += 1
+    end = n
+    while end > start and bitstream[end - 1] == "2":
+        end -= 1
+    if start == 0 and end == n and ("2" not in bitstream):
+        return 0, n
+    return start, end
+
+
+def bandpass_filter(signal: np.ndarray, lowcut: float, highcut: float,
+                    sr: int, order: int = 5) -> np.ndarray:
+    """Butterworth band-pass (reference's experimental helper,
+    m2 tools.py:365-380; kept for the commented 300-3400 Hz speech-band
+    post-filter in m2 predict.py)."""
+    from scipy.signal import butter, lfilter
+
+    nyq = 0.5 * sr
+    b, a = butter(order, [lowcut / nyq, highcut / nyq], btype="band")
+    return lfilter(b, a, signal).astype(np.float32)
+
+
+def filter_bitstream(bits: str, min_silent_interval: int) -> str:
+    """Overwrite '0'-runs shorter than `min_silent_interval` with '1's.
+
+    Reference `filter_bitstream` (m1 tools.py:277-294).
+    """
+    out = list(bits)
+    i = 0
+    n = len(bits)
+    while i < n:
+        j = i
+        while j < n and bits[j] == bits[i]:
+            j += 1
+        if bits[i] == "0" and (j - i) < min_silent_interval:
+            for k in range(i, j):
+                out[k] = "1"
+        i = j
+    return "".join(out)

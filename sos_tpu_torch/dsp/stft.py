@@ -8,9 +8,14 @@ dense DFT matmuls with the same float64-built matrices as `sos_tpu`.
 Two kernels live here:
 
 * K1 `stft_cat`: framing + windowed real DFT, `(B, L)` -> packed
-  `(B, T, 2F)` = [re | im] (`csrc/stft.cu`);
+  `(B, T, 2F)` = [re | im] (`csrc/stft.cu`), centered (reflect at the
+  clip's ends) or, with `center=False`, over a buffer the caller has
+  already padded, as the length-bucketed predictors do;
 * K3 `crm_istft`: cRM recover + complex multiply + iSTFT, packed cRM and
-  packed mixed STFT -> waveform (`csrc/crm_istft.cu`).
+  packed mixed STFT -> waveform (`csrc/crm_istft.cu`), optionally with a
+  per-row count of valid frames `valid_t` `(B,)`: row b drops frames >=
+  valid_t[b] and divides by the window-square envelope of its valid
+  frames only (`sos_tpu`'s `istft(valid_t=)`, vmapped over rows).
 
 Both kernels compute the 510-point real DFT as a 255-point complex
 prime-factor FFT (3 * 5 * 17, `csrc/pfa.cuh`) from the tables that
@@ -203,9 +208,40 @@ def _envelope(num_frames: int, n_fft: int, hop: int,
     return overlap_add(tiled, hop).numpy()
 
 
+def _frame_mask(valid_t, lead: Tuple[int, ...], num_frames: int,
+                device: torch.device) -> torch.Tensor:
+    """`(*lead, T)` float mask of the frames below each row's `valid_t`
+    (an int, or a tensor of the leading shape)."""
+    vt = torch.as_tensor(valid_t, device=device)
+    if vt.dim() and tuple(vt.shape) != tuple(lead):
+        raise ValueError(f"valid_t: expected shape {tuple(lead)}, got "
+                         f"{tuple(vt.shape)}")
+    frames = torch.arange(num_frames, device=device)
+    return (frames < vt[..., None]).float().expand(*lead, num_frames)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_window_square(n_fft: int, win_length: int,
+                          device: torch.device) -> torch.Tensor:
+    """The squared float32 window on `device`, built once (a fresh host
+    copy on every call would make the launching thread wait)."""
+    wsq = padded_window(n_fft, win_length).astype(np.float32) ** 2
+    return torch.from_numpy(wsq).to(device)
+
+
+def _masked_envelope(mask: torch.Tensor, n_fft: int, hop: int,
+                     win_length: int) -> torch.Tensor:
+    """Untrimmed window-square envelope of the frames `mask` `(..., T)`
+    keeps, in sos_tpu's order (the masked tiling, overlap-added)."""
+    wsq = _device_window_square(n_fft, win_length, mask.device)
+    return overlap_add(mask[..., None] * wsq, hop)
+
+
 def _normalize_trim(y: torch.Tensor, num_frames: int, n_fft: int, hop: int,
-                    win_length: int) -> torch.Tensor:
-    env = torch.from_numpy(_envelope(num_frames, n_fft, hop, win_length)).to(y.device)
+                    win_length: int, env=None) -> torch.Tensor:
+    if env is None:
+        env = torch.from_numpy(_envelope(num_frames, n_fft, hop,
+                                         win_length)).to(y.device)
     tiny = float(np.finfo(np.float32).tiny)
     y = torch.where(env > tiny, y / torch.where(env > tiny, env, 1.0), y)
     pad = n_fft // 2
@@ -219,12 +255,17 @@ def _normalize_trim(y: torch.Tensor, num_frames: int, n_fft: int, hop: int,
 
 def stft_cat_plain(y: torch.Tensor, n_fft: int = N_FFT,
                    hop_length: int = HOP_LENGTH,
-                   win_length: int = WIN_LENGTH) -> torch.Tensor:
-    """Plain version of K1: centered STFT `(..., L)` -> `(..., T, 2*bins)`."""
+                   win_length: int = WIN_LENGTH,
+                   center: bool = True) -> torch.Tensor:
+    """Plain version of K1: STFT `(..., L)` -> `(..., T, 2*bins)`,
+    centered (T = 1 + L // hop) or, with `center=False`, over the buffer
+    as given (T = 1 + (L - n_fft) // hop)."""
     pad = n_fft // 2
     y = y.float()
     lead, length = y.shape[:-1], y.shape[-1]
-    y = F.pad(y.reshape(-1, 1, length), (pad, pad), mode="reflect")[:, 0]
+    y = y.reshape(-1, length)
+    if center:
+        y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = frame_signal(y, n_fft, hop_length)  # (B, T, n_fft)
     mat = _device_table("analysis", n_fft, win_length, y.device)
     spec = torch.matmul(frames, mat)
@@ -232,49 +273,59 @@ def stft_cat_plain(y: torch.Tensor, n_fft: int = N_FFT,
 
 
 def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
-             win_length: int = WIN_LENGTH) -> torch.Tensor:
-    """Centered STFT `(..., L)` -> packed `(..., T, 2*bins)` = [re | im].
+             win_length: int = WIN_LENGTH, center: bool = True) -> torch.Tensor:
+    """STFT `(..., L)` -> packed `(..., T, 2*bins)` = [re | im]; centered,
+    or with `center=False` over the caller's pre-padded buffer.
 
-    Kernel K1 on a CUDA tensor, `stft_cat_plain` on a CPU tensor.
+    Kernel K1 on a CUDA tensor, `stft_cat_plain` on a CPU tensor. The
+    launches count under "stft" (centered) or "stft_center_false".
     """
     if y.device.type == "cpu":
-        return stft_cat_plain(y, n_fft, hop_length, win_length)
+        return stft_cat_plain(y, n_fft, hop_length, win_length, center)
     _check_kernel_geometry(n_fft, hop_length, win_length, "stft_cat")
     if y.device.type != "cuda":
         raise ValueError(f"stft_cat: unsupported device {y.device}")
     pad = n_fft // 2
     lead, length = y.shape[:-1], y.shape[-1]
-    if length <= pad:
+    if center and length <= pad:
         raise ValueError(f"stft_cat: reflect padding needs more than {pad} "
                          f"samples, got {length}")
+    if not center and length < n_fft:
+        raise ValueError(f"stft_cat: center=False needs at least {n_fft} "
+                         f"samples, got {length}")
     y2 = y.float().reshape(-1, length).contiguous()
-    batch, frames = y2.shape[0], 1 + length // hop_length
+    batch = y2.shape[0]
+    frames = (1 + length // hop_length if center
+              else 1 + (length - n_fft) // hop_length)
     n_out = 2 * (n_fft // 2 + 1)
     tab, slots = device_pfa_tables(y.device)
     out = torch.empty((batch, frames, n_out), dtype=torch.float32,
                       device=y.device)
     with on_device(y.device) as stream:
-        launch("stft", "sos_stft", y2.data_ptr(), tab.data_ptr(),
-               slots.data_ptr(), out.data_ptr(), batch, length, frames,
+        launch("stft" if center else "stft_center_false", "sos_stft",
+               y2.data_ptr(), tab.data_ptr(), slots.data_ptr(),
+               out.data_ptr(), batch, length, frames, pad if center else 0,
                stream)
     return out.reshape(*lead, frames, n_out)
 
 
 def stft(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
-         win_length: int = WIN_LENGTH) -> torch.Tensor:
-    """Centered STFT of `(..., L)` -> `(..., F, T, 2)` (real/imag last)."""
+         win_length: int = WIN_LENGTH, center: bool = True) -> torch.Tensor:
+    """STFT of `(..., L)` -> `(..., F, T, 2)` (real/imag last). `center=False`
+    skips the reflect padding (the caller pre-padded, as the
+    length-bucketed predictors do)."""
     bins = n_fft // 2 + 1
-    spec = stft_cat(y, n_fft, hop_length, win_length)
+    spec = stft_cat(y, n_fft, hop_length, win_length, center)
     out = torch.stack([spec[..., :bins], spec[..., bins:]], dim=-1)
     return out.transpose(-3, -2)
 
 
 def stft_packed(y: torch.Tensor, n_fft: int = N_FFT,
-                hop_length: int = HOP_LENGTH,
-                win_length: int = WIN_LENGTH) -> Tuple[torch.Tensor, torch.Tensor]:
+                hop_length: int = HOP_LENGTH, win_length: int = WIN_LENGTH,
+                center: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """STFT in the packed layout: `(..., L)` -> (re, im), each `(..., T, F)`."""
     bins = n_fft // 2 + 1
-    spec = stft_cat(y, n_fft, hop_length, win_length)
+    spec = stft_cat(y, n_fft, hop_length, win_length, center)
     return spec[..., :bins], spec[..., bins:]
 
 
@@ -284,51 +335,68 @@ def stft_packed(y: torch.Tensor, n_fft: int = N_FFT,
 
 
 def istft_packed(re: torch.Tensor, im: torch.Tensor, n_fft: int = N_FFT,
-                 hop_length: int = HOP_LENGTH,
-                 win_length: int = WIN_LENGTH) -> torch.Tensor:
-    """Inverse of :func:`stft_packed`: (re, im) `(..., T, F)` -> `(..., (T-1)*hop)`."""
+                 hop_length: int = HOP_LENGTH, win_length: int = WIN_LENGTH,
+                 valid_t=None) -> torch.Tensor:
+    """Inverse of :func:`stft_packed`: (re, im) `(..., T, F)` -> `(..., (T-1)*hop)`.
+
+    `valid_t` (an int, or a tensor of the leading shape, on the device):
+    each row drops its frames >= valid_t and is normalized by the
+    envelope of its valid frames only, so its samples below
+    (valid_t-1)*hop equal an unpadded istft's (the caller slices).
+    """
     num_frames = re.shape[-2]
     z = torch.cat([re.float(), im.float()], dim=-1)
+    env = None
+    if valid_t is not None:
+        mask = _frame_mask(valid_t, tuple(z.shape[:-2]), num_frames, z.device)
+        z = z * mask[..., None]
+        env = _masked_envelope(mask, n_fft, hop_length, win_length)
     mat = _device_table("synthesis", n_fft, win_length, z.device)
     frames = torch.matmul(z, mat)
     y = overlap_add(frames, hop_length)
-    return _normalize_trim(y, num_frames, n_fft, hop_length, win_length)
+    return _normalize_trim(y, num_frames, n_fft, hop_length, win_length, env)
 
 
 def istft(spec: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
-          win_length: int = WIN_LENGTH) -> torch.Tensor:
-    """Inverse of :func:`stft`: `(..., F, T, 2)` -> `(..., (T-1)*hop)` samples."""
+          win_length: int = WIN_LENGTH, valid_t=None) -> torch.Tensor:
+    """Inverse of :func:`stft`: `(..., F, T, 2)` -> `(..., (T-1)*hop)` samples
+    (`valid_t` as in :func:`istft_packed`)."""
     spec = spec.float().transpose(-3, -2)  # (..., T, F, 2)
     return istft_packed(spec[..., 0], spec[..., 1], n_fft, hop_length,
-                        win_length)
+                        win_length, valid_t)
 
 
 def crm_istft_plain(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
-                    hop_length: int = HOP_LENGTH,
-                    win_length: int = WIN_LENGTH) -> torch.Tensor:
+                    hop_length: int = HOP_LENGTH, win_length: int = WIN_LENGTH,
+                    valid_t=None) -> torch.Tensor:
     """Plain version of K3: packed cRM and mixed STFT `(B, T, 2F)` -> waveform.
 
     `apply_compressed_crm` (recover, then mask * spec in the complex
-    field) followed by `istft_packed`.
+    field) followed by `istft_packed` (with `valid_t`, per row).
     """
     bins = n_fft // 2 + 1
     rr = crm_sigmoid_recover(crm[..., :bins].float())
     ri = crm_sigmoid_recover(crm[..., bins:].float())
     mr, mi = spec[..., :bins], spec[..., bins:]
     return istft_packed(rr * mr - ri * mi, rr * mi + ri * mr, n_fft,
-                        hop_length, win_length)
+                        hop_length, win_length, valid_t)
 
 
 def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
-              hop_length: int = HOP_LENGTH,
-              win_length: int = WIN_LENGTH) -> torch.Tensor:
+              hop_length: int = HOP_LENGTH, win_length: int = WIN_LENGTH,
+              valid_t=None) -> torch.Tensor:
     """Denoised waveform `(B, (T-1)*hop)` from the denoiser's packed
     sigmoid cRM `(B, T, 2F)` and the packed mixed STFT `(B, T, 2F)`.
+    `valid_t` `(B,)` (integers, on the device): row b keeps its frames
+    below valid_t[b] and divides by their envelope alone.
 
-    Kernel K3 on CUDA tensors, `crm_istft_plain` on CPU tensors.
+    Kernel K3 on CUDA tensors, `crm_istft_plain` on CPU tensors. The
+    launches count under "crm_istft", or "crm_istft_valid_t" with
+    `valid_t`.
     """
     if crm.device.type == "cpu" and spec.device.type == "cpu":
-        return crm_istft_plain(crm, spec, n_fft, hop_length, win_length)
+        return crm_istft_plain(crm, spec, n_fft, hop_length, win_length,
+                               valid_t)
     _check_kernel_geometry(n_fft, hop_length, win_length, "crm_istft")
     bins = n_fft // 2 + 1
     if crm.device.type != "cuda" or spec.device != crm.device:
@@ -340,25 +408,20 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
                          f"{tuple(spec.shape)}")
     crm, spec = aligned16(crm.float()), aligned16(spec.float())
     batch, num_frames, _ = crm.shape
+    vt = None
+    if valid_t is not None:
+        # a device tensor stays on the device: no host sync
+        vt = torch.as_tensor(valid_t, device=crm.device)
+        vt = vt.to(torch.int32).expand(batch).contiguous()
     out_len = (num_frames - 1) * hop_length
     out = torch.empty((batch, out_len), dtype=torch.float32, device=crm.device)
     if out_len == 0:
         return out
-    env = _device_envelope(num_frames, n_fft, hop_length, win_length,
-                           crm.device)
     tab, slots = device_pfa_tables(crm.device)
     with on_device(crm.device) as stream:
-        launch("crm_istft", "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
-               tab.data_ptr(), slots.data_ptr(), env.data_ptr(),
-               out.data_ptr(), batch, num_frames, out_len, stream)
+        launch("crm_istft" if vt is None else "crm_istft_valid_t",
+               "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
+               tab.data_ptr(), slots.data_ptr(),
+               None if vt is None else vt.data_ptr(), out.data_ptr(), batch,
+               num_frames, out_len, stream)
     return out
-
-
-@functools.lru_cache(maxsize=16)
-def _device_envelope(num_frames: int, n_fft: int, hop: int, win_length: int,
-                     device: torch.device) -> torch.Tensor:
-    """The trimmed envelope K3 divides by, as a tensor on `device`."""
-    pad = n_fft // 2
-    env = _envelope(num_frames, n_fft, hop, win_length)
-    env = np.ascontiguousarray(env[pad:env.shape[0] - pad])
-    return torch.from_numpy(env).to(device)

@@ -40,15 +40,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # y, PFA float table, PFA slots, out, B, L, T, stream
-    "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # y, PFA float table, PFA slots, out, B, L, T, pad (255 centered, 0
+    # for center=False), stream
+    "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mixed, bits, geometry (body | gap << 16), out, B, L, num_frames,
     # stream
     "sos_mask_gate": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # crm, spec, PFA float table, PFA slots, envelope, out, B, T, out_len,
-    # stream
+    # crm, spec, PFA float table, PFA slots, valid_t (int32 (B,) or NULL),
+    # out, B, T, out_len, stream
     "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, step_mask (or NULL), out,
+    # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths (int32 (B,) or NULL), out,
     # B, T, H, then the plan: rows a block, cluster, units a block, kp,
     # threads, shared bytes; stream
     "sos_bilstm": (_P,) * 6 + (_I,) * 9 + (_P,),
@@ -72,10 +73,14 @@ SIGNATURES = {
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
 # (one CUDA launch per wrapper call), under a lock, since the serve loop
-# launches from two threads.
-LAUNCHES: Dict[str, int] = {"stft": 0, "mask_gate": 0, "crm_istft": 0,
-                            "bilstm": 0, "int8_gemm": 0, "int8_conv": 0,
-                            "int8_inpaint": 0}
+# launches from two threads. K1, K3 and K4 count their length-bucketed
+# cases apart: K1 with center=False, K3 with per-row valid_t, K4 with
+# per-row lengths.
+LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
+                            "mask_gate": 0, "crm_istft": 0,
+                            "crm_istft_valid_t": 0, "bilstm": 0,
+                            "bilstm_lengths": 0, "int8_gemm": 0,
+                            "int8_conv": 0, "int8_inpaint": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -1,7 +1,12 @@
 """Building blocks with `sos_tpu`'s numerics (port of `sos_tpu/models/layers.py`).
 
 All blocks work NCHW = (B, C, F, T), eval mode only (running BN
-statistics); the `valid_t` length-bucketing variants are not ported yet.
+statistics). `DownConvBlock` and `UpConvBlock` also run the exact
+length-bucketed variant: given per-row valid widths `valid_t` `(B,)`
+(integer tensors on the device, never read on the host), they re-zero
+each row's time tail, inject the end-of-signal reflection at each row's
+own boundary (`zero_time_tail`, `reflect_time_tail`), and return
+`(y, valid_out)`.
 Parameters are float32; the forward casts them to the input's dtype, as
 flax's `dtype=compute_dtype` does, so a bf16 input runs a bf16 conv.
 The convolutions are cuDNN's (`sos_tpu` leaves them to XLA's stock
@@ -12,6 +17,7 @@ do.
 * :class:`ConvBlock`     Conv2d("same" dilated padding) + BN + ReLU.
 * :class:`DownConvBlock` ReflectionPad + strided Conv2d + BN + PReLU.
 * :class:`UpConvBlock`   ConvTranspose2d(output_padding=1) + BN + PReLU.
+* `zero_time_tail`, `reflect_time_tail`: the per-row time-tail ops.
 * :class:`TorchLinear`   x @ W^T + b.
 """
 
@@ -20,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -136,6 +142,60 @@ class ConvBlock(nn.Module):
         return torch.relu(self.bn(x))
 
 
+def _reflect_index(size: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Source indices of numpy's "reflect" padding by (lo, hi) of a
+    length-`size` axis, for any pad: the extension of period 2(size-1)."""
+    i = torch.arange(-lo, size + hi, device=device)
+    if size == 1:
+        return torch.zeros_like(i)
+    m = torch.remainder(i, 2 * (size - 1))
+    return torch.where(m >= size, 2 * (size - 1) - m, m)
+
+
+def reflect_pad(x: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """`F.pad(x, pads, mode="reflect")` of NCHW `x` (pads = left, right,
+    top, bottom), also where a pad reaches the width of its axis, as
+    `jnp.pad(mode="reflect")` allows (a short utterance's mid blocks):
+    there, an index gather of the same values."""
+    left, right, top, bottom = pads
+    h, w = x.shape[2], x.shape[3]
+    if max(left, right) < w and max(top, bottom) < h:
+        return F.pad(x, pads, mode="reflect")
+    x = torch.index_select(x, 3, _reflect_index(w, left, right, x.device))
+    return torch.index_select(x, 2, _reflect_index(h, top, bottom, x.device))
+
+
+def time_mask(x: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
+    """`(B, 1, 1, T)` mask in x's dtype of each row's time steps (dim 3)
+    below valid_t[b]."""
+    steps = torch.arange(x.shape[3], device=x.device)
+    return (steps[None, :] < valid_t[:, None]).to(x.dtype)[:, None, None, :]
+
+
+def zero_time_tail(x: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
+    """Zero each row's entries at time index (dim 3) >= valid_t[b]."""
+    return x * time_mask(x, valid_t)
+
+
+def reflect_time_tail(x: torch.Tensor, valid_t: torch.Tensor, pad: int,
+                      offset: int = 0) -> torch.Tensor:
+    """Write each row's end-of-signal reflection at its own boundary:
+    columns [offset+v, offset+v+pad) of row b (v = valid_t[b]) become
+    x[..., offset+v-2-j], j < pad (sources clipped to the width), as an
+    unpadded program's ReflectionPad would place them. The caller keeps
+    offset+v+pad <= T; like sos_tpu's dynamic_update_slice, a start past
+    T - pad is moved back to T - pad. A gather of the sources, then a
+    scatter into a copy."""
+    b, c, f, t = x.shape
+    j = torch.arange(pad, device=x.device)
+    src = torch.clamp(offset + valid_t[:, None] - 2 - j[None, :], 0, t - 1)
+    start = torch.clamp(offset + valid_t, 0, t - pad)
+    dst = start[:, None] + j[None, :]
+    shape = (b, c, f, pad)
+    vals = torch.gather(x, 3, src[:, None, None, :].expand(shape))
+    return x.scatter(3, dst[:, None, None, :].expand(shape), vals)
+
+
 class DownConvBlock(nn.Module):
     """ReflectionPad + Conv2d(no pad, stride s) + BN + PReLU
     (m2 networks.py:97-117). `final=True` is InpaintNet's output block:
@@ -161,16 +221,31 @@ class DownConvBlock(nn.Module):
         if self.bias is not None:
             _uniform(self.bias, fan_in, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pad:
-            p = self.pad
-            x = F.pad(x, (p, p, p, p), mode="reflect")
+    def forward(self, x: torch.Tensor, valid_t: Optional[torch.Tensor] = None):
+        """`x` (B, C, F, T) -> y; with `valid_t` `(B,)`, the exact
+        length-bucketed variant -> (y, valid_out): frequency is reflected
+        in full, time on the left (its start is real), and on the right
+        the tail is zeroed and each row's reflection injected at its
+        valid boundary; y is re-zeroed past valid_out."""
+        p = self.pad
+        if p and valid_t is None:
+            x = reflect_pad(x, (p, p, p, p))
+        elif p:
+            x = zero_time_tail(x, valid_t)
+            x = reflect_pad(x, (p, 0, p, p))
+            x = F.pad(x, (0, p))
+            x = reflect_time_tail(x, valid_t, p, offset=p)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         x = F.conv2d(x, self.weight.to(x.dtype), bias, stride=self.stride,
                      dilation=self.dilation)
-        if self.bn is None:
+        if self.bn is not None:
+            x = self.act(self.bn(x))
+        if valid_t is None:
             return x
-        return self.act(self.bn(x))
+        keff = self.dilation * (self.weight.shape[-1] - 1) + 1
+        valid_out = torch.div(valid_t + 2 * p - keff, self.stride,
+                              rounding_mode="floor") + 1
+        return zero_time_tail(x, valid_out), valid_out
 
 
 class UpConvBlock(nn.Module):
@@ -194,10 +269,21 @@ class UpConvBlock(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         _uniform(self.weight, self.weight[0].numel(), generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_t: Optional[torch.Tensor] = None):
+        """`x` (B, C, F, T) -> y; with `valid_t` `(B,)` -> (y, valid_out):
+        the input's tail is zeroed first (it then adds nothing below the
+        exact width), y re-zeroed past
+        valid_out = (valid_t - 1) * s - 2p + k + 1 (output_padding 1)."""
+        if valid_t is not None:
+            x = zero_time_tail(x, valid_t)
         x = F.conv_transpose2d(x, self.weight.to(x.dtype), stride=self.stride,
                                padding=self.padding, output_padding=1)
-        return self.act(self.bn(x))
+        x = self.act(self.bn(x))
+        if valid_t is None:
+            return x
+        k = self.weight.shape[-1]
+        valid_out = (valid_t - 1) * self.stride - 2 * self.padding + k + 1
+        return zero_time_tail(x, valid_out), valid_out
 
 
 class TorchLinear(nn.Module):

@@ -23,8 +23,11 @@ Layouts: activations are NHWC `(B, F, T, C)` int8 between blocks; the
 public entries keep sos_tpu's `(B, F, T, 2)` spectra and packed
 `(B, T, F)` (re, im) pairs.
 
-Not ported yet: the `valid_t` length-bucketed paths and the "bfloat16"
-InpaintNet mode (they wait for the streaming slice).
+Not ported yet: the `valid_t` length-bucketed paths (K6 with the time
+mask, K7 with the time tails and rows over 192; the int8 slice after the
+f32/bf16 bucketed predictors, ROADMAP.md queue 1 item 3 and queue 2
+A3-A4) and the "bfloat16" InpaintNet mode (queue 1 item 4). The int8
+predictors run whole utterances at their own length.
 
 Calibration runs folded-float convs; on the card it must run with TF32
 off, so `calibrate` enters `exact_fp32` itself.
@@ -465,11 +468,17 @@ class QuantizedDenoiser:
             f_n = self._encoder_int8(self.enc_n, noise.permute(0, 2, 3, 1))
             return noise, self._head(f_x, f_n)
 
+    def forward_cat(self, mixed_cat: torch.Tensor, gated_cat: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Packed STFTs `(B, T, 2F)` -> (noise prediction NCHW
+        `(B, 2, F, T)`, packed compressed cRM `(B, T, 2F)`)."""
+        return self._forward(cat_to_nhwc(mixed_cat), cat_to_nhwc(gated_cat))
+
     def crm_cat(self, mixed_cat: torch.Tensor,
                 gated_cat: torch.Tensor) -> torch.Tensor:
         """Packed STFTs `(B, T, 2F)` -> packed compressed cRM `(B, T, 2F)`
         (the layout kernel K3 reads)."""
-        return self._forward(cat_to_nhwc(mixed_cat), cat_to_nhwc(gated_cat))[1]
+        return self.forward_cat(mixed_cat, gated_cat)[1]
 
     def crm_packed(self, mixed_re, mixed_im, gated_re, gated_im
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,10 @@
   both directions in one launch, laid out by `recurrence_plan`: batch
   rows tiled per block, W_hh held in shared memory (split over a
   thread block cluster at H 200); its plain version runs `lstm_scan`
-  once per direction.
+  once per direction. With per-row `lengths` `(B,)` (the
+  length-bucketed predictors' `valid_len`), row b's steps >= lengths[b]
+  are padding: h and c are zeroed there, so its backward direction
+  starts fresh at lengths[b] - 1.
 
 Gate order is torch's (i, f, g, o); carries are fp32. Parameters keep
 torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
@@ -32,9 +35,9 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
     """LSTM recurrence over pre-projected inputs `(T, B, 4H)` with
     `w_hh` `(H, 4H)`. Returns `(T, B, H)`.
 
-    `step_mask` `(T,)` (1 = valid, 0 = padding) zeroes h and c at padding
-    steps, so a reverse scan over a padded tail enters the valid region
-    with a fresh state.
+    `step_mask` `(T,)`, or `(T, B)` for a mask per row (1 = valid,
+    0 = padding), zeroes h and c at padding steps, so a reverse scan over
+    a padded tail enters the valid region with a fresh state.
     """
     num_steps, batch, _ = x_proj.shape
     hidden = w_hh.shape[0]
@@ -50,17 +53,27 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
         h = torch.sigmoid(o) * torch.tanh(c)
         if step_mask is not None:
             m = step_mask[t].float()
+            if m.dim():
+                m = m[:, None]
             h = h * m
             c = c * m
         out[t] = h
     return torch.stack(out)
 
 
+def _row_mask(lengths: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """`(T, B)` mask of the steps below each row's length."""
+    steps = torch.arange(num_steps, device=lengths.device)
+    return (steps[:, None] < lengths[None, :]).float()
+
+
 def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
                             w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-                            step_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K4: projections `(B, T, 4H)`, `w_hh` `(4H, H)`
-    -> `(B, T, 2H)` = [forward | backward]."""
+                            lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K4: projections `(B, T, 4H)`, `w_hh` `(4H, H)`,
+    optional per-row `lengths` `(B,)` -> `(B, T, 2H)` = [forward | backward]."""
+    step_mask = (None if lengths is None
+                 else _row_mask(lengths.to(xp_f.device), xp_f.shape[1]))
     hs_f = lstm_scan(xp_f.transpose(0, 1), w_hh_f.t(), False, step_mask)
     hs_b = lstm_scan(xp_b.transpose(0, 1), w_hh_b.t(), True, step_mask)
     return torch.cat([hs_f, hs_b], dim=-1).transpose(0, 1)
@@ -232,14 +245,17 @@ def max_active_clusters(plan: RecurrencePlan) -> int:
 
 def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
                       w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-                      step_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Both LSTM directions over hoisted projections -> `(B, T, 2H)`.
+                      lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both LSTM directions over hoisted projections -> `(B, T, 2H)`;
+    `lengths` `(B,)` integers on the projections' device (or None: every
+    row has T steps).
 
     Kernel K4 on CUDA tensors, `bilstm_recurrence_plain` on CPU tensors.
-    The launch follows `recurrence_plan`; a shape it refuses raises.
+    The launch follows `recurrence_plan`; a shape it refuses raises. The
+    launches count under "bilstm", or "bilstm_lengths" with `lengths`.
     """
     if xp_f.device.type == "cpu":
-        return bilstm_recurrence_plain(xp_f, xp_b, w_hh_f, w_hh_b, step_mask)
+        return bilstm_recurrence_plain(xp_f, xp_b, w_hh_f, w_hh_b, lengths)
     if xp_f.device.type != "cuda":
         raise ValueError(f"bilstm_recurrence: unsupported device {xp_f.device}")
     batch, num_steps, gates = xp_f.shape
@@ -256,17 +272,19 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
                aligned16(w_hh_f.float()), aligned16(w_hh_b.float())]
     if any(t.device != dev for t in tensors):
         raise ValueError("bilstm_recurrence: tensors on different devices")
-    mask = None
-    if step_mask is not None:
-        mask = step_mask.to(device=dev, dtype=torch.float32).contiguous()
-        if mask.shape != (num_steps,):
-            raise ValueError(f"bilstm_recurrence: step_mask must be "
-                             f"({num_steps},), got {tuple(mask.shape)}")
+    lens = None
+    if lengths is not None:
+        if lengths.device != dev or tuple(lengths.shape) != (batch,):
+            raise ValueError(f"bilstm_recurrence: lengths must be ({batch},) "
+                             f"on {dev}, got {tuple(lengths.shape)} on "
+                             f"{lengths.device}")
+        lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((batch, num_steps, 2 * hidden), dtype=torch.float32,
                       device=dev)
     with on_device(dev) as stream:
-        launch("bilstm", "sos_bilstm", *(t.data_ptr() for t in tensors),
-               None if mask is None else mask.data_ptr(), out.data_ptr(),
+        launch("bilstm" if lens is None else "bilstm_lengths", "sos_bilstm",
+               *(t.data_ptr() for t in tensors),
+               None if lens is None else lens.data_ptr(), out.data_ptr(),
                batch, num_steps, hidden, plan.bt, plan.cluster,
                plan.ustride, plan.kp, plan.threads, plan.smem_bytes, stream)
     return out
@@ -313,17 +331,19 @@ class BiLSTM(nn.Module):
         for p in self.parameters():
             p.data.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor,
-                valid_len: Optional[int] = None) -> torch.Tensor:
-        """With `valid_len`, steps >= valid_len are padding: their outputs
-        are zero and the backward direction starts fresh at valid_len-1."""
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
+        """With `valid_len` (an int, or a `(B,)` tensor of per-row
+        lengths on x's device), steps >= valid_len are padding: their
+        outputs are zero and the backward direction starts fresh at
+        valid_len-1."""
         x = x.float()
-        step_mask = None
+        lengths = None
         if valid_len is not None:
-            step_mask = torch.arange(x.shape[1], device=x.device) < valid_len
+            lengths = torch.as_tensor(valid_len, device=x.device)
+            lengths = lengths.to(torch.int64).expand(x.shape[0])
         xp_f = _project(x, self.w_ih_fwd, self.b_ih_fwd + self.b_hh_fwd,
                         self.bf16_proj)
         xp_b = _project(x, self.w_ih_bwd, self.b_ih_bwd + self.b_hh_bwd,
                         self.bf16_proj)
         return bilstm_recurrence(xp_f, xp_b, self.w_hh_fwd, self.w_hh_bwd,
-                                 step_mask)
+                                 lengths)

@@ -2,7 +2,9 @@
 (port of `sos_tpu/ops/resize.py`).
 
 The source index is `floor(dst * in/out)`, computed once in float64 on
-the host and applied with `index_select`. `F.interpolate` is not used:
+the host and applied with `index_select`; `dynamic_nearest_time` takes
+per-row valid widths on the device and computes its indices there in
+integer arithmetic. `F.interpolate` is not used:
 its float scale can pick other indices than `sos_tpu`. The index tensor
 is kept on its device: a fresh host copy on every call would make the
 launching thread wait for the stream to drain.
@@ -44,3 +46,21 @@ def nearest_resize_2d(x: torch.Tensor, out_hw, h_dim: int,
     """Nearest 2-D resize used by InpaintNet's skip-shape fixups."""
     x = nearest_resize_1d(x, out_hw[0], h_dim)
     return nearest_resize_1d(x, out_hw[1], w_dim)
+
+
+def dynamic_nearest_time(x: torch.Tensor, v_src: torch.Tensor,
+                         v_dst: torch.Tensor, out_t: int) -> torch.Tensor:
+    """Nearest time-resize of each row's valid region (NCHW, time dim 3).
+
+    Output column j of row b reads input column
+    `floor(j * v_src[b] / max(v_dst[b], 1))` (exact integer floor,
+    clipped to the input), for j < out_t; columns at or past v_dst[b]
+    are zeroed. `v_src`, `v_dst`: `(B,)` integer tensors on x's device.
+    """
+    b, c, f, t_in = x.shape
+    j = torch.arange(out_t, device=x.device)
+    idx = (j[None, :] * v_src[:, None]) // torch.clamp(v_dst, min=1)[:, None]
+    idx = torch.clamp(idx, 0, t_in - 1)
+    y = torch.gather(x, 3, idx[:, None, None, :].expand(b, c, f, out_t))
+    keep = (j[None, :] < v_dst[:, None]).to(y.dtype)
+    return y * keep[:, None, None, :]

@@ -5,8 +5,11 @@ The emulation below follows the kernels' algorithm step by step: the
 reflect-indexed framing, the window, the packing z[m] = x[2m] + i x[2m+1]
 into Good-Thomas slots, the 17-, 5- and 3-point passes, the real split
 (forward) or the Hermitian packing (inverse), the window / 510, the
-overlap-add, the envelope divide and the trim. It is held against the
-plain versions (dense DFT matmuls) and against `sos_tpu`'s
+overlap-add, the envelope divide (the envelope summed from the squared
+window values of the frames that reach a sample, as K3 does it,
+optionally only of each row's frames below its `valid_t`) and the trim.
+K1's `center=False` case frames the given buffer without the reflect.
+It is held against the plain versions (dense DFT matmuls) and against `sos_tpu`'s
 `stft_packed` / `istft_packed`: the STFT within atol 1e-5 + rtol 1e-5,
 cRM + iSTFT within the repo's atol 1e-4 + rtol 1e-4 (its recovered masks
 reach +-46). The kernels themselves run only on a card
@@ -64,12 +67,13 @@ def _pfa255(z, tabs, inverse):
     return a.reshape(z.shape)
 
 
-def emulate_stft(y: torch.Tensor) -> torch.Tensor:
+def emulate_stft(y: torch.Tensor, center: bool = True) -> torch.Tensor:
     """K1: (B, L) -> packed (B, T, 512)."""
     tabs = _tables()
     length = y.shape[-1]
-    frames = 1 + length // HOP
-    q = torch.arange(frames)[:, None] * HOP + torch.arange(N_FFT)[None] - PAD
+    pad = PAD if center else 0
+    frames = 1 + length // HOP if center else 1 + (length - N_FFT) // HOP
+    q = torch.arange(frames)[:, None] * HOP + torch.arange(N_FFT)[None] - pad
     q = torch.where(q < 0, -q, q)
     q = torch.where(q >= length, 2 * (length - 1) - q, q)
     x = y[:, q] * tabs["window"]
@@ -83,10 +87,13 @@ def emulate_stft(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([spec.real, spec.imag], dim=-1)
 
 
-def emulate_crm_istft(crm: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
+def emulate_crm_istft(crm: torch.Tensor, spec: torch.Tensor,
+                      valid_t=None) -> torch.Tensor:
     """K3: packed cRM and spectrum (B, T, 512) -> (B, (T-1)*158)."""
     tabs = _tables()
     batch, frames, _ = crm.shape
+    tv = torch.full((batch,), frames) if valid_t is None else valid_t
+    live = (torch.arange(frames)[None] < tv[:, None]).float()  # (B, T)
     rr, ri = crm_sigmoid_recover(crm[..., :BINS]), crm_sigmoid_recover(crm[..., BINS:])
     mr, mi = spec[..., :BINS], spec[..., BINS:]
     im = rr * mi + ri * mr
@@ -101,14 +108,17 @@ def emulate_crm_istft(crm: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
     z = torch.empty_like(slots)
     z[..., tabs["out_index"]] = slots  # the last pass stores in sample order
     frame = torch.stack([z.real, z.imag], dim=-1).reshape(batch, frames, N_FFT)
-    frame = frame * tabs["synth_window"]
+    frame = frame * tabs["synth_window"] * live[..., None]
+    wsq = (tabs["window"] * tabs["window"]) * live[..., None]  # (B, T, 510)
     full = torch.zeros(batch, (frames + 3) * HOP)
+    env = torch.zeros(batch, (frames + 3) * HOP)
     for c in range(4):  # chunk c of every frame, chunk 0 first
-        chunk = frame[..., c * HOP:(c + 1) * HOP]
-        full[:, c * HOP:c * HOP + frames * HOP].view(batch, frames, HOP)[
-            ..., :chunk.shape[-1]] += chunk
+        for acc, src in ((full, frame), (env, wsq)):
+            chunk = src[..., c * HOP:(c + 1) * HOP]
+            acc[:, c * HOP:c * HOP + frames * HOP].view(batch, frames, HOP)[
+                ..., :chunk.shape[-1]] += chunk
     out_len = (frames - 1) * HOP
-    env = tstft._device_envelope(frames, N_FFT, HOP, 400, torch.device("cpu"))
+    env = env[:, PAD:PAD + out_len]
     y = full[:, PAD:PAD + out_len]
     tiny = float(np.finfo(np.float32).tiny)
     return torch.where(env > tiny, y / torch.where(env > tiny, env, 1.0), y)
@@ -178,3 +188,55 @@ def test_crm_istft_emulation_matches_plain_and_sos_tpu(length):
     mr, mi = s[..., :BINS], s[..., BINS:]
     ref = np.asarray(jstft.istft_packed(rr * mr - ri * mi, rr * mi + ri * mr))
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_stft_center_false_emulation_matches_plain_and_sos_tpu():
+    """K1 without the reflect: a reflect-padded, zero-extended buffer as
+    the bucketed predictors build it."""
+    y = _clips(20000)
+    buf = np.zeros((2, (200 - 1) * HOP + N_FFT), np.float32)
+    padded = np.pad(y, ((0, 0), (PAD, PAD)), mode="reflect")
+    buf[:, :padded.shape[1]] = padded
+    got = emulate_stft(torch.from_numpy(buf), center=False)
+    plain = tstft.stft_cat_plain(torch.from_numpy(buf), center=False)
+    assert got.shape == plain.shape == (2, 200, 2 * BINS)
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+    re, im = jstft.stft_packed(jnp.asarray(buf), center=False)
+    ref = np.concatenate([np.asarray(re), np.asarray(im)], axis=-1)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    # the first 1 + 20000 // 158 frames are the centered STFT's
+    centered = tstft.stft_cat_plain(torch.from_numpy(y))
+    torch.testing.assert_close(got[:, :centered.shape[1]], centered,
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_crm_istft_valid_t_emulation_matches_plain_and_sos_tpu():
+    """K3 with per-row valid_t, from the full bucket down to 1 frame:
+    against the plain version, against sos_tpu's istft(valid_t=) per row,
+    and (below (valid_t - 1) * 158) against an unpadded row."""
+    y = _clips(28000)
+    spec = tstft.stft_cat_plain(torch.from_numpy(y))
+    frames = spec.shape[1]
+    spec = spec.repeat(3, 1, 1)
+    crm = torch.from_numpy(np.concatenate([_crm(frames, 28000)] * 3))
+    valid_t = torch.tensor([frames, 1, 2, 120, 57, frames - 1])
+    got = emulate_crm_istft(crm, spec, valid_t)
+    plain = tstft.crm_istft_plain(crm, spec, valid_t=valid_t)
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    for row, v in enumerate(valid_t.tolist()):
+        s = jnp.asarray(spec[row:row + 1].numpy())
+        c = crm[row:row + 1].numpy()
+        rr = jcrm.crm_sigmoid_recover(jnp.asarray(c[..., :BINS]))
+        ri = jcrm.crm_sigmoid_recover(jnp.asarray(c[..., BINS:]))
+        mr, mi = s[..., :BINS], s[..., BINS:]
+        ref_spec = jnp.stack([rr * mr - ri * mi, rr * mi + ri * mr], -1)
+        ref = np.asarray(jstft.istft(jnp.swapaxes(ref_spec, -3, -2),
+                                     valid_t=jnp.int32(v)))
+        np.testing.assert_allclose(got[row:row + 1].numpy(), ref,
+                                   atol=1e-4, rtol=1e-4)
+        n = (v - 1) * HOP
+        if n > 0:
+            alone = tstft.crm_istft_plain(crm[row:row + 1, :v],
+                                          spec[row:row + 1, :v])
+            torch.testing.assert_close(got[row, :n], alone[0, :n],
+                                       atol=1e-4, rtol=1e-4)

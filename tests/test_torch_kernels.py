@@ -94,6 +94,24 @@ def test_wrappers_refuse_other_devices():
     assert LAUNCHES == before
 
 
+def test_bucketed_cases_refuse_other_devices():
+    """K1 center=False, K3 with valid_t and K4 with lengths: the same
+    rule, plain only on the CPU."""
+    meta = torch.device("meta")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="meta"):
+        stft.stft_cat(torch.empty(2, 40796, device=meta), center=False)
+    with pytest.raises(ValueError, match="meta"):
+        stft.crm_istft(torch.empty(2, 256, 512, device=meta),
+                       torch.empty(2, 256, 512, device=meta),
+                       valid_t=torch.ones(2, dtype=torch.int64, device=meta))
+    with pytest.raises(ValueError, match="meta"):
+        lstm.bilstm_recurrence(*(torch.empty(2, 5, 16, device=meta),) * 2,
+                               *(torch.empty(16, 4, device=meta),) * 2,
+                               torch.ones(2, dtype=torch.int64, device=meta))
+    assert LAUNCHES == before
+
+
 def test_int8_wrappers_refuse_other_devices():
     meta = torch.device("meta")
     before = dict(LAUNCHES)
@@ -186,6 +204,60 @@ def test_crm_istft_kernel_matches_plain(cuda_device, batch, length):
                                atol=1e-4, rtol=1e-4)
 
 
+def _bucket_buffers(lengths, bucket_t, device):
+    """Reflect-padded, zero-extended buffers as the bucketed predictors
+    build them, for frame bucket `bucket_t`."""
+    need = (bucket_t - 1) * 158 + 510
+    out = torch.zeros(len(lengths), need)
+    for row, n in enumerate(lengths):
+        y = torch.randn(1, 1, n) * 0.3
+        r = torch.nn.functional.pad(y, (255, 255), mode="reflect")[0, 0]
+        out[row, :min(len(r), need)] = r[:need]
+    return out.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_t,rows", [(256, 3), (1024, 5), (1024, 128)])
+def test_stft_kernel_center_false_matches_plain(cuda_device, bucket_t, rows):
+    """K1 over pre-padded buffers: frame f starts at f * 158, T = 1 +
+    (L - 510) // 158, no reflect (rows of 1 s up to the full bucket)."""
+    gen = torch.Generator().manual_seed(bucket_t + rows)
+    full = (bucket_t - 1) * 158
+    lengths = torch.randint(600, full + 1, (rows,), generator=gen).tolist()
+    lengths[0] = full
+    y = _bucket_buffers(lengths, bucket_t, cuda_device)
+    before = dict(LAUNCHES)
+    got = stft.stft_cat(y, center=False)
+    assert LAUNCHES["stft_center_false"] == before["stft_center_false"] + 1
+    assert LAUNCHES["stft"] == before["stft"]
+    assert got.shape == (rows, bucket_t, 512)
+    torch.testing.assert_close(got, stft.stft_cat_plain(y, center=False),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_t,rows", [(256, 4), (1024, 16)])
+def test_crm_istft_kernel_valid_t_matches_plain(cuda_device, bucket_t, rows):
+    """K3 with a valid frame count per row: the full bucket, 1 and 2
+    frames, and counts drawn between; row b drops its frames >= valid_t
+    and divides by their envelope alone."""
+    gen = torch.Generator().manual_seed(bucket_t)
+    spec = stft.stft_cat_plain(
+        (torch.randn(rows, (bucket_t - 1) * 158, generator=gen) * 0.3)
+        .to(cuda_device))
+    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(cuda_device)
+    valid_t = torch.randint(2, bucket_t + 1, (rows,), generator=gen)
+    valid_t[:3] = torch.tensor([bucket_t, 1, 2])
+    valid_t = valid_t.to(cuda_device)
+    before = dict(LAUNCHES)
+    got = stft.crm_istft(crm, spec, valid_t=valid_t)
+    assert LAUNCHES["crm_istft_valid_t"] == before["crm_istft_valid_t"] + 1
+    assert LAUNCHES["crm_istft"] == before["crm_istft"]
+    torch.testing.assert_close(
+        got, stft.crm_istft_plain(crm, spec, valid_t=valid_t),
+        atol=1e-4, rtol=1e-4)
+
+
 def _misaligned(x: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of `x` that starts 4 bytes past a 16-byte boundary."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
@@ -229,25 +301,35 @@ def test_crm_istft_kernel_takes_misaligned_views(cuda_device):
     (4, 60, 100, False), (4, 178, 200, False), (4, 20, 8, True),
     (128, 60, 100, False), (128, 178, 200, False), (128, 178, 200, True),
     (9, 178, 200, False), (9, 60, 100, True), (3, 12, 16, True),
-    (160, 12, 200, True)])
+    (160, 12, 200, True), (16, 1024, 200, True), (16, 384, 100, True)])
 def test_bilstm_kernel_matches_plain(cuda_device, batch, steps, hidden,
                                      masked):
     """K4 at both main-path cases (B 128: H 100 in one block a tile, H
-    200 over a cluster of 4), masked, with a ragged last tile, and with
-    each tile height of the cluster class (8, 10 and 12 rows)."""
+    200 over a cluster of 4), with per-row lengths (`masked`: the full T,
+    1 step and lengths between, as the bucketed predictors give them),
+    with a ragged last tile, and with each tile height of the cluster
+    class (8, 10 and 12 rows)."""
     gen = torch.Generator(device=cuda_device).manual_seed(batch + hidden)
     xp_f, xp_b = (torch.randn(batch, steps, 4 * hidden, device=cuda_device,
                               generator=gen) for _ in range(2))
     w_f, w_b = ((torch.rand(4 * hidden, hidden, device=cuda_device,
                             generator=gen) * 2 - 1) / hidden ** 0.5
                 for _ in range(2))
-    mask = (torch.arange(steps, device=cuda_device) < steps - 3) if masked else None
-    before = LAUNCHES["bilstm"]
-    got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, mask)
-    assert LAUNCHES["bilstm"] == before + 1
+    lengths = None
+    if masked:
+        lengths = torch.randint(1, steps + 1, (batch,), device=cuda_device,
+                                generator=gen)
+        lengths[0], lengths[-1] = steps, 1
+    key = "bilstm" if lengths is None else "bilstm_lengths"
+    before = LAUNCHES[key]
+    got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
+    assert LAUNCHES[key] == before + 1
     torch.testing.assert_close(
-        got, lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, mask),
+        got, lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths),
         atol=5e-5, rtol=0)
+    if masked:
+        for b, n in enumerate(lengths.tolist()):
+            assert not got[b, n:].any()
 
 
 @pytest.mark.cuda
@@ -272,10 +354,9 @@ def test_kernel_wrappers_launch_through_on_device():
         assert "current_stream" not in src and "torch.cuda.device(" not in src
 
 
-@pytest.mark.cuda
-def test_small_pipeline_card_matches_cpu(cuda_device):
+def _tiny_cfg():
     ks, dils = ((1, 7), (5, 5)), ((1, 1), (2, 2))
-    cfg = ExperimentConfig(
+    return ExperimentConfig(
         detector=DetectorModelConfig(nf=4, outf=2, kernel_sizes=ks,
                                      dilations=dils, lstm_hidden=4,
                                      fc_hidden=4),
@@ -284,6 +365,51 @@ def test_small_pipeline_card_matches_cpu(cuda_device):
                                      dilations=dils, lstm_hidden=8,
                                      fc_hidden=16, inpaint_ch=(4, 6, 8)),
         data=DataConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets", [None, (256, 1024)])
+def test_small_predictors_card_match_cpu(cuda_device, buckets):
+    """The full-utterance predictors at small widths, exact and bucketed
+    (batched, with a repeated last row), card against CPU, an utterance
+    past 6.3 s among them; the bucketed run goes through K1 center=False,
+    K3 valid_t and K4 with per-row lengths."""
+    from sos_tpu_torch.infer import DenoiserPredictor, DetectorPredictor
+
+    cfg = _tiny_cfg()
+    gen = torch.Generator().manual_seed(1)
+    det = init_state_dict(SilenceDetector(cfg.detector), gen)
+    den = init_state_dict(JointDenoiser(cfg.denoiser), gen)
+    wavs = [(torch.randn(n, generator=gen) * 0.2).numpy()
+            for n in (28000, 20000, 100000)]
+    frames = [int(len(w) / 14000 * 30) for w in wavs]
+    bits = ["".join("01"[(j // 7) % 2] for j in range(n)) for n in frames]
+    out = {}
+    for device in ("cpu", cuda_device):
+        d = DetectorPredictor(cfg, det, buckets=buckets, device=device)
+        n = DenoiserPredictor(cfg, den, buckets=buckets, device=device)
+        before = dict(LAUNCHES)
+        out[str(device)] = (d.predict_batch(wavs, frames, batch_size=2),
+                            n.denoise_batch(wavs, bits, batch_size=2))
+        if device != "cpu":
+            cases = (("stft", "crm_istft", "bilstm") if buckets is None else
+                     ("stft_center_false", "crm_istft_valid_t",
+                      "bilstm_lengths"))
+            assert all(LAUNCHES[k] > before[k] for k in cases)
+    (cpu_det, cpu_den), (card_det, card_den) = out["cpu"], out["cuda"]
+    for (_, c), (_, g) in zip(cpu_det, card_det):
+        torch.testing.assert_close(torch.from_numpy(g), torch.from_numpy(c),
+                                   atol=1e-4, rtol=0)
+    for c, g in zip(cpu_den, card_den):
+        for key in c:
+            torch.testing.assert_close(torch.from_numpy(g[key]),
+                                       torch.from_numpy(c[key]),
+                                       atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_small_pipeline_card_matches_cpu(cuda_device):
+    cfg = _tiny_cfg()
     gen = torch.Generator().manual_seed(0)
     det = init_state_dict(SilenceDetector(cfg.detector), gen)
     den = init_state_dict(JointDenoiser(cfg.denoiser), gen)

@@ -7,8 +7,10 @@ the step's read parity, sum its units' gates over the plan's k splits
 from its W_hh slice (rows padded to `kp`), update its cells, and write
 its h into every rank's buffer of the write parity. The ranks of a
 cluster are visited in a shuffled order each step, so a block that read
-a buffer a peer had already written this step would show. Tolerance:
-atol 1e-6 (fp32 sums in another order).
+a buffer a peer had already written this step would show. With per-row
+lengths, each block reads its rows' lengths and zeroes a row's h and c
+at its steps past them. Tolerance: atol 1e-6 (fp32 sums in another
+order).
 """
 
 import random
@@ -23,7 +25,7 @@ from sos_tpu_torch.ops.lstm import RecurrencePlan, recurrence_plan
 T = 12
 
 
-def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, step_mask=None,
+def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, lengths=None,
             seed=0, single_buffer=False):
     """`(B, T, 2H)` as the plan's blocks compute and exchange it."""
     batch, steps, gates = xp_f.shape
@@ -38,6 +40,10 @@ def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, step_mask=None,
             rows = list(plan.rows(tile))
             x = torch.zeros(plan.bt, steps, gates)  # rows past B read 0
             x[:len(rows)] = xp[rows]
+            # the tile's rows' lengths, read once (rows past B: all steps)
+            row_len = torch.full((plan.bt,), steps)
+            if lengths is not None:
+                row_len[:len(rows)] = lengths[rows]
             blocks = []
             for rank, (u0, n) in enumerate(plan.units):
                 cols = plan.gate_columns(rank)
@@ -59,8 +65,8 @@ def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, step_mask=None,
                     i, f, g, o = (x[:, t, blk["cols"]] + part).split(blk["n"], 1)
                     c = torch.sigmoid(f) * blk["c"] + torch.sigmoid(i) * torch.tanh(g)
                     h_new = torch.sigmoid(o) * torch.tanh(c)
-                    if step_mask is not None:
-                        h_new, c = h_new * step_mask[t], c * step_mask[t]
+                    m = (t < row_len).float()[:, None]
+                    h_new, c = h_new * m, c * m
                     blk["c"] = c
                     u0, n = blk["u0"], blk["n"]
                     for peer in blocks:
@@ -88,13 +94,16 @@ CASES = ([(b, h) for h in (4, 8, 16) for b in (1, 3, 9)]
 @pytest.mark.parametrize("batch,hidden", CASES)
 def test_plan_emulation_matches_plain(batch, hidden, masked):
     (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, batch * 1000 + hidden)
-    mask = (torch.arange(T) < T - 3).float() if masked else None
+    # per-row lengths: the full T, 1 step, and shorter ones between
+    lengths = (torch.tensor([T, 1, T - 3, T - 5, 7, T, 2, T - 1, 4])[:batch]
+               if masked else None)
     plan = recurrence_plan(batch, hidden)
-    got = emulate(plan, xp_f, xp_b, w_f, w_b, mask, seed=hidden + batch)
-    ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, mask)
+    got = emulate(plan, xp_f, xp_b, w_f, w_b, lengths, seed=hidden + batch)
+    ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
     torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
     if masked:
-        assert not got[:, T - 3:].any()
+        for b, n in enumerate(lengths.tolist()):
+            assert not got[b, n:].any()
 
 
 def test_single_buffered_h_would_race():
