@@ -25,7 +25,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    bucket (beside `torch.stft(center=False)`), K3 with per-row valid_t
    over 2-1,024 frames at 16 rows, K4 with per-row lengths at T 1,024 /
    H 200 and T 384 / H 100, 16 rows (beside cuDNN over a packed
-   sequence); K5 at every shape of the int8 GEMM sweep (the
+   sequence); those of phase 7's int8 path: K6 with per-row valid_t
+   (enc_x block 7 and the Cin 2 first block) and K7 with per-row valid_t
+   on rows in segments (a_in, a_d1, mid_dil16, mid_up), 8 rows of a
+   1,024-frame bucket, valid widths over 2-1,024 with garbage past them,
+   exactly, and K7 without valid_t at the same widths (the exact mode's
+   long rows on the tile); K5 at every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
    `torch._int_mm`'s, called eagerly and replayed from a CUDA graph
    (device time without the host's dispatch);
@@ -59,11 +64,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
    buckets 256/512/1024, batch 8; the bucketed cases of K1, K3 and K4
    must launch; the detector's threshold where its confidences are
    sparsest, `valley_threshold`), each stage timed and the 11 metrics
-   finite; then the predictors alone in f32 and bf16, bucketed and exact
-   (audio-s/s for detect and denoise), with bucketed against exact within
-   1e-4 with equal bits, bf16 bits agreeing with f32 on at least 98 % of
-   frames, and the card against the CPU on the 2.0 s and 7.4 s
-   utterances within 1e-3 with equal bits.
+   finite; then the predictors alone in f32, bf16 and int8 (int8 loading
+   phase 4's scale file), bucketed and exact (audio-s/s for detect and
+   denoise), with bucketed against exact within 1e-4 with equal bits
+   (int8: 2e-5 confidences, 3e-5 waveforms, sos_tpu's bounds), bf16
+   bits agreeing with f32 on at least 98 % of frames, the int8 chain
+   through K6's and K7's valid_t cases and never through K7's mma.sync
+   gather, and the card against the CPU on the 2.0 s and 7.4 s
+   utterances (int8: the 2.0 s one and the shortest over 2.1 s,
+   bucketed) within 1e-3 with equal bits.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -91,14 +100,15 @@ from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain,
                                     stft_cat, stft_cat_plain)
 from sos_tpu_torch.infer import StreamingDenoiser, StreamingSession
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline, _nchw
-from sos_tpu_torch.kernels import LAUNCHES, library, reset_launches
+from sos_tpu_torch.kernels import (ENTRY_LAUNCHES, LAUNCHES, library,
+                                   reset_launches)
 from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
                                          halo_plan, inpaint_conv_int8,
                                          inpaint_conv_int8_plain, inpaint_plan,
-                                         up_pads)
+                                         inpaint_valid_out, up_pads)
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
@@ -439,6 +449,32 @@ def phase_kernels(gen: torch.Generator):
         int8_conv_case("int8_conv", case, cgen, dev)
     for case in K7_LOGGED_CASES:
         int8_conv_case("int8_inpaint", case, cgen, dev)
+
+    # the length-bucketed cases of K6 and K7 (phase 7's int8 path):
+    # EVAL_BATCH rows of a 1,024-frame bucket, per-row valid widths over
+    # 2-1,024 with garbage past them; K7's rows in segments. Their bounds
+    # count the valid positions' operations and bytes
+    for name, source, replaces, kernel, cases in (
+            ("int8_conv_valid_t", "sos_tpu_torch/csrc/int8_conv.cu",
+             "sos_tpu/models/quant.py:136", "int8_conv", K6_VALID_CASES),
+            ("int8_inpaint_valid_t", "sos_tpu_torch/csrc/int8_inpaint.cu",
+             "sos_tpu/models/quant.py:457", "int8_inpaint", K7_VALID_CASES)):
+        total = {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+                 "err": 0.0, "exact": True}
+        for case in cases:
+            res = int8_conv_case(kernel, case, cgen, dev, batch=EVAL_BATCH,
+                                 valid=True)
+            for key in ("ms", "plain_ms", "ops", "bytes"):
+                total[key] += res[key]
+            total["err"] = max(total["err"], res["err"])
+            total["exact"] = total["exact"] and res["exact"]
+        record(name, source, replaces, total["err"], total["exact"], "exact",
+               total["ms"], total["plain_ms"], None, total["ops"],
+               total["bytes"], PEAK_INT8_OPS,
+               shape=" + ".join(c[0] for c in cases)
+               + f" at B {EVAL_BATCH}, per-row valid_t 2-1024 (sum)")
+    for case in K7_LONG_CASES:  # the exact mode's long rows, no valid_t
+        int8_conv_case("int8_inpaint", case, cgen, dev, batch=EVAL_BATCH)
     return rows, k5_launches
 
 
@@ -612,23 +648,59 @@ K7_LOGGED_CASES = (
 )
 
 
+# K6 and K7 with per-row valid widths, at phase 7's largest bucket (1,024
+# frames; InpaintNet widths 1,024 / 512 / 256)
+K6_VALID_CASES = (
+    ("enc_x block 0 2->96 1x7", 2, 96, (1, 7), (1, 1), 256, 1024, False),
+    ("enc_x block 7 96->96 5x5 d(32,1)", 96, 96, (5, 5), (32, 1), 256, 1024,
+     False),
+)
+K7_VALID_CASES = (
+    ("a_in 2->64 k5", "down", 5, 1, 1, 2, 64, 256, 1024),
+    ("a_d1 64->128 k5 s2", "down", 5, 2, 1, 64, 128, 256, 1024),
+    ("mid_dil16 256->256 k3 d16", "down", 3, 1, 16, 256, 256, 64, 256),
+    ("mid_up 256->128 k3 s2 transposed", "up", 3, 2, 1, 256, 128, 64, 256),
+)
+# K7 without valid_t at the same widths: the exact mode's long rows, in
+# segments on the tile (checked and logged)
+K7_LONG_CASES = tuple((f"{c[0]} W {c[-1]}",) + c[1:] for c in K7_VALID_CASES)
+
+
+def valid_widths(batch: int, width: int, gen: torch.Generator,
+                 dev: torch.device) -> torch.Tensor:
+    """Per-row valid widths over 2 .. width, the first row full."""
+    vt = torch.randint(2, width + 1, (batch,), generator=gen, device=dev)
+    vt[0] = width
+    return vt
+
+
 def int8_conv_case(kernel: str, case, gen: torch.Generator,
-                   dev: torch.device):
-    """One K6 or K7 shape at BATCH clips: exact against the plain
+                   dev: torch.device, batch: int = BATCH,
+                   valid: bool = False):
+    """One K6 or K7 shape at `batch` rows: exact against the plain
     version, then kernel, plain and (for context) cuDNN bf16 conv times.
     Bound counts the real multiply-adds (for the transposed conv, not the
-    inserted zeros) at the int8 peak."""
+    inserted zeros) at the int8 peak. `valid`: per-row valid widths over
+    2 .. W (the first row W), the input random past them too; the bound
+    then counts the valid output positions' operations and the valid
+    input's bytes."""
     out_f32, route = False, "mma.sync gather"
+    vt = None
     if kernel == "int8_conv":
         label, cin, cout, ks, dil, h, w, out_f32 = case
         kh, kw = ks
         if not out_f32 and halo_plan(w, cin, cout, ks, dil) is not None:
             route = "wgmma halo tile"
         ho, wo = h, w
-        ops = 2.0 * BATCH * ho * wo * cout * kh * kw * cin
+        if valid:
+            vt = valid_widths(batch, w, gen, dev)
+            v_in = v_out = int(vt.sum())
+        else:
+            v_in = v_out = batch * w
+        ops = 2.0 * ho * v_out * cout * kh * kw * cin
 
         def run(x, fn=conv_same_int8):
-            return fn(x, wq, ws, b, ks, dil, out_f32)
+            return fn(x, wq, ws, b, ks, dil, out_f32, valid_t=vt)
 
         plain = lambda x: run(x, conv_same_int8_plain)  # noqa: E731
         pads = ((kh - 1) // 2 * dil[0], (kw - 1) // 2 * dil[1])
@@ -640,29 +712,39 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
         plan = inpaint_plan(kind, k, st, d, h, w, cin, cout)
         if plan is not None:
             route = (f"wgmma halo tile, {len(plan.phases)} phase(s), "
-                     f"{plan.rows} row(s) x pitch {plan.pitch} in "
+                     f"{plan.rows} row(s) x pitch {plan.pitch}, "
+                     f"{plan.nseg} segment(s) of {plan.seg_len} in "
                      f"{plan.mt} m64 ({plan.m_share():.3f} of m rows used), "
                      f"n {plan.n} x {plan.n_tiles}, {plan.groups} channel "
                      f"group(s) a tap; L2->SM "
-                     f"{plan.tile_bytes(BATCH) / 1e9:.3f} GB, gather "
-                     f"{plan.gather_bytes(BATCH, h, w, cin) / 1e9:.3f} GB")
+                     f"{plan.tile_bytes(batch) / 1e9:.3f} GB, gather "
+                     f"{plan.gather_bytes(batch, h, w, cin) / 1e9:.3f} GB")
+        if valid:
+            vt = valid_widths(batch, w, gen, dev)
+            v_in = int(vt.sum())
+            v_out = int(inpaint_valid_out(kind, k, st, d, vt).clamp(
+                max=inpaint_valid_out(kind, k, st, d, w)).sum())
         if kind == "down":
             pad = (k - 1) // 2 * d
             ho, wo = ((n + 2 * pad - d * (k - 1) - 1) // st + 1 for n in (h, w))
-            ops = 2.0 * BATCH * ho * wo * cout * k * k * cin
+            if not valid:
+                v_in, v_out = batch * w, batch * wo
+            ops = 2.0 * ho * v_out * cout * k * k * cin
             ctx = lambda: torch.nn.functional.conv2d(  # noqa: E731
                 xb, wb, stride=st, padding=pad, dilation=d)
         else:
             lo, hi = up_pads(k)
             ho, wo = ((n - 1) * st + lo + hi - k + 2 for n in (h, w))
-            ops = 2.0 * BATCH * h * w * cout * k * k * cin
+            if not valid:
+                v_in = v_out = batch * w
+            ops = 2.0 * h * v_in * cout * k * k * cin
             ctx = lambda: torch.nn.functional.conv_transpose2d(  # noqa: E731
                 xb, wb.transpose(0, 1), stride=st, padding=(k - 1) // 2,
                 output_padding=1)
         alpha = torch.tensor([0.25], device=dev)
 
         def run(x, fn=inpaint_conv_int8):
-            return fn(x, wq, ws, b, alpha, kind, k, st, d)
+            return fn(x, wq, ws, b, alpha, kind, k, st, d, valid_t=vt)
 
         plain = lambda x: run(x, inpaint_conv_int8_plain)  # noqa: E731
     taps_cin = kh * kw * cin
@@ -673,12 +755,19 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     ws = (torch.rand(cout, generator=gen, device=dev) + 0.5) * 0.01 \
         / taps_cin ** 0.5
     b = torch.randn(cout, generator=gen, device=dev) * 20
-    x = torch.randint(-127, 128, (BATCH, h, w, cin), generator=gen,
+    x = torch.randint(-127, 128, (batch, h, w, cin), generator=gen,
                       device=dev, dtype=torch.int8)
     got, ref = run(x), plain(x)
     torch.cuda.synchronize()
     exact = bool(torch.equal(got, ref))
     err = float((got.float() - ref.float()).abs().max())
+    if vt is not None:  # zeros past each row's valid output width
+        width = got.shape[2]
+        v_rows = (vt if kernel == "int8_conv"
+                  else inpaint_valid_out(kind, k, st, d, vt))
+        exact = exact and not any(
+            bool(got[r, :, min(v, width):].any())
+            for r, v in enumerate(v_rows.tolist()))
     del got, ref
     ms = time_ms(lambda: run(x))
     plain_ms = time_ms(lambda: plain(x), reps=1, warmup=0)
@@ -688,12 +777,14 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     ctx_ms = time_ms(ctx)
     del xb, wb
-    nbytes = float(BATCH * h * w * cin
-                   + BATCH * ho * wo * cout * (4 if out_f32 else 1)
-                   + cout * kpad + 8 * cout)
+    nbytes = float(h * v_in * cin
+                   + batch * ho * wo * cout * (4 if out_f32 else 1)
+                   + cout * kpad + 8 * cout + (8 * batch if valid else 0))
     bound_ms, by = bound(ops, nbytes, PEAK_INT8_OPS)
-    log(f"{kernel} {label} [{route}]: ({BATCH}, {h}, {w}, {cin}) -> "
-        f"({BATCH}, {ho}, {wo}, {cout}); exact {exact} (max |err| "
+    tag = (f", valid_t {v_in} of {batch * w} input columns"
+           if valid else "")
+    log(f"{kernel} {label} [{route}]: ({batch}, {h}, {w}, {cin}) -> "
+        f"({batch}, {ho}, {wo}, {cout}){tag}; exact {exact} (max |err| "
         f"{err:.3e})  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS)  plain "
         f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  cuDNN bf16 conv "
         f"at this shape (context, not the same function) {ctx_ms:.4f} ms")
@@ -724,8 +815,10 @@ def pick_threshold(prob: torch.Tensor) -> float:
     return float((p[k] + p[k + 1]) / 2)
 
 
-# the bucketed cases the eval chain (phase 7) must launch
+# the bucketed cases the eval chain (phase 7) must launch, in f32 and
+# (K6, K7) in int8
 EVAL_KERNELS = ("stft_center_false", "crm_istft_valid_t", "bilstm_lengths")
+INT8_EVAL_KERNELS = ("int8_conv_valid_t", "int8_inpaint_valid_t")
 
 MAIN_PATH_KERNELS = {
     "f32": ("stft", "mask_gate", "crm_istft", "bilstm"),
@@ -1388,21 +1481,33 @@ def phase_eval(cfg: ExperimentConfig, det_state, den_state,
             for f in files]
     bits = [f["recovered_prediction"] for f in files]
     frames = [len(b) for b in bits]
-    results = {}
-    for profile in ("f32", "bf16"):
+    # int8 loads phase 4's scale file (written once on the CPU)
+    calib = {"calibration_path": os.path.join(workdir,
+                                              "int8_calibration.json")}
+    results, int8_launches = {}, {}
+    t_int8 = 0.0
+    for profile in ("f32", "bf16", "int8"):
+        kw = calib if profile == "int8" else {}
         for mode, buckets in (("bucketed", EVAL_BUCKETS), ("exact", None)):
+            t0 = time.perf_counter()
             d = DetectorPredictor(cfg, det_state, threshold=det.threshold,
-                                  buckets=buckets, profile=profile)
+                                  buckets=buckets, profile=profile, **kw)
             n = DenoiserPredictor(cfg, den_state, buckets=buckets,
-                                  profile=profile)
+                                  profile=profile, **kw)
             run_detect(d, wavs[:2], frames[:2])  # warm-up
             run_denoise(n, wavs[:2], bits[:2])
+            reset_launches()
             dets, d_s = timed(lambda: run_detect(d, wavs, frames))
             dens, n_s = timed(lambda: run_denoise(n, wavs, bits))
             results[(profile, mode)] = (dets, dens)
             log(f"eval throughput {profile} {mode}: detect "
                 f"{audio_s / d_s:.1f} audio-s/s ({d_s:.2f} s), denoise "
                 f"{audio_s / n_s:.1f} audio-s/s ({n_s:.2f} s) {card_note()}")
+            if profile == "int8":
+                check_int8_eval_launches(mode)
+                if mode == "bucketed":
+                    int8_launches = dict(LAUNCHES)
+                t_int8 += time.perf_counter() - t0
             del d, n
             torch.cuda.empty_cache()
 
@@ -1442,6 +1547,11 @@ def phase_eval(cfg: ExperimentConfig, det_state, den_state,
     if agree < 0.98:
         raise RuntimeError("eval: bf16 bits agree with f32 on fewer than "
                            "98 % of frames")
+    t0 = time.perf_counter()
+    check_int8_eval(results, cfg, det_state, den_state, det.threshold,
+                    wavs, frames, bits, calib)
+    t_int8 += time.perf_counter() - t0
+    log(f"eval int8 part: {t_int8:.1f} s")
 
     # card (tiles of 8) against CPU (one item a call) on the 2.0 s and
     # 7.4 s utterances, f32 bucketed
@@ -1468,13 +1578,89 @@ def phase_eval(cfg: ExperimentConfig, det_state, den_state,
             raise RuntimeError(f"eval: card disagrees with the CPU at {secs} s")
     log(f"eval phase: {time.perf_counter() - t_phase:.1f} s (CPU references "
         f"{cpu_s:.1f} s)")
+    launches.update({k: int8_launches[k] for k in INT8_EVAL_KERNELS})
     return launches
+
+
+def check_int8_eval_launches(mode: str) -> None:
+    """The int8 chain's launches since the last reset: the bucketed mode
+    through K6's and K7's valid_t cases; neither mode through the
+    mma.sync gather of K7 (every full-width block has a tile plan, rows
+    of any width in segments)."""
+    log(f"eval int8 {mode} launches: {dict(LAUNCHES)}; by entry point: "
+        f"{dict(ENTRY_LAUNCHES)}")
+    if mode == "bucketed":
+        missing = [k for k in INT8_EVAL_KERNELS if LAUNCHES[k] == 0]
+        if missing:
+            raise RuntimeError(f"eval int8 chain never launched: {missing}")
+    if ENTRY_LAUNCHES["sos_int8_conv_inpaint"]:
+        raise RuntimeError(f"eval int8 {mode}: K7 fell back to the mma.sync "
+                           f"gather {ENTRY_LAUNCHES['sos_int8_conv_inpaint']}"
+                           " times")
+    if ENTRY_LAUNCHES["sos_int8_inpaint_halo"] == 0:
+        raise RuntimeError(f"eval int8 {mode}: K7's tile never launched")
+
+
+def check_int8_eval(results, cfg, det_state, den_state, threshold, wavs,
+                    frames, bits, calib) -> None:
+    """int8 bucketed against int8 exact on the card (sos_tpu's bounds:
+    confidences 2e-5, waveforms 3e-5, bits equal), and the card against
+    the CPU, bucketed, on the 2.0 s utterance and the shortest one over
+    2.1 s (1e-3, bits equal where the CPU's confidence is 1e-4 clear of
+    the threshold, as for f32)."""
+    from sos_tpu_torch.infer import DenoiserPredictor, DetectorPredictor
+
+    (b_det, b_den), (e_det, e_den) = (results[("int8", "bucketed")],
+                                      results[("int8", "exact")])
+    near = lambda conf, m: np.abs(conf - threshold) <= m  # noqa: E731
+    conf_diff = max(float(np.abs(b[1] - e[1]).max())
+                    for b, e in zip(b_det, e_det))
+    bits_ok = all(np.array_equal(b[0][~near(e[1], 1e-4)],
+                                 e[0][~near(e[1], 1e-4)])
+                  for b, e in zip(b_det, e_det))
+    wav_diff = max(float(np.abs(b - e).max()) for b, e in zip(b_den, e_den))
+    log(f"eval int8 bucketed vs exact on the card: confidences max |diff| "
+        f"{conf_diff:.3e} (tolerance 2e-5), waveforms max |diff| "
+        f"{wav_diff:.3e} (tolerance 3e-5), bits equal off the threshold "
+        f"{bits_ok}")
+    if not (conf_diff <= 2e-5 and wav_diff <= 3e-5 and bits_ok):
+        raise RuntimeError("eval int8: bucketed and exact disagree on the "
+                           "card")
+    long_i = min((i for i, w in enumerate(wavs) if len(w) > 2.1 * SR),
+                 key=lambda i: len(wavs[i]))
+    picks = [0, long_i]
+    d_cpu = DetectorPredictor(cfg, det_state, threshold=threshold,
+                              buckets=EVAL_BUCKETS, profile="int8",
+                              device="cpu", **calib)
+    n_cpu = DenoiserPredictor(cfg, den_state, buckets=EVAL_BUCKETS,
+                              profile="int8", device="cpu", **calib)
+    t0 = time.perf_counter()
+    c_det = run_detect(d_cpu, [wavs[i] for i in picks],
+                       [frames[i] for i in picks], batched=False)
+    c_den = run_denoise(n_cpu, [wavs[i] for i in picks],
+                        [bits[i] for i in picks], batched=False)
+    for j, i in enumerate(picks):
+        secs = len(wavs[i]) / SR
+        cd = float(np.abs(c_det[j][1] - b_det[i][1]).max())
+        off = ~near(c_det[j][1], 1e-4)
+        equal = bool(np.array_equal(c_det[j][0][off], b_det[i][0][off]))
+        wd = float(np.abs(c_den[j] - b_den[i]).max())
+        finite = bool(np.isfinite(b_den[i]).all())
+        log(f"eval int8 card vs cpu, {secs:.2f} s utterance: confidences max "
+            f"|diff| {cd:.3e}, waveform finite {finite} max |diff| {wd:.3e} "
+            f"(tolerance 1e-3), bits equal off the threshold {equal} "
+            f"({int(off.sum())}/{len(off)} frames 1e-4 clear of it)")
+        if not (cd <= 1e-3 and wd <= 1e-3 and equal and finite):
+            raise RuntimeError(f"eval int8: card disagrees with the CPU at "
+                               f"{secs:.2f} s")
+    log(f"eval int8 CPU references: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     phase_card()
     phase_build()
     gen = torch.Generator().manual_seed(SEED)
@@ -1500,9 +1686,11 @@ def main() -> int:
         phase_throughput(cfg, det_state, den_state, gen)
         phase_serving(cfg, det_state, den_state, gen, workdir)
         eval_launches = phase_eval(cfg, det_state, den_state, gen, workdir)
-        launches.update({k: eval_launches[k] for k in EVAL_KERNELS})
+        launches.update({k: eval_launches[k]
+                         for k in EVAL_KERNELS + INT8_EVAL_KERNELS})
         for row in rows:
             row["launches"] = launches[row["name"]]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Time the int8 profile's main-path kernels and call in two checkouts of
+`sos_tpu_torch`, in turns on one card: A, B, B, A.
+
+    python3 scripts/int8_ab.py OTHER_CHECKOUT [LABEL_A LABEL_B]
+
+OTHER_CHECKOUT is a directory holding another version of the package
+(`git archive <commit> sos_tpu_torch | tar -x -C DIR`); the checkout this
+script lies in is B. Each turn is a process of its own, which imports
+the package from its checkout and builds its kernels. A turn times, at
+128 clips with CUDA events (20 calls after 50 ms of warm-up calls), K7
+at seven full-width InpaintNet blocks and K6 at four trunk blocks, the
+shapes `chip_smoke.py` phase 3 times, then the median of 10 calls of
+`FusedDenoisePipeline(profile="int8")` on 128 seeded 2 s clips
+(self-calibrated on the card on its first call). It prints one line a
+turn and the card's name and power limit first. Compare two versions
+only within one run: two runs may land on two cards.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# (label, kind, k, stride, dilation, Cin, Cout, H, W)
+K7_CASES = (
+    ("a_in", "down", 5, 1, 1, 2, 64, 256, 178),
+    ("a_d1", "down", 5, 2, 1, 64, 128, 256, 178),
+    ("mid_dil16", "down", 3, 1, 16, 256, 256, 64, 45),
+    ("mid_up", "up", 3, 2, 1, 256, 128, 64, 45),
+    ("a_d2", "down", 5, 1, 1, 128, 128, 128, 89),
+    ("mid_dil2", "down", 3, 1, 2, 256, 256, 64, 45),
+    ("up2_conv", "down", 3, 1, 1, 128, 64, 256, 178),
+)
+# (label, Cin, Cout, kernel, dilation, float32 out) at F 256 x T 178
+K6_CASES = (
+    ("enc_x0", 2, 96, (1, 7), (1, 1), False),
+    ("enc_x7", 96, 96, (5, 5), (32, 1), False),
+    ("det10", 48, 48, (5, 5), (4, 4), False),
+    ("proj", 96, 8, (1, 1), (1, 1), True),
+)
+BATCH = 128
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.05:
+        fn()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def turn(label: str) -> None:
+    import torch
+
+    from sos_tpu_torch.config import ExperimentConfig
+    from sos_tpu_torch.infer.fused import FusedDenoisePipeline
+    from sos_tpu_torch.kernels import library
+    from sos_tpu_torch.models import JointDenoiser, SilenceDetector
+    from sos_tpu_torch.models.layers import init_state_dict
+    from sos_tpu_torch.ops.int8_conv import conv_same_int8, inpaint_conv_int8
+
+    library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def weights(cout, taps):
+        w = torch.randint(-127, 128, (cout, -(-taps // 64) * 64),
+                          generator=gen, device=dev, dtype=torch.int8)
+        w[:, taps:] = 0
+        return w, torch.full((cout,), 1e-3, device=dev), \
+            torch.zeros(cout, device=dev)
+
+    def x_of(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    times = []
+    alpha = torch.tensor([0.25], device=dev)
+    for name, kind, k, s, d, cin, cout, h, w in K7_CASES:
+        wq, ws, b = weights(cout, k * k * cin)
+        x = x_of((BATCH, h, w, cin))
+        times.append((name, event_ms(lambda: inpaint_conv_int8(
+            x, wq, ws, b, alpha, kind, k, s, d))))
+    for name, cin, cout, ks, dil, f32 in K6_CASES:
+        wq, ws, b = weights(cout, ks[0] * ks[1] * cin)
+        x = x_of((BATCH, 256, 178, cin))
+        times.append((name, event_ms(lambda: conv_same_int8(
+            x, wq, ws, b, ks, dil, f32))))
+    cfg = ExperimentConfig()
+    cpu = torch.Generator().manual_seed(0)
+    det = init_state_dict(SilenceDetector(cfg.detector), cpu)
+    den = init_state_dict(JointDenoiser(cfg.denoiser), cpu)
+    pipe = FusedDenoisePipeline(cfg, det, den, profile="int8")
+    clips = (torch.randn(BATCH, 28000, generator=cpu) * 0.2).to(dev)
+    calls = []
+    with torch.no_grad():
+        pipe(clips)  # calibrates
+        pipe(clips)
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(clips)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(calls)
+    print(f"{label}: " + " ".join(f"{n} {t:.4f} ms" for n, t in times)
+          + f"; int8 call {med:.1f} ms ({BATCH * 2.0 / med * 1e3:.1f} "
+          "audio-s/s)", flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--turn":
+        turn(sys.argv[2])
+        return 0
+    if len(sys.argv) not in (2, 4):
+        print(__doc__, file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = os.path.abspath(sys.argv[1])
+    names = sys.argv[2:] or ["A", "B"]
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    for root, name in ((other, names[0]), (here, names[1]), (here, names[1]),
+                       (other, names[0])):
+        env = dict(os.environ, PYTHONPATH=root)
+        subprocess.run([sys.executable, "-P", os.path.abspath(__file__),
+                        "--turn", name], cwd=root, env=env, check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,8 +47,8 @@ def main() -> None:
                              "(m1 predict.py:150-183)")
     parser.add_argument("--profile", type=str, default=None,
                         choices=("f32", "bf16", "int8"),
-                        help="f32 (default), bf16, or int8 (without "
-                             "--buckets: its bucketed path is not ported)")
+                        help="f32 (default), bf16, or int8 (every mode, "
+                             "--buckets included)")
     parser.add_argument("--calibration_json", type=str, default=None,
                         help="persisted int8 activation scales (defaults "
                              "to the denoiser model dir's file)")

@@ -32,6 +32,13 @@
 //   up        u = oh + i - lo on the s-dilated input: u % s != 0 is an
 //             inserted zero and is never read, ih = u / s otherwise
 //
+// With per-row valid widths (the length-bucketed path, `vt_in`), the W
+// axis of K7's row b reads as sos_tpu's valid path pads it: reflected
+// about the row's own end v (u >= v -> 2v-2-u, then |u|), zero from
+// v + pad on and wherever the reflection lands at or past v; an up
+// block's input is zero from v on. The epilogues then zero outputs at or
+// past the row's valid output width (`sos8::TimeMasked`; K6 too).
+//
 // The weights come from the host as (Cout, Kpad) int8, k in the same
 // order, zero-padded to a multiple of 64 (so the first layers, with
 // Cin = 2 and K = 14 or 50, take one stage, not a padded stage per tap;
@@ -61,6 +68,8 @@ struct SamePad {  // K6: stride 1, zero outside [0, n)
   int d;    // kernel dilation
   int pad;  // leading pad
 
+  __device__ __forceinline__ void set_row(int) {}
+
   __device__ __forceinline__ int src(int o, int i) const {
     const int u = o + i * d - pad;
     return (u >= 0 && u < n) ? u : -1;
@@ -73,17 +82,29 @@ struct InpaintPad {  // K7: reflect-padded down conv or lhs-dilated up conv
   int d;    // kernel dilation (down)
   int pad;  // leading pad
   int up;
+  const int* vt;  // per-row valid lengths (W only), or NULL
+  int v;          // the current row's valid length (n without vt)
+
+  __device__ __forceinline__ void set_row(int b) {
+    if (vt != nullptr) v = __ldg(vt + b);
+  }
 
   __device__ __forceinline__ int src(int o, int i) const {
     if (up) {
       const int u = o + i - pad;
       if (u < 0 || u % s != 0) return -1;
-      return u / s < n ? u / s : -1;
+      return u / s < v ? u / s : -1;
     }
     int u = o * s + i * d - pad;
+    if (vt == nullptr) {  // numpy's reflect
+      if (u < 0) u = -u;
+      if (u >= n) u = 2 * n - 2 - u;
+      return u;
+    }
+    if (u >= v + pad) return -1;
+    if (u >= v) u = 2 * v - 2 - u;
     if (u < 0) u = -u;
-    if (u >= n) u = 2 * n - 2 - u;
-    return u;
+    return u < v ? u : -1;
   }
 };
 
@@ -103,6 +124,7 @@ struct ConvA {
     const int rest = mm / Wo;
     oh = rest % Ho;
     img = x + (size_t)(rest / Ho) * h.n * w.n * Cin;
+    w.set_row(rest / Ho);
   }
 
   __device__ __forceinline__ int4 load16(int k0) const {
@@ -218,11 +240,11 @@ __device__ __forceinline__ int tap_rows(const HaloPlan& p, int oh0, int i) {
 
 // N = Cout; R output rows (b, oh0 .. oh0 + R - 1) per item share each tap
 // row's weights.
-template <int N, int R>
+template <int N, int R, class Epi>
 __global__ void __launch_bounds__(kHaloThreads, 1)
 conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
              const __grid_constant__ CUtensorMap wmap, const HaloPlan p,
-             const sos8::EpiRequant epi) {
+             const Epi epi) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
@@ -349,9 +371,9 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int N, int R>
+template <int N, int R, class Epi>
 cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
-                        int kpad, const HaloPlan& p, const sos8::EpiRequant& epi,
+                        int kpad, const HaloPlan& p, const Epi& epi,
                         cudaStream_t stream) {
   CUtensorMap xmap, wmap;
   const cuuint64_t C = p.Cin, W = p.W, H = p.H;
@@ -366,13 +388,35 @@ cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
   const int smem = p.stages * p.stage_bytes + 2 * p.stages * 8 + 128;
   int blocks = 0;
   if (err == cudaSuccess)
-    err = sosw::resident_blocks(conv_halo_s8<N, R>, kHaloThreads, smem,
+    err = sosw::resident_blocks(conv_halo_s8<N, R, Epi>, kHaloThreads, smem,
                                 &blocks);
   if (err != cudaSuccess) return err;
   if (blocks == 0) return cudaErrorInvalidConfiguration;
-  conv_halo_s8<N, R><<<blocks < p.items ? blocks : p.items, kHaloThreads,
-                       smem, stream>>>(xmap, wmap, p, epi);
+  conv_halo_s8<N, R, Epi><<<blocks < p.items ? blocks : p.items,
+                            kHaloThreads, smem, stream>>>(xmap, wmap, p, epi);
   return cudaGetLastError();
+}
+
+template <class Epi>
+cudaError_t launch_halo_n(const int8_t* x, const int8_t* w, int B, int Cout,
+                          int kpad, const HaloPlan& p, const Epi& epi,
+                          cudaStream_t st) {
+  switch (Cout) {
+    case 16: return launch_halo<16, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 32: return launch_halo<32, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 48: return launch_halo<48, 4>(x, w, B, Cout, kpad, p, epi, st);
+    case 96: return launch_halo<96, 2>(x, w, B, Cout, kpad, p, epi, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// An epilogue as it is, or (vt != NULL) masked past each row's valid
+// time width: the masked form is a kernel of its own.
+template <class Epi, class Launch>
+cudaError_t with_mask(const Epi& epi, const int* vt, int W, int HW,
+                      Launch launch) {
+  if (vt == nullptr) return launch(epi);
+  return launch(sos8::TimeMasked<Epi>{epi, vt, W, HW});
 }
 
 }  // namespace
@@ -380,10 +424,12 @@ cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
 // K6 on the Hopper tile (Cin % 16 == 0, int8 out). `plan` (host memory)
 // is ops/int8_conv.py `halo_plan`'s int32 vector: seg_len, nseg, lbox,
 // nbox, a_planes, steps, stage_bytes, stages, rows, then a_off[steps],
-// a_lbo[steps] and b_chunk[2 * steps].
+// a_lbo[steps] and b_chunk[2 * steps]. `vt` (device int32 (B,), or NULL):
+// outputs at time (W) positions >= vt[b] are written as zeros.
 extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
                                        const float* ws, const float* bias,
-                                       int8_t* out, const int* plan, int B,
+                                       int8_t* out, const int* vt,
+                                       const int* plan, int B,
                                        int H, int W, int Cin, int Cout, int kh,
                                        int kw, int dh, int dw, int kpad,
                                        void* stream) {
@@ -428,45 +474,53 @@ extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
   p.b_bytes = b_loaded * Cout * 16;
   const sos8::EpiRequant epi{ws, bias, nullptr, out, Cout};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (Cout) {
-    case 16: return (int)launch_halo<16, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 32: return (int)launch_halo<32, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 48: return (int)launch_halo<48, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 96: return (int)launch_halo<96, 2>(x, w, B, Cout, kpad, p, epi, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)with_mask(epi, vt, W, H * W, [&](const auto& e) {
+    return launch_halo_n(x, w, B, Cout, kpad, p, e, st);
+  });
 }
 
 // K6: SAME conv, stride 1; int8 out (requantized) or float32 out (proj).
+// `vt` (device int32 (B,), or NULL): zeros at time positions >= vt[b].
 extern "C" int sos_int8_conv_same(const int8_t* x, const int8_t* w,
                                   const float* ws, const float* bias,
-                                  void* out, int B, int H, int W, int Cin,
-                                  int Cout, int kh, int kw, int dh, int dw,
-                                  int kpad, int out_f32, void* stream) {
+                                  void* out, const int* vt, int B, int H,
+                                  int W, int Cin, int Cout, int kh, int kw,
+                                  int dh, int dw, int kpad, int out_f32,
+                                  void* stream) {
   const SamePad h{H, dh, (kh - 1) / 2 * dh};
   const SamePad wd{W, dw, (kw - 1) / 2 * dw};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (out_f32) {
-    const sos8::EpiFloat epi{ws, bias, (float*)out, Cout};
-    return (int)conv(x, w, B, h, wd, H, W, Cin, Cout, kh, kw, kpad, epi, st);
-  }
-  const sos8::EpiRequant epi{ws, bias, nullptr, (int8_t*)out, Cout};
-  return (int)conv(x, w, B, h, wd, H, W, Cin, Cout, kh, kw, kpad, epi, st);
+  const auto run = [&](const auto& e) {
+    return conv(x, w, B, h, wd, H, W, Cin, Cout, kh, kw, kpad, e, st);
+  };
+  if (out_f32)
+    return (int)with_mask(sos8::EpiFloat{ws, bias, (float*)out, Cout}, vt, W,
+                          H * W, run);
+  return (int)with_mask(
+      sos8::EpiRequant{ws, bias, nullptr, (int8_t*)out, Cout}, vt, W, H * W,
+      run);
 }
 
 // K7 on the gather, for the shapes `inpaint_plan` refuses: reflect-padded
 // down conv (up = 0) or lhs-dilated up conv (up = 1, stride = lhs
-// dilation, pad = the leading pad, flipped weights).
+// dilation, pad = the leading pad, flipped weights). `vt_in`, `vt_out`
+// (device int32 (B,), both or neither): each row's valid input and
+// output widths.
 extern "C" int sos_int8_conv_inpaint(const int8_t* x, const int8_t* w,
                                      const float* ws, const float* bias,
-                                     const float* alpha, int8_t* out, int B,
-                                     int H, int W, int Cin, int Ho, int Wo,
-                                     int Cout, int k, int stride, int dil,
-                                     int pad, int up, int kpad,
+                                     const float* alpha, int8_t* out,
+                                     const int* vt_in, const int* vt_out,
+                                     int B, int H, int W, int Cin, int Ho,
+                                     int Wo, int Cout, int k, int stride,
+                                     int dil, int pad, int up, int kpad,
                                      void* stream) {
-  const InpaintPad h{H, stride, dil, pad, up};
-  const InpaintPad wd{W, stride, dil, pad, up};
+  if ((vt_in == nullptr) != (vt_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const InpaintPad h{H, stride, dil, pad, up, nullptr, H};
+  const InpaintPad wd{W, stride, dil, pad, up, vt_in, W};
   const sos8::EpiRequant epi{ws, bias, alpha, out, Cout};
-  return (int)conv(x, w, B, h, wd, Ho, Wo, Cin, Cout, k, k, kpad, epi,
-                   (cudaStream_t)stream);
+  return (int)with_mask(epi, vt_out, Wo, Ho * Wo, [&](const auto& e) {
+    return conv(x, w, B, h, wd, Ho, Wo, Cin, Cout, k, k, kpad, e,
+                (cudaStream_t)stream);
+  });
 }

@@ -43,6 +43,24 @@
 // * Cout 256 in two n-tiles of 128, and a kh tap's k split over stages
 //   in groups of `cg` 16-channel chunks, so that stages of 256-channel
 //   layers fit three to a block.
+// * Rows of any width: a row whose output and halo exceed the 192 m rows
+//   is cut into `nseg` segments of `seg_len` outputs, one row an item;
+//   segment g's boxes start g * seg_len positions further along each W
+//   phase plane. The patch warp then reads a reflection's source from
+//   device memory (it may lie in the previous segment's box).
+// * The length-bucketed path (`vt_in`, `vt_out`: each row's valid input
+//   and output widths, device int32 (B,)): a down block's row b reads as
+//   sos_tpu's valid path pads it (reflected about its own end v, zero
+//   from v + pad on), an up block's as zero from v on, and outputs at or
+//   past the row's output width are stored as zeros. Kept outputs read
+//   no column past v + pad (down) or v + 1 (up), so the patch warp writes
+//   only the columns [v, v + rpatch) of a row (and a down block's left
+//   pad): whatever lies past them in the boxes is never read by an output
+//   that is stored. The copy pass (`inpaint_gather_s8`) writes each row's
+//   padded columns under the same rule.
+// Segments and per-row widths are the kernel's `kGeneral` instances: a
+// launch with one segment and no per-row widths (the fused 2 s path) runs
+// the instance without them, whose per-item work is the same as before.
 #include "int8_mma.cuh"
 #include "int8_wgmma.cuh"
 
@@ -69,7 +87,15 @@ struct Phase {
 struct Plan {
   int n_tiles, nph, wh, pitch, rows, mt, cg, groups, kchunks_row;
   int a_rows, b_offset, stage_bytes, stages, ho, wo, s_h, reflect, lead;
-  int H, W, batch, hout, wout, os, plane, row_groups, items, a_bytes;
+  int nseg, seg_len, seg_cols, rpatch;
+  // whether the patch warp writes columns: the static reflection copied
+  // inside the stage (mode 1), or per row from device memory (mode 2, the
+  // kGeneral instances)
+  int patch;
+  int H, W, Cin, batch, hout, wout, os, plane, row_groups, items, a_bytes;
+  const int8_t* x;
+  const int* vt_in;
+  const int* vt_out;
   Phase phase;
 };
 
@@ -77,6 +103,17 @@ struct Plan {
 __device__ __forceinline__ int reflect(int u, int n) {
   u = u < 0 ? -u : u;
   return u >= n ? 2 * n - 2 - u : u;
+}
+
+// Input column that input position u (-pad <= u) of a row whose valid
+// width is v holds in sos_tpu's valid padding, or -1 for a zero: the
+// row's own end reflection, the start's, zero at or past v (with v = W:
+// numpy's reflect).
+__device__ __forceinline__ int valid_col(int u, int v, int pad) {
+  if (u >= v + pad) return -1;
+  if (u >= v) u = 2 * v - 2 - u;
+  if (u < 0) u = -u;
+  return u < v ? u : -1;
 }
 
 // Input row that tap t of phase f reads for output row oh; a row outside
@@ -89,13 +126,19 @@ __device__ __forceinline__ int in_row(const Plan& p, const Phase& f, int oh,
 }
 
 struct Item {
-  int b, oh0, nt;
+  int b, oh0, nt, seg;
 };
 
+template <bool kGeneral>
 __device__ __forceinline__ Item item_at(const Plan& p, int item) {
   Item it;
   it.nt = item % p.n_tiles;
   int t = item / p.n_tiles;
+  it.seg = 0;
+  if constexpr (kGeneral) {
+    it.seg = t % p.nseg;
+    t /= p.nseg;
+  }
   it.oh0 = t % p.row_groups * p.rows;
   it.b = t / p.row_groups;
   return it;
@@ -103,20 +146,23 @@ __device__ __forceinline__ Item item_at(const Plan& p, int item) {
 
 // Columns n, n + 1 of output row `row`: sos8::EpiRequant's arithmetic
 // (acc * w_s + b without contraction, PReLU, round half to even, clip)
-// with the scales, biases and slope already in registers.
+// with the scales, biases and slope already in registers; zeros past the
+// row's valid output width (`zero`).
 __device__ __forceinline__ void store2(const sos8::EpiRequant& epi, int row,
                                        int n, int v0, int v1, float w0,
                                        float w1, float b0, float b1,
-                                       float alpha) {
+                                       float alpha, bool zero) {
   const float y0 = __fadd_rn(__fmul_rn(__int2float_rn(v0), w0), b0);
   const float y1 = __fadd_rn(__fmul_rn(__int2float_rn(v1), w1), b1);
-  char2 q;
-  q.x = sos8::requant(y0 >= 0.f ? y0 : __fmul_rn(alpha, y0));
-  q.y = sos8::requant(y1 >= 0.f ? y1 : __fmul_rn(alpha, y1));
+  char2 q = make_char2(0, 0);
+  if (!zero) {
+    q.x = sos8::requant(y0 >= 0.f ? y0 : __fmul_rn(alpha, y0));
+    q.y = sos8::requant(y1 >= 0.f ? y1 : __fmul_rn(alpha, y1));
+  }
   *reinterpret_cast<char2*>(epi.out + (size_t)row * epi.ldo + n) = q;
 }
 
-template <int N>
+template <int N, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
                 const __grid_constant__ CUtensorMap xrow,
@@ -129,8 +175,8 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.stages * p.stage_bytes);
   uint64_t* empty = full + p.stages;
   // a stage is ready for the consumers once TMA has filled it (full) or,
-  // with reflect patching, once the patch warp has patched it (ready)
-  uint64_t* ready = p.lead ? empty + p.stages : full;
+  // with patching, once the patch warp has patched it (ready)
+  uint64_t* ready = p.patch ? empty + p.stages : full;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Phase& f = p.phase;
   // A rows past the planes (the partner of a chunk with no neighbour in k,
@@ -146,7 +192,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
     for (int s = 0; s < p.stages; ++s) {
       sosw::mbar_init(&full[s], 1);
       sosw::mbar_init(&empty[s], 4 * p.mt);
-      if (p.lead) sosw::mbar_init(&ready[s], 1);
+      if (p.patch) sosw::mbar_init(&ready[s], 1);
     }
     sosw::fence_barrier_init();
   }
@@ -157,7 +203,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
       int stage = 0;
       uint32_t phase = 0;
       for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-        const Item it = item_at(p, item);
+        const Item it = item_at<kGeneral>(p, item);
         for (int t = 0; t < f.ntaps; ++t)
           for (int g = 0; g < p.groups; ++g) {
             sosw::mbar_wait(&empty[stage], phase ^ 1);
@@ -171,15 +217,16 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
                 !p.reflect || (lo >= 0 && last * p.s_h + f.tap_off[t] < p.H);
             for (int q = 0; q < p.nph; ++q) {
               uint8_t* dst = st + q * p.cg * p.plane * 16;
+              const int col =
+                  q * p.wh - p.lead + (kGeneral ? it.seg * p.seg_cols : 0);
               if (whole)
-                sosw::tma_load_5d(dst, &xrows, &full[stage], 0,
-                                  q * p.wh - p.lead, lo, g * p.cg, it.b);
+                sosw::tma_load_5d(dst, &xrows, &full[stage], 0, col, lo,
+                                  g * p.cg, it.b);
               else  // a box a row and chunk
                 for (int r = 0; r < p.rows; ++r)
                   for (int c = 0; c < p.cg; ++c)
                     sosw::tma_load_5d(dst + (c * p.plane + r * p.pitch) * 16,
-                                      &xrow, &full[stage], 0,
-                                      q * p.wh - p.lead,
+                                      &xrow, &full[stage], 0, col,
                                       in_row(p, f, it.oh0 + r, t),
                                       g * p.cg + c, it.b);
             }
@@ -198,29 +245,63 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
     return;
   }
 
-  if (warp == 4 * kConsumers + 1) {  // patch warp: reflection in W
-    if (p.lead == 0) return;
+  if (warp == 4 * kConsumers + 1) {  // patch warp
+    if (!p.patch) return;
     // a down block's boxes start `lead` = pad padded columns before the
     // row: TMA filled those and the pad columns past its end with zeros.
-    // Padded column v of either pad (W phase v % nph, position v / nph)
-    // takes its reflection v2 (2 pad - v, or 2 (W + pad - 1) - v; the same
-    // phase), copied inside the stage; then the stores are ordered before
-    // the consumers' wgmma (async proxy) reads
-    const int pad = p.lead, per_box = 2 * pad, copies = p.rows * p.cg * per_box;
+    // Mode 1 (one segment, no per-row widths): padded column v of either
+    // pad (W phase v % nph, position v / nph) takes its reflection v2
+    // (2 pad - v, or 2 (W + pad - 1) - v; the same phase), copied inside
+    // the stage. Mode 2 (the kGeneral instances): per row b of the
+    // item, the `lead` left pad columns and the `rpatch` columns from the
+    // row's valid width v on (v = W without per-row widths) take what
+    // `valid_col` says, read from device memory (a down block; an up
+    // block's are zeros), where they fall inside the segment's boxes.
+    // Then the stores are ordered before the consumers' wgmma (async
+    // proxy) reads.
+    const int pad = p.lead;
+    const int per_row = kGeneral ? pad + p.rpatch : 2 * pad;
+    const int copies = p.rows * p.cg * per_row;
     int stage = 0;
     uint32_t phase = 0;
-    for (int item = blockIdx.x; item < p.items; item += gridDim.x)
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const Item it = item_at<kGeneral>(p, item);
+      int v = p.W, first = 0;  // the row's valid width, the boxes' first
+                               // padded column
+      if constexpr (kGeneral) {
+        if (p.vt_in != nullptr) v = __ldg(p.vt_in + it.b);
+        first = it.seg * p.seg_len * p.nph;
+      }
       for (int t = 0; t < f.ntaps; ++t)
         for (int g = 0; g < p.groups; ++g) {
           sosw::mbar_wait(&full[stage], phase);
           int4* st = reinterpret_cast<int4*>(smem + stage * p.stage_bytes);
           for (int i = lane; i < copies; i += 32) {
-            const int e = i % per_box, box = i / per_box;
-            const int v = e < pad ? e : p.W + e;
-            const int v2 = e < pad ? 2 * pad - e : 2 * (p.W + pad - 1) - v;
-            const int base = (v % p.nph * p.cg + box / p.rows) * p.plane +
-                             box % p.rows * p.pitch;
-            st[base + v / p.nph] = st[base + v2 / p.nph];
+            const int e = i % per_row, box = i / per_row;
+            if constexpr (!kGeneral) {  // mode 1
+              const int pc = e < pad ? e : p.W + e;
+              const int pc2 = e < pad ? 2 * pad - e : 2 * (p.W + pad - 1) - pc;
+              const int base = (pc % p.nph * p.cg + box / p.rows) * p.plane +
+                               box % p.rows * p.pitch;
+              st[base + pc / p.nph] = st[base + pc2 / p.nph];
+            } else {  // mode 2
+              const int c = box / p.rows, r = box % p.rows;
+              const int pc = e < pad ? e : pad + v + (e - pad);  // padded col
+              const int rel = pc - first, oh = it.oh0 + r;
+              if (pc >= p.W + 2 * pad || rel < 0 || rel >= p.pitch * p.nph ||
+                  oh >= p.ho)
+                continue;
+              int4 val = sos8::zero16();
+              const int col = p.reflect ? valid_col(pc - pad, v, pad) : -1;
+              if (col >= 0) {
+                const size_t at =
+                    ((size_t)(it.b * p.H + in_row(p, f, oh, t)) * p.W + col) *
+                        p.Cin + (g * p.cg + c) * 16;
+                val = __ldg(reinterpret_cast<const int4*>(p.x + at));
+              }
+              st[(rel % p.nph * p.cg + c) * p.plane + r * p.pitch +
+                 rel / p.nph] = val;
+            }
           }
           sosw::fence_proxy_async();
           __syncwarp();
@@ -230,6 +311,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
             phase ^= 1;
           }
         }
+    }
     return;
   }
 
@@ -257,7 +339,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
   uint32_t phase = 0;
   const uint32_t sbase = sosw::smem_u32(smem);
   for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-    const Item it = item_at(p, item);
+    const Item it = item_at<kGeneral>(p, item);
     int scale = 0;  // the item's first wgmma overwrites the sums
     for (int t = 0; t < f.ntaps; ++t)
       for (int g = 0; g < p.groups; ++g) {
@@ -287,12 +369,20 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
     // bias are read once for both rows (row by row was slower at N <= 64)
     const int m0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);
     int rows_out[2];
-    bool keep[2];
+    bool keep[2], zero[2] = {false, false};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + 8 * h, r = m / p.pitch, ow = m - r * p.pitch;
+      const int m = m0 + 8 * h, r = m / p.pitch, owl = m - r * p.pitch;
       const int oh = it.oh0 + r;
-      keep[h] = r < p.rows && oh < p.ho && ow < p.wo;
+      int ow = owl;
+      if constexpr (kGeneral) {
+        ow += it.seg * p.seg_len;
+        keep[h] = r < p.rows && oh < p.ho && owl < p.seg_len && ow < p.wo;
+        zero[h] = p.vt_out != nullptr &&
+                  ow * p.os + f.pw >= __ldg(p.vt_out + it.b);
+      } else {
+        keep[h] = r < p.rows && oh < p.ho && ow < p.wo;
+      }
       rows_out[h] = (it.b * p.hout + oh * p.os + f.ph) * p.wout +
                     ow * p.os + f.pw;
     }
@@ -304,7 +394,8 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
         for (int j = 0; j < N / 8; ++j)
           store2(epi, rows_out[h], it.nt * N + 8 * j + 2 * (lane & 3),
                  acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], ws_r[2 * j],
-                 ws_r[2 * j + 1], b_r[2 * j], b_r[2 * j + 1], alpha_r);
+                 ws_r[2 * j + 1], b_r[2 * j], b_r[2 * j + 1], alpha_r,
+                 zero[h]);
       }
     } else {
 #pragma unroll
@@ -316,7 +407,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
         for (int h = 0; h < 2; ++h)
           if (keep[h])
             store2(epi, rows_out[h], n, acc[4 * j + 2 * h],
-                   acc[4 * j + 2 * h + 1], w0, w1, b0, b1, alpha_r);
+                   acc[4 * j + 2 * h + 1], w0, w1, b0, b1, alpha_r, zero[h]);
       }
     }
   }
@@ -324,11 +415,13 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
 
 // xg (B, H, nph * wh, cg16) from x (B, H, W, Cin): column q0 * wh + q of
 // xg holds column q * nph + q0 of x reflect-padded by `pad` in W (zeros
-// past the padded width), channels past Cin zero. 16 bytes a thread.
+// past the padded width; with `vt`, row b padded by `valid_col` about its
+// valid width vt[b]), channels past Cin zero. 16 bytes a thread.
+template <bool kValid>
 __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
-                                  int8_t* __restrict__ xg, int rows, int W,
-                                  int Cin, int cg16, int wh, int nph,
-                                  int pad) {
+                                  int8_t* __restrict__ xg, int rows, int H,
+                                  int W, int Cin, int cg16, int wh, int nph,
+                                  int pad, const int* __restrict__ vt) {
   const int vec = cg16 / 16, cols = nph * wh;
   const long long total = (long long)rows * cols * vec;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -343,8 +436,12 @@ __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
       int8_t b[16];
     } val;
     val.v = sos8::zero16();
-    if (u < W + 2 * pad) {
-      const int8_t* src = x + (row * W + reflect(u - pad, W)) * Cin;
+    int src_col = -1;
+    if (u < W + 2 * pad)
+      src_col = kValid ? valid_col(u - pad, __ldg(vt + row / H), pad)
+                       : reflect(u - pad, W);
+    if (src_col >= 0) {
+      const int8_t* src = x + (row * W + src_col) * Cin;
       if (Cin % 16 == 0) {
         val.v = __ldg(reinterpret_cast<const int4*>(src) + v);
       } else {
@@ -356,7 +453,7 @@ __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
   }
 }
 
-template <int N>
+template <int N, bool kGeneral>
 cudaError_t launch_tile(const int8_t* xs, int W_s, int wstep, int cg16,
                         const int8_t* w,
                         int Cout, int kpad, const Plan& p,
@@ -390,12 +487,27 @@ cudaError_t launch_tile(const int8_t* xs, int W_s, int wstep, int cg16,
   const int smem = p.stages * p.stage_bytes + 3 * p.stages * 8 + 1024;
   int blocks = 0;
   if (err == cudaSuccess)
-    err = sosw::resident_blocks(inpaint_halo_s8<N>, kThreads, smem, &blocks);
+    err = sosw::resident_blocks(inpaint_halo_s8<N, kGeneral>, kThreads, smem,
+                                &blocks);
   if (err != cudaSuccess) return err;
   if (blocks == 0) return cudaErrorInvalidConfiguration;
-  inpaint_halo_s8<N><<<blocks < p.items ? blocks : p.items, kThreads, smem,
-                       stream>>>(xrows, xrow, wmap, p, epi);
+  inpaint_halo_s8<N, kGeneral><<<blocks < p.items ? blocks : p.items,
+                                 kThreads, smem, stream>>>(xrows, xrow, wmap,
+                                                           p, epi);
   return cudaGetLastError();
+}
+
+template <bool kGeneral>
+cudaError_t launch_n(int n, const int8_t* xs, int W_s, int wstep, int cg16,
+                     const int8_t* w, int Cout, int kpad, const Plan& p,
+                     const sos8::EpiRequant& epi, cudaStream_t st) {
+  switch (n) {
+    case 16: return launch_tile<16, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 32: return launch_tile<32, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 64: return launch_tile<64, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 128: return launch_tile<128, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -403,17 +515,19 @@ cudaError_t launch_tile(const int8_t* xs, int W_s, int wstep, int cg16,
 // K7 on the Hopper tile. `plan` (host memory) is ops/int8_conv.py
 // `inpaint_plan`'s int32 vector: n, n_tiles, nphases, nph, wh, pad_w,
 // cin_pad, pitch, rows, mt, cg, groups, kchunks_row, a_rows, b_offset,
-// stage_bytes, stages, ho, wo, s_h, reflect, gather, lead, then per
-// phase ph, pw,
+// stage_bytes, stages, ho, wo, s_h, reflect, gather, lead, nseg,
+// seg_len, rpatch, then per phase ph, pw,
 // ntaps, steps, nboxes, tap_i[5], tap_off[5], a_off[24], a_lbo[24],
-// b_off[24], box_chunk[24]. `xg` is the wrapper's scratch for the gathered input of
-// a down block (B, H, nph * wh, cin_pad), NULL for an up block, which
-// reads x as it is.
+// b_off[24], box_chunk[24]. `xg` is the wrapper's scratch for the
+// gathered input of a down block (B, H, nph * wh, cin_pad), NULL where
+// the block reads x as it is. `vt_in`, `vt_out` (device int32 (B,), both
+// or neither): each row's valid input and output widths.
 extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
                                      const int8_t* w, const float* ws,
                                      const float* bias, const float* alpha,
-                                     int8_t* out, const int* plan, int B,
-                                     int H, int W, int Cin, int Cout,
+                                     int8_t* out, const int* vt_in,
+                                     const int* vt_out, const int* plan,
+                                     int B, int H, int W, int Cin, int Cout,
                                      int kpad, void* stream) {
   Plan p;
   const int n = plan[0];
@@ -438,24 +552,37 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
   p.reflect = plan[20];
   const int gather = plan[21];
   p.lead = plan[22];
+  p.nseg = plan[23];
+  p.seg_len = plan[24];
+  p.rpatch = plan[25];
   if (nphases < 1 || nphases > kPhases || p.mt < 1 ||
       p.mt > kConsumers || p.stages < 1 || n * p.n_tiles != Cout ||
       (xg != nullptr) != (bool)gather || (!gather && p.nph * p.pitch > 256) ||
-      p.cg * p.groups * 16 != cin_pad ||
+      p.cg * p.groups * 16 != cin_pad || p.nseg < 1 ||
+      p.nseg * p.seg_len < p.wo || (vt_in == nullptr) != (vt_out == nullptr) ||
       p.b_offset % 1024 || p.stage_bytes % 1024 || alpha == nullptr)
     return (int)cudaErrorInvalidValue;
   p.H = H;
   p.W = W;
+  p.Cin = Cin;
   p.batch = B;
+  p.x = x;
+  p.vt_in = vt_in;
+  p.vt_out = vt_out;
   p.os = nphases > 1 ? 2 : 1;
   p.hout = p.ho * p.os;
   p.wout = p.wo * p.os;
   p.plane = p.rows * p.pitch;
   p.row_groups = (p.ho + p.rows - 1) / p.rows;
-  p.items = B * p.row_groups * p.n_tiles;
+  p.items = B * p.row_groups * p.n_tiles * p.nseg;
   p.a_bytes = p.rows * p.cg * p.nph * p.pitch * 16;
+  // the patch warp: a down block that reads x as it is patches its pads;
+  // an up block patches only per-row widths; the copy pass leaves nothing
+  // to patch
+  const bool general = p.nseg > 1 || vt_in != nullptr;
+  p.patch = !gather && (p.lead > 0 || (vt_in != nullptr && p.rpatch > 0));
   Phase phases[kPhases];
-  const int* v = plan + 23;
+  const int* v = plan + 26;
   for (int f = 0; f < nphases; ++f, v += 5 + 2 * kTaps + 4 * kSteps) {
     Phase& ph = phases[f];
     ph.ph = v[0];
@@ -485,9 +612,13 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
     const long long total = (long long)B * H * p.nph * p.wh * (cin_pad / 16);
     const int threads = 256;
     const long long want = (total + threads - 1) / threads;
-    inpaint_gather_s8<<<(int)(want < 132 * 16 ? want : 132 * 16), threads, 0,
-                        st>>>(x, xg, B * H, W, Cin, cin_pad, p.wh, p.nph,
-                              pad_w);
+    const int grid = (int)(want < 132 * 16 ? want : 132 * 16);
+    if (vt_in != nullptr)
+      inpaint_gather_s8<true><<<grid, threads, 0, st>>>(
+          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, vt_in);
+    else
+      inpaint_gather_s8<false><<<grid, threads, 0, st>>>(
+          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, nullptr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     xs = xg;
@@ -496,16 +627,15 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
   } else if (Cin != cin_pad) {
     return (int)cudaErrorInvalidValue;
   }
+  p.seg_cols = p.seg_len * wstep;
   const sos8::EpiRequant epi{ws, bias, alpha, out, Cout};
   for (int f = 0; f < nphases; ++f) {
     p.phase = phases[f];
-    cudaError_t err = cudaErrorInvalidValue;
-    switch (n) {
-      case 16: err = launch_tile<16>(xs, ws_cols, wstep, cin_pad, w, Cout, kpad, p, epi, st); break;
-      case 32: err = launch_tile<32>(xs, ws_cols, wstep, cin_pad, w, Cout, kpad, p, epi, st); break;
-      case 64: err = launch_tile<64>(xs, ws_cols, wstep, cin_pad, w, Cout, kpad, p, epi, st); break;
-      case 128: err = launch_tile<128>(xs, ws_cols, wstep, cin_pad, w, Cout, kpad, p, epi, st); break;
-    }
+    const cudaError_t err =
+        general ? launch_n<true>(n, xs, ws_cols, wstep, cin_pad, w, Cout,
+                                 kpad, p, epi, st)
+                : launch_n<false>(n, xs, ws_cols, wstep, cin_pad, w, Cout,
+                                  kpad, p, epi, st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

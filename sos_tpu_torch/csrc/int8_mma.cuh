@@ -84,6 +84,9 @@ struct EpiRequant {  // K6 and K7: int8 out (1/s_out is folded into w_s, b);
     q.y = requant(activate(dequant(v1, ws, bias, n + 1), alpha));
     *reinterpret_cast<char2*>(out + (size_t)m * ldo + n) = q;
   }
+  __device__ __forceinline__ void zeros(int m, int n) const {
+    *reinterpret_cast<char2*>(out + (size_t)m * ldo + n) = make_char2(0, 0);
+  }
 };
 
 struct EpiFloat {  // K6's last (1x1 proj) block: float32 out after ReLU
@@ -96,6 +99,28 @@ struct EpiFloat {  // K6's last (1x1 proj) block: float32 out after ReLU
     *reinterpret_cast<float2*>(out + (size_t)m * ldo + n) = make_float2(
         fmaxf(dequant(v0, ws, bias, n), 0.f),
         fmaxf(dequant(v1, ws, bias, n + 1), 0.f));
+  }
+  __device__ __forceinline__ void zeros(int m, int n) const {
+    *reinterpret_cast<float2*>(out + (size_t)m * ldo + n) =
+        make_float2(0.f, 0.f);
+  }
+};
+
+// The length-bucketed path's per-row time mask around an epilogue: output
+// row m of the NHWC output (b, h, t) lies at time t = m % W of batch row
+// b = m / HW and is written as zeros where t >= vt[b]. Only launches with
+// per-row widths instantiate it.
+template <class Epi>
+struct TimeMasked {
+  Epi epi;
+  const int* vt;
+  int W, HW;
+  __device__ __forceinline__ void operator()(int m, int n, int v0,
+                                             int v1) const {
+    if (m % W >= __ldg(vt + m / HW))
+      epi.zeros(m, n);
+    else
+      epi(m, n, v0, v1);
   }
 };
 

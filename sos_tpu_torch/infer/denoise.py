@@ -16,8 +16,9 @@ host reflect padding + zero extension, the STFT without centering [K1
 valid boundary, tail re-zeroing, BiLSTM with per-row lengths [K4]) and
 the iSTFT normalized by each row's valid frames [K3 per-row `valid_t`].
 `denoise_batch` runs same-bucket utterances in tiles of `batch_size`
-rows. The int8 profile runs the exact mode only (ROADMAP.md queue 1
-item 3).
+rows. Every profile runs every mode (int8 through the quantized
+denoiser's valid_t path: K6 with the per-row time mask, K7 with per-row
+time tails).
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ import torch
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.dsp.mixing import bitstream_to_sample_mask_np
 from sos_tpu_torch.dsp.stft import crm_istft, istft_packed, stft, stft_cat
-from sos_tpu_torch.infer.detect import (INT8_BUCKETS_MESSAGE, bucket_buffer,
-                                        to_device)
+from sos_tpu_torch.infer.detect import bucket_buffer, to_device
 from sos_tpu_torch.infer.fused import _nchw
 from sos_tpu_torch.models import JointDenoiser
 from sos_tpu_torch.models.layers import exact_fp32, resolve_device
@@ -48,7 +48,7 @@ class DenoiserPredictor:
                  calibration_path: Optional[str] = None, device="cuda"):
         """`state`: the JointDenoiser's state_dict. `profile`: None/"f32"
         (reference-exact), "bf16" (bf16 conv trunks) or "int8" (quantized
-        trunks, exact mode only). `calibration_path`: the int8
+        trunks). `calibration_path`: the int8
         activation-scale JSON, loaded when present, else the predictor
         calibrates on its first utterance. `device`: "cuda" (default) or
         "cpu"."""
@@ -56,8 +56,6 @@ class DenoiserPredictor:
         if profile not in ("f32", "bf16", "int8"):
             raise ValueError(f"profile must be f32|bf16|int8, got {profile!r}")
         self.buckets = tuple(buckets) if buckets else None
-        if profile == "int8" and self.buckets is not None:
-            raise NotImplementedError(INT8_BUCKETS_MESSAGE)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.profile = profile
@@ -104,7 +102,8 @@ class DenoiserPredictor:
             mixed_cat = stft_cat(mixed, *geom, center=center)
             gated_cat = stft_cat(gated, *geom, center=center)
             if self._quant is not None:
-                noise, crm_cat = self._quant.forward_cat(mixed_cat, gated_cat)
+                noise, crm_cat = self._quant.forward_cat(mixed_cat, gated_cat,
+                                                         valid_t)
             else:
                 noise, crm_cat = self.model.forward_packed(
                     _nchw(mixed_cat), _nchw(gated_cat), valid_t)
@@ -172,6 +171,9 @@ class DenoiserPredictor:
             return [self.denoise_waveform(m, b, framerate)
                     for m, b in zip(mixed_list, bits_list)]
         hop, n_fft = self.cfg.stft.hop_length, self.cfg.stft.n_fft
+        if mixed_list:  # int8: scales from the file or the first item
+            m0 = np.asarray(mixed_list[0], np.float32)
+            self._maybe_calibrate(m0, self._mask(m0, bits_list[0], framerate))
         groups: Dict[int, list] = {}
         for i, m in enumerate(mixed_list):
             groups.setdefault(self._bucket_t(1 + len(m) // hop), []).append(i)

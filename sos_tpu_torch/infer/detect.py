@@ -22,10 +22,10 @@ Three modes, as in `sos_tpu`:
   with its own valid lengths; short tiles repeat their last row. Every
   tile is dispatched before any is fetched.
 
-torch compiles nothing, so `sos_tpu`'s per-program cache has no
-counterpart. The int8 profile runs the exact mode only: its bucketed
-path needs K6 with the time mask, the next slice's work (ROADMAP.md
-queue 1 item 3).
+Every profile runs every mode, as in `sos_tpu`: int8 through the
+quantized models' valid_t path (K6 with the per-row time mask, K7 with
+per-row time tails). torch compiles nothing, so `sos_tpu`'s per-program
+cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -44,12 +44,6 @@ from sos_tpu_torch.models.quant import (QuantizedDetector,
                                         load_persisted_calibration)
 
 FRAMES_GRANULARITY = 64  # the video-frame grid rounds up to multiples of this
-
-INT8_BUCKETS_MESSAGE = (
-    "the int8 profile runs the exact mode only (buckets=None): its "
-    "length-bucketed path (K6 with the time mask, K7 with the time tails, "
-    "rows over 192) is the next slice, ROADMAP.md queue 1 item 3")
-
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on `device`: through pinned memory without waiting
@@ -78,7 +72,7 @@ class DetectorPredictor:
                  calibration_path: Optional[str] = None, device="cuda"):
         """`state`: the detector's state_dict (`models/convert.py` or
         `models/torch_import.py` make it). `profile`: None/"f32", "bf16"
-        (bf16 conv trunk) or "int8" (quantized trunk, exact mode only).
+        (bf16 conv trunk) or "int8" (quantized trunk).
         `calibration_path` loads persisted int8 scales (the schema
         `FusedDenoisePipeline` writes); else the predictor calibrates on
         its first utterance. `device`: "cuda" (default) or "cpu"."""
@@ -86,8 +80,6 @@ class DetectorPredictor:
         if profile not in ("f32", "bf16", "int8"):
             raise ValueError(f"profile must be f32|bf16|int8, got {profile!r}")
         self.buckets = tuple(sorted(buckets)) if buckets else None
-        if profile == "int8" and self.buckets is not None:
-            raise NotImplementedError(INT8_BUCKETS_MESSAGE)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.threshold = threshold
@@ -118,7 +110,8 @@ class DetectorPredictor:
     def _conf(self, spec_cat: torch.Tensor, num_frames: int, valid_t=None,
               valid_frames=None) -> torch.Tensor:
         if self._quant is not None:
-            logits = self._quant.logits_cat(spec_cat, num_frames)
+            logits = self._quant.logits_cat(spec_cat, num_frames, valid_t,
+                                            valid_frames)
         else:
             logits = self.model.forward_nchw(_nchw(spec_cat), num_frames,
                                              valid_t, valid_frames)

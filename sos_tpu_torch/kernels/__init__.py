@@ -22,6 +22,7 @@ other blocks, and the K7 shapes its plan refuses, on the `mma.sync` tile
 """
 
 from sos_tpu_torch.kernels.build import (  # noqa: F401
+    ENTRY_LAUNCHES,
     LAUNCHES,
     aligned16,
     launch,

@@ -57,30 +57,36 @@ SIGNATURES = {
     "sos_bilstm_max_clusters": (_I,) * 4 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
     "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
-    # x, w, w_s, bias, out, B, H, W, Cin, Cout, kh, kw, dh, dw, kpad,
-    # out_f32, stream
-    "sos_int8_conv_same": (_P, _P, _P, _P, _P) + (_I,) * 11 + (_P,),
-    # x, w, w_s, bias, out, plan (host int32), B, H, W, Cin, Cout, kh, kw,
-    # dh, dw, kpad, stream
-    "sos_int8_conv_same_halo": (_P,) * 6 + (_I,) * 10 + (_P,),
-    # x, w, w_s, bias, alpha, out, B, H, W, Cin, Ho, Wo, Cout, k, stride,
-    # dil, pad, up, kpad, stream
-    "sos_int8_conv_inpaint": (_P,) * 6 + (_I,) * 13 + (_P,),
-    # x, xg (gather scratch or NULL), w, w_s, bias, alpha, out, plan (host
-    # int32), B, H, W, Cin, Cout, kpad, stream
-    "sos_int8_inpaint_halo": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), B, H, W, Cin,
+    # Cout, kh, kw, dh, dw, kpad, out_f32, stream
+    "sos_int8_conv_same": (_P,) * 6 + (_I,) * 11 + (_P,),
+    # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), plan (host
+    # int32), B, H, W, Cin, Cout, kh, kw, dh, dw, kpad, stream
+    "sos_int8_conv_same_halo": (_P,) * 7 + (_I,) * 10 + (_P,),
+    # x, w, w_s, bias, alpha, out, valid_t in and out (int32 (B,) or
+    # NULL), B, H, W, Cin, Ho, Wo, Cout, k, stride, dil, pad, up, kpad,
+    # stream
+    "sos_int8_conv_inpaint": (_P,) * 8 + (_I,) * 13 + (_P,),
+    # x, xg (gather scratch or NULL), w, w_s, bias, alpha, out, valid_t
+    # in and out (int32 (B,) or NULL), plan (host int32), B, H, W, Cin,
+    # Cout, kpad, stream
+    "sos_int8_inpaint_halo": (_P,) * 10 + (_I,) * 6 + (_P,),
 }
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
 # (one CUDA launch per wrapper call), under a lock, since the serve loop
-# launches from two threads. K1, K3 and K4 count their length-bucketed
-# cases apart: K1 with center=False, K3 with per-row valid_t, K4 with
-# per-row lengths.
+# launches from two threads. The length-bucketed cases count apart: K1
+# with center=False, K3 with per-row valid_t, K4 with per-row lengths,
+# K6 and K7 with per-row valid_t.
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
                             "mask_gate": 0, "crm_istft": 0,
                             "crm_istft_valid_t": 0, "bilstm": 0,
                             "bilstm_lengths": 0, "int8_gemm": 0,
-                            "int8_conv": 0, "int8_inpaint": 0}
+                            "int8_conv": 0, "int8_conv_valid_t": 0,
+                            "int8_inpaint": 0, "int8_inpaint_valid_t": 0}
+# The same launches by C entry point (K6 and K7 have two routes each)
+ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES
+                                  if not name.endswith("_max_clusters")}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -88,8 +94,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _digest() -> str:
@@ -192,3 +199,4 @@ def launch(kernel: str, symbol: str, *args) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
     with _count_lock:
         LAUNCHES[kernel] += 1
+        ENTRY_LAUNCHES[symbol] += 1

@@ -165,35 +165,43 @@ def reflect_pad(x: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tenso
     return torch.index_select(x, 2, _reflect_index(h, top, bottom, x.device))
 
 
-def time_mask(x: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
-    """`(B, 1, 1, T)` mask in x's dtype of each row's time steps (dim 3)
-    below valid_t[b]."""
-    steps = torch.arange(x.shape[3], device=x.device)
-    return (steps[None, :] < valid_t[:, None]).to(x.dtype)[:, None, None, :]
+def time_mask(x: torch.Tensor, valid_t: torch.Tensor,
+              dim: int = 3) -> torch.Tensor:
+    """Mask in x's dtype of each row's time steps (axis `dim`: 3 for NCHW,
+    2 for NHWC) below valid_t[b], shaped to broadcast against x."""
+    steps = torch.arange(x.shape[dim], device=x.device)
+    keep = (steps[None, :] < valid_t[:, None]).to(x.dtype)
+    shape = [x.shape[0]] + [1] * (x.dim() - 1)
+    shape[dim] = x.shape[dim]
+    return keep.view(shape)
 
 
-def zero_time_tail(x: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
-    """Zero each row's entries at time index (dim 3) >= valid_t[b]."""
-    return x * time_mask(x, valid_t)
+def zero_time_tail(x: torch.Tensor, valid_t: torch.Tensor,
+                   dim: int = 3) -> torch.Tensor:
+    """Zero each row's entries at time index (axis `dim`) >= valid_t[b]."""
+    return x * time_mask(x, valid_t, dim)
 
 
 def reflect_time_tail(x: torch.Tensor, valid_t: torch.Tensor, pad: int,
-                      offset: int = 0) -> torch.Tensor:
+                      offset: int = 0, dim: int = 3) -> torch.Tensor:
     """Write each row's end-of-signal reflection at its own boundary:
-    columns [offset+v, offset+v+pad) of row b (v = valid_t[b]) become
-    x[..., offset+v-2-j], j < pad (sources clipped to the width), as an
-    unpadded program's ReflectionPad would place them. The caller keeps
-    offset+v+pad <= T; like sos_tpu's dynamic_update_slice, a start past
-    T - pad is moved back to T - pad. A gather of the sources, then a
-    scatter into a copy."""
-    b, c, f, t = x.shape
+    time columns (axis `dim`) [offset+v, offset+v+pad) of row b (v =
+    valid_t[b]) become those at offset+v-2-j, j < pad (sources clipped
+    to the width), as an unpadded program's ReflectionPad would place
+    them. The caller keeps offset+v+pad <= T; like sos_tpu's
+    dynamic_update_slice, a start past T - pad is moved back to T - pad.
+    A gather of the sources, then a scatter into a copy."""
+    t = x.shape[dim]
     j = torch.arange(pad, device=x.device)
     src = torch.clamp(offset + valid_t[:, None] - 2 - j[None, :], 0, t - 1)
     start = torch.clamp(offset + valid_t, 0, t - pad)
     dst = start[:, None] + j[None, :]
-    shape = (b, c, f, pad)
-    vals = torch.gather(x, 3, src[:, None, None, :].expand(shape))
-    return x.scatter(3, dst[:, None, None, :].expand(shape), vals)
+    shape = list(x.shape)
+    shape[dim] = pad
+    view = [x.shape[0]] + [1] * (x.dim() - 1)
+    view[dim] = pad
+    vals = torch.gather(x, dim, src.view(view).expand(shape))
+    return x.scatter(dim, dst.view(view).expand(shape), vals)
 
 
 class DownConvBlock(nn.Module):

@@ -23,11 +23,15 @@ Layouts: activations are NHWC `(B, F, T, C)` int8 between blocks; the
 public entries keep sos_tpu's `(B, F, T, 2)` spectra and packed
 `(B, T, F)` (re, im) pairs.
 
-Not ported yet: the `valid_t` length-bucketed paths (K6 with the time
-mask, K7 with the time tails and rows over 192; the int8 slice after the
-f32/bf16 bucketed predictors, ROADMAP.md queue 1 item 3 and queue 2
-A3-A4) and the "bfloat16" InpaintNet mode (queue 1 item 4). The int8
-predictors run whole utterances at their own length.
+The length-bucketed path (`valid_t`, per-row `(B,)` device tensors) is
+sos_tpu's, exact: the encoders mask their input and zero every block's
+output past valid_t in K6's epilogue; InpaintNet chains each row's valid
+width through its blocks (K7 reflects each row at its own boundary and
+zeroes its output past the propagated width), the junctions resample
+each row's valid region, and the BiLSTMs take per-row lengths.
+
+Not ported yet: the "bfloat16" InpaintNet mode (`inpaint_dtype`,
+ROADMAP.md queue 1 item 4).
 
 Calibration runs folded-float convs; on the card it must run with TF32
 off, so `calibrate` enters `exact_fp32` itself.
@@ -46,11 +50,15 @@ import torch
 import torch.nn.functional as F
 
 from sos_tpu_torch.config import DenoiserModelConfig, DetectorModelConfig
-from sos_tpu_torch.models.layers import TorchLinear, exact_fp32, resolve_device
+from sos_tpu_torch.models.layers import (TorchLinear, exact_fp32,
+                                         reflect_pad, reflect_time_tail,
+                                         resolve_device, zero_time_tail)
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, inpaint_conv_int8,
-                                         lhs_dilate, pack_weight, up_pads)
+                                         inpaint_valid_out, lhs_dilate,
+                                         pack_weight, up_pads)
 from sos_tpu_torch.ops.lstm import BiLSTM
-from sos_tpu_torch.ops.resize import (nearest_index_tensor, nearest_resize_1d,
+from sos_tpu_torch.ops.resize import (dynamic_nearest_time,
+                                      nearest_index_tensor, nearest_resize_1d,
                                       nearest_resize_2d)
 
 _BN_EPS = 1e-5  # TorchBatchNorm: torch defaults
@@ -195,15 +203,26 @@ class QuantEncoderParams:
 
 
 def _run_encoder_int8(enc: QuantEncoderParams, specs, x: torch.Tensor,
-                      time_take=None) -> torch.Tensor:
+                      time_take=None, valid_t=None) -> torch.Tensor:
     """Int8-resident conv trunk (detector trunk, ContextAggNet encoders):
     float x NHWC `(B, F, T, C)` (any strides: the packed spectra come as
     views) is quantized once, every block runs K6, and the proj block
     returns float32 NHWC (the only f32 tensor: it feeds the float head).
 
     `time_take` (int64 index tensor on x's device): subset the time axis of the int8 tensor
-    right before the final 1x1 proj block, which commutes with it."""
+    right before the final 1x1 proj block, which commutes with it.
+
+    `valid_t` (`(B,)` on x's device): the exact length-bucketed variant:
+    x is masked past each row's valid_t before it is quantized, and K6
+    zeroes every block's output there (the float encoders' re-zeroing
+    after every block), so SAME padding sees the unpadded program's
+    zeros; int8 zero is exact zero."""
     assert enc.blocks, "finalize() must run before the first forward"
+    if time_take is not None and valid_t is not None:
+        raise ValueError("time_take is a fixed-shape fast path: it does not "
+                         "take valid_t")
+    if valid_t is not None:
+        x = zero_time_tail(x.float(), valid_t, dim=2)
     h_q = _quantize_act(x, enc.act_scales[0])
     last = len(enc.blocks) - 1
     h = None
@@ -212,7 +231,8 @@ def _run_encoder_int8(enc: QuantEncoderParams, specs, x: torch.Tensor,
         if i == last and time_take is not None:
             assert tuple(ks) == (1, 1), "time_take requires a 1x1 final block"
             h_q = h_q.index_select(2, time_take)
-        out = conv_same_int8(h_q, w, w_s, b, ks, dil, out_f32=not requant)
+        out = conv_same_int8(h_q, w, w_s, b, ks, dil, out_f32=not requant,
+                             valid_t=valid_t)
         if requant:
             h_q = out
         else:
@@ -383,39 +403,73 @@ class QuantizedDenoiser:
     # -- InpaintNet ------------------------------------------------------
 
     def _inpaint_geometry(self, gated: torch.Tensor, mixed: torch.Tensor,
-                          blk) -> torch.Tensor:
+                          blk, valid_t: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
         """The InpaintNet dataflow with a pluggable per-block op `blk`,
         written once for the int8 pass (int8 NHWC in and out of every
         block) and the float calibration pass. Returns the float32 noise
-        prediction NCHW `(B, 2, F, T)`."""
-        d1 = blk("a_in", gated)
-        d2 = blk("a_d2", blk("a_d1", d1))
-        d3 = blk("b_in", mixed)
-        d4 = blk("b_d2", blk("b_d1", d3))
-        x = torch.cat([d2, d4], dim=-1)
+        prediction NCHW `(B, 2, F, T)`.
+
+        `valid_t` (`(B,)`; int8 pass only): the exact length-bucketed
+        variant of sos_tpu (quant.py:373-448): `blk(name, x, v)` returns
+        (y, v_out), the junctions resample each row's valid region onto
+        the skip's, and the `out` conv pads each row's end at its own
+        boundary and is zeroed past it."""
+        def call(nm, x, v):
+            if valid_t is None:
+                return blk(nm, x), None
+            return blk(nm, x, v)
+
+        d1, v = call("a_in", gated, valid_t)
+        x, v2 = call("a_d1", d1, v)
+        d2, v2 = call("a_d2", x, v2)
+        d3, v3b = call("b_in", mixed, valid_t)
+        x, v4 = call("b_d1", d3, v3b)
+        d4, v4 = call("b_d2", x, v4)
+        x, vm = torch.cat([d2, d4], dim=-1), v4
         for nm in ("mid0", "mid1", "mid_dil2", "mid_dil4", "mid_dil8",
                    "mid_dil16", "mid2", "mid3", "mid_up"):
-            x = blk(nm, x)
-        if x.shape[1:3] != d4.shape[1:3]:
-            x = nearest_resize_2d(x, d4.shape[1:3], 1, 2)
-        x = blk("up1_up", blk("up1_conv", torch.cat([x, d4], dim=-1)))
-        if x.shape[1:3] != d3.shape[1:3]:
-            x = nearest_resize_2d(x, d3.shape[1:3], 1, 2)
-        x = blk("up2_conv", torch.cat([x, d3], dim=-1))
-        # float head; for the int8 pass the input dequant scale is folded
-        # into out_kernel by finalize()
+            x, vm = call(nm, x, vm)
+        if valid_t is None:
+            if x.shape[1:3] != d4.shape[1:3]:
+                x = nearest_resize_2d(x, d4.shape[1:3], 1, 2)
+        else:
+            x = nearest_resize_1d(x, d4.shape[1], 1)
+            x = dynamic_nearest_time(x, vm, v4, d4.shape[2], dim=2)
+        x, vu = call("up1_conv", torch.cat([x, d4], dim=-1), v4)
+        x, vu = call("up1_up", x, vu)
+        if valid_t is None:
+            if x.shape[1:3] != d3.shape[1:3]:
+                x = nearest_resize_2d(x, d3.shape[1:3], 1, 2)
+        else:
+            x = nearest_resize_1d(x, d3.shape[1], 1)
+            x = dynamic_nearest_time(x, vu, v3b, d3.shape[2], dim=2)
+        x, vf = call("up2_conv", torch.cat([x, d3], dim=-1), v3b)
+        # float head (cuDNN); for the int8 pass the input dequant scale is
+        # folded into out_kernel by finalize()
         qp = self.qinpaint
         kernel = (qp.out_kernel if x.dtype == torch.int8
                   else _oihw(qp.out_kernel_f, x.device))
-        xp = F.pad(x.permute(0, 3, 1, 2).float(), (1, 1, 1, 1),
-                   mode="reflect")
-        return F.conv2d(xp, kernel) + qp.out_bias[:, None, None]
+        xn = x.permute(0, 3, 1, 2).float()
+        if valid_t is None:
+            xp = F.pad(xn, (1, 1, 1, 1), mode="reflect")
+        else:
+            xp = reflect_pad(zero_time_tail(xn, vf), (1, 0, 1, 1))
+            xp = reflect_time_tail(F.pad(xp, (0, 1)), vf, 1, offset=1)
+        y = F.conv2d(xp, kernel) + qp.out_bias[:, None, None]
+        # k 3, pad 1, stride 1: the output's valid width is vf
+        return y if valid_t is None else zero_time_tail(y, vf)
 
-    def _inpaint_block_int8(self, name: str, x_q: torch.Tensor):
-        """Consumes int8 (producer-scaled), emits int8 (own out scale): K7."""
+    def _inpaint_block_int8(self, name: str, x_q: torch.Tensor, v=None):
+        """Consumes int8 (producer-scaled), emits int8 (own out scale): K7.
+        With `v` (each row's valid width) returns (y, v_out)."""
         kind, k, s, d = _INPAINT_BY_NAME[name]
         w, w_s, b, alpha = self.qinpaint.blocks[name]
-        return inpaint_conv_int8(x_q, w, w_s, b, alpha, kind, k, s, d)
+        y = inpaint_conv_int8(x_q, w, w_s, b, alpha, kind, k, s, d,
+                              valid_t=v)
+        if v is None:
+            return y
+        return y, inpaint_valid_out(kind, k, s, d, v)
 
     def _inpaint_block_float(self, name: str, x: torch.Tensor,
                              record: Dict) -> torch.Tensor:
@@ -436,49 +490,62 @@ class QuantizedDenoiser:
         record[name] = max(record.get(name, 0.0), float(y.abs().max()))
         return y.permute(0, 2, 3, 1)
 
-    def _inpaint_int8(self, gated: torch.Tensor,
-                      mixed: torch.Tensor) -> torch.Tensor:
+    def _inpaint_int8(self, gated: torch.Tensor, mixed: torch.Tensor,
+                      valid_t: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         qp = self.qinpaint
+        if valid_t is not None:
+            gated = zero_time_tail(gated.float(), valid_t, dim=2)
+            mixed = zero_time_tail(mixed.float(), valid_t, dim=2)
         return self._inpaint_geometry(
             _quantize_act(gated, qp.out_scales["__gated__"]),
             _quantize_act(mixed, qp.out_scales["__mixed__"]),
-            self._inpaint_block_int8)
+            self._inpaint_block_int8, valid_t)
 
     # -- forward ---------------------------------------------------------
 
-    def _encoder_int8(self, enc: QuantEncoderParams,
-                      x: torch.Tensor) -> torch.Tensor:
+    def _encoder_int8(self, enc: QuantEncoderParams, x: torch.Tensor,
+                      valid_t: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """NHWC float -> channel-major features `(B, T, C*F)`."""
-        h = _run_encoder_int8(enc, _encoder_specs(self.cfg), x)
+        h = _run_encoder_int8(enc, _encoder_specs(self.cfg), x,
+                              valid_t=valid_t)
         bsz, f, t, c = h.shape
         return h.permute(0, 2, 3, 1).reshape(bsz, t, c * f)
 
-    def _head(self, f_x: torch.Tensor, f_n: torch.Tensor) -> torch.Tensor:
-        h = self.lstm(torch.cat([f_x, f_n], dim=-1))
+    def _head(self, f_x: torch.Tensor, f_n: torch.Tensor,
+              valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.lstm(torch.cat([f_x, f_n], dim=-1), valid_len=valid_t)
         h = torch.relu(self.fc0(h))
         h = torch.relu(self.fc1(h))
         return torch.sigmoid(self.fc2(h))
 
-    def _forward(self, mixed: torch.Tensor, gated: torch.Tensor):
+    def _forward(self, mixed: torch.Tensor, gated: torch.Tensor,
+                 valid_t: Optional[torch.Tensor] = None):
         """NHWC spectra -> (noise NCHW, packed sigmoid head (B, T, 2F))."""
         assert self._calibrated, "call calibrate() before the first forward"
         with torch.no_grad(), exact_fp32():
-            noise = self._inpaint_int8(gated, mixed)
-            f_x = self._encoder_int8(self.enc_x, mixed)
-            f_n = self._encoder_int8(self.enc_n, noise.permute(0, 2, 3, 1))
-            return noise, self._head(f_x, f_n)
+            noise = self._inpaint_int8(gated, mixed, valid_t)
+            f_x = self._encoder_int8(self.enc_x, mixed, valid_t)
+            f_n = self._encoder_int8(self.enc_n, noise.permute(0, 2, 3, 1),
+                                     valid_t)
+            return noise, self._head(f_x, f_n, valid_t)
 
-    def forward_cat(self, mixed_cat: torch.Tensor, gated_cat: torch.Tensor
+    def forward_cat(self, mixed_cat: torch.Tensor, gated_cat: torch.Tensor,
+                    valid_t: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Packed STFTs `(B, T, 2F)` -> (noise prediction NCHW
-        `(B, 2, F, T)`, packed compressed cRM `(B, T, 2F)`)."""
-        return self._forward(cat_to_nhwc(mixed_cat), cat_to_nhwc(gated_cat))
+        `(B, 2, F, T)`, packed compressed cRM `(B, T, 2F)`). `valid_t`
+        `(B,)`: the length-bucketed variant (outputs past a row's valid_t
+        are the caller's to mask)."""
+        return self._forward(cat_to_nhwc(mixed_cat), cat_to_nhwc(gated_cat),
+                             valid_t)
 
-    def crm_cat(self, mixed_cat: torch.Tensor,
-                gated_cat: torch.Tensor) -> torch.Tensor:
+    def crm_cat(self, mixed_cat: torch.Tensor, gated_cat: torch.Tensor,
+                valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Packed STFTs `(B, T, 2F)` -> packed compressed cRM `(B, T, 2F)`
         (the layout kernel K3 reads)."""
-        return self.forward_cat(mixed_cat, gated_cat)[1]
+        return self.forward_cat(mixed_cat, gated_cat, valid_t)[1]
 
     def crm_packed(self, mixed_re, mixed_im, gated_re, gated_im
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -489,10 +556,12 @@ class QuantizedDenoiser:
         f = self.cfg.freq_bins
         return h[..., :f], h[..., f:]
 
-    def __call__(self, mixed: torch.Tensor, gated_noise: torch.Tensor
+    def __call__(self, mixed: torch.Tensor, gated_noise: torch.Tensor,
+                 valid_t: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`(B, F, T, 2)` spectra -> (noise_pred, crm), both `(B, F, T, 2)`."""
-        noise, h = self._forward(mixed, gated_noise)
+        """`(B, F, T, 2)` spectra -> (noise_pred, crm), both `(B, F, T, 2)`;
+        `valid_t` `(B,)`: the length-bucketed variant."""
+        noise, h = self._forward(mixed, gated_noise, valid_t)
         bsz, t, _ = h.shape
         crm = h.reshape(bsz, t, 2, self.cfg.freq_bins).permute(0, 3, 1, 2)
         return noise.permute(0, 2, 3, 1), crm
@@ -600,42 +669,73 @@ class QuantizedDetector:
         self._calibrated = True
 
     def _head(self, x: torch.Tensor, num_frames: int,
-              pre_resampled: bool = False) -> torch.Tensor:
+              pre_resampled: bool = False,
+              valid_t: Optional[torch.Tensor] = None,
+              valid_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         bsz, f, t, c = x.shape
         x = x.permute(0, 2, 3, 1).reshape(bsz, t, c * f)
         if pre_resampled:
             assert t == num_frames
-        else:
+        elif valid_t is None:
             x = nearest_resize_1d(x, num_frames, dim=1)
-        x = self.lstm(x.float())
+        else:
+            # exact dynamic nearest resample onto each row's [0, valid_t):
+            # floor(j * valid_t / valid_frames), in integers
+            vf = num_frames if valid_frames is None else valid_frames
+            vf = torch.as_tensor(vf, device=x.device).expand(bsz)
+            j = torch.arange(num_frames, device=x.device)
+            idx = torch.clamp((j[None, :] * valid_t[:, None]) // vf[:, None],
+                              0, t - 1)
+            x = torch.gather(x, 1, idx[:, :, None].expand(bsz, num_frames,
+                                                           c * f))
+        x = self.lstm(x.float(), valid_len=valid_frames)
         x = torch.relu(self.fc1(x))
         return self.fc2(x)[..., 0]
 
     def _time_take(self, t_in: int, num_frames: int) -> torch.Tensor:
         return nearest_index_tensor(t_in, num_frames, self.device)
 
-    def _logits_nhwc(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
-        """Fixed-shape path: resample time on int8 BEFORE the 1x1 proj
-        (bit-identical; the proj commutes with time subsetting)."""
+    def _logits_nhwc(self, x: torch.Tensor, num_frames: int,
+                     valid_t: Optional[torch.Tensor] = None,
+                     valid_frames: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Without `valid_t`/`valid_frames`, the fixed-shape path:
+        resample time on int8 BEFORE the 1x1 proj (bit-identical; the
+        proj commutes with time subsetting). With them, the
+        length-bucketed one: the proj at full width, then each row's
+        valid region resampled onto its frames and the BiLSTM with
+        per-row lengths `valid_frames`."""
         assert self._calibrated, "call calibrate() before the first forward"
+        specs = _encoder_specs(self.cfg)
         with torch.no_grad(), exact_fp32():
-            h = _run_encoder_int8(self.enc, _encoder_specs(self.cfg), x,
-                                  time_take=self._time_take(x.shape[2],
-                                                            num_frames))
-            return self._head(h, num_frames, pre_resampled=True)
+            if valid_t is None and valid_frames is None:
+                h = _run_encoder_int8(self.enc, specs, x,
+                                      time_take=self._time_take(x.shape[2],
+                                                                num_frames))
+                return self._head(h, num_frames, pre_resampled=True)
+            h = _run_encoder_int8(self.enc, specs, x, valid_t=valid_t)
+            return self._head(h, num_frames, valid_t=valid_t,
+                              valid_frames=valid_frames)
 
-    def __call__(self, spec: torch.Tensor, num_frames: int) -> torch.Tensor:
-        """`(B, F, T, 2)` -> logits `(B, num_frames)`."""
-        return self._logits_nhwc(spec, num_frames)
+    def __call__(self, spec: torch.Tensor, num_frames: int,
+                 valid_t: Optional[torch.Tensor] = None,
+                 valid_frames: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """`(B, F, T, 2)` -> logits `(B, num_frames)`; `valid_t`,
+        `valid_frames` `(B,)`: the length-bucketed variant."""
+        return self._logits_nhwc(spec, num_frames, valid_t, valid_frames)
 
     def logits_packed(self, re: torch.Tensor, im: torch.Tensor,
                       num_frames: int) -> torch.Tensor:
         return self._logits_nhwc(_pack_nhwc(re, im), num_frames)
 
-    def logits_cat(self, spec_cat: torch.Tensor,
-                   num_frames: int) -> torch.Tensor:
+    def logits_cat(self, spec_cat: torch.Tensor, num_frames: int,
+                   valid_t: Optional[torch.Tensor] = None,
+                   valid_frames: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
         """Packed STFT `(B, T, 2F)` -> logits `(B, num_frames)`."""
-        return self._logits_nhwc(cat_to_nhwc(spec_cat), num_frames)
+        return self._logits_nhwc(cat_to_nhwc(spec_cat), num_frames, valid_t,
+                                 valid_frames)
 
 
 # The exception set load_calibration can raise on a wrong-schema scale

@@ -17,13 +17,21 @@ Port of the convolutions of `sos_tpu/models/quant.py`:
   pads `up_pads(k)` ("up"), then `prelu(acc * w_s + b)` requantized.
   Every full-width InpaintNet block runs on the Hopper tile
   (`sos_int8_inpaint_halo`, its launch plan from `inpaint_plan`; up
-  blocks as four sub-pixel convs); the shapes the plan refuses on the
-  `mma.sync` gather (`sos_int8_conv_inpaint`).
+  blocks as four sub-pixel convs; rows of any width, in segments); the
+  shapes the plan refuses (Couts it has no width for) on the `mma.sync`
+  gather (`sos_int8_conv_inpaint`).
 
 Layouts: activations NHWC `(B, H, W, C)` int8, contiguous; weights
 packed once by `pack_weight` into `(Cout, Kpad)` int8 with k = (i * kw +
 j) * Cin + ci, zero-padded to a multiple of 64 (up weights flipped);
 `w_s`, `b` float32 `(Cout,)`, with 1/s_out already folded in.
+
+Both take an optional per-row `valid_t`, a `(B,)` integer tensor of
+each row's valid time width (the length-bucketed path, `sos_tpu`'s
+`valid_t`): K6 writes zeros at output time positions `>= valid_t[b]`;
+K7 reads its input as `sos_tpu`'s valid path pads it (each row reflected
+at its own boundary, zero past it) and zeroes outputs past the row's
+`inpaint_valid_out`. Time is the W axis (dim 2) of the NHWC tensors.
 
 Each wrapper runs its plain version (`*_plain`) on CPU tensors and
 launches its kernel on CUDA tensors. The plain versions accumulate in
@@ -119,6 +127,37 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                          "an even Cout")
     if w_s.shape != (cout,) or b.shape != (cout,):
         raise ValueError(f"{name}: w_s and b must be ({cout},)")
+
+
+def _valid_arg(name: str, valid_t: Optional[torch.Tensor],
+               x: torch.Tensor) -> Optional[torch.Tensor]:
+    """`valid_t` as the kernels read it: int32 `(B,)` on x's device (or
+    None); on another device or of another shape it raises."""
+    if valid_t is None:
+        return None
+    if valid_t.device != x.device:
+        raise ValueError(f"{name}: valid_t on {valid_t.device}, input on "
+                         f"{x.device}")
+    if valid_t.shape != (x.shape[0],) or valid_t.is_floating_point():
+        raise ValueError(f"{name}: valid_t must be an integer ({x.shape[0]},) "
+                         f"tensor, got {valid_t.dtype} {tuple(valid_t.shape)}")
+    return valid_t.to(torch.int32).contiguous()
+
+
+def _time_keep(valid_t: torch.Tensor, width: int) -> torch.Tensor:
+    """`(B, 1, width, 1)` bool: NHWC time positions below each row's
+    valid_t."""
+    t = torch.arange(width, device=valid_t.device)
+    return (t[None, :] < valid_t[:, None])[:, None, :, None]
+
+
+def _zero_past(y: torch.Tensor, valid_t: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """NHWC `y` with time positions `>= valid_t[b]` set to 0."""
+    if valid_t is None:
+        return y
+    return torch.where(_time_keep(valid_t, y.shape[2]), y,
+                       y.new_zeros(())).contiguous()
 
 
 def _ptrs(*tensors):
@@ -244,28 +283,34 @@ def halo_plan(w: int, cin: int, cout: int, ksize: Tuple[int, int],
 
 def conv_same_int8_plain(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                          b: torch.Tensor, ksize: Tuple[int, int],
-                         dilation: Tuple[int, int],
-                         out_f32: bool = False) -> torch.Tensor:
-    """Plain version of K6."""
+                         dilation: Tuple[int, int], out_f32: bool = False,
+                         valid_t: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain version of K6. `valid_t`: outputs at time positions
+    `>= valid_t[b]` are 0 (sos_tpu's tmask after every requantize and on
+    the proj's float output); the input is taken as it is."""
     (kh, kw), (dh, dw) = ksize, dilation
     acc = F.conv2d(x.permute(0, 3, 1, 2).double(),
                    unpack_weight(w, kh, kw, x.shape[-1]),
                    padding=((kh - 1) // 2 * dh, (kw - 1) // 2 * dw),
                    dilation=(dh, dw))
-    return _epilogue(acc, w_s, b, None, out_f32)
+    return _zero_past(_epilogue(acc, w_s, b, None, out_f32), valid_t)
 
 
 def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                    b: torch.Tensor, ksize: Tuple[int, int],
-                   dilation: Tuple[int, int],
-                   out_f32: bool = False) -> torch.Tensor:
+                   dilation: Tuple[int, int], out_f32: bool = False,
+                   valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC int8 `(B, H, W, Cin)` -> `(B, H, W, Cout)`: int8, or float32
-    with `out_f32`. Kernel K6 on CUDA tensors, the plain version on CPU
+    with `out_f32`; with `valid_t` `(B,)`, zeros at time (W) positions
+    `>= valid_t[b]`. Kernel K6 on CUDA tensors, the plain version on CPU
     tensors."""
     if x.device.type == "cpu":
-        return conv_same_int8_plain(x, w, w_s, b, ksize, dilation, out_f32)
+        return conv_same_int8_plain(x, w, w_s, b, ksize, dilation, out_f32,
+                                    valid_t)
     (kh, kw), (dh, dw) = ksize, dilation
     _check("conv_same_int8", x, w, w_s, b, kh * kw)
+    vt = _valid_arg("conv_same_int8", valid_t, x)
     # both routes read x as packed NHWC and w as rows kpad bytes apart:
     # `aligned16` copies a strided or misaligned view to contiguous rows
     x, w = aligned16(x), aligned16(w)
@@ -277,14 +322,17 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     plan = None if out_f32 else halo_plan(wid, cin, cout, tuple(ksize),
                                           tuple(dilation))
     ptrs = _ptrs(x, w, w_s.contiguous(), b.contiguous(), out)
+    vt_ptr = None if vt is None else vt.data_ptr()
+    # the valid_t case counts apart, as K1/K3/K4's bucketed cases do
+    counter = "int8_conv" if vt is None else "int8_conv_valid_t"
     with on_device(x.device) as stream:
         if plan is not None:
-            launch("int8_conv", "sos_int8_conv_same_halo", *ptrs,
+            launch(counter, "sos_int8_conv_same_halo", *ptrs, vt_ptr,
                    plan.vector.ctypes.data, bsz, h, wid, cin, cout, kh, kw,
                    dh, dw, w.shape[1], stream)
         else:
-            launch("int8_conv", "sos_int8_conv_same", *ptrs, bsz, h, wid,
-                   cin, cout, kh, kw, dh, dw, w.shape[1], int(out_f32),
+            launch(counter, "sos_int8_conv_same", *ptrs, vt_ptr, bsz, h,
+                   wid, cin, cout, kh, kw, dh, dw, w.shape[1], int(out_f32),
                    stream)
     return out
 
@@ -307,6 +355,39 @@ def _inpaint_geometry(kind: str, k: int, s: int, d: int, h: int, w: int):
         raise ValueError(f"kind must be down|up, got {kind!r}")
     lo, hi = up_pads(k)
     return (lo, (h - 1) * s + lo + hi - k + 2, (w - 1) * s + lo + hi - k + 2)
+
+
+def inpaint_valid_out(kind: str, k: int, s: int, d: int, valid_t):
+    """Per-row valid width of a block's output from its input's (sos_tpu
+    quant.py:490-508): `(v + 2 pad - (d (k-1) + 1)) // s + 1` for a down
+    block, `(v - 1) s - 2 ((k-1)//2) + k + 1` for an up block (the
+    output_padding=1 quirk). Works on ints and integer tensors."""
+    if kind == "down":
+        pad = (k - 1) // 2 * d
+        return (valid_t + 2 * pad - (d * (k - 1) + 1)) // s + 1
+    return (valid_t - 1) * s - 2 * ((k - 1) // 2) + k + 1
+
+
+def valid_columns(valid_t: torch.Tensor, pad: int, width: int):
+    """The down blocks' padded time axis of each row under `valid_t`, as
+    sos_tpu builds it (the input zeroed past v, reflect-padded on the
+    left, zero-padded on the right, `reflect_time_tail(x, v, pad,
+    offset=pad)`): for padded column c (input position u = c - pad,
+    -pad <= u < width + pad) the input column it holds, and whether it
+    holds one (else 0). With v = width this is numpy's reflect.
+
+      u >= v + pad: 0
+      u >= v:       u -> 2 v - 2 - u   (the row's own end reflection)
+      u < 0:        u -> -u            (the start's reflection)
+      then 0 unless u < v              (the zeroed tail)
+
+    Returns (index `(B, width + 2 pad)` int64 clipped into the row,
+    keep `(B, width + 2 pad)` bool)."""
+    u = torch.arange(-pad, width + pad, device=valid_t.device)[None, :]
+    v = valid_t.to(torch.int64)[:, None]
+    src = torch.where(u >= v, 2 * v - 2 - u, u).abs()
+    keep = (u < v + pad) & (src < v)
+    return src.clamp(0, width - 1), keep
 
 
 INPAINT_TILE_N = (16, 32, 64, 128)  # the kernel's wgmma widths
@@ -364,9 +445,15 @@ class InpaintPlan:
     overwrites the pad_w padded columns at each end, which TMA filled
     with zeros, with their reflections from the box's interior (in the
     same phase plane). An item is `rows` output rows of one output
-    phase, one batch entry and one `n`-wide tile of Cout; output row r of
-    the item lies at m rows r * pitch .. r * pitch + wo - 1 of the item's
-    `mt` m64 tiles (the rows between are dropped in the epilogue). A
+    phase, one batch entry, one `n`-wide tile of Cout and one segment;
+    output row r of the item lies at m rows r * pitch .. r * pitch +
+    seg_len - 1 of the item's `mt` m64 tiles (the rows between are
+    dropped in the epilogue). A row whose output and halo do not fit 192
+    m rows (`pitch` > 192) is cut into `nseg` segments of `seg_len`
+    output positions, one row an item (`rows` 1): segment g's boxes
+    start `g * seg_len` positions further along each W phase plane, and
+    its planes are `pitch` = seg_len + halo positions long (wider than
+    the m rows); otherwise `nseg` is 1 and `seg_len` = wo. A
     stage is one kh tap x one group of `cg` 16-channel chunks: per (W
     phase p, chunk c) a plane of `rows * pitch` positions, `(p * cg + c)
     * plane` on, in which output row r's `pitch` positions sit at r *
@@ -396,6 +483,11 @@ class InpaintPlan:
     stages: int
     ho: int
     wo: int
+    nseg: int
+    seg_len: int
+    rpatch: int    # columns from a row's valid width on that the patch
+                   # warp writes under valid_t (a down block's pad, an up
+                   # block's widest W offset; 0 with the copy pass)
     phases: Tuple[InpaintPhase, ...]
     vector: np.ndarray = dataclasses.field(compare=False, repr=False)
 
@@ -403,16 +495,21 @@ class InpaintPlan:
     def plane(self) -> int:
         return self.rows * self.pitch
 
+    @property
+    def seg_cols(self) -> int:
+        """Columns of the read map between two segments' boxes."""
+        return self.seg_len * (1 if self.gather else self.nph)
+
     def m_share(self) -> float:
-        """Share of the item's m rows that hold an output (full items)."""
-        return self.rows * self.wo / (64 * self.mt)
+        """Share of the item's m rows that hold an output."""
+        return self.rows * self.wo / (64 * self.mt * self.nseg)
 
     def tile_bytes(self, batch: int) -> int:
         """Bytes the tile's TMA loads bring from L2 into shared memory for
         `batch` inputs: per item and stage, the rows' boxes and the B
         boxes."""
         a = self.rows * self.cg * self.nph * self.pitch * 16
-        items = batch * -(-self.ho // self.rows) * self.n_tiles
+        items = batch * -(-self.ho // self.rows) * self.n_tiles * self.nseg
         return items * self.groups * sum(
             len(f.taps) * (a + len(f.boxes) * self.n * 128)
             for f in self.phases)
@@ -472,11 +569,11 @@ def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
                  w: int, cin: int, cout: int) -> Optional[InpaintPlan]:
     """K7's Hopper-tile plan, or None for the shapes that stay on the
     `mma.sync` gather: a Cout the tile has no width for (not a multiple of
-    16 up to 128, or of 128 above), a kernel wider than 5 taps, an output
-    row that does not fit one item's 192 m rows with its halo, up blocks
+    16 up to 128, or of 128 above), a kernel wider than 5 taps, up blocks
     other than stride 2 with Cin % 16 == 0, or a stage too large for two
     in shared memory. Cin = 2 (the input blocks) is padded to 16 channels
-    with zero weights behind them."""
+    with zero weights behind them. Rows of any width: a row whose output
+    and halo exceed 192 positions runs in segments."""
     n = min(cout, 128)
     if n not in INPAINT_TILE_N or cout % n or k > INPAINT_MAX_TAPS:
         return None
@@ -493,15 +590,21 @@ def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
     phases = _inpaint_phases(kind, k, stride, dilation, pad)
     max_off = max(off for *_, wt in phases for _, _, off in wt)
     pitch = -(-(wo + max_off) // 8) * 8   # 128-byte aligned boxes
-    if pitch > INPAINT_M:
-        return None
+    if pitch <= INPAINT_M:
+        nseg, seg_len = 1, wo
+        rows = min(INPAINT_M // pitch, ho)
+        mt = -(-(rows * pitch if rows > 1 else wo) // 64)
+    else:  # segments of at most 192 outputs, as even as 8-wide steps allow
+        nseg = -(-wo // INPAINT_M)
+        seg_len = -(-(-(-wo // nseg)) // 8) * 8
+        pitch = -(-(seg_len + max_off) // 8) * 8
+        rows, mt = 1, -(-seg_len // 64)
     if kind == "down" and (cin % 16 or nph * pitch > 256):
         # copy first: channels padded, or a W phase wider than a TMA box
         # spans at a traversal stride (256 columns)
         cin_pad, gather, lead = -(-cin // 16) * 16, True, 0
         wh = -(-(w + 2 * pad) // stride)
-    rows = min(INPAINT_M // pitch, ho)
-    mt = -(-rows * pitch // 64)
+    rpatch = 0 if gather else (pad if kind == "down" else max_off)
     plane = rows * pitch
     cpt = cin_pad // 16
 
@@ -535,7 +638,7 @@ def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
     vector = [n, cout // n, len(phases), nph, wh, pad, cin_pad, pitch,
               rows, mt, cg, cpt // cg, k * cpt, a_rows, b_offset,
               stage_bytes, stages, ho, wo, s_h, int(kind == "down"),
-              int(gather), lead]
+              int(gather), lead, nseg, seg_len, rpatch]
     for f in phase_plans:
         taps = list(f.taps) + [(0, 0)] * (INPAINT_MAX_TAPS - len(f.taps))
         pad_s = HALO_MAX_STEPS - len(f.steps)
@@ -547,8 +650,8 @@ def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
         vector += list(f.boxes) + [0] * (HALO_MAX_STEPS - len(f.boxes))
     return InpaintPlan(kind, n, cout // n, gather, lead, s_h, cin_pad, nph,
                        wh, pad, pitch, rows, mt, cg, cpt // cg, a_rows,
-                       b_offset, stage_bytes, stages, ho, wo, phase_plans,
-                       np.array(vector, np.int32))
+                       b_offset, stage_bytes, stages, ho, wo, nseg, seg_len,
+                       rpatch, phase_plans, np.array(vector, np.int32))
 
 
 def pad_weight_channels(w: torch.Tensor, k: int, cin: int,
@@ -565,33 +668,54 @@ def pad_weight_channels(w: torch.Tensor, k: int, cin: int,
 def inpaint_conv_int8_plain(x: torch.Tensor, w: torch.Tensor,
                             w_s: torch.Tensor, b: torch.Tensor,
                             alpha: torch.Tensor, kind: str, k: int,
-                            stride: int, dilation: int) -> torch.Tensor:
-    """Plain version of K7."""
+                            stride: int, dilation: int,
+                            valid_t: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version of K7. With `valid_t` `(B,)`, sos_tpu's valid path
+    (quant.py:478-517): a down block pads H by reflection and W by
+    `valid_columns`; an up block reads its input as zero from each row's
+    valid_t on; the output is zeroed past `inpaint_valid_out`."""
     xd = x.permute(0, 3, 1, 2).double()
     wd = unpack_weight(w, k, k, x.shape[-1])
     pad, _, _ = _inpaint_geometry(kind, k, stride, dilation, *x.shape[1:3])
     if kind == "down":
-        if pad:
+        if pad and valid_t is None:
             xd = F.pad(xd, (pad,) * 4, mode="reflect")
+        elif pad:
+            bsz, c, h, wid = xd.shape
+            idx, keep = valid_columns(valid_t, pad, wid)
+            xd = torch.gather(xd, 3, idx[:, None, None, :].expand(
+                bsz, c, h, wid + 2 * pad)) * keep[:, None, None, :]
+            xd = F.pad(xd, (0, 0, pad, pad), mode="reflect")
         acc = F.conv2d(xd, wd, stride=stride, dilation=dilation)
     else:
+        if valid_t is not None:
+            xd = xd * _time_keep(valid_t, xd.shape[3]).permute(0, 3, 1, 2)
         lo, hi = up_pads(k)
         acc = F.conv2d(lhs_dilate(xd, stride, lo, hi), wd)
-    return _epilogue(acc, w_s, b, alpha, False)
+    y = _epilogue(acc, w_s, b, alpha, False)
+    if valid_t is None:
+        return y
+    return _zero_past(y, inpaint_valid_out(kind, k, stride, dilation,
+                                           valid_t))
 
 
 def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                       b: torch.Tensor, alpha: torch.Tensor, kind: str,
-                      k: int, stride: int, dilation: int) -> torch.Tensor:
+                      k: int, stride: int, dilation: int,
+                      valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One int8 InpaintNet block, NHWC int8 in and out. `kind` "down":
     reflect pad (k-1)//2*dilation, then a k x k conv at `stride`; "up":
     the transposed conv (`w` packed flipped). `alpha`: the PReLU slope,
-    a one-element float32 tensor. Kernel K7 on CUDA tensors, the plain
-    version on CPU tensors."""
+    a one-element float32 tensor. `valid_t` `(B,)`: each row's valid
+    input width (the length-bucketed path; `inpaint_valid_out` gives the
+    output's). Kernel K7 on CUDA tensors, the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, stride,
-                                       dilation)
+                                       dilation, valid_t)
     _check("inpaint_conv_int8", x, w, w_s, b, k * k, (alpha,))
+    vt = _valid_arg("inpaint_conv_int8", valid_t, x)
     # both routes read x as packed NHWC and w as rows kpad bytes apart
     x, w = aligned16(x), aligned16(w)
     bsz, h, wid, cin = x.shape
@@ -600,12 +724,17 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
     plan = inpaint_plan(kind, k, stride, dilation, h, wid, cin, cout)
     scalars = (w_s.contiguous(), b.contiguous(), alpha.float().contiguous())
+    vt_in = vt_out = None
+    if vt is not None:
+        vo = inpaint_valid_out(kind, k, stride, dilation, vt)
+        vt_in, vt_out = vt.data_ptr(), vo.data_ptr()
+    counter = "int8_inpaint" if vt is None else "int8_inpaint_valid_t"
     with on_device(x.device) as stream:
         if plan is None:
-            launch("int8_inpaint", "sos_int8_conv_inpaint",
-                   *_ptrs(x, w, *scalars, out), bsz, h, wid, cin, ho, wo,
-                   cout, k, stride, dilation, pad, int(kind == "up"),
-                   w.shape[1], stream)
+            launch(counter, "sos_int8_conv_inpaint",
+                   *_ptrs(x, w, *scalars, out), vt_in, vt_out, bsz, h, wid,
+                   cin, ho, wo, cout, k, stride, dilation, pad,
+                   int(kind == "up"), w.shape[1], stream)
             return out
         # the copied input (channels padded), written by the entry
         # point's first kernel
@@ -614,8 +743,9 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
               if plan.gather else None)
         if plan.cin_pad != cin:
             w = pad_weight_channels(w, k, cin, plan.cin_pad)
-        launch("int8_inpaint", "sos_int8_inpaint_halo", x.data_ptr(),
+        launch(counter, "sos_int8_inpaint_halo", x.data_ptr(),
                None if xg is None else xg.data_ptr(),
-               *_ptrs(w, *scalars, out), plan.vector.ctypes.data, bsz, h,
-               wid, cin, cout, w.shape[1], stream)
+               *_ptrs(w, *scalars, out), vt_in, vt_out,
+               plan.vector.ctypes.data, bsz, h, wid, cin, cout, w.shape[1],
+               stream)
     return out

@@ -49,18 +49,24 @@ def nearest_resize_2d(x: torch.Tensor, out_hw, h_dim: int,
 
 
 def dynamic_nearest_time(x: torch.Tensor, v_src: torch.Tensor,
-                         v_dst: torch.Tensor, out_t: int) -> torch.Tensor:
-    """Nearest time-resize of each row's valid region (NCHW, time dim 3).
+                         v_dst: torch.Tensor, out_t: int,
+                         dim: int = 3) -> torch.Tensor:
+    """Nearest time-resize of each row's valid region, time on axis `dim`
+    (3 for NCHW, 2 for the int8 NHWC maps).
 
     Output column j of row b reads input column
     `floor(j * v_src[b] / max(v_dst[b], 1))` (exact integer floor,
     clipped to the input), for j < out_t; columns at or past v_dst[b]
     are zeroed. `v_src`, `v_dst`: `(B,)` integer tensors on x's device.
     """
-    b, c, f, t_in = x.shape
+    b, t_in = x.shape[0], x.shape[dim]
     j = torch.arange(out_t, device=x.device)
     idx = (j[None, :] * v_src[:, None]) // torch.clamp(v_dst, min=1)[:, None]
     idx = torch.clamp(idx, 0, t_in - 1)
-    y = torch.gather(x, 3, idx[:, None, None, :].expand(b, c, f, out_t))
-    keep = (j[None, :] < v_dst[:, None]).to(y.dtype)
-    return y * keep[:, None, None, :]
+    view = [b] + [1] * (x.dim() - 1)
+    view[dim] = out_t
+    shape = list(x.shape)
+    shape[dim] = out_t
+    y = torch.gather(x, dim, idx.view(view).expand(shape))
+    keep = (j[None, :] < v_dst[:, None]).to(y.dtype).view(view)
+    return y * keep

@@ -1,13 +1,14 @@
-"""The arithmetic of the Hopper int8 tile (K5, K6), emulated on the CPU.
+"""The arithmetic of the Hopper int8 tile (K5, K6, K7), emulated on the CPU.
 
 The kernels themselves run only on a card (tests/test_torch_kernels.py).
 Their wrappers compute the launch plan in Python: K5's tile width and
 tiles (`ops/int8_gemm.py` `gemm_plan`), K6's segments, halo origin
 and boxes per output row, tap rows kept per (row, kh tap), and the k32
 steps with their tap-shifted descriptor offsets (`ops/int8_conv.py`
-`halo_plan`). These tests read the operands the way the kernels do,
-from those numbers alone, and hold the sums against the plain versions
-exactly.
+`halo_plan`), and K7's (`inpaint_plan`: phases, W phase planes, row
+boxes, segments of long rows, the patch warp's per-row reflection).
+These tests read the operands the way the kernels do, from those
+numbers alone, and hold the sums against the plain versions exactly.
 """
 
 import numpy as np
@@ -162,34 +163,44 @@ def test_halo_plan_shapes(w, cin, ks, dil, nseg, nbox, rows):
         (plan.nseg - 1) * plan.seg_len - (ks[1] - 1) // 2 * dil[1]
 
 
-def _inpaint_geometries(ch):
+def _inpaint_geometries(ch, t=178):
     """(block, kind, k, stride, dilation, Cin, Cout, H, W) of every
-    distinct InpaintNet block at full size (F 256 x T 178) for the
-    channel widths `ch` (sos_tpu/models/quant.py SPEC)."""
+    distinct InpaintNet block at full size (F 256 x T `t`) for the
+    channel widths `ch` (sos_tpu/models/quant.py SPEC; the up blocks'
+    outputs are resized onto the skips' widths)."""
     c0, c1, c2 = ch
+    t2 = (t - 1) // 2 + 1      # a_d1, b_d1: k5 s2 pad 2
+    t4 = (t2 - 1) // 2 + 1     # mid0: k3 s2 pad 1
     return [
-        ("a_in", "down", 5, 1, 1, 2, c0, 256, 178),
-        ("a_d1", "down", 5, 2, 1, c0, c1, 256, 178),
-        ("a_d2", "down", 5, 1, 1, c1, c1, 128, 89),
-        ("mid0", "down", 3, 2, 1, 2 * c1, c2, 128, 89),
-        *[(f"mid_dil{d}", "down", 3, 1, d, c2, c2, 64, 45)
+        ("a_in", "down", 5, 1, 1, 2, c0, 256, t),
+        ("a_d1", "down", 5, 2, 1, c0, c1, 256, t),
+        ("a_d2", "down", 5, 1, 1, c1, c1, 128, t2),
+        ("mid0", "down", 3, 2, 1, 2 * c1, c2, 128, t2),
+        *[(f"mid_dil{d}", "down", 3, 1, d, c2, c2, 64, t4)
           for d in (1, 2, 4, 8, 16)],
-        ("mid_up", "up", 3, 2, 1, c2, c1, 64, 45),
-        ("up1_conv", "down", 3, 1, 1, 2 * c1, c1, 128, 89),
-        ("up1_up", "up", 3, 2, 1, c1, c0, 128, 89),
-        ("up2_conv", "down", 3, 1, 1, 2 * c0, c0, 256, 178),
+        ("mid_up", "up", 3, 2, 1, c2, c1, 64, t4),
+        ("up1_conv", "down", 3, 1, 1, 2 * c1, c1, 128, t2),
+        ("up1_up", "up", 3, 2, 1, c1, c0, 128, t2),
+        ("up2_conv", "down", 3, 1, 1, 2 * c0, c0, 256, t),
     ]
 
 
 INPAINT_FULL = _inpaint_geometries((64, 128, 256))
 INPAINT_SMALL = _inpaint_geometries((16, 32, 64))  # the card test's model
+BUCKET_WIDTHS = (256, 512, 1024)  # the eval chain's buckets (frames)
+# the exact mode runs InpaintNet at an utterance's own width: every width
+# whose mid blocks are wider than mid_dil16's pad, up to 1,024
+EXACT_WIDTHS = (65, 66, 67, 68, 97, 131, 178, 185, 186, 190, 193, 211,
+                255, 257, 383, 385, 511, 513, 700, 767, 769, 1000, 1023, 1024)
 
 
 def test_inpaint_route_covers_every_block():
     """At full width every InpaintNet block has a Hopper-tile plan (Cin 2
     padded to 16 channels), and the small test model's too. Up blocks run
     as four sub-pixel phases with 9 taps per 4 outputs, not the lhs-dilated
-    form's 36."""
+    form's 36. At the buckets' and the exact mode's widths up to 1,024
+    too: rows past 192 outputs with their halo run in segments of at most
+    192, which cover the row."""
     for name, kind, k, s, d, cin, cout, h, w in INPAINT_FULL + INPAINT_SMALL:
         plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, cin, cout)
         assert plan is not None, name
@@ -202,6 +213,18 @@ def test_inpaint_route_covers_every_block():
             assert plan.gather == (cin % 16 != 0)
             assert plan.lead == (0 if plan.gather else (k - 1) // 2 * d)
             assert plan.cin_pad == max(cin, 16)
+        assert plan.nseg == 1 and plan.seg_len == plan.wo
+    for t in sorted(set(BUCKET_WIDTHS + EXACT_WIDTHS)):
+        for name, kind, k, s, d, cin, cout, h, w in _inpaint_geometries(
+                (64, 128, 256), t):
+            plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, cin, cout)
+            assert plan is not None, (t, name)
+            _check_inpaint_plan(plan)
+            assert plan.nseg * plan.seg_len >= plan.wo
+            assert (plan.nseg - 1) * plan.seg_len < plan.wo
+            assert plan.nseg == 1 or plan.rows == 1
+            if kind == "down" and cin % 16 == 0:
+                assert plan.gather == (plan.nph * plan.pitch > 256)
 
 
 def _chunks(f, plan):
@@ -248,21 +271,46 @@ def _reflect(u, n):
     return 2 * n - 2 - u if u >= n else u
 
 
+def _valid_col(u, v, pad):
+    """`valid_col` of csrc/int8_inpaint.cu: the input column padded
+    position u of a row of valid width v holds, or -1 for a zero."""
+    if u >= v + pad:
+        return -1
+    if u >= v:
+        u = 2 * v - 2 - u
+    u = -u if u < 0 else u
+    return u if u < v else -1
+
+
+def _patch_mode(plan, valid_t):
+    """The patch warp's mode as `sos_int8_inpaint_halo` picks it: none
+    (`patch` false), else 1 in the kernel's plain instance and 2 in its
+    `kGeneral` one (segments or per-row widths)."""
+    if plan.gather or not (plan.lead > 0 or (valid_t is not None
+                                             and plan.rpatch > 0)):
+        return 0
+    return 2 if valid_t is not None or plan.nseg > 1 else 1
+
+
 def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
-                         rng) -> np.ndarray:
-    """int64 NHWC sums of K7's Hopper tile, read as the kernel reads them.
+                         rng, valid_t=None):
+    """int64 NHWC sums of K7's Hopper tile, read as the kernel reads them,
+    and the bool mask of the outputs its epilogue stores as zeros.
 
     A down block's input is first gathered as `inpaint_gather_s8` writes
-    it. Then per output phase, item (`plan.rows` output rows, one n-tile)
-    and stage (kh tap x channel group): the stage starts as stale bytes
-    (random) but for its zero rows, each kept row's TMA box of
-    `plan.pitch` positions lands in every (chunk, W phase) plane (zeros
-    out of bounds), the B boxes hold 8 weight chunks each (zeros past
-    Kpad), and the k32 steps read A rows a_off + m and a_off + a_lbo + m
-    for the item's m rows, times chunks slot and slot + 1 of their box.
-    Output row r of the item is m rows r * pitch .. r * pitch + wo - 1."""
+    it. Then per output phase, segment, item (`plan.rows` output rows,
+    one n-tile) and stage (kh tap x channel group): the stage starts as
+    stale bytes (random) but for its zero rows, each kept row's TMA box
+    of `plan.pitch` positions lands in every (chunk, W phase) plane
+    (zeros out of bounds), the patch warp writes its columns, the B boxes
+    hold 8 weight chunks each (zeros past Kpad), and the k32 steps read A
+    rows a_off + m and a_off + a_lbo + m for the item's m rows, times
+    chunks slot and slot + 1 of their box. Output row r of the item is m
+    rows r * pitch .. r * pitch + seg_len - 1. `valid_t`: each row's
+    valid input width (the per-row reflection, zeroing and epilogue)."""
     bsz, h, wid, cin = x.shape
     cout = w.shape[0]
+    vts = [wid] * bsz if valid_t is None else [int(v) for v in valid_t]
     if plan.cin_pad != cin:
         w = int8_conv.pad_weight_channels(torch.from_numpy(w), k, cin,
                                           plan.cin_pad).numpy()
@@ -273,75 +321,118 @@ def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
         xs = np.zeros((bsz, h, cols, plan.cin_pad), np.int8)
         for col in range(cols):
             u = col % plan.wh * plan.nph + col // plan.wh
-            if u < wid + 2 * plan.pad_w:
-                iw = abs(u - plan.pad_w)
-                xs[:, :, col, :cin] = x[:, :, iw if iw < wid else
-                                        2 * wid - 2 - iw]
+            for b in range(bsz):
+                iw = (_valid_col(u - plan.pad_w, vts[b], plan.pad_w)
+                      if u < wid + 2 * plan.pad_w else -1)
+                if iw >= 0:
+                    xs[b, :, col, :cin] = x[b, :, iw]
     else:
         xs = x
+    mode = _patch_mode(plan, valid_t)
     os_ = 2 if len(plan.phases) > 1 else 1
     out = np.zeros((bsz, plan.ho * os_, plan.wo * os_, cout), np.int64)
+    vout = [int8_conv.inpaint_valid_out(plan.kind, k, plan.nph if
+                                        plan.kind == "down" else 2,
+                                        1, v) for v in vts] \
+        if valid_t is not None else [plan.wo * os_] * bsz
     m = np.arange(64 * plan.mt)
-    r_of, ow_of = m // plan.pitch, m % plan.pitch
+    r_of, owl_of = m // plan.pitch, m % plan.pitch
     cpt = plan.cin_pad // 16
     zero_from = plan.cg * plan.nph * plan.plane
+    step = 1 if plan.gather else plan.nph
+    e = np.arange(plan.pitch)
     for f in plan.phases:
-        for oh0 in range(0, plan.ho, plan.rows):
-            keep = (r_of < plan.rows) & (oh0 + r_of < plan.ho) \
-                & (ow_of < plan.wo)
-            for nt in range(plan.n_tiles):
-                wn = w[nt * plan.n:(nt + 1) * plan.n]
-                acc = np.zeros((bsz, m.size, plan.n), np.int64)
-                for i, off in f.taps:
-                    for g in range(plan.groups):
-                        stage = rng.integers(-128, 128, (bsz, plan.a_rows, 16)
-                                             ).astype(np.float32)
-                        stage[:, zero_from:] = 0
-                        for r, ih in enumerate(_stage_rows(plan, h, oh0, off)):
-                            for c in range(plan.cg):
-                                for q in range(plan.nph):
-                                    at = (q * plan.cg + c) * plan.plane \
-                                        + r * plan.pitch
-                                    box = np.zeros((bsz, plan.pitch, 16))
-                                    col0 = q * plan.wh - plan.lead
-                                    step = 1 if plan.gather else plan.nph
+        for seg in range(plan.nseg):
+            ow_of = seg * plan.seg_len + owl_of
+            first = seg * plan.seg_len * plan.nph  # the boxes' first column
+            for oh0 in range(0, plan.ho, plan.rows):
+                keep = (r_of < plan.rows) & (oh0 + r_of < plan.ho) \
+                    & (owl_of < plan.seg_len) & (ow_of < plan.wo)
+                for nt in range(plan.n_tiles):
+                    wn = w[nt * plan.n:(nt + 1) * plan.n]
+                    acc = np.zeros((bsz, m.size, plan.n), np.int64)
+                    for i, off in f.taps:
+                        for g in range(plan.groups):
+                            stage = rng.integers(-128, 128, (bsz, plan.a_rows,
+                                                             16)
+                                                 ).astype(np.float32)
+                            stage[:, zero_from:] = 0
+                            rows_in = _stage_rows(plan, h, oh0, off)
+                            for r, ih in enumerate(rows_in):
+                                for c in range(plan.cg):
                                     ch = 16 * (g * plan.cg + c)
-                                    for e in range(plan.pitch):
-                                        col = col0 + e * step
-                                        if 0 <= ih < h and \
-                                                0 <= col < xs.shape[2]:
-                                            box[:, e] = xs[:, ih, col,
-                                                           ch:ch + 16]
-                                    _patch_reflect(box, plan.lead, wid,
-                                                   plan.nph, q)
-                                    stage[:, at:at + plan.pitch] = box
-                        kc = i * k * cpt + g * plan.cg
-                        for a_off, a_lbo, bx, slot in f.steps:
-                            a = np.concatenate([stage[:, a_off + m],
-                                                stage[:, a_off + a_lbo + m]],
-                                               -1)
-                            k0 = 16 * (kc + f.boxes[bx] + slot)
-                            assert 16 * (kc + f.boxes[bx] + 8) <= kpad + 256
-                            bmat = wn[:, k0:k0 + 32].astype(np.float32)
-                            # exact: a step's sums stay below 2^24
-                            acc += (a @ bmat.T).astype(np.int64)
-                oh = oh0 + r_of[keep]
-                out[:, oh * os_ + f.ph, ow_of[keep] * os_ + f.pw,
-                    nt * plan.n:(nt + 1) * plan.n] = acc[:, keep]
-    return out
+                                    for q in range(plan.nph):
+                                        col = (q * plan.wh - plan.lead
+                                               + seg * plan.seg_cols
+                                               + e * step)
+                                        inb = (col >= 0) & (col < xs.shape[2])
+                                        box = np.zeros((bsz, plan.pitch, 16))
+                                        if 0 <= ih < h:
+                                            box[:, inb] = xs[:, ih, col[inb],
+                                                             ch:ch + 16]
+                                        if mode == 1:
+                                            _patch_reflect(box, plan.lead,
+                                                           wid, plan.nph, q)
+                                        elif mode == 2:
+                                            _patch_valid(box, x, plan, vts,
+                                                         first, q, oh0 + r,
+                                                         h, off, ch)
+                                        at = (q * plan.cg + c) * plan.plane \
+                                            + r * plan.pitch
+                                        stage[:, at:at + plan.pitch] = box
+                            kc = i * k * cpt + g * plan.cg
+                            for a_off, a_lbo, bx, slot in f.steps:
+                                a = np.concatenate(
+                                    [stage[:, a_off + m],
+                                     stage[:, a_off + a_lbo + m]], -1)
+                                k0 = 16 * (kc + f.boxes[bx] + slot)
+                                assert 16 * (kc + f.boxes[bx] + 8) \
+                                    <= kpad + 256
+                                bmat = wn[:, k0:k0 + 32].astype(np.float32)
+                                # exact: a step's sums stay below 2^24
+                                acc += (a @ bmat.T).astype(np.int64)
+                    oh = oh0 + r_of[keep]
+                    out[:, oh * os_ + f.ph, ow_of[keep] * os_ + f.pw,
+                        nt * plan.n:(nt + 1) * plan.n] = acc[:, keep]
+    zero = np.arange(plan.wo * os_)[None, :] >= np.asarray(vout)[:, None]
+    return out, zero
 
 
 def _patch_reflect(box, pad, wid, s, q):
-    """The kernel's patch warp on W phase q's box of one row (down blocks
-    that read their input as it is): padded column v of the pad at
-    either end, TMA's zero at position v // s when v % s == q, becomes
-    its reflection v2, from the same phase plane's interior."""
+    """The kernel's patch warp (mode 1) on W phase q's box of one row
+    (down blocks that read their input as it is): padded column v of the
+    pad at either end, TMA's zero at position v // s when v % s == q,
+    becomes its reflection v2, from the same phase plane's interior."""
     for e in range(2 * pad):
         v = e if e < pad else wid + e
         v2 = 2 * pad - e if e < pad else 2 * (wid + pad - 1) - v
         if v % s == q:
             assert v2 % s == q and pad <= v2 < wid + pad
             box[:, v // s] = box[:, v2 // s]
+
+
+def _patch_valid(box, x, plan, vts, first, q, oh, h, off, ch):
+    """The patch warp's mode 2 on W phase q's box of one row: per batch
+    row b, the `lead` left pad columns and the `rpatch` columns from its
+    valid width v on that fall in the segment's box (padded column pc at
+    position (pc - first) // nph when (pc - first) % nph == q) take
+    `valid_col`'s column of x (down blocks: its input row reflected in
+    H), else 0; rows past the output are left as loaded."""
+    if oh >= plan.ho:
+        return
+    pad = plan.lead
+    wid = x.shape[2]
+    for b, v in enumerate(vts):
+        targets = list(range(pad)) + [pad + v + j for j in range(plan.rpatch)]
+        for pc in targets:
+            rel = pc - first
+            if pc >= wid + 2 * pad or not 0 <= rel < plan.pitch * plan.nph \
+                    or rel % plan.nph != q:
+                continue
+            col = (_valid_col(pc - pad, v, pad) if plan.kind == "down"
+                   else -1)
+            box[b, rel // plan.nph] = 0 if col < 0 else \
+                x[b, _in_row(plan, h, oh, off), col, ch:ch + 16]
 
 
 def _inpaint_reference_acc(x, w, kind, k, s, d):
@@ -357,8 +448,12 @@ def _inpaint_reference_acc(x, w, kind, k, s, d):
 
 
 def _check_inpaint_plan(plan):
-    assert plan.pitch % 8 == 0 and plan.pitch <= 192
-    assert plan.rows * plan.pitch <= 64 * plan.mt <= 192
+    assert plan.pitch % 8 == 0
+    assert plan.nph * plan.pitch <= 256 or plan.gather  # a box's extent
+    if plan.nseg == 1 and plan.rows > 1:
+        assert plan.rows * plan.pitch <= 64 * plan.mt <= 192
+    else:  # one row an item: the m rows cover its segment
+        assert plan.rows == 1 and plan.seg_len <= 64 * plan.mt <= 192
     assert plan.stages >= 2
     assert plan.stages * (plan.stage_bytes + 24) <= int8_conv.INPAINT_SMEM
     assert plan.cg * plan.groups * 16 == plan.cin_pad
@@ -379,7 +474,11 @@ def _check_inpaint_plan(plan):
             j * cpt + c for j in _w_taps(f, plan) for c in range(plan.cg))
 
 
-def _inpaint_case(kind, k, s, d, cin, cout, h, w, batch, seed):
+def _inpaint_case(kind, k, s, d, cin, cout, h, w, batch, seed,
+                  valid_t=None):
+    """The emulated tile's int8 outputs against the plain version's,
+    exactly (`valid_t`: each row's valid width; x holds nonzero values
+    past it). Without `valid_t`, the sums against the plain conv's too."""
     rng = np.random.default_rng(seed)
     plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, cin, cout)
     _check_inpaint_plan(plan)
@@ -387,18 +486,28 @@ def _inpaint_case(kind, k, s, d, cin, cout, h, w, batch, seed):
     taps = k * k * cin
     wq = np.zeros((cout, -(-taps // 64) * 64), np.int8)
     wq[:, :taps] = rng.integers(-127, 128, (cout, taps), dtype=np.int8)
-    acc = emulate_inpaint_conv(x, wq, k, plan, rng)
-    ref = _inpaint_reference_acc(x, wq, kind, k, s, d)
-    np.testing.assert_array_equal(acc, ref.permute(0, 2, 3, 1).numpy())
+    acc, zero = emulate_inpaint_conv(x, wq, k, plan, rng, valid_t)
+    if valid_t is None:
+        ref = _inpaint_reference_acc(x, wq, kind, k, s, d)
+        np.testing.assert_array_equal(acc, ref.permute(0, 2, 3, 1).numpy())
     w_s = torch.from_numpy((rng.random(cout, np.float32) + 0.5) * 0.01
                            / np.float32(taps ** 0.5))
     b = torch.from_numpy(rng.standard_normal(cout, np.float32) * 20)
     alpha = torch.tensor([0.2])
     got = int8_conv._epilogue(torch.from_numpy(acc).permute(0, 3, 1, 2)
                               .double(), w_s, b, alpha, False)
-    assert torch.equal(got, int8_conv.inpaint_conv_int8_plain(
+    got[torch.from_numpy(zero)[:, None, :, None].expand_as(got)] = 0
+    vt = None if valid_t is None else torch.tensor(valid_t)
+    ref = int8_conv.inpaint_conv_int8_plain(
         torch.from_numpy(x), torch.from_numpy(wq), w_s, b, alpha, kind, k, s,
-        d))
+        d, vt)
+    assert torch.equal(got, ref)
+
+
+def _row_widths(w, pad, batch):
+    """Valid widths of a batch's rows: the full row, one within the pad
+    of its end, and (batch 3) one of a few columns."""
+    return [w, max(1, w - max(pad, 1)), 2][:batch]
 
 
 def _test_rows(kind, k, s, d, batch):
@@ -415,9 +524,35 @@ def _test_rows(kind, k, s, d, batch):
                          ids=[g[0] for g in INPAINT_FULL])
 def test_inpaint_plan_reads_give_the_plain_conv(batch, name, kind, k, s, d,
                                                 cin, cout, h, w):
-    """K7's plan at every InpaintNet geometry, at the real widths."""
-    _inpaint_case(kind, k, s, d, cin, cout, _test_rows(kind, k, s, d, batch),
-                  w, batch, seed=cin + cout + 7 * d + s + batch)
+    """K7's plan at every InpaintNet geometry, at the real widths; then
+    with per-row valid widths (the patch warp's per-row reflection, the
+    epilogue's zeros)."""
+    rows = _test_rows(kind, k, s, d, batch)
+    seed = cin + cout + 7 * d + s + batch
+    _inpaint_case(kind, k, s, d, cin, cout, rows, w, batch, seed)
+    _inpaint_case(kind, k, s, d, cin, cout, rows, w, batch, seed + 1,
+                  _row_widths(w, (k - 1) // 2 * d, batch))
+
+
+# every InpaintNet block at the eval chain's bucket widths, where rows run
+# in segments (and the stride-2 blocks on the copy pass)
+INPAINT_BUCKETS = [(t, *g) for t in BUCKET_WIDTHS
+                   for g in _inpaint_geometries((64, 128, 256), t)]
+
+
+@pytest.mark.parametrize("t,name,kind,k,s,d,cin,cout,h,w", INPAINT_BUCKETS,
+                         ids=[f"{g[0]}-{g[1]}" for g in INPAINT_BUCKETS])
+def test_inpaint_plan_segmented_rows_give_the_plain_conv(t, name, kind, k, s,
+                                                         d, cin, cout, h, w):
+    """K7's plan on rows of any width, segment by segment: at bucket
+    1,024 without valid widths (the exact mode's long rows), and at every
+    bucket with per-row valid widths and garbage past them."""
+    rows = _test_rows(kind, k, s, d, 1)
+    seed = t + cin + cout + d
+    if t == 1024:
+        _inpaint_case(kind, k, s, d, cin, cout, rows, w, 1, seed)
+    _inpaint_case(kind, k, s, d, cin, cout, rows, w, 3, seed + 1,
+                  [w, w - 1 - (k - 1) // 2 * d, 1 + w // 3])
 
 
 @pytest.mark.parametrize("name,kind,k,s,d,cin,cout,h,w", INPAINT_SMALL,

@@ -24,7 +24,7 @@ from sos_tpu_torch.config import (DataConfig, DenoiserModelConfig,
                                   DetectorModelConfig, ExperimentConfig)
 from sos_tpu_torch.dsp import mixing, stft
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline
-from sos_tpu_torch.kernels import LAUNCHES, aligned16
+from sos_tpu_torch.kernels import ENTRY_LAUNCHES, LAUNCHES, aligned16
 from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import init_state_dict
@@ -126,6 +126,21 @@ def test_int8_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         int8_conv.inpaint_conv_int8(x, w, v, v, torch.empty(1, device=meta),
                                     "down", 1, 1, 1)
+    # with valid_t: refused too, and a valid_t on another device than
+    # the input, of another shape or of a float type raises
+    vt = torch.ones(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="meta"):
+        int8_conv.conv_same_int8(x, w, v, v, (1, 1), (1, 1), valid_t=vt)
+    with pytest.raises(ValueError, match="meta"):
+        int8_conv.inpaint_conv_int8(x, w, v, v, torch.empty(1, device=meta),
+                                    "down", 1, 1, 1, valid_t=vt)
+    with pytest.raises(ValueError, match="valid_t on cpu"):
+        int8_conv._valid_arg("conv_same_int8", vt, x)
+    for bad in (torch.ones(3, dtype=torch.int64, device=meta),
+                torch.ones(2, 1, dtype=torch.int64, device=meta),
+                torch.ones(2, device=meta)):
+        with pytest.raises(ValueError, match="integer"):
+            int8_conv._valid_arg("inpaint_conv_int8", bad, x)
     assert LAUNCHES == before
 
 
@@ -408,6 +423,56 @@ def test_small_predictors_card_match_cpu(cuda_device, buckets):
 
 
 @pytest.mark.cuda
+def test_small_int8_predictors_card_match_cpu(cuda_device, tmp_path):
+    """The int8 predictors bucketed and batched at small widths, card
+    against CPU with one scale file: through K6's and K7's valid_t cases
+    (the small InpaintNet's Couts take K7's gather route)."""
+    import json
+
+    from sos_tpu_torch.infer import DenoiserPredictor, DetectorPredictor
+
+    cfg = _tiny_cfg()
+    gen = torch.Generator().manual_seed(2)
+    det = init_state_dict(SilenceDetector(cfg.detector), gen)
+    den = init_state_dict(JointDenoiser(cfg.denoiser), gen)
+    wavs = [(torch.randn(n, generator=gen) * 0.2).numpy()
+            for n in (28000, 20000, 40000)]
+    frames = [int(len(w) / 14000 * 30) for w in wavs]
+    bits = ["".join("01"[(j // 7) % 2] for j in range(n)) for n in frames]
+    path = tmp_path / "int8_calibration.json"
+    host_d = DetectorPredictor(cfg, det, profile="int8", device="cpu")
+    host_n = DenoiserPredictor(cfg, den, profile="int8", device="cpu")
+    host_d.predict_waveform(wavs[0], frames[0])  # calibrates
+    host_n.denoise_waveform(wavs[0], bits[0])
+    path.write_text(json.dumps({
+        "detector": host_d._quant.calibration_state(),
+        "denoiser": host_n._quant.calibration_state()}))
+    out = {}
+    for device in ("cpu", cuda_device):
+        d = DetectorPredictor(cfg, det, buckets=(256, 512), profile="int8",
+                              calibration_path=str(path), device=device)
+        n = DenoiserPredictor(cfg, den, buckets=(256, 512), profile="int8",
+                              calibration_path=str(path), device=device)
+        before = dict(LAUNCHES)
+        out[str(device)] = (d.predict_batch(wavs, frames, batch_size=2),
+                            n.denoise_batch(wavs, bits, batch_size=2))
+        if device != "cpu":
+            assert all(LAUNCHES[k] > before[k] for k in (
+                "int8_conv_valid_t", "int8_inpaint_valid_t",
+                "stft_center_false", "crm_istft_valid_t", "bilstm_lengths"))
+            assert LAUNCHES["int8_conv"] == before["int8_conv"]
+    (cpu_det, cpu_den), (card_det, card_den) = out["cpu"], out["cuda"]
+    for (cb, c), (gb, g) in zip(cpu_det, card_det):
+        torch.testing.assert_close(torch.from_numpy(g), torch.from_numpy(c),
+                                   atol=1e-4, rtol=0)
+    for c, g in zip(cpu_den, card_den):
+        for key in c:
+            torch.testing.assert_close(torch.from_numpy(g[key]),
+                                       torch.from_numpy(c[key]),
+                                       atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
 def test_small_pipeline_card_matches_cpu(cuda_device):
     cfg = _tiny_cfg()
     gen = torch.Generator().manual_seed(0)
@@ -510,6 +575,101 @@ def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
     assert not x.is_contiguous() and not w_view.is_contiguous()
     assert torch.equal(int8_conv.conv_same_int8(x, w_view, w_s, b, ks, dil),
                        int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil))
+
+
+def _row_widths(batch, width, pad, gen, device):
+    """Per-row valid widths: 1, the full width, one within `pad` of it,
+    the rest spread over [2, width)."""
+    fixed = [1, width, max(1, width - max(pad, 1))]
+    rest = torch.randint(2, width, (max(0, batch - 3),), generator=gen)
+    return torch.tensor(fixed[:batch] + rest.tolist(),
+                        dtype=torch.int64).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw,batch", [
+    (96, 96, (5, 5), (32, 1), False, (256, 1024), 8),   # enc_x block 7
+    (48, 48, (5, 5), (32, 32), False, (64, 512), 4),
+    (2, 96, (1, 7), (1, 1), False, (256, 1024), 8),     # the Cin 2 gather
+    (96, 8, (1, 1), (1, 1), True, (256, 1024), 5),      # the float proj
+    (16, 16, (5, 5), (2, 2), False, (30, 20), 4),
+])
+def test_int8_conv_same_kernel_valid_t_exact(cuda_device, cin, cout, ks,
+                                             dil, out_f32, hw, batch):
+    """K6 with per-row valid widths, both routes, against the plain
+    version exactly: zeros past each row's width (the input, garbage
+    there too, is taken as it is); counted as the valid_t case."""
+    gen = torch.Generator().manual_seed(cin + cout + hw[1])
+    x = _int8((batch, *hw, cin), gen, cuda_device)
+    w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    vt = _row_widths(batch, hw[1], (ks[1] - 1) // 2 * dil[1], gen,
+                     cuda_device)
+    before = dict(LAUNCHES)
+    got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil, out_f32,
+                                   valid_t=vt)
+    assert LAUNCHES["int8_conv_valid_t"] == before["int8_conv_valid_t"] + 1
+    assert LAUNCHES["int8_conv"] == before["int8_conv"]
+    ref = int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil, out_f32,
+                                         valid_t=vt)
+    assert torch.equal(got, ref)
+    for row, v in enumerate(vt.tolist()):
+        assert not got[row, :, v:].any()
+
+
+# every distinct full-width InpaintNet block at bucket 1,024 (InpaintNet
+# widths 1,024 / 512 / 256): rows in segments; kind, k, stride,
+# dilation, Cin, Cout, (H, W)
+INPAINT_BUCKET = [
+    ("down", 5, 1, 1, 2, 64, (256, 1024)),     # a_in, b_in
+    ("down", 5, 2, 1, 64, 128, (256, 1024)),   # a_d1, b_d1
+    ("down", 5, 1, 1, 128, 128, (128, 512)),   # a_d2, b_d2
+    ("down", 3, 2, 1, 256, 256, (128, 512)),   # mid0
+    *[("down", 3, 1, d, 256, 256, (64, 256)) for d in (1, 2, 4, 8, 16)],
+    ("up", 3, 2, 1, 256, 128, (64, 256)),      # mid_up
+    ("down", 3, 1, 1, 256, 128, (128, 512)),   # up1_conv
+    ("up", 3, 2, 1, 128, 64, (128, 512)),      # up1_up
+    ("down", 3, 1, 1, 128, 64, (256, 1024)),   # up2_conv
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [True, False])
+@pytest.mark.parametrize("kind,k,s,d,cin,cout,hw", [
+    *INPAINT_BUCKET,
+    ("down", 3, 1, 16, 256, 256, (64, 45)),   # one segment, the patch warp
+    ("up", 3, 2, 1, 6, 4, (9, 37)),           # gather: Cout 4
+    ("down", 5, 2, 1, 2, 8, (30, 50)),        # gather: Cout 8
+    ("down", 3, 1, 4, 32, 32, (16, 200)),     # pad within a segment's end
+])
+def test_inpaint_conv_kernel_valid_t_exact(cuda_device, valid, kind, k, s, d,
+                                           cin, cout, hw):
+    """K7 at every full-width InpaintNet block at bucket 1,024 (rows in
+    segments on the Hopper tile), and on the gather for the Couts the
+    tile has no width for: with per-row valid widths (1, the full width,
+    one within the pad of it; garbage past them) and without (the exact
+    mode's long rows), against the plain version exactly. Neither route
+    falls back: the tile's shapes never launch the gather."""
+    gen = torch.Generator().manual_seed(cin + cout + d + hw[1])
+    batch = 8 if hw[1] >= 256 else 4
+    x = _int8((batch, *hw, cin), gen, cuda_device)
+    w, w_s, b = _epilogue_params(cout, k * k * cin, gen, cuda_device)
+    alpha = torch.tensor([0.2], device=cuda_device)
+    vt = (_row_widths(batch, hw[1], (k - 1) // 2 * d, gen, cuda_device)
+          if valid else None)
+    plan = int8_conv.inpaint_plan(kind, k, s, d, *hw, cin, cout)
+    assert (plan is None) == (cout % 16 != 0)
+    counter = "int8_inpaint_valid_t" if valid else "int8_inpaint"
+    before, entries = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
+    got = int8_conv.inpaint_conv_int8(x, w, w_s, b, alpha, kind, k, s, d,
+                                      valid_t=vt)
+    assert LAUNCHES[counter] == before[counter] + 1
+    gather = ENTRY_LAUNCHES["sos_int8_conv_inpaint"] \
+        - entries["sos_int8_conv_inpaint"]
+    assert gather == (plan is None)
+    ref = int8_conv.inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, s,
+                                            d, vt)
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
 
 
 # every distinct full-width InpaintNet block (sos_tpu/models/quant.py SPEC

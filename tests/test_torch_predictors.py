@@ -11,8 +11,11 @@ atol 5e-5; waveforms atol 1e-4, rtol 1e-3 (the repo's 1e-4); within the
 port, bucketed against exact atol 2e-5 (detector) and 3e-5 (waveforms),
 `sos_tpu`'s own bounds (tests/test_infer.py); bf16 against f32: drift
 < 0.05 and <= 2 % flipped bits (`sos_tpu/infer/detect.py:57`); int8
-against `sos_tpu`'s int8 with one scale file: bits equal, confidences and
-waveforms within the 5e-3 int8 budget (tests/test_torch_quant.py).
+against `sos_tpu`'s int8 with one scale file: confidences and waveforms
+within the 5e-3 int8 budget (tests/test_torch_quant.py), bits equal
+(the bucketed modes: where `sos_tpu`'s confidence lies more than that
+budget from the threshold). The int8 bucketed modes run the lengths
+of bucket 256 (the JAX side stays small: one program a predictor).
 """
 
 import json
@@ -52,8 +55,12 @@ def env():
             det_wavs, frames, den_wavs, bits)
 
 
-def _assert_bits(got, ref, ref_conf, threshold=0.5):
-    clear = np.abs(ref_conf - threshold) > 1e-4
+INT8_BUDGET = 5e-3  # sos_tpu tests/test_quant.py:100
+INT8_LENGTHS = 3    # the first three: bucket 256 in both predictors
+
+
+def _assert_bits(got, ref, ref_conf, threshold=0.5, margin=1e-4):
+    clear = np.abs(ref_conf - threshold) > margin
     np.testing.assert_array_equal(got[clear], ref[clear])
     assert clear.mean() > 0.9
 
@@ -79,13 +86,60 @@ def detections(env):
     return out
 
 
-@pytest.mark.parametrize("mode", ["exact", "bucketed", "batched"])
-def test_detector_predictor_matches_sos_tpu(detections, mode):
-    for (bits, conf), (ref_bits, ref_conf) in zip(detections[("port", mode)],
-                                                  detections[("jax", mode)]):
+@pytest.fixture(scope="module")
+def int8_calibration(env, tmp_path_factory):
+    """One scale file for both packages' int8 predictors: sos_tpu's
+    self-calibration on the first utterance of each stage."""
+    cfg, _, det_vars, den_vars = env[:4]
+    det_wavs, frames, den_wavs, bits = env[6:10]
+    jax_det = JaxDetectorPredictor(cfg, det_vars, buckets=DET_BUCKETS,
+                                   profile="int8")
+    jax_den = JaxDenoiserPredictor(cfg, den_vars, buckets=DEN_BUCKETS,
+                                   profile="int8")
+    jax_det._maybe_calibrate(det_wavs[0])
+    jax_den.denoise_waveform(den_wavs[0], bits[0])  # calibrates on it
+    path = tmp_path_factory.mktemp("int8") / "int8_calibration.json"
+    path.write_text(json.dumps({
+        "detector": jax_det._quant.calibration_state(),
+        "denoiser": jax_den._quant.calibration_state()}))
+    return str(path), jax_det, jax_den
+
+
+@pytest.fixture(scope="module")
+def int8_detections(env, int8_calibration):
+    """{(package, mode): [(bits, conf)]} of the int8 bucketed modes."""
+    _, port_cfg, _, _, det_state = env[:5]
+    wavs, frames = env[6][:INT8_LENGTHS], env[7][:INT8_LENGTHS]
+    path, jax_det, _ = int8_calibration
+
+    def port():  # a fresh predictor: each mode loads the scale file
+        return DetectorPredictor(port_cfg, det_state, buckets=DET_BUCKETS,
+                                 profile="int8", calibration_path=path,
+                                 device="cpu")
+    return {
+        ("jax", "int8_bucketed"): [jax_det.predict_waveform(w, n)
+                                   for w, n in zip(wavs, frames)],
+        ("port", "int8_bucketed"): [port().predict_waveform(w, n)
+                                    for w, n in zip(wavs, frames)],
+        ("jax", "int8_batched"): jax_det.predict_batch(wavs, frames,
+                                                       batch_size=2),
+        ("port", "int8_batched"): port().predict_batch(wavs, frames,
+                                                       batch_size=2)}
+
+
+@pytest.mark.parametrize("mode", ["exact", "bucketed", "batched",
+                                  "int8_bucketed", "int8_batched"])
+def test_detector_predictor_matches_sos_tpu(request, mode):
+    int8 = mode.startswith("int8")
+    runs = request.getfixturevalue("int8_detections" if int8
+                                   else "detections")
+    atol = INT8_BUDGET if int8 else 5e-5
+    for (bits, conf), (ref_bits, ref_conf) in zip(runs[("port", mode)],
+                                                  runs[("jax", mode)]):
         assert bits.shape == ref_bits.shape and bits.dtype == np.int64
-        np.testing.assert_allclose(conf, ref_conf, atol=5e-5)
-        _assert_bits(bits, ref_bits, ref_conf)
+        np.testing.assert_allclose(conf, ref_conf, atol=atol)
+        _assert_bits(bits, ref_bits, ref_conf,
+                     margin=INT8_BUDGET if int8 else 1e-4)
 
 
 @pytest.mark.parametrize("mode", ["bucketed", "batched"])
@@ -134,14 +188,44 @@ def denoisings(env):
     return out
 
 
-@pytest.mark.parametrize("mode", ["exact", "bucketed", "batched"])
-def test_denoiser_predictor_matches_sos_tpu(denoisings, mode):
-    for n, got, ref in zip(DEN_LENGTHS, denoisings[("port", mode)],
-                           denoisings[("jax", mode)]):
+@pytest.fixture(scope="module")
+def int8_denoisings(env, int8_calibration):
+    _, port_cfg, _, _, _, den_state = env[:6]
+    wavs, bits = env[8][:INT8_LENGTHS], env[9][:INT8_LENGTHS]
+    path, _, jax_den = int8_calibration
+
+    def port():  # a fresh predictor: each mode loads the scale file
+        return DenoiserPredictor(port_cfg, den_state, buckets=DEN_BUCKETS,
+                                 profile="int8", calibration_path=path,
+                                 device="cpu")
+    return {
+        ("jax", "int8_bucketed"): [jax_den.denoise_waveform(w, b)
+                                   for w, b in zip(wavs, bits)],
+        ("port", "int8_bucketed"): [port().denoise_waveform(w, b)
+                                    for w, b in zip(wavs, bits)],
+        ("jax", "int8_batched"): jax_den.denoise_batch(wavs, bits,
+                                                       batch_size=2),
+        ("port", "int8_batched"): port().denoise_batch(wavs, bits,
+                                                       batch_size=2)}
+
+
+@pytest.mark.parametrize("mode", ["exact", "bucketed", "batched",
+                                  "int8_bucketed", "int8_batched"])
+def test_denoiser_predictor_matches_sos_tpu(request, mode):
+    int8 = mode.startswith("int8")
+    runs = request.getfixturevalue("int8_denoisings" if int8
+                                   else "denoisings")
+    for n, got, ref in zip(DEN_LENGTHS, runs[("port", mode)],
+                           runs[("jax", mode)]):
         for key in KEYS:
             assert got[key].shape == ref[key].shape == ((n // 158) * 158,)
-            np.testing.assert_allclose(got[key], ref[key], atol=1e-4,
-                                       rtol=1e-3, err_msg=f"{key}@{n}")
+            if int8:
+                np.testing.assert_allclose(got[key], ref[key],
+                                           atol=INT8_BUDGET,
+                                           err_msg=f"{key}@{n}")
+            else:
+                np.testing.assert_allclose(got[key], ref[key], atol=1e-4,
+                                           rtol=1e-3, err_msg=f"{key}@{n}")
 
 
 @pytest.mark.parametrize("mode", ["bucketed", "batched"])
@@ -193,14 +277,35 @@ def test_int8_exact_matches_sos_tpu_with_one_scale_file(env, tmp_path):
             np.testing.assert_allclose(got[key], ref[key], atol=5e-3)
 
 
-def test_int8_with_buckets_raises(env):
+@pytest.mark.parametrize("stage", ["detect", "denoise"])
+def test_int8_bucketed_equals_exact(request, env, int8_calibration, stage):
+    """Within the int8 profile the bucket changes nothing: the bucketed
+    modes equal the exact one within sos_tpu's own bounds (2e-5
+    confidences, 3e-5 waveforms; tests/test_infer.py), bits equal."""
     _, port_cfg, _, _, det_state, den_state = env[:6]
-    for cls, state in ((DetectorPredictor, det_state),
-                       (DenoiserPredictor, den_state)):
-        for device in ("cpu", "cuda"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cls(port_cfg, state, buckets=(256,), profile="int8",
-                    device=device)
+    path = int8_calibration[0]
+    if stage == "detect":
+        runs = request.getfixturevalue("int8_detections")
+        exact = DetectorPredictor(port_cfg, det_state, profile="int8",
+                                  calibration_path=path, device="cpu")
+        wavs, frames = env[6][:INT8_LENGTHS], env[7][:INT8_LENGTHS]
+        refs = [exact.predict_waveform(w, n) for w, n in zip(wavs, frames)]
+        for mode in ("int8_bucketed", "int8_batched"):
+            for (bits, conf), (ref_bits, ref_conf) in zip(
+                    runs[("port", mode)], refs):
+                np.testing.assert_allclose(conf, ref_conf, atol=2e-5)
+                _assert_bits(bits, ref_bits, ref_conf)
+        return
+    runs = request.getfixturevalue("int8_denoisings")
+    exact = DenoiserPredictor(port_cfg, den_state, profile="int8",
+                              calibration_path=path, device="cpu")
+    refs = [exact.denoise_waveform(w, b)
+            for w, b in zip(env[8][:INT8_LENGTHS], env[9][:INT8_LENGTHS])]
+    for mode in ("int8_bucketed", "int8_batched"):
+        for got, ref in zip(runs[("port", mode)], refs):
+            for key in KEYS:
+                np.testing.assert_allclose(got[key], ref[key], atol=3e-5,
+                                           err_msg=f"{mode} {key}")
 
 
 def test_predictors_default_to_the_card(env):
