@@ -30,7 +30,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
    on rows in segments (a_in, a_d1, mid_dil16, mid_up), 8 rows of a
    1,024-frame bucket, valid widths over 2-1,024 with garbage past them,
    exactly, and K7 without valid_t at the same widths (the exact mode's
-   long rows on the tile); K5 at every shape of the int8 GEMM sweep (the
+   long rows on the tile); the training path's instances (phase 8's
+   shapes): K4's training instance (h bit-identical to the inference
+   instance's, c and gates within 1e-6 of one step from the kernel's
+   own state) and K4b (the BiLSTM backward, against its plain version
+   on the same saved state) at B 15 T 60 / H 100 and B 40 T 178 / H 200
+   beside cuDNN's fp32 `nn.LSTM` in training (forward, and backward of
+   the data gradient, each less its identity projections), and K2's
+   complement instance at (15, 28000) and (40, 28000), exactly; K5 at
+   every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
    `torch._int_mm`'s, called eagerly and replayed from a CUDA graph
    (device time without the host's dispatch);
@@ -72,7 +80,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    through K6's and K7's valid_t cases and never through K7's mma.sync
    gather, and the card against the CPU on the 2.0 s and 7.4 s
    utterances (int8: the 2.0 s one and the shortest over 2.1 s,
-   bucketed) within 1e-3 with equal bits.
+   bucketed) within 1e-3 with equal bits;
+8. training: full width, fresh seeded weights, synthetic clips. One
+   detector and one denoiser train step at batch 2 from the same
+   weights and batch, on the card and on the CPU, which steps on the
+   card's device-stage outputs and, apart, on its own (loss within 1e-4
+   relative and the new BatchNorm statistics within 1e-5 in both; all
+   gradients within 5e-2 relative L2 on the card's inputs; the BiLSTM's
+   and heads' gradients within 1e-3 of each tensor's max |g| from the
+   card step's own head features and logits' gradient; logged beside
+   them: the features' drift, the own-input step and the card against
+   itself with deterministic cuDNN; K1, K2, K2's complement, K4's
+   training instance and K4b must launch); the train step timed at
+   batch 15 (detector) and 40 (denoiser), remat on: median of 5 steps
+   after 2, clips/s, audio-s/s trained, peak memory, a torch.profiler
+   breakdown of one step; then `python -m
+   sos_tpu_torch.cli.train_detector` at full width on a generated corpus
+   (1 epoch, `latest` every step, batch 4), and `--continue --ckpt
+   latest` to epoch 2: `latest.clock.json` must advance and stay strict
+   JSON.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -112,8 +138,16 @@ from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
-from sos_tpu_torch.ops.lstm import (bilstm_recurrence, bilstm_recurrence_plain,
-                                    max_active_clusters, recurrence_plan)
+from sos_tpu_torch.ops.lstm import (backward_plan, bilstm_recurrence,
+                                    bilstm_recurrence_backward,
+                                    bilstm_recurrence_backward_plain,
+                                    bilstm_recurrence_plain,
+                                    bilstm_recurrence_train,
+                                    bilstm_recurrence_train_plain,
+                                    bilstm_step_states, max_active_clusters,
+                                    recurrence_plan)
+from sos_tpu_torch.ops.resize import nearest_index_tensor
+from sos_tpu_torch.train import loop as train_loop
 
 SEED = 0
 BATCH = 128          # clips in the kernel and throughput phases
@@ -381,6 +415,10 @@ def phase_kernels(gen: torch.Generator):
            shape="T60/H100 + T178/H200 at B 128 (sum of the two)")
 
     bucketed_cases(gen, dev, record, window, table_bytes)
+    # a generator of its own: the later phases keep the weights and data
+    # they were validated on (drawn from `gen`). Phase 7's corpus holds
+    # no resize tie (see `resize_ties`)
+    training_cases(torch.Generator().manual_seed(SEED + 1), dev, record)
 
     # K5 — int8 GEMM at every shape of the narrow-N sweep, its own path:
     # exact against the plain version on the sweep's operands, then the
@@ -476,6 +514,169 @@ def phase_kernels(gen: torch.Generator):
     for case in K7_LONG_CASES:  # the exact mode's long rows, no valid_t
         int8_conv_case("int8_inpaint", case, cgen, dev, batch=EVAL_BATCH)
     return rows, k5_launches
+
+
+# the training path's BiLSTM shapes: (batch, steps, hidden) of the
+# detector at batch 15 and the denoiser at batch 40
+TRAIN_LSTM_SHAPES = ((15, 60, 100), (40, 178, 200))
+
+
+def cudnn_training_ms(xp_f, w_f, w_b, dev):
+    """cuDNN's fp32 `nn.LSTM` (identity input weights, zero biases) in
+    training: (forward, backward) ms of the recurrence alone. The
+    forward records for autograd; the backward computes the data
+    gradient only (the weights need none, as K4b computes none). Each
+    less its two identity input projections (a matmul a direction
+    forward, one a direction backward)."""
+    g4, hidden = w_f.shape
+    lstm = torch.nn.LSTM(g4, hidden, batch_first=True,
+                         bidirectional=True).to(dev)
+    eye = torch.eye(g4, device=dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(eye)
+        lstm.weight_ih_l0_reverse.copy_(eye)
+        lstm.weight_hh_l0.copy_(w_f)
+        lstm.weight_hh_l0_reverse.copy_(w_b)
+        for b in (lstm.bias_ih_l0, lstm.bias_hh_l0, lstm.bias_ih_l0_reverse,
+                  lstm.bias_hh_l0_reverse):
+            b.zero_()
+    lstm.requires_grad_(False)
+    x = xp_f.detach().clone().requires_grad_(True)
+    dy = torch.randn(*xp_f.shape[:2], 2 * hidden, device=dev)
+
+    def forward():
+        return lstm(x)[0]
+
+    def forward_backward():
+        forward().backward(dy)
+
+    def projections():
+        return torch.matmul(xp_f, eye), torch.matmul(xp_f, eye)
+    with exact_fp32():
+        fwd_ms = time_ms(forward)
+        fb_ms = time_ms(forward_backward)
+        proj_ms = time_ms(projections)
+    return fwd_ms - proj_ms, fb_ms - fwd_ms - proj_ms
+
+
+def training_cases(gen, dev, record):
+    """The training path's kernel instances at its shapes: K4's training
+    instance and K4b at the detector's (B 15, T 60, H 100) and the
+    denoiser's (B 40, T 178, H 200) BiLSTM, and K2's complement at
+    (15, 28000) and (40, 28000). K4's training instance: h bit-identical
+    to the inference instance's, c and gates within 1e-6 of one step
+    from the kernel's own state and within K4's 5e-5 of the plain
+    training forward. K4b: against its plain version on the same saved
+    state, 5e-5. Library: cuDNN `nn.LSTM` fp32 in training, forward and
+    backward apart, less the identity projections."""
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+               "bytes": 0.0, "err": 0.0, "ok": True}
+           for k in ("train", "bwd")}
+    for batch, steps, hidden in TRAIN_LSTM_SHAPES:
+        g4 = 4 * hidden
+        xp_f, xp_b = (torch.randn(batch, steps, g4, generator=gen).to(dev)
+                      for _ in range(2))
+        bnd = 1.0 / hidden ** 0.5
+        w_f, w_b = (((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd)
+                    .to(dev) for _ in range(2))
+        out, c, gates = bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+        same_h = bool(torch.equal(out, bilstm_recurrence(xp_f, xp_b, w_f,
+                                                         w_b)))
+        with exact_fp32():
+            plain = bilstm_recurrence_train_plain(xp_f, xp_b, w_f, w_b)
+            step_c, step_g = bilstm_step_states(xp_f, xp_b, w_f, w_b, out,
+                                                c)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip((out, c, gates), plain))
+        step_err_g = float((gates - step_g).abs().max())
+        step_err_c = float(((c - step_c).abs()
+                            / (1.0 + step_c.abs())).max())
+        ok = (same_h and err <= 5e-5 and step_err_g <= 1e-6
+              and step_err_c <= 1e-6)
+        dout = torch.randn(batch, steps, 2 * hidden, generator=gen).to(dev)
+        got = bilstm_recurrence_backward(dout, gates, c, w_f, w_b)
+        with exact_fp32():
+            ref = bilstm_recurrence_backward_plain(dout, gates, c, w_f, w_b)
+        torch.cuda.synchronize()
+        err_b = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        plan, bplan = recurrence_plan(batch, hidden), backward_plan(batch,
+                                                                     hidden)
+        ms = time_ms(lambda: bilstm_recurrence_train(xp_f, xp_b, w_f, w_b))
+        b_ms = time_ms(lambda: bilstm_recurrence_backward(dout, gates, c,
+                                                          w_f, w_b))
+        with exact_fp32():
+            plain_ms = time_ms(lambda: bilstm_recurrence_train_plain(
+                xp_f, xp_b, w_f, w_b), reps=3, warmup=1)
+            b_plain_ms = time_ms(lambda: bilstm_recurrence_backward_plain(
+                dout, gates, c, w_f, w_b), reps=3, warmup=1)
+        lib_f, lib_b = cudnn_training_ms(xp_f, w_f, w_b, dev)
+        log(f"bilstm_train B{batch} T{steps}/H{hidden} (plan: {plan.bt} rows, "
+            f"cluster {plan.cluster}): h bit-identical to the inference "
+            f"instance {same_h}, max err against the plain training forward "
+            f"{err:.3e} (tolerance 5e-5), one-step gates {step_err_g:.3e} "
+            f"c {step_err_c:.3e} (tolerance 1e-6)  kernel {ms:.4f} ms "
+            f"({ms / steps * 1e3:.2f} us/step)  plain {plain_ms:.4f} ms  "
+            f"cuDNN training forward less projections {lib_f:.4f} ms")
+        log(f"bilstm_bwd B{batch} T{steps}/H{hidden} (plan: {bplan.bt} rows, "
+            f"cluster {bplan.cluster}, {bplan.blocks} blocks of "
+            f"{bplan.threads} threads, {bplan.smem_bytes} B shared): max "
+            f"err {err_b:.3e} (tolerance 5e-5)  kernel {b_ms:.4f} ms "
+            f"({b_ms / steps * 1e3:.2f} us/step)  plain {b_plain_ms:.4f} ms  "
+            f"cuDNN backward (data) less projections {lib_b:.4f} ms")
+        rec_flops = 2.0 * batch * steps * 2 * hidden * g4
+        for key, vals in (
+                ("train", (ms, plain_ms, lib_f, rec_flops
+                           + 2.0 * batch * steps * 10 * hidden,
+                           4.0 * (2 * batch * steps * g4 + 2 * g4 * hidden
+                                  + batch * steps * 2 * hidden
+                                  + 2 * batch * steps * (hidden + g4)),
+                           err, ok)),
+                ("bwd", (b_ms, b_plain_ms, lib_b, rec_flops
+                         + 2.0 * batch * steps * 20 * hidden,
+                         4.0 * (batch * steps * 2 * hidden
+                                + 2 * batch * steps * (g4 + hidden)
+                                + 2 * g4 * hidden + 2 * batch * steps * g4),
+                         err_b, err_b <= 5e-5))):
+            a = acc[key]
+            for name, v in zip(("ms", "plain_ms", "library_ms", "flops",
+                                "bytes"), vals[:5]):
+                a[name] += v
+            a["err"] = max(a["err"], vals[5])
+            a["ok"] = a["ok"] and vals[6]
+    shape = " + ".join(f"B{b} T{t}/H{h}" for b, t, h in TRAIN_LSTM_SHAPES)
+    a = acc["train"]
+    record("bilstm_train", "sos_tpu_torch/csrc/bilstm.cu",
+           "sos_tpu/ops/lstm.py:28", a["err"], a["ok"],
+           "h exact, c and gates 1e-6 a step, 5e-5 whole", a["ms"],
+           a["plain_ms"], a["library_ms"], a["flops"], a["bytes"],
+           shape=shape + " (sum)")
+    a = acc["bwd"]
+    record("bilstm_bwd", "sos_tpu_torch/csrc/bilstm_bwd.cu",
+           "sos_tpu/ops/lstm.py:28", a["err"], a["ok"], "atol 5e-5",
+           a["ms"], a["plain_ms"], a["library_ms"], a["flops"], a["bytes"],
+           shape=shape + " (sum)")
+
+    ratio = 14000 / 30.0
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "exact": True,
+          "err": 0.0}
+    for batch in (15, 40):
+        y = (torch.randn(batch, CLIP, generator=gen) * 0.3).to(dev)
+        bits = (torch.rand(batch, 60, generator=gen) < 0.5).float().to(dev)
+        got = mask_gate(y, bits, ratio, complement=True)
+        ref = mask_gate_plain(y, bits, ratio, complement=True)
+        torch.cuda.synchronize()
+        k2["exact"] = k2["exact"] and bool(torch.equal(got, ref))
+        k2["err"] = max(k2["err"], float((got - ref).abs().max()))
+        k2["ms"] += time_ms(lambda: mask_gate(y, bits, ratio, complement=True))
+        k2["plain_ms"] += time_ms(lambda: mask_gate_plain(y, bits, ratio,
+                                                          complement=True))
+        k2["bytes"] += 4.0 * (2 * batch * CLIP + batch * 60 + CLIP)
+    # 4 operations a sample as K2's row counts them, and the complement
+    record("mask_gate_complement", "sos_tpu_torch/csrc/mask_gate.cu",
+           "sos_tpu/dsp/mixing.py:285", k2["err"], k2["exact"], "exact",
+           k2["ms"], k2["plain_ms"], None, 5.0 * 55 * CLIP, k2["bytes"],
+           shape="x (15, 28000) + (40, 28000), bits (B, 60) -> x * (1 - mask)")
 
 
 def lstm_library_ms(xp_f, w_f, w_b, lengths, dev) -> float:
@@ -914,21 +1115,22 @@ CATEGORIES = (
 )
 
 
-def _category(name: str) -> str:
-    for label, keys in CATEGORIES:
+def _category(name: str, categories) -> str:
+    for label, keys in categories:
         if any(k in name for k in keys):
             return label
     return "other"
 
 
-def profile_call(pipe, x):
-    """Device time of one call by kernel category, from torch.profiler."""
+def profile_call(fn, categories=CATEGORIES):
+    """Device time of one call of `fn` by kernel category, from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -945,7 +1147,8 @@ def profile_call(pipe, x):
     busy = sum(kernels.values())
     cats = {}
     for name, ms in kernels.items():
-        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+        label = _category(name, categories)
+        cats[label] = cats.get(label, 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -978,7 +1181,7 @@ def phase_throughput(cfg: ExperimentConfig, det_state, den_state,
             f"per call (min {min(times) * 1e3:.1f}, max "
             f"{max(times) * 1e3:.1f}) -> {BATCH * CLIP / 14000.0 / med:.1f} "
             f"audio-s/s")
-        prof = profile_call(pipe, x)
+        prof = profile_call(lambda: pipe(x))
         if prof is not None:
             log(f"profile {profile}: wall {prof['wall_ms']:.1f} ms, device "
                 f"{prof['device_ms']:.1f} ms, idle share "
@@ -1601,6 +1804,18 @@ def check_int8_eval_launches(mode: str) -> None:
         raise RuntimeError(f"eval int8 {mode}: K7's tile never launched")
 
 
+def resize_ties(valid_t: int, frames: int):
+    """Frames where the exact mode's resize index, floor(j * (T /
+    frames)) in float64, and the bucketed mode's, floor(j * T / frames)
+    in integers (both `sos_tpu`'s), part. At such a tie the two modes
+    read adjacent STFT frames, and their int8 confidences differ by up to
+    8e-5 with no fault (PERF.md §6, PR 10)."""
+    fixed = nearest_index_tensor(valid_t, frames, torch.device("cpu"))
+    dyn = torch.clamp(torch.arange(frames) * valid_t // frames, 0,
+                      valid_t - 1)
+    return (fixed != dyn).nonzero().reshape(-1).tolist()
+
+
 def check_int8_eval(results, cfg, det_state, den_state, threshold, wavs,
                     frames, bits, calib) -> None:
     """int8 bucketed against int8 exact on the card (sos_tpu's bounds:
@@ -1613,14 +1828,18 @@ def check_int8_eval(results, cfg, det_state, den_state, threshold, wavs,
     (b_det, b_den), (e_det, e_den) = (results[("int8", "bucketed")],
                                       results[("int8", "exact")])
     near = lambda conf, m: np.abs(conf - threshold) <= m  # noqa: E731
-    conf_diff = max(float(np.abs(b[1] - e[1]).max())
-                    for b, e in zip(b_det, e_det))
+    diffs = [np.abs(b[1] - e[1]) for b, e in zip(b_det, e_det)]
+    worst = int(np.argmax([d.max() for d in diffs]))
+    conf_diff = float(diffs[worst].max())
     bits_ok = all(np.array_equal(b[0][~near(e[1], 1e-4)],
                                  e[0][~near(e[1], 1e-4)])
                   for b, e in zip(b_det, e_det))
     wav_diff = max(float(np.abs(b - e).max()) for b, e in zip(b_den, e_den))
+    valid_t = 1 + len(wavs[worst]) // cfg.stft.hop_length
     log(f"eval int8 bucketed vs exact on the card: confidences max |diff| "
-        f"{conf_diff:.3e} (tolerance 2e-5), waveforms max |diff| "
+        f"{conf_diff:.3e} (tolerance 2e-5; utterance {worst}, frame "
+        f"{int(np.argmax(diffs[worst]))}, resize ties "
+        f"{resize_ties(valid_t, frames[worst])}), waveforms max |diff| "
         f"{wav_diff:.3e} (tolerance 3e-5), bits equal off the threshold "
         f"{bits_ok}")
     if not (conf_diff <= 2e-5 and wav_diff <= 3e-5 and bits_ok):
@@ -1656,6 +1875,385 @@ def check_int8_eval(results, cfg, det_state, den_state, threshold, wavs,
     log(f"eval int8 CPU references: {time.perf_counter() - t0:.1f} s")
 
 
+# -- training: train steps, timed training, fit() through the CLI ------------
+
+# the kernels each stage's train step launches: K1 (the denoiser's four
+# STFTs in one launch), K2's complement (the clean signal), K2 (the
+# denoiser's gated mixture), K4's training instance and K4b
+TRAIN_KERNELS = {
+    "detector": ("stft", "mask_gate_complement", "bilstm_train",
+                 "bilstm_bwd"),
+    "denoiser": ("stft", "mask_gate", "mask_gate_complement", "bilstm_train",
+                 "bilstm_bwd"),
+}
+TRAIN_BATCH = {"detector": 15, "denoiser": 40}  # TrainConfig, m2 common.py:52
+TRAIN_TIMED_STEPS = 5
+# device-time categories of one train step, matched in this order
+TRAIN_CATEGORIES = (
+    ("K4b bilstm backward", ("bilstm_bwd_kernel",)),
+    ("K4 bilstm training forward", ("bilstm_train_kernel",)),
+    ("K1 stft", ("stft_analysis_pfa",)),
+    ("K2 mask_gate (both instances)", ("mask_gate_kernel",)),
+    ("optimizer (Adam, foreach)", ("multi_tensor_apply",)),
+    ("cuDNN conv backward (data and weight gradients)",
+     ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter",
+      "convolve_common_engine_float_NHWC")),
+    ("cuDNN conv forward", ("conv", "cudnn", "fprop", "winograd", "implicit",
+                            "fft", "pointwise_mult_and_sum", "Nchw", "nchw",
+                            "Nhwc", "nhwc")),
+    ("reductions (BN statistics and their gradients, losses, finiteness)",
+     ("reduce_kernel",)),
+    ("elementwise (BN, activations, cRM, copies)",
+     ("elementwise_kernel", "copy_kernel", "CatArrayBatchedCopy")),
+    ("matmuls (LSTM projections and dW_hh, heads)",
+     ("gemm", "Gemm", "cutlass", "cublas")),
+)
+
+
+def train_batch(n: int, gen: torch.Generator):
+    """A seeded synthetic batch as the batchers give it (numpy): clean
+    clips, noise crops, SNRs over the config's range, and bits with a
+    silent run in every clip."""
+    bits = (torch.rand(n, 60, generator=gen) < 0.5).float()
+    bits[:, :5] = 0.0
+    return {"clean": make_clips(n, gen).numpy(),
+            "noise": (torch.randn(n, CLIP, generator=gen) * 0.1).numpy(),
+            "snr": np.asarray([(-5.0, 0.0, 5.0, 10.0)[i % 4]
+                               for i in range(n)], np.float32),
+            "bits": bits.numpy()}
+
+
+def _init(stage, cfg, device, state_dict):
+    init = (train_loop.init_detector_state if stage == "detector"
+            else train_loop.init_denoiser_state)
+    return init(cfg, device=device, state_dict=state_dict)[1]
+
+
+def _head_modules(stage, model):
+    """The stage's BiLSTM and the linear layers after it (the last
+    returns the head's logits)."""
+    m = model if stage == "detector" else model.context
+    fcs = ("fc1", "fc2") if stage == "detector" else ("fc0", "fc1", "fc2")
+    return m.lstm, [getattr(m, n) for n in fcs]
+
+
+def head_forward(stage, model, x):
+    """The BiLSTM and heads from their input features to the logits."""
+    lstm, fcs = _head_modules(stage, model)
+    h = lstm(x)
+    for fc in fcs[:-1]:
+        h = torch.relu(fc(h))
+    return fcs[-1](h)
+
+
+def step_with_gradients(stage, cfg, state, batch, inputs):
+    """One train step (the body of `make_*_train_step`) on the stage's
+    device-stage `inputs` that keeps the gradients: (loss, gradients on
+    the CPU, applied, the head's input features and the loss's gradient
+    at its logits)."""
+    loss_fn = (train_loop.detector_loss if stage == "detector"
+               else train_loop.denoiser_loss)
+    head = {}
+
+    def keep_features(_, args):
+        head["x"] = args[0].detach().clone()
+
+    def keep_gradient(_, __, logits):
+        logits.register_hook(lambda g: head.update(g=g.detach().clone()))
+
+    lstm, fcs = _head_modules(stage, state.model)
+    hooks = [lstm.register_forward_pre_hook(keep_features),
+             fcs[-1].register_forward_hook(keep_gradient)]
+    state.model.train()
+    try:
+        with exact_fp32():
+            loss = loss_fn(cfg, state.model, inputs)[0]
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in state.model.named_parameters()}
+            applied = train_loop.guarded_update(state, cfg.train.lr, True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(loss.detach()), grads, applied, head
+
+
+def head_gradients(stage, cfg, state_dict, dev, x, g):
+    """The BiLSTM's and heads' gradients (and the features') on `dev`
+    from the given features `x` and logits' gradient `g`."""
+    model = _init(stage, cfg, dev, state_dict).model.train()
+    x = x.detach().to(dev).requires_grad_(True)
+    with exact_fp32():
+        head_forward(stage, model, x).backward(g.to(dev))
+    lstm, fcs = _head_modules(stage, model)
+    grads = {f"{pre}{n}": p.grad.detach().cpu() for pre, mod in
+             (("lstm.", lstm), ("fc.", torch.nn.ModuleList(fcs)))
+             for n, p in mod.named_parameters()}
+    grads["features"] = x.grad.detach().cpu()
+    return grads
+
+
+# the parameters past the conv trunks: the BiLSTM (whose gradients K4's
+# training instance and K4b give) and the heads
+HEAD_PARAMS = ("lstm.", "fc", "context.lstm.", "context.fc")
+
+
+def _relative_l2(got, ref) -> float:
+    return (sum(float(((got[n] - g) ** 2).sum()) for n, g in ref.items())
+            / sum(float((g ** 2).sum()) for g in ref.values())) ** 0.5
+
+
+def _gradient_spread(got, ref):
+    """Per tensor |got - ref| max over ref's max |g| -> (errors, relative
+    L2 over all tensors)."""
+    errs = {n: float((got[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                      1e-30)
+            for n, g in ref.items()}
+    return errs, _relative_l2(got, ref)
+
+
+def _worst(errs, head: bool) -> str:
+    part = {n: e for n, e in errs.items() if n.startswith(HEAD_PARAMS) == head}
+    n = max(part, key=part.get)
+    return f"{n} {part[n]:.2e}"
+
+
+def train_agreement(stage, cfg, state_dict, gen):
+    """One train step at batch 2 from the same weights and batch on the
+    card and on the CPU. The card makes the step's inputs (mix, STFTs)
+    and steps on them; the CPU steps on a copy of them (one fixed input)
+    and, apart, on the inputs it makes itself. Held: the loss within
+    1e-4 relative and the new BatchNorm statistics within 1e-5, for both
+    CPU steps; all gradients within 5e-2 relative L2 on the fixed input;
+    and the BiLSTM's and heads' gradients (and the features') within
+    1e-3 of each tensor's max |g|, card against CPU, from the card
+    step's own head features and logits' gradient. Logged beside them,
+    as witnesses of what moves the rest: how far the head features of
+    the card and the CPU drift apart on the fixed input, the CPU's
+    own-input step against its fixed-input step (the device stages'
+    rounding alone), and the card against itself with cuDNN's
+    deterministic algorithms. The training path's launch counters must
+    rise on the card."""
+    batch = train_batch(2, gen)
+    make_inputs = (train_loop.detector_inputs if stage == "detector"
+                   else train_loop.denoiser_inputs)
+    with exact_fp32():
+        own_in = make_inputs(cfg, batch, "cpu")
+    out = {}
+    for run in ("card", "card deterministic", "cpu", "cpu own input"):
+        dev = "cuda" if run.startswith("card") else "cpu"
+        state = _init(stage, cfg, dev, state_dict)
+        reset_launches()
+        t0 = time.perf_counter()
+        if run == "card":
+            with exact_fp32():
+                card_in = make_inputs(cfg, batch, dev)
+            fixed = {k: v.cpu() for k, v in card_in.items()}
+        inputs = {"card": card_in, "card deterministic": card_in,
+                  "cpu": fixed, "cpu own input": own_in}[run]
+        torch.backends.cudnn.deterministic = run == "card deterministic"
+        try:
+            loss, grads, applied, head = step_with_gradients(
+                stage, cfg, state, batch, inputs)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        stats = {n: b.detach().cpu() for n, b in state.model.named_buffers()}
+        out[run] = (loss, grads, stats, applied, time.perf_counter() - t0,
+                    dict(LAUNCHES), head)
+    in_diff = max(float((own_in[k] - v).abs().max()) for k, v in fixed.items())
+    l_gpu, g_gpu, s_gpu, a_gpu, t_gpu, launches, h_gpu = out["card"]
+    l_cpu, g_cpu, s_cpu, a_cpu, t_cpu, _, h_cpu = out["cpu"]
+    l_own, g_own, s_own, a_own, t_own, _, _ = out["cpu own input"]
+    rel = max(abs(l_gpu - l) / abs(l) for l in (l_cpu, l_own))
+    s_err = max(float((s_gpu[n] - v).abs().max()) for s in (s_cpu, s_own)
+                for n, v in s.items())
+    errs, l2 = _gradient_spread(g_gpu, g_cpu)
+    feat = float((h_gpu["x"].cpu() - h_cpu["x"]).abs().max()
+                 / h_cpu["x"].abs().max())
+    reset_launches()
+    head_card = head_gradients(stage, cfg, state_dict, "cuda", h_gpu["x"],
+                               h_gpu["g"])
+    head_launches = {k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")}
+    head_cpu = head_gradients(stage, cfg, state_dict, "cpu", h_gpu["x"],
+                              h_gpu["g"])
+    head_errs, head_l2 = _gradient_spread(head_card, head_cpu)
+    head_worst = max(head_errs, key=head_errs.get)
+    missing = [k for k in TRAIN_KERNELS[stage] if launches[k] == 0]
+    missing += [k for k, v in head_launches.items() if v == 0]
+    log(f"train agreement {stage} (batch 2, full width): loss card "
+        f"{l_gpu:.6f} cpu {l_cpu:.6f} own input {l_own:.6f} (worst rel "
+        f"{rel:.2e}, tolerance 1e-4); BN statistics {s_err:.2e} (tolerance "
+        f"1e-5); the device stages' outputs card against CPU {in_diff:.2e}; "
+        f"applied {a_gpu}/{a_cpu}/{a_own}; CPU steps {t_cpu:.1f} + "
+        f"{t_own:.1f} s, card step {t_gpu:.2f} s; launches "
+        f"{ {k: launches[k] for k in TRAIN_KERNELS[stage]} }")
+    log(f"  BiLSTM and heads {stage} from the card step's features and "
+        f"logits' gradient, card against CPU: worst {head_worst} "
+        f"{head_errs[head_worst]:.2e} of its max |g| (tolerance 1e-3), "
+        f"relative L2 {head_l2:.2e}; launches {head_launches}")
+    log(f"  the head's features {stage}, card against CPU on the fixed "
+        f"input: {feat:.2e} of their max |x|")
+    for label, (e, l2_) in (
+            ("card against CPU, fixed input", (errs, l2)),
+            ("CPU own input against CPU fixed input",
+             _gradient_spread(g_own, g_cpu)),
+            ("card deterministic cuDNN against card",
+             _gradient_spread(out["card deterministic"][1], g_gpu)),
+            ("card against CPU own input", _gradient_spread(g_gpu, g_own))):
+        log(f"  gradients {stage}, {label}: relative L2 {l2_:.2e}; worst of "
+            f"its max |g|: BiLSTM and heads {_worst(e, True)}, trunks "
+            f"{_worst(e, False)}; tensors over 1e-3 "
+            f"{sum(v > 1e-3 for v in e.values())}/{len(e)}")
+    if missing:
+        raise RuntimeError(f"train step {stage} never launched {missing}")
+    if not (a_gpu and a_cpu and a_own and rel <= 1e-4 and s_err <= 1e-5
+            and head_errs[head_worst] <= 1e-3 and l2 <= 5e-2):
+        raise RuntimeError(f"train step {stage}: card disagrees with the CPU")
+
+
+def timed_training(stage, cfg, state_dict, gen):
+    """The real train step at the stage's batch: median step ms of
+    TRAIN_TIMED_STEPS after 2 warm-up steps, clips/s, audio-s/s trained,
+    peak memory, a profiler breakdown of one step. Returns the launches
+    of the timed steps."""
+    n = TRAIN_BATCH[stage]
+    make = (train_loop.make_detector_train_step if stage == "detector"
+            else train_loop.make_denoiser_train_step)
+    state = _init(stage, cfg, "cuda", state_dict)
+    step = make(cfg, 100)
+    batch = train_batch(n, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+        if metrics["finite"] != 1.0 or not np.isfinite(metrics["loss"]):
+            raise RuntimeError(f"timed training {stage}: non-finite step")
+    launches = dict(LAUNCHES)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"training {stage} {card_note()}: batch {n}, remat "
+        f"{cfg.train.remat}, median step {med * 1e3:.1f} ms (min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}) -> "
+        f"{n / med:.1f} clips/s, {n * CLIP / 14000.0 / med:.1f} audio-s/s "
+        f"trained; peak memory {peak:.2f} GiB; losses "
+        f"{[round(x, 5) for x in losses]}; launches per step "
+        f"{ {k: launches[k] / TRAIN_TIMED_STEPS for k in TRAIN_KERNELS[stage]} }")
+    prof = profile_call(lambda: step(state, batch), TRAIN_CATEGORIES)
+    if prof is not None:
+        log(f"profile training {stage}: wall {prof['wall_ms']:.1f} ms, "
+            f"device {prof['device_ms']:.1f} ms, idle share "
+            f"{prof['idle_share']:.3f}; " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in prof["categories_ms"].items()))
+        for name, ms in prof["top_kernels_ms"]:
+            log(f"    {ms:9.2f} ms  {name}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_corpus(root: str, gen: torch.Generator) -> str:
+    """Four seeded 6 s utterances with bitstreams and two 8 s noise WAVs
+    (`root/noise`): 20 detector windows. Returns the dataset JSON."""
+    os.makedirs(os.path.join(root, "clips"))
+    os.makedirs(os.path.join(root, "noise"))
+    files = []
+    for i in range(4):
+        n = 6 * SR
+        path = os.path.join(root, "clips", f"t{i}.wav")
+        audio_io.write_wav(path, utterance(n, gen), SR)
+        centres = (np.arange(180) + 0.5) / 30.0
+        files.append({"path": path, "audio_path": path, "framerate": 30,
+                      "audio_sample_rate": SR, "audio_samples": n,
+                      "duration": 6.0, "num_frames": 180,
+                      "bit_stream": "".join(
+                          "1" if np.sin(2 * np.pi * 1.5 * c) > 0 else "0"
+                          for c in centres)})
+    for i in range(2):
+        audio_io.write_wav(os.path.join(root, "noise", f"n{i}.wav"),
+                           (torch.randn(8 * SR, generator=gen) * 0.1).numpy(),
+                           SR)
+    ds_json = os.path.join(root, "ds.json")
+    with open(ds_json, "w") as fp:
+        json.dump({"dataset_path": os.path.join(root, "clips"),
+                   "num_videos": len(files), "files": files}, fp)
+    return ds_json
+
+
+def _strict_json(path: str):
+    def refuse(token):
+        raise ValueError(f"{path}: non-standard JSON token {token}")
+    with open(path) as fp:
+        return json.loads(fp.read(), parse_constant=refuse)
+
+
+def cli_fit(workdir: str, gen: torch.Generator) -> None:
+    """`python -m sos_tpu_torch.cli.train_detector` at full width on the
+    card: 1 epoch with a `latest` every step, then `--continue --ckpt
+    latest` to epoch 2; `latest.clock.json` must advance and stay strict
+    JSON."""
+    root = os.path.join(workdir, "train_cli")
+    ds_json = train_corpus(root, gen)
+    base = [sys.executable, "-m", "sos_tpu_torch.cli.train_detector",
+            "--dataset_json", ds_json, "--noise_root",
+            os.path.join(root, "noise"), "--output_root",
+            os.path.join(root, "out"), "--name", "smoke", "--batch_size", "4",
+            "--save_step_frequency", "1"]
+    clock_path = os.path.join(root, "out", "smoke_detector", "model",
+                              "latest.clock.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    clocks = []
+    for extra in (["--epochs", "1"],
+                  ["--epochs", "2", "--continue", "--ckpt", "latest"]):
+        t0 = time.perf_counter()
+        run = subprocess.run(base + extra, cwd=here, env=env, timeout=300,
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"train_detector {' '.join(extra)} failed:\n"
+                               + run.stderr[-3000:])
+        clocks.append(_strict_json(clock_path))
+        log(f"train_detector CLI {' '.join(extra)}: "
+            f"{time.perf_counter() - t0:.1f} s, latest.clock.json "
+            f"{clocks[-1]}" + (f"; {run.stdout.strip()}" if run.stdout
+                               else ""))
+    if not (clocks[0]["epoch"] == 1 and clocks[0]["step"] > 0
+            and clocks[1]["epoch"] == 2
+            and clocks[1]["step"] == 2 * clocks[0]["step"]):
+        raise RuntimeError(f"train_detector --continue did not advance "
+                           f"latest.clock.json: {clocks}")
+
+
+def phase_training(cfg: ExperimentConfig, gen: torch.Generator,
+                   workdir: str):
+    """Phase 8 (see the module docstring). Returns the launches of the
+    timed train steps of both stages."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in LAUNCHES}
+    for stage in ("detector", "denoiser"):
+        model = (SilenceDetector(cfg.detector) if stage == "detector"
+                 else JointDenoiser(cfg.denoiser))
+        state_dict = train_loop.fresh_state_dict(model, SEED)
+        train_agreement(stage, cfg, state_dict, gen)
+        for k, v in timed_training(stage, cfg, state_dict, gen).items():
+            launches[k] += v
+    cli_fit(workdir, gen)
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1688,6 +2286,10 @@ def main() -> int:
         eval_launches = phase_eval(cfg, det_state, den_state, gen, workdir)
         launches.update({k: eval_launches[k]
                          for k in EVAL_KERNELS + INT8_EVAL_KERNELS})
+        train_launches = phase_training(cfg, gen, workdir)
+        launches.update({k: train_launches[k] for k in
+                         ("bilstm_train", "bilstm_bwd",
+                          "mask_gate_complement")})
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

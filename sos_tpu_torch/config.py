@@ -161,14 +161,14 @@ class TrainConfig:
     seed: int = 0
     data_axis: str = "data"         # mesh axis name for data parallelism
     param_dtype: str = "float32"
-    compute_dtype: str = "float32"  # flip to bfloat16 for speed
-    # Rematerialize the model forward in the backward pass (training
-    # memory). The port has no training yet; the field stays so one
-    # config JSON loads in both packages.
+    compute_dtype: str = "float32"  # the port trains float32 only
+    # Rematerialize each conv block's forward in the backward pass
+    # (training memory; torch.utils.checkpoint around sos_tpu's nn.remat
+    # blocks).
     remat: bool = True
-    # Skip optimizer/BN updates in-graph when any gradient is non-finite
-    # (corrupt batch, low-precision overflow) instead of poisoning the
-    # state; the step's `finite` metric records skips.
+    # Skip optimizer/BN updates when any gradient is non-finite (corrupt
+    # batch, low-precision overflow) instead of poisoning the state; the
+    # step's `finite` metric records skips.
     skip_nonfinite_updates: bool = True
 
 

@@ -127,15 +127,19 @@ __device__ __forceinline__ void butterfly(const float (&in)[R][4],
 // Shared memory: W slice (4*U rows of kp: gate g, unit u at row g*U + u)
 // | h (2 parities, BT rows of kp) | xp prefetch (2 parities, RB, 4, one
 // slot per owner lane).
-template <int BT, int C>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    bilstm_cluster_kernel(const float* __restrict__ xp_f,
-                          const float* __restrict__ xp_b,
-                          const float* __restrict__ whh_f,
-                          const float* __restrict__ whh_b,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ out, int B, int T, int H,
-                          int U, int kp) {
+//
+// kTrain adds the training instance's stores: the cell state c and the
+// four activated gates of every step, (2, B, T, H) and (2, B, T, 4H)
+// with the direction first, which the backward (K4b, csrc/bilstm_bwd.cu)
+// reads. It is a compile-time instance of its own, so the inference
+// kernel compiles to the code it had without it.
+template <int BT, int C, bool kTrain>
+__device__ __forceinline__ void bilstm_steps(
+    const float* __restrict__ xp_f, const float* __restrict__ xp_b,
+    const float* __restrict__ whh_f, const float* __restrict__ whh_b,
+    const int* __restrict__ lengths, float* __restrict__ out,
+    float* __restrict__ c_out, float* __restrict__ gates_out, int B, int T,
+    int H, int U, int kp) {
   static_assert(BT % 2 == 0, "rows a block: even");
   constexpr int RA = BT / 2;                    // rows after lanes ^ 2
   constexpr bool kScatterB = RA % 2 == 0;
@@ -298,6 +302,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
         for (int q = 0; q < C; ++q) peer_h[q][nxt + r * kp] = hn;
         if (live[j]) out[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + u0 + u] = hn;
+        if constexpr (kTrain) {
+          if (live[j]) {
+            const size_t row = ((size_t)dir * B + b0 + r) * T + t;
+            c_out[row * H + u0 + u] = c[j];
+            float* gp = gates_out + row * G + u0 + u;
+            gp[0] = ig;
+            gp[H] = fg;
+            gp[2 * H] = gg;
+            gp[3 * H] = og;
+          }
+        }
       }
     }
     step_barrier<C>();
@@ -305,12 +320,46 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }
 
 template <int BT, int C>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    bilstm_cluster_kernel(const float* __restrict__ xp_f,
+                          const float* __restrict__ xp_b,
+                          const float* __restrict__ whh_f,
+                          const float* __restrict__ whh_b,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ out, int B, int T, int H,
+                          int U, int kp) {
+  bilstm_steps<BT, C, false>(xp_f, xp_b, whh_f, whh_b, lengths, out, nullptr,
+                             nullptr, B, T, H, U, kp);
+}
+
+// The training instance: h as above, plus c and the activated gates.
+template <int BT, int C>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    bilstm_train_kernel(const float* __restrict__ xp_f,
+                        const float* __restrict__ xp_b,
+                        const float* __restrict__ whh_f,
+                        const float* __restrict__ whh_b,
+                        float* __restrict__ out, float* __restrict__ c_out,
+                        float* __restrict__ gates_out, int B, int T, int H,
+                        int U, int kp) {
+  bilstm_steps<BT, C, true>(xp_f, xp_b, whh_f, whh_b, nullptr, out, c_out,
+                            gates_out, B, T, H, U, kp);
+}
+
+template <int BT, int C, bool kTrain>
 cudaError_t set_smem(int smem) {
   static int granted = 0;  // per instantiation: set once, raise as needed
   if (smem <= granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      bilstm_cluster_kernel<BT, C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err;
+  if constexpr (kTrain) {
+    err = cudaFuncSetAttribute(bilstm_train_kernel<BT, C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  } else {
+    err = cudaFuncSetAttribute(bilstm_cluster_kernel<BT, C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  }
   if (err == cudaSuccess) granted = smem;
   return err;
 }
@@ -338,7 +387,7 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* whh_f,
                    const float* whh_b, const int* lengths, float* out,
                    int B, int T, int H, int U, int kp, int threads,
                    int smem, cudaStream_t stream) {
-  cudaError_t err = set_smem<BT, C>(smem);
+  cudaError_t err = set_smem<BT, C, false>(smem);
   if (err != cudaSuccess) return err;
   const int tiles = (B + BT - 1) / BT;
   cudaLaunchAttribute attr;
@@ -350,8 +399,26 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* whh_f,
 }
 
 template <int BT, int C>
+cudaError_t launch_train(const float* xp_f, const float* xp_b,
+                         const float* whh_f, const float* whh_b, float* out,
+                         float* c_out, float* gates_out, int B, int T, int H,
+                         int U, int kp, int threads, int smem,
+                         cudaStream_t stream) {
+  cudaError_t err = set_smem<BT, C, true>(smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + BT - 1) / BT;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<C>(dim3(C * tiles, 2), threads, smem, stream, &attr,
+                       C > 1);
+  return cudaLaunchKernelEx(&cfg, bilstm_train_kernel<BT, C>, xp_f, xp_b,
+                            whh_f, whh_b, out, c_out, gates_out, B, T, H, U,
+                            kp);
+}
+
+template <int BT, int C>
 cudaError_t max_clusters(int threads, int smem, int* count) {
-  cudaError_t err = set_smem<BT, C>(smem);
+  cudaError_t err = set_smem<BT, C, false>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -377,6 +444,26 @@ extern "C" int sos_bilstm(const float* xp_f, const float* xp_b,
   if (bt == BT && cluster == C)                                             \
     err = launch<BT, C>(xp_f, xp_b, whh_f, whh_b, lengths, out, B, T, H,   \
                         U, kp, threads, smem, s);
+  SOS_BILSTM_PLANS(SOS_LAUNCH)
+#undef SOS_LAUNCH
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The training instance: the same plan, and c (2, B, T, H) and the
+// activated gates (2, B, T, 4H) written beside h.
+extern "C" int sos_bilstm_train(const float* xp_f, const float* xp_b,
+                                const float* whh_f, const float* whh_b,
+                                float* out, float* c_out, float* gates_out,
+                                int B, int T, int H, int bt, int cluster,
+                                int U, int kp, int threads, int smem,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+#define SOS_LAUNCH(BT, C)                                                  \
+  if (bt == BT && cluster == C)                                            \
+    err = launch_train<BT, C>(xp_f, xp_b, whh_f, whh_b, out, c_out,       \
+                              gates_out, B, T, H, U, kp, threads, smem, s);
   SOS_BILSTM_PLANS(SOS_LAUNCH)
 #undef SOS_LAUNCH
   if (err != cudaSuccess) return (int)err;

@@ -15,6 +15,11 @@
 // `_despeckle_gap_matrix`, exactly as sos_tpu does. The device never
 // recomputes f * ratio in float32.
 //
+// The complement instance (kComplement) gates by 1 - mask instead: the
+// training recipe's `clean * (1 - mask)` before mixing
+// (sos_tpu/data/pipeline.py:54, :73), which leaves only the silent
+// intervals' samples out of the clean signal.
+//
 // Values are 0/1 masks times `mixed`, so the result equals the plain
 // version exactly.
 //
@@ -48,9 +53,19 @@ __device__ __forceinline__ float gate_of(const float* inv, int word, int F) {
   return m;
 }
 
+template <bool kComplement>
+__device__ __forceinline__ float gate_value(const float* inv, int word, int F) {
+  const float m = gate_of(inv, word, F);
+  if constexpr (kComplement) {
+    return 1.f - m;
+  } else {
+    return m;
+  }
+}
+
 // grid (spans of kThreads * VEC samples, groups of kRows rows);
 // dynamic shared memory kRows * F floats
-template <int VEC>
+template <int VEC, bool kComplement>
 __global__ void __launch_bounds__(kThreads)
     mask_gate_kernel(const float* __restrict__ mixed,
                      const float* __restrict__ bits,
@@ -78,10 +93,10 @@ __global__ void __launch_bounds__(kThreads)
       if (r >= rows) break;
       const float* row_inv = inv + r * F;
       float4 y;
-      y.x = x[r].x * gate_of(row_inv, w.x, F);
-      y.y = x[r].y * gate_of(row_inv, w.y, F);
-      y.z = x[r].z * gate_of(row_inv, w.z, F);
-      y.w = x[r].w * gate_of(row_inv, w.w, F);
+      y.x = x[r].x * gate_value<kComplement>(row_inv, w.x, F);
+      y.y = x[r].y * gate_value<kComplement>(row_inv, w.y, F);
+      y.z = x[r].z * gate_value<kComplement>(row_inv, w.z, F);
+      y.w = x[r].w * gate_value<kComplement>(row_inv, w.w, F);
       dst[(size_t)r * row4] = y;
     }
   } else {
@@ -94,41 +109,49 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r >= rows) break;
-      out[(size_t)(r0 + r) * L + v] = x[r] * gate_of(inv + r * F, w, F);
+      out[(size_t)(r0 + r) * L + v] =
+          x[r] * gate_value<kComplement>(inv + r * F, w, F);
     }
   }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <int VEC>
+template <int VEC, bool kComplement>
 cudaError_t launch(const float* mixed, const float* bits, const int* geom,
                    float* out, int B, int L, int F, cudaStream_t stream) {
   const int smem = kRows * F * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mask_gate_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mask_gate_kernel<VEC, kComplement>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
   }
   const int units = VEC == 4 ? L / 4 : L;
   const dim3 grid((units + kThreads - 1) / kThreads, (B + kRows - 1) / kRows);
-  mask_gate_kernel<VEC><<<grid, kThreads, smem, stream>>>(mixed, bits, geom,
-                                                          out, B, L, F);
+  mask_gate_kernel<VEC, kComplement><<<grid, kThreads, smem, stream>>>(
+      mixed, bits, geom, out, B, L, F);
   return cudaSuccess;
 }
 
 }  // namespace
 
+// complement 0: out = mixed * mask; 1: out = mixed * (1 - mask)
 extern "C" int sos_mask_gate(const float* mixed, const float* bits,
                              const int* geom, float* out, int B, int L,
-                             int num_frames, void* stream) {
+                             int num_frames, int complement, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const bool vec = (L & 3) == 0 && aligned16(mixed) && aligned16(out) &&
                    aligned16(geom);
-  const cudaError_t err =
-      vec ? launch<4>(mixed, bits, geom, out, B, L, num_frames, s)
-          : launch<1>(mixed, bits, geom, out, B, L, num_frames, s);
+  cudaError_t err;
+  if (complement) {
+    err = vec ? launch<4, true>(mixed, bits, geom, out, B, L, num_frames, s)
+              : launch<1, true>(mixed, bits, geom, out, B, L, num_frames, s);
+  } else {
+    err = vec ? launch<4, false>(mixed, bits, geom, out, B, L, num_frames, s)
+              : launch<1, false>(mixed, bits, geom, out, B, L, num_frames, s);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

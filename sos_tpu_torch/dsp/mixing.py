@@ -10,9 +10,13 @@ Reproduces the reference's mask quirks (m1 tools.py:770-792) exactly as
   frames are silent, and the final gap + tail flips iff the last frame is.
 
 Kernel K2 (`mask_gate`, `csrc/mask_gate.cu`) fuses the mask with the gate
-multiply `mixed * mask`. Its geometry table (two int16 halves a sample)
-is built here on the host in float64 from the same matrices `sos_tpu`
-uses.
+multiply `mixed * mask`, or, with `complement=True`, `x * (1 - mask)`
+(the training recipe's silencing of the clean signal). Its geometry
+table (two int16 halves a sample) is built here on the host in float64
+from the same matrices `sos_tpu` uses.
+
+`mix_at_snr` is the batched on-device SNR mix of the training step
+(`sos_tpu`'s jnp version, per-item SNR, joint peak normalisation).
 
 The host numpy helpers of the eval chain (`*_np`, `truncate_padding`,
 `bandpass_filter`, `filter_bitstream`) are copied from `sos_tpu` as they
@@ -22,7 +26,7 @@ limit; the dense device path (K2 and its plain version) keeps its 2^24
 limit.
 
 Not ported yet: the >2^24-element gather-map path of the device mask
-(`_frame_sample_maps`) and the jnp `mix_at_snr` of training.
+(`_frame_sample_maps`).
 """
 
 from __future__ import annotations
@@ -158,22 +162,28 @@ def bitstream_to_sample_mask(bits: torch.Tensor, ratio: float, num_samples: int,
 
 
 def mask_gate_plain(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
-                    despeckle_min_run: int = 5) -> torch.Tensor:
-    """Plain version of K2: `mixed * bitstream_to_sample_mask(bits)`."""
+                    despeckle_min_run: int = 5,
+                    complement: bool = False) -> torch.Tensor:
+    """Plain version of K2: `mixed * bitstream_to_sample_mask(bits)`, or
+    `mixed * (1 - mask)` with `complement`."""
     mask = bitstream_to_sample_mask(bits, ratio, mixed.shape[-1],
                                     despeckle_min_run)
-    return mixed.float() * mask
+    return mixed.float() * ((1.0 - mask) if complement else mask)
 
 
 def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
-              despeckle_min_run: int = 5) -> torch.Tensor:
-    """Gate `(B, L)` samples by the silence mask of `(B, num_frames)` bits.
+              despeckle_min_run: int = 5,
+              complement: bool = False) -> torch.Tensor:
+    """Gate `(B, L)` samples by the silence mask of `(B, num_frames)` bits:
+    `mixed * mask`, or `mixed * (1 - mask)` with `complement`.
 
     Kernel K2 on CUDA tensors, `mask_gate_plain` on CPU tensors. On the
     card a geometry without a gap matrix raises (see `_gate_tables`).
+    The complement counts its launches under "mask_gate_complement".
     """
     if mixed.device.type == "cpu" and bits.device.type == "cpu":
-        return mask_gate_plain(mixed, bits, ratio, despeckle_min_run)
+        return mask_gate_plain(mixed, bits, ratio, despeckle_min_run,
+                               complement)
     if mixed.device.type != "cuda" or bits.device != mixed.device:
         raise ValueError(f"mask_gate: tensors on {mixed.device} and "
                          f"{bits.device}; the kernel needs one CUDA device")
@@ -190,10 +200,46 @@ def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
     bits = bits.float().contiguous()
     out = torch.empty_like(mixed)
     with on_device(mixed.device) as stream:
-        launch("mask_gate", "sos_mask_gate", mixed.data_ptr(),
-               bits.data_ptr(), geom.data_ptr(), out.data_ptr(), batch,
-               length, num_frames, stream)
+        launch("mask_gate_complement" if complement else "mask_gate",
+               "sos_mask_gate", mixed.data_ptr(), bits.data_ptr(),
+               geom.data_ptr(), out.data_ptr(), batch, length, num_frames,
+               int(complement), stream)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Power / SNR mixing on the device (the training step's)
+# ---------------------------------------------------------------------------
+
+
+def signal_power(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """sum(|x|^2) (reference `power_of_signal`, m1 tools.py:800-801)."""
+    return torch.sum(torch.abs(x * x), dim=dim)
+
+
+def mix_at_snr(signal: torch.Tensor, noise: torch.Tensor,
+               snr_db: torch.Tensor, norm: Optional[float] = 0.5
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scale `noise` to `snr_db` below `signal` and mix; peak-normalise
+    jointly (`sos_tpu/dsp/mixing.py:44-77`, the reference's `add_signals`,
+    m1 tools.py:804-843) for batched `(..., L)` inputs and per-item
+    `snr_db` `(...)`. A silent signal (power 0) takes the noise unscaled.
+    Returns (mixed, clean, noise), all scaled by the same factor."""
+    snr_db = torch.as_tensor(snr_db, dtype=signal.dtype, device=signal.device)
+    p_sig = signal_power(signal)
+    p_noise = signal_power(noise)
+    pn = p_sig / torch.pow(torch.tensor(10.0, dtype=signal.dtype,
+                                        device=signal.device), snr_db / 10.0)
+    ratio = torch.sqrt(p_noise) / torch.sqrt(torch.clamp(pn, min=1e-30))
+    safe_ratio = torch.where(ratio == 0, torch.ones_like(ratio), ratio)
+    scaled_noise = noise / safe_ratio[..., None]
+    scaled_noise = torch.where((p_sig == 0)[..., None], noise, scaled_noise)
+    mixed = signal + scaled_noise
+    if norm:
+        scale = torch.amax(torch.abs(mixed), dim=-1) / norm
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)[..., None]
+        return mixed / scale, signal / scale, scaled_noise / scale
+    return mixed, signal, scaled_noise
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,15 @@ The kernels themselves live in `sos_tpu_torch/csrc/`; their wrappers and
 plain PyTorch versions sit in the module of the op they replace:
 
   K1 `dsp/stft.py`   `stft_cat`       STFT (prime-factor real FFT)
-  K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate
+  K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate (or,
+     `complement=True`, the gate by 1 - mask)
   K3 `dsp/stft.py`   `crm_istft`      cRM recover + complex multiply + iSTFT
      (inverse prime-factor FFT, overlap-add)
   K4 `ops/lstm.py`   `bilstm_recurrence`  BiLSTM recurrence, both directions
+     (`bilstm_recurrence_train`: its training instance, which also
+     stores c and the activated gates)
+  K4b `ops/lstm.py`  `bilstm_recurrence_backward`  the BiLSTM's backward
+     through time, both directions (`csrc/bilstm_bwd.cu`)
   K5 `ops/int8_gemm.py` `int8_matmul_nt`  int8 GEMM, int32 out
   K6 `ops/int8_conv.py` `conv_same_int8`  int8 SAME conv + requantize
   K7 `ops/int8_conv.py` `inpaint_conv_int8`  int8 InpaintNet conv + PReLU

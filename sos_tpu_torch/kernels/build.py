@@ -44,8 +44,8 @@ SIGNATURES = {
     # for center=False), stream
     "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mixed, bits, geometry (body | gap << 16), out, B, L, num_frames,
-    # stream
-    "sos_mask_gate": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # complement (1: gate by 1 - mask), stream
+    "sos_mask_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # crm, spec, PFA float table, PFA slots, valid_t (int32 (B,) or NULL),
     # out, B, T, out_len, stream
     "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -53,6 +53,14 @@ SIGNATURES = {
     # B, T, H, then the plan: rows a block, cluster, units a block, kp,
     # threads, shared bytes; stream
     "sos_bilstm": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # the training instance: xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, out, c
+    # (2, B, T, H), activated gates (2, B, T, 4H), B, T, H, the plan as
+    # above; stream
+    "sos_bilstm_train": (_P,) * 7 + (_I,) * 9 + (_P,),
+    # K4b: dout (B, T, 2H), gates, c, w_hh_fwd, w_hh_bwd, dxp (2, B, T,
+    # 4H), B, T, H, then `backward_plan`: rows a block, cluster, units a
+    # block, jp, threads, shared bytes; stream
+    "sos_bilstm_bwd": (_P,) * 6 + (_I,) * 9 + (_P,),
     # rows a block, cluster, threads, shared bytes, int* count
     "sos_bilstm_max_clusters": (_I,) * 4 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
@@ -77,11 +85,14 @@ SIGNATURES = {
 # (one CUDA launch per wrapper call), under a lock, since the serve loop
 # launches from two threads. The length-bucketed cases count apart: K1
 # with center=False, K3 with per-row valid_t, K4 with per-row lengths,
-# K6 and K7 with per-row valid_t.
+# K6 and K7 with per-row valid_t; so do the training path's instances:
+# K2 gating by 1 - mask, K4's training forward and its backward K4b.
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
-                            "mask_gate": 0, "crm_istft": 0,
+                            "mask_gate": 0, "mask_gate_complement": 0,
+                            "crm_istft": 0,
                             "crm_istft_valid_t": 0, "bilstm": 0,
-                            "bilstm_lengths": 0, "int8_gemm": 0,
+                            "bilstm_lengths": 0, "bilstm_train": 0,
+                            "bilstm_bwd": 0, "int8_gemm": 0,
                             "int8_conv": 0, "int8_conv_valid_t": 0,
                             "int8_inpaint": 0, "int8_inpaint_valid_t": 0}
 # The same launches by C entry point (K6 and K7 have two routes each)

@@ -16,6 +16,11 @@ encoders re-zero frames >= valid_t after every block and the BiLSTM
 treats them as padding. Outputs past a row's valid_t are to be masked
 by the caller (the iSTFT's `valid_t` does it).
 
+Training: `model.train()` puts the BatchNorms on batch statistics;
+`remat=True` rematerialises, as `sos_tpu`'s `remat` does, every
+InpaintNet `DownConvBlock` (not the two `UpConvBlock`s) and every
+ContextAggNet encoder block in the backward pass.
+
 Public `forward`s take and return `sos_tpu`'s (B, F, T, 2); the
 pipelines use `forward_packed`, which takes NCHW and returns the head's
 packed (B, T, 2F) output that kernel K3 reads without a transpose.
@@ -30,7 +35,8 @@ from torch import nn
 
 from sos_tpu_torch.config import DenoiserModelConfig
 from sos_tpu_torch.models.layers import (ConvBlock, DownConvBlock,
-                                         TorchLinear, UpConvBlock, time_mask)
+                                         TorchLinear, UpConvBlock,
+                                         remat_call, time_mask)
 from sos_tpu_torch.ops.lstm import BiLSTM
 from sos_tpu_torch.ops.resize import (dynamic_nearest_time,
                                       nearest_resize_1d, nearest_resize_2d)
@@ -44,9 +50,10 @@ class InpaintNet(nn.Module):
     """Noise-spectrogram inpainting U-Net (m2 networks.py:152-205)."""
 
     def __init__(self, channels: Tuple[int, int, int] = (64, 128, 256),
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", remat: bool = False):
         super().__init__()
         self.dtype = getattr(torch, compute_dtype)
+        self.remat = remat
         ch1, ch2, ch3 = channels
         # encoder A: silence-gated noise observation
         self.a_in = DownConvBlock(2, ch1, 5, 1)
@@ -76,21 +83,24 @@ class InpaintNet(nn.Module):
         `valid_t` `(B,)` runs the length-bucketed variant."""
         if valid_t is not None:
             return self._forward_valid(gated_noise, mixed, valid_t)
-        down1 = self.a_in(gated_noise.to(self.dtype))
-        down2 = self.a_d2(self.a_d1(down1))
-        down3 = self.b_in(mixed.to(self.dtype))
-        down4 = self.b_d2(self.b_d1(down3))
+
+        def down(block, x):
+            return remat_call(block, self.remat, x)
+        down1 = down(self.a_in, gated_noise.to(self.dtype))
+        down2 = down(self.a_d2, down(self.a_d1, down1))
+        down3 = down(self.b_in, mixed.to(self.dtype))
+        down4 = down(self.b_d2, down(self.b_d1, down3))
         x = torch.cat([down2, down4], dim=1)
         for block in (self.mid0, self.mid1, self.mid_dil2, self.mid_dil4,
-                      self.mid_dil8, self.mid_dil16, self.mid2, self.mid3,
-                      self.mid_up):
-            x = block(x)
+                      self.mid_dil8, self.mid_dil16, self.mid2, self.mid3):
+            x = down(block, x)
+        x = self.mid_up(x)
         if x.shape[2:] != down4.shape[2:]:
             x = nearest_resize_2d(x, down4.shape[2:], 2, 3)
-        x = self.up1_up(self.up1_conv(torch.cat([x, down4], dim=1)))
+        x = self.up1_up(down(self.up1_conv, torch.cat([x, down4], dim=1)))
         if x.shape[2:] != down3.shape[2:]:
             x = nearest_resize_2d(x, down3.shape[2:], 2, 3)
-        x = self.out(self.up2_conv(torch.cat([x, down3], dim=1)))
+        x = down(self.out, down(self.up2_conv, torch.cat([x, down3], dim=1)))
         return x.float()
 
     def _forward_valid(self, gated_noise: torch.Tensor, mixed: torch.Tensor,
@@ -124,10 +134,12 @@ class ContextAggNet(nn.Module):
     """Mask predictor over mixed + predicted-noise spectrograms (m2 networks.py:54-94)."""
 
     def __init__(self, cfg: DenoiserModelConfig = DenoiserModelConfig(),
-                 compute_dtype: str = "float32", bf16_head_proj: bool = False):
+                 compute_dtype: str = "float32", bf16_head_proj: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, compute_dtype)
+        self.remat = remat
         self.enc_x = self._encoder(cfg.nf_mixed, cfg.outf_mixed, "enc_x")
         self.enc_n = self._encoder(cfg.nf_noise, cfg.outf_noise, "enc_n")
         self.lstm = BiLSTM((cfg.outf_mixed + cfg.outf_noise) * cfg.freq_bins,
@@ -154,10 +166,10 @@ class ContextAggNet(nn.Module):
             tmask = time_mask(x, valid_t)
             x = x * tmask
         for block in blocks[:-1]:
-            x = block(x)
+            x = remat_call(block, self.remat, x)
             if tmask is not None:
                 x = x * tmask  # keep SAME padding == the unpadded program
-        x = blocks[-1](x)  # the 1x1 projection
+        x = remat_call(blocks[-1], self.remat, x)  # the 1x1 projection
         b, c, f, t = x.shape  # channel-major flatten -> (B, T, C*F)
         return x.reshape(b, c * f, t).transpose(1, 2).float()
 
@@ -186,11 +198,13 @@ class JointDenoiser(nn.Module):
     """InpaintNet -> ContextAggNet (m2 networks.py:208-217)."""
 
     def __init__(self, cfg: DenoiserModelConfig = DenoiserModelConfig(),
-                 compute_dtype: str = "float32", bf16_head_proj: bool = False):
+                 compute_dtype: str = "float32", bf16_head_proj: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.inpaint = InpaintNet(cfg.inpaint_ch, compute_dtype)
-        self.context = ContextAggNet(cfg, compute_dtype, bf16_head_proj)
+        self.inpaint = InpaintNet(cfg.inpaint_ch, compute_dtype, remat)
+        self.context = ContextAggNet(cfg, compute_dtype, bf16_head_proj,
+                                     remat)
 
     def forward_packed(self, mixed: torch.Tensor, gated_noise: torch.Tensor,
                        valid_t: Optional[torch.Tensor] = None):

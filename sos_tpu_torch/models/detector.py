@@ -9,6 +9,11 @@ again after every trunk block, the frame grid is resampled from each
 row's valid region, and the BiLSTM treats steps >= valid_frames as
 padding.
 
+Training: `model.train()` puts the BatchNorms on batch statistics
+(`models/layers.py`); `remat=True` rematerialises each conv block
+(the trunk and the 1x1 projection) in the backward pass, as `sos_tpu`'s
+`remat` wraps them in `nn.remat`.
+
 Input : (B, F=256, T, 2) STFT real/imag, as in `sos_tpu`
 Output: (B, num_frames) logits; sigmoid >= 0.5 means "voiced" (bit 1)
 """
@@ -21,7 +26,8 @@ import torch
 from torch import nn
 
 from sos_tpu_torch.config import DetectorModelConfig
-from sos_tpu_torch.models.layers import ConvBlock, TorchLinear, time_mask
+from sos_tpu_torch.models.layers import (ConvBlock, TorchLinear, remat_call,
+                                         time_mask)
 from sos_tpu_torch.ops.lstm import BiLSTM
 from sos_tpu_torch.ops.resize import nearest_resize_1d
 
@@ -32,9 +38,11 @@ class SilenceDetector(nn.Module):
     projection in bf16 (fp32 output)."""
 
     def __init__(self, cfg: DetectorModelConfig = DetectorModelConfig(),
-                 compute_dtype: str = "float32", bf16_head_proj: bool = False):
+                 compute_dtype: str = "float32", bf16_head_proj: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.dtype = getattr(torch, compute_dtype)
         ch = cfg.in_channels
         self.trunk = []
@@ -70,12 +78,12 @@ class SilenceDetector(nn.Module):
             tmask = time_mask(x, valid_t)
             x = x * tmask
         for block in self.trunk:
-            x = block(x)
+            x = remat_call(block, self.remat, x)
             if tmask is not None:
                 # BN makes the padding frames nonzero; re-zero them so the
                 # next SAME conv sees the unpadded program's zero padding
                 x = x * tmask
-        x = self.proj(x)  # (B, C, F, T)
+        x = remat_call(self.proj, self.remat, x)  # (B, C, F, T)
         # channel-major flatten (c*F + f), like the reference's
         # view(B, C*F, T) (m1 networks.py:132), then time onto the
         # video-frame grid with torch-nearest indices (networks.py:133)

@@ -1,7 +1,12 @@
 """Building blocks with `sos_tpu`'s numerics (port of `sos_tpu/models/layers.py`).
 
-All blocks work NCHW = (B, C, F, T), eval mode only (running BN
-statistics). `DownConvBlock` and `UpConvBlock` also run the exact
+All blocks work NCHW = (B, C, F, T). In eval mode BatchNorm uses its
+running statistics; in training mode (`nn.Module.training`) it uses
+the batch's and keeps them pending for the train step, which commits
+them once, after the step's gradients are known to be finite
+(`commit_batch_stats`, flax's `mutated["batch_stats"]`). `remat_call`
+runs a block under `torch.utils.checkpoint` (sos_tpu's `nn.remat`).
+`DownConvBlock` and `UpConvBlock` also run the exact
 length-bucketed variant: given per-row valid widths `valid_t` `(B,)`
 (integer tensors on the device, never read on the host), they re-zero
 each row's time tail, inject the end-of-signal reflection at each row's
@@ -31,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 _fp32_lock = threading.Lock()
@@ -97,9 +103,21 @@ class PReLU(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d (eps 1e-5) in flax's order of operations:
+    """BatchNorm2d (eps 1e-5) in flax's order of operations:
     `(x - mean) * (rsqrt(var + eps) * scale) + bias`, computed in float32
-    and cast back to the input's dtype."""
+    and cast back to the input's dtype.
+
+    Eval mode normalises by the running statistics. Training mode
+    (`self.training`) normalises by the batch's, over (B, F, T) in
+    float32: the mean and the biased variance as flax computes it,
+    `max(0, E[x^2] - E[x]^2)`. It leaves its buffers alone and keeps the
+    batch's statistics in `pending_stats`; `commit_stats` then applies
+    flax's update with momentum 0.9 and the biased variance (torch's
+    `batch_norm(training=True)` would update with the unbiased one).
+    Run twice under rematerialisation, the forward only sets the same
+    pending statistics again."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int):
         super().__init__()
@@ -107,6 +125,7 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.pending_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Non-trivial running statistics, so that import mistakes show."""
@@ -115,9 +134,57 @@ class TorchBatchNorm(nn.Module):
         self.running_var.copy_(torch.rand(n, generator=generator) + 0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            self.pending_stats = (mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+    @torch.no_grad()
+    def commit_stats(self) -> None:
+        """Fold the pending batch statistics into the running ones (flax:
+        `momentum * old + (1 - momentum) * batch`) and clear them."""
+        if self.pending_stats is None:
+            return
+        mean, var = self.pending_stats
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.pending_stats = None
+
+
+def batch_norms(module: nn.Module):
+    """The `TorchBatchNorm` modules of `module`."""
+    return [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+
+
+def commit_batch_stats(module: nn.Module) -> None:
+    """Apply every BatchNorm's pending batch statistics once."""
+    for bn in batch_norms(module):
+        bn.commit_stats()
+
+
+def discard_batch_stats(module: nn.Module) -> None:
+    """Drop every BatchNorm's pending batch statistics unapplied (a
+    step whose gradients were not finite)."""
+    for bn in batch_norms(module):
+        bn.pending_stats = None
+
+
+def remat_call(block: nn.Module, remat: bool, *args):
+    """`block(*args)`, rematerialised in the backward pass when `remat`
+    is set and a gradient is being recorded (sos_tpu's per-block
+    `nn.remat`): only the block's inputs are kept, and its forward runs
+    again during the backward."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 class ConvBlock(nn.Module):

@@ -12,6 +12,15 @@
   length-bucketed predictors' `valid_len`), row b's steps >= lengths[b]
   are padding: h and c are zeroed there, so its backward direction
   starts fresh at lengths[b] - 1.
+* Training (`BiLSTMRecurrence`, a `torch.autograd.Function`): the
+  forward is K4's training instance (`bilstm_recurrence_train`), which
+  also writes the cell state c and the activated gates of every step;
+  the backward is kernel K4b (`bilstm_recurrence_backward`,
+  `csrc/bilstm_bwd.cu`, laid out by `backward_plan`), BPTT of both
+  directions in one launch, giving the pre-activation gate gradients
+  d xp. `dW_hh = sum_t dgates^T h_prev` is one `torch.matmul` over
+  B*T; W_ih, the bias and x get theirs from autograd through
+  `_project`. `BiLSTM` takes this route whenever a gradient is needed.
 
 Gate order is torch's (i, f, g, o); carries are fp32. Parameters keep
 torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
@@ -30,6 +39,36 @@ from torch import nn
 from sos_tpu_torch.kernels import aligned16, launch, library, on_device
 
 
+def _scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
+          step_mask: Optional[torch.Tensor], keep: bool):
+    """The recurrence's steps: per step h, and with `keep` also c and
+    the activated gates `[i, f, g, o]` (what BPTT reads)."""
+    num_steps, batch, _ = x_proj.shape
+    hidden = w_hh.shape[0]
+    h = torch.zeros((batch, hidden), dtype=torch.float32, device=x_proj.device)
+    c = torch.zeros_like(h)
+    xs = x_proj.float()
+    hs, cs, acts = [None] * num_steps, [None] * num_steps, [None] * num_steps
+    steps = range(num_steps - 1, -1, -1) if reverse else range(num_steps)
+    for t in steps:
+        gates = xs[t] + torch.matmul(h, w_hh)
+        i, f, g, o = torch.split(gates, hidden, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        if step_mask is not None:
+            m = step_mask[t].float()
+            if m.dim():
+                m = m[:, None]
+            h = h * m
+            c = c * m
+        hs[t] = h
+        if keep:
+            cs[t], acts[t] = c, torch.cat([i, f, g, o], dim=-1)
+    return hs, cs, acts
+
+
 def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
               step_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LSTM recurrence over pre-projected inputs `(T, B, 4H)` with
@@ -39,26 +78,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
     0 = padding), zeroes h and c at padding steps, so a reverse scan over
     a padded tail enters the valid region with a fresh state.
     """
-    num_steps, batch, _ = x_proj.shape
-    hidden = w_hh.shape[0]
-    h = torch.zeros((batch, hidden), dtype=torch.float32, device=x_proj.device)
-    c = torch.zeros_like(h)
-    xs = x_proj.float()
-    out = [None] * num_steps
-    steps = range(num_steps - 1, -1, -1) if reverse else range(num_steps)
-    for t in steps:
-        gates = xs[t] + torch.matmul(h, w_hh)
-        i, f, g, o = torch.split(gates, hidden, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        if step_mask is not None:
-            m = step_mask[t].float()
-            if m.dim():
-                m = m[:, None]
-            h = h * m
-            c = c * m
-        out[t] = h
-    return torch.stack(out)
+    return torch.stack(_scan(x_proj, w_hh, reverse, step_mask, False)[0])
 
 
 def _row_mask(lengths: torch.Tensor, num_steps: int) -> torch.Tensor:
@@ -109,26 +129,16 @@ def _unit_runs(hidden: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
 
 
 @dataclass(frozen=True)
-class RecurrencePlan:
-    """How K4 lays a `(batch, hidden)` recurrence out on the card.
-
-    A block takes `bt` batch rows of one direction; a cluster of
-    `cluster` blocks shares those rows, rank r owning hidden units
-    `units[r]` and W_hh's four gate columns of each, kept in shared
-    memory as rows of `kp` floats (`ustride` rows a gate) for all T
-    steps. Lanes 4j .. 4j+3 sum unit j's gates over the float4 columns
-    `q, q + 4, ...` of their k split q, then a butterfly over the four
-    lanes leaves each with all four gates of `rows_per_lane` rows
-    (`lane_rows`), whose cells it updates. Step s reads h buffer
-    `parity(s)[0]` and writes its h into every rank's buffer
-    `parity(s)[1]`.
-    """
+class _ClusterPlan:
+    """What K4's and K4b's plans share: tiles of `bt` batch rows of one
+    direction a block; a cluster of `cluster` blocks shares a tile, rank
+    r owning hidden units `units[r]`, laid out in `ustride` rows; lanes
+    4u .. 4u+3 share unit u; buffers double-buffered by step parity."""
     batch: int
     hidden: int
     bt: int
     cluster: int
     units: Tuple[Tuple[int, int], ...]
-    kp: int
 
     ks = K_SPLIT
 
@@ -146,6 +156,63 @@ class RecurrencePlan:
         return K_SPLIT * self.ustride
 
     @property
+    def tiles(self) -> int:
+        return -(-self.batch // self.bt)
+
+    @property
+    def blocks(self) -> int:
+        return 2 * self.tiles * self.cluster
+
+    def rows(self, tile: int) -> range:
+        """Batch rows of `tile`; the last tile may be ragged."""
+        return range(tile * self.bt, min(self.batch, (tile + 1) * self.bt))
+
+    @staticmethod
+    def parity(step: int) -> Tuple[int, int]:
+        """(buffer read, buffer written) at `step`."""
+        return step & 1, (step + 1) & 1
+
+
+def _choose_plan(batch: int, hidden: int, classes, make, what: str,
+                 kernel: str):
+    """The first of `classes` ((largest hidden, batch rows a block, blocks
+    a cluster), tried in order) whose plan `make(bt, cluster, units)`
+    fits a block's shared memory and threads; a cluster takes the fewest
+    rows whose clusters fit one wave."""
+    for largest, rows, cluster in classes:
+        if largest is not None and hidden > largest:
+            continue
+        if cluster > 1 and hidden < 4 * cluster:
+            continue  # every rank owns a quad of units
+        bt = rows[-1]
+        if cluster > 1:
+            bt = next((r for r in rows
+                       if 2 * -(-batch // r) <= CLUSTER4_SLOTS), rows[-1])
+        plan = make(bt, cluster, _unit_runs(hidden, cluster))
+        if plan.smem_bytes <= SMEM_LIMIT and plan.threads <= _MAX_THREADS:
+            return plan
+    raise ValueError(f"{what}: hidden {hidden} fits no {kernel} plan (W_hh "
+                     "must fit the shared memory of a cluster of 4)")
+
+
+@dataclass(frozen=True)
+class RecurrencePlan(_ClusterPlan):
+    """How K4 lays a `(batch, hidden)` recurrence out on the card.
+
+    A block takes `bt` batch rows of one direction; a cluster of
+    `cluster` blocks shares those rows, rank r owning hidden units
+    `units[r]` and W_hh's four gate columns of each, kept in shared
+    memory as rows of `kp` floats (`ustride` rows a gate) for all T
+    steps. Lanes 4j .. 4j+3 sum unit j's gates over the float4 columns
+    `q, q + 4, ...` of their k split q, then a butterfly over the four
+    lanes leaves each with all four gates of `rows_per_lane` rows
+    (`lane_rows`), whose cells it updates. Step s reads h buffer
+    `parity(s)[0]` and writes its h into every rank's buffer
+    `parity(s)[1]`.
+    """
+    kp: int
+
+    @property
     def rows_per_lane(self) -> int:
         """Cell rows a lane updates: each butterfly step halves a lane's
         rows while they are even and all-reduces them when odd."""
@@ -153,14 +220,6 @@ class RecurrencePlan:
         for _ in range(2):
             rows = rows // 2 if rows % 2 == 0 else rows
         return rows
-
-    @property
-    def tiles(self) -> int:
-        return -(-self.batch // self.bt)
-
-    @property
-    def blocks(self) -> int:
-        return 2 * self.tiles * self.cluster
 
     @property
     def owners(self) -> int:
@@ -198,37 +257,24 @@ class RecurrencePlan:
         return [g * self.hidden + u for g in range(4)
                 for u in range(u0, u0 + n)]
 
-    def rows(self, tile: int) -> range:
-        """Batch rows of `tile`; the last tile may be ragged."""
-        return range(tile * self.bt, min(self.batch, (tile + 1) * self.bt))
 
-    @staticmethod
-    def parity(step: int) -> Tuple[int, int]:
-        """(h buffer read, h buffer written) at `step`."""
-        return step & 1, (step + 1) & 1
+
+def _row_pitch(width: int) -> int:
+    """A shared-memory row of `width` floats padded to 16 (mod 32): the
+    float4 reads of two units' four splits (a quarter warp) land on 32
+    distinct banks."""
+    return 16 + -(-max(width - 16, 0) // 32) * 32
 
 
 def recurrence_plan(batch: int, hidden: int) -> RecurrencePlan:
     """K4's plan for a shape, from (batch, hidden) alone. Raises
     `ValueError` for a hidden size no class fits."""
-    # rows of kp floats, kp = 16 (mod 32): the float4 reads of two units'
-    # four k splits (a quarter warp) land on 32 distinct banks
-    kp = 16 + -(-max(hidden - 16, 0) // 32) * 32
-    for largest, rows, cluster in PLAN_CLASSES:
-        if largest is not None and hidden > largest:
-            continue
-        if cluster > 1 and hidden < 4 * cluster:
-            continue  # every rank owns a quad of units
-        bt = rows[-1]
-        if cluster > 1:  # the fewest rows whose clusters fit one wave
-            bt = next((r for r in rows
-                       if 2 * -(-batch // r) <= CLUSTER4_SLOTS), rows[-1])
-        plan = RecurrencePlan(batch, hidden, bt, cluster,
-                              _unit_runs(hidden, cluster), kp)
-        if plan.smem_bytes <= SMEM_LIMIT and plan.threads <= _MAX_THREADS:
-            return plan
-    raise ValueError(f"bilstm_recurrence: hidden {hidden} fits no K4 plan "
-                     "(W_hh must fit the shared memory of a cluster of 4)")
+    kp = _row_pitch(hidden)
+    return _choose_plan(
+        batch, hidden, PLAN_CLASSES,
+        lambda bt, cluster, units: RecurrencePlan(batch, hidden, bt, cluster,
+                                                  units, kp),
+        "bilstm_recurrence", "K4")
 
 
 def max_active_clusters(plan: RecurrencePlan) -> int:
@@ -241,6 +287,49 @@ def max_active_clusters(plan: RecurrencePlan) -> int:
     if rc != 0:
         raise RuntimeError(f"sos_bilstm_max_clusters: CUDA error {rc}")
     return count.value
+
+
+def _recurrence_on_card(name: str, xp_f: torch.Tensor, xp_b: torch.Tensor,
+                        w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+                        lengths: Optional[torch.Tensor], train: bool):
+    """K4's launch on CUDA tensors, shared by its two instances:
+    `(out,)`, or with `train` `(out, c, gates)`. The launch follows
+    `recurrence_plan`; a shape it refuses raises."""
+    if xp_f.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xp_f.device}")
+    batch, num_steps, gates = xp_f.shape
+    hidden = gates // 4
+    _check_shapes(name, xp_f, xp_b, w_hh_f, w_hh_b)
+    plan = recurrence_plan(batch, hidden)
+    dev = xp_f.device
+    # torch's (4H, H) layout is the kernel's: a gate column's k contiguous,
+    # copied 16 bytes at a time
+    tensors = [xp_f.float().contiguous(), xp_b.float().contiguous(),
+               aligned16(w_hh_f.float()), aligned16(w_hh_b.float())]
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    args = [t.data_ptr() for t in tensors]
+    if lengths is not None:
+        if lengths.device != dev or tuple(lengths.shape) != (batch,):
+            raise ValueError(f"{name}: lengths must be ({batch},) on {dev}, "
+                             f"got {tuple(lengths.shape)} on {lengths.device}")
+        lengths = lengths.to(torch.int32).contiguous()
+    outs = [torch.empty((batch, num_steps, 2 * hidden), dtype=torch.float32,
+                        device=dev)]
+    if train:  # c and the activated gates, after out
+        outs += [torch.empty((2, batch, num_steps, n), dtype=torch.float32,
+                             device=dev) for n in (hidden, gates)]
+        counter, entry = "bilstm_train", "sos_bilstm_train"
+    else:  # the lengths (or NULL), before out
+        args.append(None if lengths is None else lengths.data_ptr())
+        counter = "bilstm" if lengths is None else "bilstm_lengths"
+        entry = "sos_bilstm"
+    args += [t.data_ptr() for t in outs]
+    with on_device(dev) as stream:
+        launch(counter, entry, *args, batch, num_steps, hidden, plan.bt,
+               plan.cluster, plan.ustride, plan.kp, plan.threads,
+               plan.smem_bytes, stream)
+    return tuple(outs)
 
 
 def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
@@ -256,38 +345,245 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
     """
     if xp_f.device.type == "cpu":
         return bilstm_recurrence_plain(xp_f, xp_b, w_hh_f, w_hh_b, lengths)
-    if xp_f.device.type != "cuda":
-        raise ValueError(f"bilstm_recurrence: unsupported device {xp_f.device}")
-    batch, num_steps, gates = xp_f.shape
+    return _recurrence_on_card("bilstm_recurrence", xp_f, xp_b, w_hh_f,
+                               w_hh_b, lengths, train=False)[0]
+
+
+# -- training: K4's training instance and K4b (BPTT) -------------------------
+
+
+def bilstm_recurrence_train_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
+                                  w_hh_f: torch.Tensor, w_hh_b: torch.Tensor):
+    """Plain version of K4's training instance: `(out (B, T, 2H), c (2, B,
+    T, H), gates (2, B, T, 4H))`, the direction first in c and in the
+    activated gates `[i, f, g, o]`; `out` is `bilstm_recurrence_plain`'s."""
+    outs, cs, acts = [], [], []
+    for d, (xp, w) in enumerate(((xp_f, w_hh_f), (xp_b, w_hh_b))):
+        hs, c, a = _scan(xp.transpose(0, 1), w.t(), bool(d), None, True)
+        outs.append(torch.stack(hs, 1))
+        cs.append(torch.stack(c, 1))
+        acts.append(torch.stack(a, 1))
+    return torch.cat(outs, -1), torch.stack(cs), torch.stack(acts)
+
+
+def bilstm_recurrence_train(xp_f: torch.Tensor, xp_b: torch.Tensor,
+                            w_hh_f: torch.Tensor, w_hh_b: torch.Tensor):
+    """Both directions over hoisted projections, keeping what BPTT reads:
+    `(out (B, T, 2H), c (2, B, T, H), gates (2, B, T, 4H))`.
+
+    K4's training instance on CUDA tensors (the inference plan and
+    arithmetic, plus the stores of c and the activated gates; launches
+    count under "bilstm_train"), `bilstm_recurrence_train_plain` on CPU
+    tensors."""
+    if xp_f.device.type == "cpu":
+        return bilstm_recurrence_train_plain(xp_f, xp_b, w_hh_f, w_hh_b)
+    return _recurrence_on_card("bilstm_recurrence_train", xp_f, xp_b, w_hh_f,
+                               w_hh_b, None, train=True)
+
+
+def bilstm_step_states(xp_f: torch.Tensor, xp_b: torch.Tensor,
+                       w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+                       out: torch.Tensor, c: torch.Tensor):
+    """`(c, gates)` of every step computed from a training forward's own
+    `out` (h) and `c` of the step before: each step's arithmetic alone,
+    without the drift a whole recurrence accumulates (the check of K4's
+    training instance; run it under `exact_fp32`)."""
+    hidden = w_hh_f.shape[1]
+    cs, acts = [], []
+    for d, (xp, w) in enumerate(((xp_f, w_hh_f), (xp_b, w_hh_b))):
+        h = out[..., d * hidden:(d + 1) * hidden]
+        h_prev, c_prev = torch.zeros_like(h), torch.zeros_like(h)
+        if d:
+            h_prev[:, :-1], c_prev[:, :-1] = h[:, 1:], c[d][:, 1:]
+        else:
+            h_prev[:, 1:], c_prev[:, 1:] = h[:, :-1], c[d][:, :-1]
+        i, f, g, o = (xp + torch.matmul(h_prev, w.t())).split(hidden, -1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        cs.append(f * c_prev + i * g)
+        acts.append(torch.cat([i, f, g, o], -1))
+    return torch.stack(cs), torch.stack(acts)
+
+
+def bilstm_recurrence_backward_plain(dout: torch.Tensor, gates: torch.Tensor,
+                                     c: torch.Tensor, w_hh_f: torch.Tensor,
+                                     w_hh_b: torch.Tensor):
+    """Plain version of K4b: BPTT of both directions from the output
+    gradient `dout` `(B, T, 2H)` and the training forward's `gates`
+    `(2, B, T, 4H)` and `c` `(2, B, T, H)`, step by step in the reverse
+    of each direction's order -> `(dxp_f, dxp_b)`, each `(B, T, 4H)`:
+    the gradients of the pre-activation gates, i.e. of the projections."""
+    batch, num_steps, _ = dout.shape
+    hidden = c.shape[-1]
+    out = []
+    for d, w in enumerate((w_hh_f, w_hh_b)):
+        dxp = torch.empty((batch, num_steps, 4 * hidden), dtype=torch.float32,
+                          device=dout.device)
+        dh_rec = torch.zeros((batch, hidden), dtype=torch.float32,
+                             device=dout.device)
+        dc = torch.zeros_like(dh_rec)
+        steps = range(num_steps) if d else range(num_steps - 1, -1, -1)
+        for t in steps:
+            tp = t + 1 if d else t - 1
+            i, f, g, o = torch.split(gates[d, :, t].float(), hidden, dim=-1)
+            c_t = c[d, :, t].float()
+            c_prev = (c[d, :, tp].float() if 0 <= tp < num_steps
+                      else torch.zeros_like(c_t))
+            dh = dout[:, t, d * hidden:(d + 1) * hidden].float() + dh_rec
+            tc = torch.tanh(c_t)
+            d_o = dh * tc
+            dc = dc + dh * o * (1.0 - tc * tc)
+            di, dg, df = dc * g, dc * i, dc * c_prev
+            dc = dc * f
+            dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                                dg * (1.0 - g * g), d_o * o * (1.0 - o)], -1)
+            dxp[:, t] = dgates
+            dh_rec = torch.matmul(dgates, w.float())
+        out.append(dxp)
+    return out[0], out[1]
+
+
+# K4b's plan classes, as K4's: (largest hidden, batch rows a block,
+# blocks a cluster). Each (rows, cluster) pair is one instantiation in
+# csrc/bilstm_bwd.cu (`SOS_BILSTM_BWD_PLANS`). A row of the dgates
+# exchange is 4H wide (the forward's h row is H), so the cluster class
+# takes fewer rows a block.
+BACKWARD_PLAN_CLASSES = ((32, (4,), 1), (None, (2,), 1), (None, (4, 6), 4))
+
+
+@dataclass(frozen=True)
+class BackwardPlan(_ClusterPlan):
+    """How K4b lays a `(batch, hidden)` BPTT out on the card.
+
+    Rank r holds W_hh's columns of its units `units[r]` (all 4H rows),
+    kept in shared memory as one row of `jp` floats a unit for all T
+    steps. Lanes 4u .. 4u+3 sum unit u's `dh_rec` over the float4
+    columns `q, q + 4, ...` of their j split q (`j_columns`), two
+    shuffles all-reduce it, and lane q updates the cells of rows q,
+    q + 4, ... (`lane_rows`). Step s reads dgates buffer `parity(s)[0]`
+    and writes its units' dgates into every rank's buffer
+    `parity(s)[1]`.
+    """
+    jp: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """W_hh^T slice | dgates (2 parities)."""
+        return 4 * (self.ustride * self.jp + 2 * self.bt * self.jp)
+
+    def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
+        """(unit, tile rows) whose cells thread `tid` of rank `rank`
+        updates: rows q, q + 4, ... of its unit, none past the units."""
+        unit, q = tid >> 2, tid & 3
+        if unit >= self.units[rank][1]:
+            return unit, range(0)
+        return unit, range(q, self.bt, K_SPLIT)
+
+    def j_columns(self, q: int) -> List[int]:
+        """The gate columns j (of the padded jp) that split q sums."""
+        return [4 * k4 + e for k4 in range(q, self.jp // 4, K_SPLIT)
+                for e in range(4)]
+
+
+def backward_plan(batch: int, hidden: int) -> BackwardPlan:
+    """K4b's plan for a shape, from (batch, hidden) alone. Raises
+    `ValueError` for a hidden size no class fits."""
+    jp = _row_pitch(4 * hidden)
+    return _choose_plan(
+        batch, hidden, BACKWARD_PLAN_CLASSES,
+        lambda bt, cluster, units: BackwardPlan(batch, hidden, bt, cluster,
+                                                units, jp),
+        "bilstm_recurrence_backward", "K4b")
+
+
+def _check_shapes(name, xp_f, xp_b, w_hh_f, w_hh_b) -> None:
+    gates = xp_f.shape[-1]
     hidden = gates // 4
-    if (xp_b.shape != xp_f.shape or w_hh_f.shape != (gates, hidden)
+    if (xp_f.dim() != 3 or xp_b.shape != xp_f.shape
+            or w_hh_f.shape != (gates, hidden)
             or w_hh_b.shape != (gates, hidden)):
-        raise ValueError("bilstm_recurrence: expected projections (B, T, 4H) "
-                         "and w_hh (4H, H) for both directions")
-    plan = recurrence_plan(batch, hidden)
-    dev = xp_f.device
-    # torch's (4H, H) layout is the kernel's: a gate column's k contiguous,
-    # copied 16 bytes at a time
-    tensors = [xp_f.float().contiguous(), xp_b.float().contiguous(),
-               aligned16(w_hh_f.float()), aligned16(w_hh_b.float())]
+        raise ValueError(f"{name}: expected projections (B, T, 4H) and "
+                         "w_hh (4H, H) for both directions")
+
+
+def bilstm_recurrence_backward(dout: torch.Tensor, gates: torch.Tensor,
+                               c: torch.Tensor, w_hh_f: torch.Tensor,
+                               w_hh_b: torch.Tensor):
+    """BPTT of both directions -> `(dxp_f, dxp_b)`, each `(B, T, 4H)`.
+
+    Kernel K4b on CUDA tensors (laid out by `backward_plan`; launches
+    count under "bilstm_bwd"), `bilstm_recurrence_backward_plain` on
+    CPU tensors."""
+    if dout.device.type == "cpu":
+        return bilstm_recurrence_backward_plain(dout, gates, c, w_hh_f,
+                                                w_hh_b)
+    if dout.device.type != "cuda":
+        raise ValueError("bilstm_recurrence_backward: unsupported device "
+                         f"{dout.device}")
+    batch, num_steps, two_h = dout.shape
+    hidden = two_h // 2
+    if (gates.shape != (2, batch, num_steps, 4 * hidden)
+            or c.shape != (2, batch, num_steps, hidden)
+            or w_hh_f.shape != (4 * hidden, hidden)
+            or w_hh_b.shape != (4 * hidden, hidden)):
+        raise ValueError("bilstm_recurrence_backward: expected dout (B, T, "
+                         "2H), gates (2, B, T, 4H), c (2, B, T, H), w_hh "
+                         "(4H, H)")
+    plan = backward_plan(batch, hidden)
+    dev = dout.device
+    tensors = [dout.float().contiguous(), gates.float().contiguous(),
+               c.float().contiguous(), w_hh_f.float().contiguous(),
+               w_hh_b.float().contiguous()]
     if any(t.device != dev for t in tensors):
-        raise ValueError("bilstm_recurrence: tensors on different devices")
-    lens = None
-    if lengths is not None:
-        if lengths.device != dev or tuple(lengths.shape) != (batch,):
-            raise ValueError(f"bilstm_recurrence: lengths must be ({batch},) "
-                             f"on {dev}, got {tuple(lengths.shape)} on "
-                             f"{lengths.device}")
-        lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((batch, num_steps, 2 * hidden), dtype=torch.float32,
+        raise ValueError("bilstm_recurrence_backward: tensors on different "
+                         "devices")
+    dxp = torch.empty((2, batch, num_steps, 4 * hidden), dtype=torch.float32,
                       device=dev)
     with on_device(dev) as stream:
-        launch("bilstm" if lens is None else "bilstm_lengths", "sos_bilstm",
-               *(t.data_ptr() for t in tensors),
-               None if lens is None else lens.data_ptr(), out.data_ptr(),
-               batch, num_steps, hidden, plan.bt, plan.cluster,
-               plan.ustride, plan.kp, plan.threads, plan.smem_bytes, stream)
-    return out
+        launch("bilstm_bwd", "sos_bilstm_bwd",
+               *(t.data_ptr() for t in tensors), dxp.data_ptr(), batch,
+               num_steps, hidden, plan.bt, plan.cluster, plan.ustride,
+               plan.jp, plan.threads, plan.smem_bytes, stream)
+    return dxp[0], dxp[1]
+
+
+def _hidden_grad(dxp: torch.Tensor, hs: torch.Tensor,
+                 reverse: bool) -> torch.Tensor:
+    """`dW_hh = sum over (b, t) of dgates^T h_prev` `(4H, H)`: one product
+    over B*T, h_prev being h of the step before t in the direction's
+    order (0 at its first step)."""
+    h_prev = torch.zeros_like(hs)
+    if reverse:
+        h_prev[:, :-1] = hs[:, 1:]
+    else:
+        h_prev[:, 1:] = hs[:, :-1]
+    gates, hidden = dxp.shape[-1], hs.shape[-1]
+    return torch.matmul(dxp.reshape(-1, gates).t(), h_prev.reshape(-1, hidden))
+
+
+class BiLSTMRecurrence(torch.autograd.Function):
+    """Both directions of the recurrence with a gradient: forward K4's
+    training instance, backward K4b (their plain versions on the CPU).
+    `(xp_f, xp_b, w_hh_f, w_hh_b)` -> `(B, T, 2H)`."""
+
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, w_hh_f, w_hh_b):
+        out, c, gates = bilstm_recurrence_train(xp_f, xp_b, w_hh_f, w_hh_b)
+        ctx.save_for_backward(out, c, gates, w_hh_f, w_hh_b)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        out, c, gates, w_hh_f, w_hh_b = ctx.saved_tensors
+        dxp_f, dxp_b = bilstm_recurrence_backward(dout.contiguous(), gates,
+                                                  c, w_hh_f, w_hh_b)
+        hidden = c.shape[-1]
+        dw_f = dw_b = None
+        if ctx.needs_input_grad[2]:
+            dw_f = _hidden_grad(dxp_f, out[..., :hidden], False)
+        if ctx.needs_input_grad[3]:
+            dw_b = _hidden_grad(dxp_b, out[..., hidden:], True)
+        return dxp_f, dxp_b, dw_f, dw_b
 
 
 def _project(x: torch.Tensor, w_ih: torch.Tensor, bias: torch.Tensor,
@@ -335,7 +631,9 @@ class BiLSTM(nn.Module):
         """With `valid_len` (an int, or a `(B,)` tensor of per-row
         lengths on x's device), steps >= valid_len are padding: their
         outputs are zero and the backward direction starts fresh at
-        valid_len-1."""
+        valid_len-1. When a gradient is needed the recurrence is
+        `BiLSTMRecurrence` (K4's training instance and K4b), which takes
+        no `valid_len`."""
         x = x.float()
         lengths = None
         if valid_len is not None:
@@ -345,5 +643,14 @@ class BiLSTM(nn.Module):
                         self.bf16_proj)
         xp_b = _project(x, self.w_ih_bwd, self.b_ih_bwd + self.b_hh_bwd,
                         self.bf16_proj)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xp_f, xp_b, self.w_hh_fwd,
+                                          self.w_hh_bwd)):
+            if lengths is not None:
+                raise ValueError("BiLSTM: no gradient through per-row "
+                                 "lengths (no training path takes them); "
+                                 "run under torch.no_grad()")
+            return BiLSTMRecurrence.apply(xp_f, xp_b, self.w_hh_fwd,
+                                          self.w_hh_bwd)
         return bilstm_recurrence(xp_f, xp_b, self.w_hh_fwd, self.w_hh_bwd,
                                  lengths)

@@ -27,7 +27,7 @@ from sos_tpu_torch.infer.fused import FusedDenoisePipeline
 from sos_tpu_torch.kernels import ENTRY_LAUNCHES, LAUNCHES, aligned16
 from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
-from sos_tpu_torch.models.layers import init_state_dict
+from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops import int8_conv, int8_gemm, lstm
 
 RATIO = 14000 / 30.0
@@ -91,6 +91,28 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="meta"):
         lstm.bilstm_recurrence(*(torch.empty(2, 5, 16, device=meta),) * 2,
                                *(torch.empty(16, 4, device=meta),) * 2)
+    assert LAUNCHES == before
+
+
+def test_training_wrappers_refuse_other_devices():
+    """The training path's instances (K2 complement, K4's training
+    forward, K4b): plain only on the CPU."""
+    meta = torch.device("meta")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="meta"):
+        mixing.mask_gate(torch.empty(2, 28000, device=meta),
+                         torch.empty(2, 60, device=meta), RATIO,
+                         complement=True)
+    with pytest.raises(ValueError, match="meta"):
+        lstm.bilstm_recurrence_train(
+            *(torch.empty(2, 5, 16, device=meta),) * 2,
+            *(torch.empty(16, 4, device=meta),) * 2)
+    with pytest.raises(ValueError, match="meta"):
+        lstm.bilstm_recurrence_backward(
+            torch.empty(2, 5, 8, device=meta),
+            torch.empty(2, 2, 5, 16, device=meta),
+            torch.empty(2, 2, 5, 4, device=meta),
+            *(torch.empty(16, 4, device=meta),) * 2)
     assert LAUNCHES == before
 
 
@@ -202,6 +224,26 @@ def test_mask_gate_kernel_exact(cuda_device, batch, length, view):
                            bits, RATIO)
     assert LAUNCHES["mask_gate"] == before + 1
     assert torch.equal(got, mixing.mask_gate_plain(y, bits, RATIO))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,view", [
+    (15, 28000, "contiguous"), (40, 28000, "contiguous"),
+    (3, 14097, "contiguous"), (9, 28000, "misaligned")])
+def test_mask_gate_complement_kernel_exact(cuda_device, batch, length, view):
+    """K2's complement instance, `x * (1 - mask)`, at the training
+    batches (15 and 40 clips) and on both routes, exact."""
+    y = torch.randn(batch, length, device=cuda_device)
+    frames = 30 * length // 14000
+    bits = (torch.rand(batch, frames, device=cuda_device) < 0.5).float()
+    before = dict(LAUNCHES)
+    got = mixing.mask_gate(_misaligned(y) if view == "misaligned" else y,
+                           bits, RATIO, complement=True)
+    assert LAUNCHES["mask_gate_complement"] == before["mask_gate_complement"] + 1
+    assert LAUNCHES["mask_gate"] == before["mask_gate"]
+    assert torch.equal(got, mixing.mask_gate_plain(y, bits, RATIO,
+                                                   complement=True))
+    assert torch.equal(got + mixing.mask_gate(y, bits, RATIO), y)
 
 
 @pytest.mark.cuda
@@ -347,6 +389,93 @@ def test_bilstm_kernel_matches_plain(cuda_device, batch, steps, hidden,
             assert not got[b, n:].any()
 
 
+def _recurrence_inputs(device, batch, steps, hidden, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xp_f, xp_b = (torch.randn(batch, steps, 4 * hidden, device=device,
+                              generator=gen) for _ in range(2))
+    w_f, w_b = ((torch.rand(4 * hidden, hidden, device=device,
+                            generator=gen) * 2 - 1) / hidden ** 0.5
+                for _ in range(2))
+    return xp_f, xp_b, w_f, w_b
+
+
+TRAIN_SHAPES = [(15, 60, 100), (40, 178, 200), (2, 60, 100), (2, 178, 200),
+                (9, 12, 8), (3, 20, 4), (5, 30, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", TRAIN_SHAPES)
+def test_bilstm_train_kernel_matches_plain(cuda_device, batch, steps, hidden):
+    """K4's training instance: h bit-identical to the inference
+    instance's; c and the gates one step from the kernel's own h (each
+    step's arithmetic alone) within 1e-6, and against the plain training
+    forward within K4's 5e-5."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, batch + hidden)
+    before = dict(LAUNCHES)
+    out, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+    assert LAUNCHES["bilstm_train"] == before["bilstm_train"] + 1
+    assert LAUNCHES["bilstm"] == before["bilstm"]
+    assert torch.equal(out, lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b))
+    ref_out, ref_c, ref_gates = lstm.bilstm_recurrence_train_plain(
+        xp_f, xp_b, w_f, w_b)
+    for got, ref in ((out, ref_out), (c, ref_c), (gates, ref_gates)):
+        torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+    with exact_fp32():
+        step_c, step_gates = lstm.bilstm_step_states(xp_f, xp_b, w_f, w_b,
+                                                     out, c)
+    torch.testing.assert_close(gates, step_gates, atol=1e-6, rtol=0)
+    torch.testing.assert_close(c, step_c, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", TRAIN_SHAPES)
+def test_bilstm_backward_kernel_matches_plain(cuda_device, batch, steps,
+                                              hidden):
+    """K4b against its plain version on the same saved state (the
+    training instance's), both directions: d xp within 5e-5."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, 7 * batch + hidden)
+    _, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+    dout = torch.randn(batch, steps, 2 * hidden, device=cuda_device)
+    before = LAUNCHES["bilstm_bwd"]
+    got = lstm.bilstm_recurrence_backward(dout, gates, c, w_f, w_b)
+    assert LAUNCHES["bilstm_bwd"] == before + 1
+    with exact_fp32():
+        ref = lstm.bilstm_recurrence_backward_plain(dout, gates, c, w_f, w_b)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilstm_gradients_card_match_cpu(cuda_device):
+    """`BiLSTM` with a gradient on the card (K4's training instance, K4b
+    and the dW_hh product) against the same module on the CPU: every
+    gradient within 1e-4 of its tensor's max |g|."""
+    torch.manual_seed(0)
+    model = lstm.BiLSTM(24, 200)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn(2, 178, 24)
+    weight = torch.randn(2, 178, 400)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        m = lstm.BiLSTM(24, 200).to(dev)
+        m.load_state_dict(model.state_dict())
+        xt = x.detach().to(dev).clone().requires_grad_(True)
+        before = dict(LAUNCHES)
+        with exact_fp32():
+            (m(xt) * weight.to(dev)).sum().backward()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if dev != "cpu":
+            assert launched["bilstm_train"] == 1 and launched["bilstm_bwd"] == 1
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        grads[str(dev)]["x"] = xt.grad.cpu()
+    for name, ref in grads["cpu"].items():
+        got = grads[str(cuda_device)][name]
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-4 * scale, name
+
+
 @pytest.mark.cuda
 def test_bilstm_kernel_refuses_hidden_past_its_plan(cuda_device):
     xp = torch.zeros(2, 5, 1200, device=cuda_device)
@@ -358,11 +487,15 @@ def test_bilstm_kernel_refuses_hidden_past_its_plan(cuda_device):
 
 
 def test_kernel_wrappers_launch_through_on_device():
-    """K1-K7's wrappers take the current stream through `on_device`, not
-    through `torch.cuda.current_stream` and `torch.cuda.device`."""
+    """K1-K7's wrappers (and K4b's) take the current stream through
+    `on_device`, not through `torch.cuda.current_stream` and
+    `torch.cuda.device`. K4's two instances launch through one helper."""
     import inspect
+    for fn in (lstm.bilstm_recurrence, lstm.bilstm_recurrence_train):
+        assert "_recurrence_on_card(" in inspect.getsource(fn), fn.__name__
     for fn in (stft.stft_cat, mixing.mask_gate, stft.crm_istft,
-               lstm.bilstm_recurrence, int8_gemm.int8_matmul_nt,
+               lstm._recurrence_on_card, lstm.bilstm_recurrence_backward,
+               int8_gemm.int8_matmul_nt,
                int8_conv.conv_same_int8, int8_conv.inpaint_conv_int8):
         src = inspect.getsource(fn)
         assert "on_device(" in src, fn.__name__

@@ -174,3 +174,139 @@ def test_plan_refuses_hidden_past_a_cluster():
 def test_parity_alternates():
     assert [RecurrencePlan.parity(s) for s in range(3)] == [(0, 1), (1, 0),
                                                             (0, 1)]
+
+
+# -- K4b (`csrc/bilstm_bwd.cu`, plan `backward_plan`) ------------------------
+
+
+def emulate_backward(plan: lstm.BackwardPlan, dout, gates, c, w_f, w_b,
+                     seed=0, single_buffer=False):
+    """`(dxp_f, dxp_b)` as K4b's blocks compute and exchange them: each
+    rank holds W_hh's columns of its units (all 4H rows) as rows of `jp`,
+    sums its units' dh_rec over the j splits from its dgates buffer of
+    the step's read parity, updates its cells (lane q: rows q, q+4, ...)
+    and writes its units' dgates into every rank's buffer of the write
+    parity; ranks in a shuffled order each step."""
+    batch, steps, _ = dout.shape
+    hidden = plan.hidden
+    gates_n = 4 * hidden
+    order = list(range(plan.cluster))
+    shuffle = random.Random(seed).shuffle
+    splits = [plan.j_columns(q) for q in range(plan.ks)]
+    out = [torch.zeros(batch, steps, gates_n) for _ in range(2)]
+    for d, w in enumerate((w_f, w_b)):
+        for tile in range(plan.tiles):
+            rows = list(plan.rows(tile))
+            blocks = []
+            for rank, (u0, n) in enumerate(plan.units):
+                w_slice = torch.zeros(n, plan.jp)
+                w_slice[:, :gates_n] = w[:, u0:u0 + n].t()
+                blocks.append({"u0": u0, "n": n, "w": w_slice,
+                               "dg": torch.zeros(2, plan.bt, plan.jp),
+                               "dc": torch.zeros(plan.bt, n)})
+            for s in range(steps):
+                t = s if d else steps - 1 - s
+                tp = t + 1 if d else t - 1
+                read, write = plan.parity(s)
+                if single_buffer:
+                    write = read
+                shuffle(order)
+                for rank in order:
+                    blk = blocks[rank]
+                    u0, n = blk["u0"], blk["n"]
+                    dgp = blk["dg"][read]
+                    rec = sum(dgp[:, j] @ blk["w"][:, j].t() for j in splits)
+                    new = torch.zeros(plan.bt, 4, n)
+                    for q in range(plan.ks):  # lane q's rows of every unit
+                        for r in range(q, plan.bt, plan.ks):
+                            if r >= len(rows):
+                                continue
+                            b = rows[r]
+                            sg = gates[d, b, t].view(4, hidden)[:, u0:u0 + n]
+                            i, f, g, o = sg
+                            ct = c[d, b, t, u0:u0 + n]
+                            cp = (c[d, b, tp, u0:u0 + n] if 0 <= tp < steps
+                                  else torch.zeros(n))
+                            dh = dout[b, t, d * hidden + u0:
+                                      d * hidden + u0 + n] + rec[r]
+                            tc = torch.tanh(ct)
+                            dcv = blk["dc"][r] + dh * o * (1 - tc * tc)
+                            blk["dc"][r] = dcv * f
+                            new[r] = torch.stack([
+                                dcv * g * i * (1 - i), dcv * cp * f * (1 - f),
+                                dcv * i * (1 - g * g), dh * tc * o * (1 - o)])
+                    for peer in blocks:
+                        for gi in range(4):
+                            peer["dg"][write][:, gi * hidden + u0:
+                                              gi * hidden + u0 + n] = new[:, gi]
+                    for gi in range(4):
+                        out[d][rows, t, gi * hidden + u0:gi * hidden + u0 + n] = \
+                            new[:len(rows), gi]
+    return out[0], out[1]
+
+
+def _backward_inputs(batch, hidden, seed):
+    (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, seed)
+    _, c, gates = lstm.bilstm_recurrence_train_plain(xp_f, xp_b, w_f, w_b)
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (batch, T, 2 * hidden)).astype(np.float32))
+    return dout, gates, c, w_f, w_b
+
+
+BACKWARD_CASES = ([(b, h) for h in (4, 8) for b in (1, 3, 9)]
+                  + [(3, 100), (9, 100), (5, 200), (9, 200)])
+
+
+@pytest.mark.parametrize("batch,hidden", BACKWARD_CASES)
+def test_backward_plan_emulation_matches_plain(batch, hidden):
+    args = _backward_inputs(batch, hidden, batch * 100 + hidden)
+    plan = lstm.backward_plan(batch, hidden)
+    got = emulate_backward(plan, *args, seed=batch + hidden)
+    ref = lstm.bilstm_recurrence_backward_plain(*args)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+
+
+def test_backward_single_buffered_dgates_would_race():
+    """With one dgates buffer, a rank visited after a peer reads that
+    peer's new dgates, and the result leaves the plain one."""
+    args = _backward_inputs(5, 200, 7)
+    plan = lstm.backward_plan(5, 200)
+    got = emulate_backward(plan, *args, seed=2, single_buffer=True)
+    ref = lstm.bilstm_recurrence_backward_plain(*args)
+    assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) > 1e-3
+
+
+@pytest.mark.parametrize("batch,hidden,cluster,bt",
+                         [(15, 100, 1, 2), (40, 200, 4, 4), (2, 200, 4, 4),
+                          (2, 100, 1, 2), (128, 200, 4, 6)])
+def test_backward_plans_of_the_training_path(batch, hidden, cluster, bt):
+    """The detector (B 15, H 100), the denoiser (B 40, H 200) and the
+    agreement step (B 2): W_hh's columns of a rank's units and both
+    dgates buffers fit a block's shared memory; B 40 fits one wave."""
+    plan = lstm.backward_plan(batch, hidden)
+    assert (plan.cluster, plan.bt) == (cluster, bt)
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT
+    assert plan.jp >= 4 * hidden and plan.jp % 32 == 16
+    assert plan.ustride * plan.jp * 4 * cluster >= 4 * 4 * hidden * hidden
+    if batch <= 40:
+        assert plan.blocks // cluster <= (lstm.CLUSTER4_SLOTS if cluster > 1
+                                          else lstm.BLOCK_SLOTS)
+
+
+@pytest.mark.parametrize("batch,hidden", [(40, 200), (15, 100), (9, 8),
+                                          (3, 4)])
+def test_backward_lanes_update_every_cell_once(batch, hidden):
+    plan = lstm.backward_plan(batch, hidden)
+    for rank, (_, n) in enumerate(plan.units):
+        cells = [(u, r) for tid in range(plan.threads)
+                 for u, rows in [plan.lane_rows(tid, rank)] for r in rows]
+        assert sorted(cells) == [(u, r) for u in range(n)
+                                 for r in range(plan.bt)]
+    cols = sorted(j for q in range(plan.ks) for j in plan.j_columns(q))
+    assert cols == list(range(plan.jp))
+
+
+def test_backward_plan_refuses_hidden_past_a_cluster():
+    with pytest.raises(ValueError, match="fits no K4b plan"):
+        lstm.backward_plan(40, 300)

@@ -153,6 +153,31 @@ def test_dynamic_nearest_time_matches_sos_tpu():
         np.testing.assert_array_equal(_nhwc(got[row:row + 1]), ref)
 
 
+def test_nearest_rules_tie_as_sos_tpu():
+    """`sos_tpu`'s two nearest-resize rules part at a tie: the fixed-shape
+    (exact mode) index floor(j * (in / out)) in float64, the bucketed
+    mode's floor(j * in / out) in integers. A 10.09 s utterance (894 STFT
+    frames, 302 video frames) has one at j = 151: 446 against 447, so
+    the two modes' detector confidences differ at that frame (a
+    seed-0 utterance of scripts/int8_bucket_seeds.py). The port keeps
+    both rules as they are."""
+    from sos_tpu.ops.resize import _nearest_indices as jax_nearest_indices
+    from sos_tpu_torch.ops.resize import nearest_index_tensor
+
+    fixed = nearest_index_tensor(894, 302, torch.device("cpu"))
+    assert fixed.tolist() == jax_nearest_indices(894, 302).tolist()
+    x = torch.arange(894, dtype=torch.float32).reshape(1, 1, 1, 894)
+    dyn = dynamic_nearest_time(x, torch.tensor([894]), torch.tensor([302]),
+                               302)
+    ref = np.asarray(jax_dynamic_nearest_time(
+        jnp.asarray(x.numpy().reshape(1, 1, 894, 1)), jnp.int32(894),
+        jnp.int32(302), 302)).reshape(-1)
+    np.testing.assert_array_equal(dyn.reshape(-1).numpy(), ref)
+    assert (int(fixed[151]), int(dyn[0, 0, 0, 151])) == (446, 447)
+    differ = (fixed != dyn.reshape(-1).long()).nonzero().reshape(-1)
+    assert differ.tolist() == [151]
+
+
 def _buffers(lengths, bucket_t):
     """The bucketed predictors' buffers: reflect pad, zero extension."""
     hop, n_fft = 158, 510

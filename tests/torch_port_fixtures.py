@@ -75,3 +75,41 @@ def make_clips(n: int, seed: int) -> np.ndarray:
     bursts = np.sin(2 * np.pi * 220.0 * t) * (np.sin(2 * np.pi * 1.5 * t) > 0)
     noise = rng.standard_normal((n, CLIP)) * 0.05
     return (0.4 * bursts + noise).astype(np.float32)
+
+
+def training_corpus(root, durations=(4.0, 5.0, 4.5), seed: int = 41,
+                    sr: int = 14000):
+    """A tiny training corpus under `root` (a pathlib.Path): clip WAVs of
+    alternating 0.5 s bursts and silences with their bitstreams in a
+    dataset JSON (`ds.json`), and two 5 s noise WAVs in `noise/`.
+    Returns (dataset JSON path, noise dir)."""
+    import json
+
+    from sos_tpu_torch.dsp import audio_io
+
+    rng = np.random.default_rng(seed)
+    (root / "clips").mkdir(parents=True, exist_ok=True)
+    (root / "noise").mkdir(exist_ok=True)
+    files = []
+    for i, dur in enumerate(durations):
+        n = int(dur * sr)
+        y = np.zeros(n, np.float32)
+        for s in range(0, n, sr):
+            y[s:s + sr // 2] = rng.standard_normal(
+                min(sr // 2, n - s)).astype(np.float32) * 0.3
+        path = str(root / "clips" / f"c{i}.wav")
+        audio_io.write_wav(path, y, sr)
+        frames = int(dur * 30)
+        files.append({
+            "path": path, "audio_path": path, "framerate": 30,
+            "audio_sample_rate": sr, "audio_samples": n, "duration": dur,
+            "num_frames": frames, "bit_stream": "".join(
+                "1" if (j // 15) % 2 == 0 else "0" for j in range(frames))})
+    ds_json = root / "ds.json"
+    ds_json.write_text(json.dumps({"dataset_path": str(root / "clips"),
+                                   "num_videos": len(files), "files": files}))
+    for i in range(2):
+        audio_io.write_wav(str(root / "noise" / f"n{i}.wav"),
+                           (rng.standard_normal(sr * 5) * 0.2)
+                           .astype(np.float32), sr)
+    return str(ds_json), str(root / "noise")
