@@ -35,6 +35,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
    instance's, c and gates within 1e-6 of one step from the kernel's
    own state) and K4b (the BiLSTM backward, against its plain version
    on the same saved state) at B 15 T 60 / H 100 and B 40 T 178 / H 200
+   (and, logged with its bound, the joint step's B 15 T 178 / H 200)
    beside cuDNN's fp32 `nn.LSTM` in training (forward, and backward of
    the data gradient, each less its identity projections), and K2's
    complement instance at (15, 28000) and (40, 28000), exactly; K5 at
@@ -98,7 +99,27 @@ Phases, in order; any failure ends the run with a nonzero exit:
    sos_tpu_torch.cli.train_detector` at full width on a generated corpus
    (1 epoch, `latest` every step, batch 4), and `--continue --ckpt
    latest` to epoch 2: `latest.clock.json` must advance and stay strict
-   JSON.
+   JSON;
+9. joint and bf16 training, checkpoints end to end: full width, fresh
+   seeded weights, synthetic clips. The joint step at batch 2 on the card
+   (K1, K2, K2's complement once, K4's training instance and K4b twice)
+   and each stage's part of it, card against CPU on the card's
+   device-stage outputs, with phase 8's bounds; one bf16 `--no_remat`
+   step of each stage at batch 2 against the card's f32 step on the same
+   inputs, within `BF16_BOUNDS` (sos_tpu's own bf16-vs-f32 gap at the
+   reference depth), its BiLSTM's and heads' gradients card against CPU
+   within 1e-3 of max |g|, and against the CPU's bf16 step when that
+   should take under 60 s; timed steps (as phase 8) of the joint step,
+   f32 with remat, at batch 15, and bf16 without remat of the detector
+   at 15, the denoiser at 40 (or the largest batch that fits) and the
+   joint step at 15; then the CLIs in this process on a generated
+   corpus: `train_joint` (1 epoch, batch 4) -> `predict_detector --ckpt
+   latest` -> `bridge` -> `predict_denoiser --ckpt latest` (11 finite
+   metrics; K3 and K4 launch), `denoise --detector_ckpt latest
+   --denoiser_ckpt latest --profile int8` (the scale file, finite audio;
+   K6 and K7 launch), and `import_checkpoint` of a reference-layout
+   `ckpt_epoch3.pth` (the weights back exactly) then `train_detector
+   --continue --ckpt 3 --epochs 4` (`latest.clock.json` at epoch 4).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -106,6 +127,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -147,7 +169,9 @@ from sos_tpu_torch.ops.lstm import (backward_plan, bilstm_recurrence,
                                     bilstm_step_states, max_active_clusters,
                                     recurrence_plan)
 from sos_tpu_torch.ops.resize import nearest_index_tensor
+from sos_tpu_torch.train import joint
 from sos_tpu_torch.train import loop as train_loop
+from sos_tpu_torch.train.checkpoints import load_model_state
 
 SEED = 0
 BATCH = 128          # clips in the kernel and throughput phases
@@ -519,6 +543,9 @@ def phase_kernels(gen: torch.Generator):
 # the training path's BiLSTM shapes: (batch, steps, hidden) of the
 # detector at batch 15 and the denoiser at batch 40
 TRAIN_LSTM_SHAPES = ((15, 60, 100), (40, 178, 200))
+# further training shapes, checked and logged beside the sum (which stays
+# comparable with earlier runs): the joint step's denoiser at batch 15
+TRAIN_LSTM_LOGGED = ((15, 178, 200),)
 
 
 def cudnn_training_ms(xp_f, w_f, w_b, dev):
@@ -562,8 +589,9 @@ def cudnn_training_ms(xp_f, w_f, w_b, dev):
 def training_cases(gen, dev, record):
     """The training path's kernel instances at its shapes: K4's training
     instance and K4b at the detector's (B 15, T 60, H 100) and the
-    denoiser's (B 40, T 178, H 200) BiLSTM, and K2's complement at
-    (15, 28000) and (40, 28000). K4's training instance: h bit-identical
+    denoiser's (B 40, T 178, H 200) BiLSTM (summed in their rows), and
+    the joint step's denoiser's (B 15, T 178, H 200, logged with its
+    bound), and K2's complement at (15, 28000) and (40, 28000). K4's training instance: h bit-identical
     to the inference instance's, c and gates within 1e-6 of one step
     from the kernel's own state and within K4's 5e-5 of the plain
     training forward. K4b: against its plain version on the same saved
@@ -572,7 +600,7 @@ def training_cases(gen, dev, record):
     acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
                "bytes": 0.0, "err": 0.0, "ok": True}
            for k in ("train", "bwd")}
-    for batch, steps, hidden in TRAIN_LSTM_SHAPES:
+    for batch, steps, hidden in TRAIN_LSTM_SHAPES + TRAIN_LSTM_LOGGED:
         g4 = 4 * hidden
         xp_f, xp_b = (torch.randn(batch, steps, g4, generator=gen).to(dev)
                       for _ in range(2))
@@ -625,19 +653,32 @@ def training_cases(gen, dev, record):
             f"({b_ms / steps * 1e3:.2f} us/step)  plain {b_plain_ms:.4f} ms  "
             f"cuDNN backward (data) less projections {lib_b:.4f} ms")
         rec_flops = 2.0 * batch * steps * 2 * hidden * g4
-        for key, vals in (
-                ("train", (ms, plain_ms, lib_f, rec_flops
-                           + 2.0 * batch * steps * 10 * hidden,
-                           4.0 * (2 * batch * steps * g4 + 2 * g4 * hidden
-                                  + batch * steps * 2 * hidden
-                                  + 2 * batch * steps * (hidden + g4)),
-                           err, ok)),
-                ("bwd", (b_ms, b_plain_ms, lib_b, rec_flops
-                         + 2.0 * batch * steps * 20 * hidden,
-                         4.0 * (batch * steps * 2 * hidden
-                                + 2 * batch * steps * (g4 + hidden)
-                                + 2 * g4 * hidden + 2 * batch * steps * g4),
-                         err_b, err_b <= 5e-5))):
+        cases = (("train", (ms, plain_ms, lib_f, rec_flops
+                            + 2.0 * batch * steps * 10 * hidden,
+                            4.0 * (2 * batch * steps * g4 + 2 * g4 * hidden
+                                   + batch * steps * 2 * hidden
+                                   + 2 * batch * steps * (hidden + g4)),
+                            err, ok)),
+                 ("bwd", (b_ms, b_plain_ms, lib_b, rec_flops
+                          + 2.0 * batch * steps * 20 * hidden,
+                          4.0 * (batch * steps * 2 * hidden
+                                 + 2 * batch * steps * (g4 + hidden)
+                                 + 2 * g4 * hidden + 2 * batch * steps * g4),
+                          err_b, err_b <= 5e-5)))
+        if (batch, steps, hidden) in TRAIN_LSTM_LOGGED:
+            for key, vals in cases:
+                bound_ms, bound_by = bound(vals[3], vals[4])
+                log(f"  bilstm_{key} B{batch} T{steps}/H{hidden} (logged "
+                    f"case): kernel {vals[0]:.4f} ms  bound {bound_ms:.4f} "
+                    f"ms ({bound_by})  plain {vals[1]:.4f} ms  cuDNN "
+                    f"{vals[2]:.4f} ms  max err {vals[5]:.3e} "
+                    f"{'ok' if vals[6] else 'FAILED'}")
+                if not vals[6]:
+                    raise RuntimeError(f"bilstm_{key} B{batch} T{steps}/"
+                                       f"H{hidden} disagrees with its plain "
+                                       f"version")
+            continue
+        for key, vals in cases:
             a = acc[key]
             for name, v in zip(("ms", "plain_ms", "library_ms", "flops",
                                 "bytes"), vals[:5]):
@@ -1895,12 +1936,16 @@ TRAIN_CATEGORIES = (
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K2 mask_gate (both instances)", ("mask_gate_kernel",)),
     ("optimizer (Adam, foreach)", ("multi_tensor_apply",)),
+    # the FFT algorithm of a convolution, forward or backward: transforms,
+    # complex GEMMs, the pointwise product
+    ("cuDNN FFT convolutions", ("cf32", "fft", "pointwise_mult_and_sum")),
+    ("cuDNN layout conversions (NCHW <-> NHWC)",
+     ("nchwToNhwc", "nhwcToNchw")),
     ("cuDNN conv backward (data and weight gradients)",
      ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter",
       "convolve_common_engine_float_NHWC")),
     ("cuDNN conv forward", ("conv", "cudnn", "fprop", "winograd", "implicit",
-                            "fft", "pointwise_mult_and_sum", "Nchw", "nchw",
-                            "Nhwc", "nhwc")),
+                            "Nchw", "nchw", "Nhwc", "nhwc")),
     ("reductions (BN statistics and their gradients, losses, finiteness)",
      ("reduce_kernel",)),
     ("elementwise (BN, activations, cRM, copies)",
@@ -1921,6 +1966,14 @@ def train_batch(n: int, gen: torch.Generator):
             "snr": np.asarray([(-5.0, 0.0, 5.0, 10.0)[i % 4]
                                for i in range(n)], np.float32),
             "bits": bits.numpy()}
+
+
+def fresh_state_dicts(cfg):
+    """Fresh seeded weights of both stages, as the train CLIs start."""
+    return {"detector": train_loop.fresh_state_dict(
+                SilenceDetector(cfg.detector), SEED),
+            "denoiser": train_loop.fresh_state_dict(
+                JointDenoiser(cfg.denoiser), SEED)}
 
 
 def _init(stage, cfg, device, state_dict):
@@ -2019,29 +2072,39 @@ def _worst(errs, head: bool) -> str:
     return f"{n} {part[n]:.2e}"
 
 
-def train_agreement(stage, cfg, state_dict, gen):
+STAGE_INPUTS = {"detector": train_loop.detector_inputs,
+                "denoiser": train_loop.denoiser_inputs}
+AGREEMENT_RUNS = ("card", "card deterministic", "cpu", "cpu own input")
+
+
+def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
+                    runs=AGREEMENT_RUNS, label="", batch=None):
     """One train step at batch 2 from the same weights and batch on the
-    card and on the CPU. The card makes the step's inputs (mix, STFTs)
-    and steps on them; the CPU steps on a copy of them (one fixed input)
-    and, apart, on the inputs it makes itself. Held: the loss within
-    1e-4 relative and the new BatchNorm statistics within 1e-5, for both
-    CPU steps; all gradients within 5e-2 relative L2 on the fixed input;
-    and the BiLSTM's and heads' gradients (and the features') within
-    1e-3 of each tensor's max |g|, card against CPU, from the card
-    step's own head features and logits' gradient. Logged beside them,
-    as witnesses of what moves the rest: how far the head features of
-    the card and the CPU drift apart on the fixed input, the CPU's
-    own-input step against its fixed-input step (the device stages'
-    rounding alone), and the card against itself with cuDNN's
-    deterministic algorithms. The training path's launch counters must
-    rise on the card."""
-    batch = train_batch(2, gen)
-    make_inputs = (train_loop.detector_inputs if stage == "detector"
-                   else train_loop.denoiser_inputs)
-    with exact_fp32():
-        own_in = make_inputs(cfg, batch, "cpu")
+    card and on the CPU. The card makes the step's inputs (`make_inputs`,
+    the stage's own device stage by default: mix, STFTs) and steps on
+    them; the CPU steps on a copy of them (one fixed input) and, apart,
+    on the inputs it makes itself. Held: the loss within 1e-4 relative
+    and the new BatchNorm statistics within 1e-5, for both CPU steps; all
+    gradients within 5e-2 relative L2 on the fixed input; and the
+    BiLSTM's and heads' gradients (and the features') within 1e-3 of
+    each tensor's max |g|, card against CPU, from the card step's own
+    head features and logits' gradient. Logged beside them, as witnesses
+    of what moves the rest: how far the head features of the card and
+    the CPU drift apart on the fixed input, the CPU's own-input step
+    against its fixed-input step (the device stages' rounding alone),
+    and the card against itself with cuDNN's deterministic algorithms
+    (`runs` may leave those two out). The training path's launch
+    counters must rise on the card. `batch`: a new seeded one of 2 clips
+    unless given. Returns the card step's loss and the CPU's fixed-input
+    step's seconds."""
+    batch = train_batch(2, gen) if batch is None else batch
+    make_inputs = make_inputs or STAGE_INPUTS[stage]
+    name = f"{stage}{label}"
+    if "cpu own input" in runs:
+        with exact_fp32():
+            own_in = make_inputs(cfg, batch, "cpu")
     out = {}
-    for run in ("card", "card deterministic", "cpu", "cpu own input"):
+    for run in runs:
         dev = "cuda" if run.startswith("card") else "cpu"
         state = _init(stage, cfg, dev, state_dict)
         reset_launches()
@@ -2050,8 +2113,9 @@ def train_agreement(stage, cfg, state_dict, gen):
             with exact_fp32():
                 card_in = make_inputs(cfg, batch, dev)
             fixed = {k: v.cpu() for k, v in card_in.items()}
-        inputs = {"card": card_in, "card deterministic": card_in,
-                  "cpu": fixed, "cpu own input": own_in}[run]
+        inputs = own_in if run == "cpu own input" else {
+            "card": card_in, "card deterministic": card_in,
+            "cpu": fixed}[run]
         torch.backends.cudnn.deterministic = run == "card deterministic"
         try:
             loss, grads, applied, head = step_with_gradients(
@@ -2063,13 +2127,12 @@ def train_agreement(stage, cfg, state_dict, gen):
         stats = {n: b.detach().cpu() for n, b in state.model.named_buffers()}
         out[run] = (loss, grads, stats, applied, time.perf_counter() - t0,
                     dict(LAUNCHES), head)
-    in_diff = max(float((own_in[k] - v).abs().max()) for k, v in fixed.items())
     l_gpu, g_gpu, s_gpu, a_gpu, t_gpu, launches, h_gpu = out["card"]
     l_cpu, g_cpu, s_cpu, a_cpu, t_cpu, _, h_cpu = out["cpu"]
-    l_own, g_own, s_own, a_own, t_own, _, _ = out["cpu own input"]
-    rel = max(abs(l_gpu - l) / abs(l) for l in (l_cpu, l_own))
-    s_err = max(float((s_gpu[n] - v).abs().max()) for s in (s_cpu, s_own)
-                for n, v in s.items())
+    cpu_runs = [out[r] for r in ("cpu", "cpu own input") if r in out]
+    rel = max(abs(l_gpu - o[0]) / abs(o[0]) for o in cpu_runs)
+    s_err = max(float((s_gpu[n] - v).abs().max()) for o in cpu_runs
+                for n, v in o[2].items())
     errs, l2 = _gradient_spread(g_gpu, g_cpu)
     feat = float((h_gpu["x"].cpu() - h_cpu["x"]).abs().max()
                  / h_cpu["x"].abs().max())
@@ -2083,82 +2146,128 @@ def train_agreement(stage, cfg, state_dict, gen):
     head_worst = max(head_errs, key=head_errs.get)
     missing = [k for k in TRAIN_KERNELS[stage] if launches[k] == 0]
     missing += [k for k, v in head_launches.items() if v == 0]
-    log(f"train agreement {stage} (batch 2, full width): loss card "
-        f"{l_gpu:.6f} cpu {l_cpu:.6f} own input {l_own:.6f} (worst rel "
-        f"{rel:.2e}, tolerance 1e-4); BN statistics {s_err:.2e} (tolerance "
-        f"1e-5); the device stages' outputs card against CPU {in_diff:.2e}; "
-        f"applied {a_gpu}/{a_cpu}/{a_own}; CPU steps {t_cpu:.1f} + "
-        f"{t_own:.1f} s, card step {t_gpu:.2f} s; launches "
+    log(f"train agreement {name} (batch 2, full width): loss card "
+        f"{l_gpu:.6f} " + " ".join(f"{r} {out[r][0]:.6f}" for r in runs
+                                   if r.startswith("cpu"))
+        + f" (worst rel {rel:.2e}, tolerance 1e-4); BN statistics "
+        f"{s_err:.2e} (tolerance 1e-5); applied "
+        f"{[out[r][3] for r in runs]}; CPU steps "
+        f"{' + '.join(f'{o[4]:.1f}' for o in cpu_runs)} s, card step "
+        f"{t_gpu:.2f} s; launches "
         f"{ {k: launches[k] for k in TRAIN_KERNELS[stage]} }")
-    log(f"  BiLSTM and heads {stage} from the card step's features and "
+    if "cpu own input" in out:
+        in_diff = max(float((own_in[k] - v).abs().max())
+                      for k, v in fixed.items())
+        log(f"  the device stages' outputs {name}, card against CPU: "
+            f"{in_diff:.2e}")
+    log(f"  BiLSTM and heads {name} from the card step's features and "
         f"logits' gradient, card against CPU: worst {head_worst} "
         f"{head_errs[head_worst]:.2e} of its max |g| (tolerance 1e-3), "
         f"relative L2 {head_l2:.2e}; launches {head_launches}")
-    log(f"  the head's features {stage}, card against CPU on the fixed "
+    log(f"  the head's features {name}, card against CPU on the fixed "
         f"input: {feat:.2e} of their max |x|")
-    for label, (e, l2_) in (
-            ("card against CPU, fixed input", (errs, l2)),
-            ("CPU own input against CPU fixed input",
-             _gradient_spread(g_own, g_cpu)),
-            ("card deterministic cuDNN against card",
-             _gradient_spread(out["card deterministic"][1], g_gpu)),
-            ("card against CPU own input", _gradient_spread(g_gpu, g_own))):
-        log(f"  gradients {stage}, {label}: relative L2 {l2_:.2e}; worst of "
+    witnesses = [("card against CPU, fixed input", (errs, l2))]
+    if "cpu own input" in out:
+        witnesses += [("CPU own input against CPU fixed input",
+                       _gradient_spread(out["cpu own input"][1], g_cpu)),
+                      ("card against CPU own input",
+                       _gradient_spread(g_gpu, out["cpu own input"][1]))]
+    if "card deterministic" in out:
+        witnesses.append(("card deterministic cuDNN against card",
+                          _gradient_spread(out["card deterministic"][1],
+                                           g_gpu)))
+    for what, (e, l2_) in witnesses:
+        log(f"  gradients {name}, {what}: relative L2 {l2_:.2e}; worst of "
             f"its max |g|: BiLSTM and heads {_worst(e, True)}, trunks "
             f"{_worst(e, False)}; tensors over 1e-3 "
             f"{sum(v > 1e-3 for v in e.values())}/{len(e)}")
     if missing:
-        raise RuntimeError(f"train step {stage} never launched {missing}")
-    if not (a_gpu and a_cpu and a_own and rel <= 1e-4 and s_err <= 1e-5
+        raise RuntimeError(f"train step {name} never launched {missing}")
+    if not (all(out[r][3] for r in runs) and rel <= 1e-4 and s_err <= 1e-5
             and head_errs[head_worst] <= 1e-3 and l2 <= 5e-2):
-        raise RuntimeError(f"train step {stage}: card disagrees with the CPU")
+        raise RuntimeError(f"train step {name}: card disagrees with the CPU")
+    return l_gpu, t_cpu
 
 
-def timed_training(stage, cfg, state_dict, gen):
-    """The real train step at the stage's batch: median step ms of
-    TRAIN_TIMED_STEPS after 2 warm-up steps, clips/s, audio-s/s trained,
-    peak memory, a profiler breakdown of one step. Returns the launches
-    of the timed steps."""
-    n = TRAIN_BATCH[stage]
+def stage_step(stage, cfg, state_dicts, n, gen):
+    """A closure running the real train step of `stage` ("detector",
+    "denoiser" or "joint") on the card at batch `n`, from the given
+    weights, on one seeded batch; it returns the step's metrics."""
+    batch = train_batch(n, gen)
+    if stage == "joint":
+        det = _init("detector", cfg, "cuda", state_dicts["detector"])
+        den = _init("denoiser", cfg, "cuda", state_dicts["denoiser"])
+        step = joint.make_joint_train_step(cfg, 100)
+        return lambda: step(det, den, batch)[2]
     make = (train_loop.make_detector_train_step if stage == "detector"
             else train_loop.make_denoiser_train_step)
-    state = _init(stage, cfg, "cuda", state_dict)
+    state = _init(stage, cfg, "cuda", state_dicts[stage])
     step = make(cfg, 100)
-    batch = train_batch(n, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(state, batch)
-    torch.cuda.synchronize()
+    return lambda: step(state, batch)[1]
+
+
+# the losses each stage's step reports
+STEP_LOSSES = {"detector": ("loss",), "denoiser": ("loss",),
+               "joint": ("detector_loss", "denoiser_loss")}
+
+
+def timed_training(stage, cfg, state_dicts, gen, batches=None):
+    """The real train step of `stage` on the card: median step ms of
+    TRAIN_TIMED_STEPS after 2 warm-up steps, clips/s, audio-s/s trained,
+    peak memory, a profiler breakdown of one step. `batches`: the
+    batches to try in turn (default the stage's TRAIN_BATCH); one that
+    does not fit the card's memory is logged as such and the next is
+    tried. Returns the launches of the timed steps."""
+    dtype = (f"{cfg.train.compute_dtype}, remat {cfg.train.remat}")
+    for n in batches or (TRAIN_BATCH["detector" if stage == "joint"
+                                     else stage],):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step = stage_step(stage, cfg, state_dicts, n, gen)
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            step = None
+            log(f"training {stage} ({dtype}) {card_note()}: batch {n} does "
+                f"not fit the card (peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                f"before the failed allocation)")
+    if step is None:
+        raise RuntimeError(f"timed training {stage}: no batch fits")
     reset_launches()
     times, losses = [], []
     for _ in range(TRAIN_TIMED_STEPS):
         t0 = time.perf_counter()
-        _, metrics = step(state, batch)
+        metrics = step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"])
-        if metrics["finite"] != 1.0 or not np.isfinite(metrics["loss"]):
+        losses.append([metrics[k] for k in STEP_LOSSES[stage]])
+        if metrics["finite"] != 1.0 or not np.isfinite(losses[-1]).all():
             raise RuntimeError(f"timed training {stage}: non-finite step")
     launches = dict(LAUNCHES)
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"training {stage} {card_note()}: batch {n}, remat "
-        f"{cfg.train.remat}, median step {med * 1e3:.1f} ms (min "
-        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}) -> "
-        f"{n / med:.1f} clips/s, {n * CLIP / 14000.0 / med:.1f} audio-s/s "
-        f"trained; peak memory {peak:.2f} GiB; losses "
-        f"{[round(x, 5) for x in losses]}; launches per step "
-        f"{ {k: launches[k] / TRAIN_TIMED_STEPS for k in TRAIN_KERNELS[stage]} }")
-    prof = profile_call(lambda: step(state, batch), TRAIN_CATEGORIES)
+    kernels = TRAIN_KERNELS["denoiser" if stage == "joint" else stage]
+    log(f"training {stage} ({dtype}) {card_note()}: batch {n}, median "
+        f"step {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
+        f"{max(times) * 1e3:.1f}) -> {n / med:.1f} clips/s, "
+        f"{n * CLIP / 14000.0 / med:.1f} audio-s/s trained"
+        + (" for each stage" if stage == "joint" else "")
+        + f"; peak memory {peak:.2f} GiB; losses "
+        f"{[[round(x, 5) for x in ls] for ls in losses]}; launches per step "
+        f"{ {k: launches[k] / TRAIN_TIMED_STEPS for k in kernels} }")
+    prof = profile_call(step, TRAIN_CATEGORIES)
     if prof is not None:
-        log(f"profile training {stage}: wall {prof['wall_ms']:.1f} ms, "
-            f"device {prof['device_ms']:.1f} ms, idle share "
-            f"{prof['idle_share']:.3f}; " + ", ".join(
+        log(f"profile training {stage} ({dtype}): wall "
+            f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, "
+            f"idle share {prof['idle_share']:.3f}; " + ", ".join(
                 f"{k} {v:.2f} ms" for k, v in prof["categories_ms"].items()))
         for name, ms in prof["top_kernels_ms"]:
             log(f"    {ms:9.2f} ms  {name}")
-    del state
+    del step
     torch.cuda.empty_cache()
     return launches
 
@@ -2242,16 +2351,302 @@ def phase_training(cfg: ExperimentConfig, gen: torch.Generator,
     timed train steps of both stages."""
     t_phase = time.perf_counter()
     launches = {k: 0 for k in LAUNCHES}
+    state_dicts = fresh_state_dicts(cfg)
     for stage in ("detector", "denoiser"):
-        model = (SilenceDetector(cfg.detector) if stage == "detector"
-                 else JointDenoiser(cfg.denoiser))
-        state_dict = train_loop.fresh_state_dict(model, SEED)
-        train_agreement(stage, cfg, state_dict, gen)
-        for k, v in timed_training(stage, cfg, state_dict, gen).items():
+        train_agreement(stage, cfg, state_dicts[stage], gen)
+        for k, v in timed_training(stage, cfg, state_dicts, gen).items():
             launches[k] += v
     cli_fit(workdir, gen)
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# -- joint and bf16 training, checkpoints end to end -------------------------
+
+# launches of one joint step: K1 (the four stacked STFTs), K2, K2's
+# complement, and K4's training instance and K4b once a stage
+JOINT_LAUNCHES = {"stft": 1, "mask_gate": 1, "mask_gate_complement": 1,
+                  "bilstm_train": 2, "bilstm_bwd": 2}
+# bf16 step against f32 step from the same weights and inputs, (relative
+# loss gap, relative L2 of all gradients): the farthest bf16 moves
+# sos_tpu's own train step from its f32 step at the reference depth, over
+# 16 weight and batch draws, rounded up (tests/test_torch_bf16_bounds.py)
+BF16_BOUNDS = {"detector": (1.3e-3, 0.55), "denoiser": (6.6e-3, 1.14)}
+# the CPU's bf16 step is held beside the card's when it should take less
+CPU_BF16_LIMIT_S = 60.0
+
+
+def bf16_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """`--compute_dtype bfloat16 --no_remat`."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16", remat=False))
+
+
+def joint_stage_inputs(stage):
+    """The joint step's inputs of one stage (`joint.joint_inputs`)."""
+    def make(cfg, batch, device):
+        d, det_in = joint.joint_inputs(cfg, batch, device)
+        return det_in if stage == "detector" else d
+    return make
+
+
+def joint_agreement(cfg, state_dicts, gen):
+    """Phase 9.1: the real joint step at batch 2 on the card (its
+    launches exactly JOINT_LAUNCHES, finite), then each stage's part of
+    it on the same batch, card against CPU on the card's device-stage
+    outputs (`train_agreement`'s bounds), the card's losses within 1e-4
+    of the joint step's. Returns each stage's CPU step seconds."""
+    batch = train_batch(2, gen)
+    det = _init("detector", cfg, "cuda", state_dicts["detector"])
+    den = _init("denoiser", cfg, "cuda", state_dicts["denoiser"])
+    reset_launches()
+    _, _, metrics = joint.make_joint_train_step(cfg, 100)(det, den, batch)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in JOINT_LAUNCHES}
+    log(f"joint step (batch 2, full width) on the card: {metrics}; "
+        f"launches {launches}")
+    del det, den
+    if launches != JOINT_LAUNCHES or metrics["finite"] != 1.0:
+        raise RuntimeError(f"joint step: launches {launches} (expected "
+                           f"{JOINT_LAUNCHES}), finite {metrics['finite']}")
+    cpu_s = {}
+    for stage in ("detector", "denoiser"):
+        loss, cpu_s[stage] = train_agreement(
+            stage, cfg, state_dicts[stage], gen, joint_stage_inputs(stage),
+            runs=("card", "cpu"), label=" (joint step)", batch=batch)
+        ref = metrics[f"{stage}_loss"]
+        if abs(loss - ref) > 1e-4 * abs(ref):
+            raise RuntimeError(f"joint step {stage}: loss {ref} against "
+                               f"its part's {loss}")
+    return cpu_s
+
+
+def bf16_agreement(stage, cfg, state_dict, gen, cpu_estimate_s):
+    """Phase 9.2: one bf16 --no_remat step of `stage` at batch 2 on the
+    card against the card's f32 step from the same weights and inputs:
+    the relative loss gap and the relative L2 of all gradients within
+    BF16_BOUNDS; the BiLSTM's and heads' gradients from the bf16 step's
+    own features within 1e-3 of max |g|, card against CPU; the training
+    kernels launched. The CPU's bf16 step on the same inputs is held to
+    BF16_BOUNDS too when it should take under CPU_BF16_LIMIT_S
+    (`cpu_estimate_s`), else skipped with the reason logged. Returns the
+    CPU bf16 step's seconds (None when skipped)."""
+    cfg16 = bf16_config(cfg)
+    batch = train_batch(2, gen)
+    reset_launches()
+    with exact_fp32():
+        card_in = STAGE_INPUTS[stage](cfg, batch, "cuda")
+    # the device stage's kernels, then the bf16 step's own
+    launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS[stage]
+                if not k.startswith("bilstm")}
+    l32, g32, _, _ = step_with_gradients(
+        stage, cfg, _init(stage, cfg, "cuda", state_dict), batch, card_in)
+    reset_launches()
+    l16, g16, applied, head = step_with_gradients(
+        stage, cfg16, _init(stage, cfg16, "cuda", state_dict), batch,
+        card_in)
+    torch.cuda.synchronize()
+    launches.update({k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")})
+    gap = (abs(l16 - l32) / abs(l32), _relative_l2(g16, g32))
+    head_errs, _ = _gradient_spread(
+        head_gradients(stage, cfg16, state_dict, "cuda", head["x"],
+                       head["g"]),
+        head_gradients(stage, cfg16, state_dict, "cpu", head["x"],
+                       head["g"]))
+    head_worst = max(head_errs, key=head_errs.get)
+    bounds = BF16_BOUNDS[stage]
+    log(f"bf16 step {stage} (batch 2, full width, no remat) against the "
+        f"f32 step, card: loss {l16:.6f} / {l32:.6f}, gap {gap[0]:.3e} "
+        f"(bound {bounds[0]:.1e}), gradients relative L2 {gap[1]:.3e} "
+        f"(bound {bounds[1]}); BiLSTM and heads from its features, card "
+        f"against CPU: worst {head_worst} {head_errs[head_worst]:.2e} "
+        f"(tolerance 1e-3); launches {launches}")
+    ok = (applied and gap[0] <= bounds[0] and gap[1] <= bounds[1]
+          and head_errs[head_worst] <= 1e-3 and all(launches.values()))
+    cpu_s = None
+    if cpu_estimate_s < CPU_BF16_LIMIT_S:
+        t0 = time.perf_counter()
+        lc, gc, ac, _ = step_with_gradients(
+            stage, cfg16, _init(stage, cfg16, "cpu", state_dict), batch,
+            {k: v.cpu() for k, v in card_in.items()})
+        cpu_s = time.perf_counter() - t0
+        cpu_gap = (abs(l16 - lc) / abs(lc), _relative_l2(g16, gc))
+        log(f"  bf16 step {stage}, card against CPU ({cpu_s:.1f} s): loss "
+            f"gap {cpu_gap[0]:.3e}, gradients relative L2 "
+            f"{cpu_gap[1]:.3e} (bounds {bounds})")
+        ok = ok and ac and cpu_gap[0] <= bounds[0] and cpu_gap[1] <= bounds[1]
+    else:
+        log(f"  bf16 step {stage}, card against CPU: skipped, the CPU's "
+            f"bf16 step would take about {cpu_estimate_s:.0f} s (limit "
+            f"{CPU_BF16_LIMIT_S:.0f} s)")
+    if not ok:
+        raise RuntimeError(f"bf16 step {stage}: outside its bounds")
+    return cpu_s
+
+
+def run_cli(module, argv) -> None:
+    """`python -m <module> <argv>` in this process, so that the kernels
+    it launches count here."""
+    saved = sys.argv
+    sys.argv = [module.__name__] + list(argv)
+    try:
+        module.main()
+    finally:
+        sys.argv = saved
+
+
+def reference_detector_state(state_dict):
+    """The port's detector weights in the reference's `.pth` layout
+    (`AudioVisualNet`, m1 networks.py; what `models/torch_import.py`
+    reads): conv blocks as `encoder_audio.{i}.block.{0,1}`, the
+    projection last, the LSTM in torch's names, the head as `fc1.{0,2}`."""
+    convs = sorted({k.split(".")[0] for k in state_dict
+                    if k.startswith("conv")}, key=lambda n: int(n[4:]))
+    out = {}
+    for i, name in enumerate(convs + ["proj"]):
+        out[f"encoder_audio.{i}.block.0.weight"] = state_dict[f"{name}.weight"]
+        for part in ("weight", "bias", "running_mean", "running_var"):
+            out[f"encoder_audio.{i}.block.1.{part}"] = \
+                state_dict[f"{name}.bn.{part}"]
+    for mine, theirs in (("fwd", "l0"), ("bwd", "l0_reverse")):
+        for kind in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            torch_kind = ("weight_" if kind[0] == "w" else "bias_") + kind[2:]
+            out[f"lstm.{torch_kind}_{theirs}"] = \
+                state_dict[f"lstm.{kind}_{mine}"]
+    for mine, theirs in (("fc1", "fc1.0"), ("fc2", "fc1.2")):
+        for part in ("weight", "bias"):
+            out[f"{theirs}.{part}"] = state_dict[f"{mine}.{part}"]
+    return {k: v.clone() for k, v in out.items()}
+
+
+def cli_round_trip(workdir: str, gen: torch.Generator, state_dicts) -> None:
+    """Phase 9.4, at full width on the card over a generated corpus:
+    `train_joint` (1 epoch, batch 4) writes both stages' `ckpt_epoch1`
+    and `latest`; `predict_detector --ckpt latest` -> `bridge` ->
+    `predict_denoiser --ckpt latest` give 11 finite metrics (K3 and K4
+    launch); `denoise --detector_ckpt latest --denoiser_ckpt latest
+    --profile int8` on one WAV calibrates, writes the scale file and
+    finite audio (K6 and K7 launch); `import_checkpoint` of the fresh
+    detector weights in the reference `.pth` layout as `ckpt_epoch3.pth`
+    gives those weights back, and `train_detector --continue --ckpt 3
+    --epochs 4` ends with `latest.clock.json` at epoch 4, strict JSON."""
+    from sos_tpu_torch.cli import (bridge, denoise, import_checkpoint,
+                                   predict_denoiser, predict_detector,
+                                   train_detector, train_joint)
+
+    root = os.path.join(workdir, "round_trip")
+    ds_json = train_corpus(root, gen)
+    noise = os.path.join(root, "noise")
+    out = os.path.join(root, "out")
+    exp = ["--output_root", out, "--name", "smoke"]
+
+    def model_dir(name, stage):
+        return os.path.join(out, f"{name}_{stage}", "model")
+
+    t0 = time.perf_counter()
+    run_cli(train_joint, ["--dataset_json", ds_json, "--noise_root", noise,
+                          "--batch_size", "4", "--epochs", "1", *exp])
+    clocks = {stage: _strict_json(os.path.join(model_dir("smoke", stage),
+                                               "latest.clock.json"))
+              for stage in ("detector", "denoiser")}
+    written = all(os.path.isfile(os.path.join(model_dir("smoke", stage),
+                                              f"{n}.pt"))
+                  for stage in clocks for n in ("ckpt_epoch1", "latest"))
+    log(f"train_joint CLI: {time.perf_counter() - t0:.1f} s, both stages' "
+        f"ckpt_epoch1.pt and latest.pt {written}, clocks {clocks}")
+    if not (written and all(c["epoch"] == 1 for c in clocks.values())):
+        raise RuntimeError("train_joint did not write both stages' epoch")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    det_out, den_out = (os.path.join(root, "eval", s) for s in ("det", "den"))
+    run_cli(predict_detector, ["--dataset_json", ds_json, "--noise_root",
+                               noise, "--ckpt", "latest", "--snr_idx", "3",
+                               "--outputs", det_out, *exp])
+    run_cli(bridge, ["--input_json",
+                     os.path.join(det_out, "eval_results_snr0.json"),
+                     "--snr", "0"])
+    run_cli(predict_denoiser, ["--pred_data",
+                               os.path.join(det_out, "pred_data_snr0.json"),
+                               "--ckpt", "latest", "--snr", "0",
+                               "--outputs", den_out, *exp])
+    stats = _strict_json(os.path.join(den_out, "eval_results_snr0.json"))[
+        "denoise_statistics"]
+    k3 = LAUNCHES["crm_istft"] + LAUNCHES["crm_istft_valid_t"]
+    k4 = LAUNCHES["bilstm"] + LAUNCHES["bilstm_lengths"]
+    log(f"eval chain on the trained checkpoints (--ckpt latest): "
+        f"{time.perf_counter() - t0:.1f} s, {len(stats)} metrics {stats}; "
+        f"K3 {k3}, K4 {k4} launches")
+    if not (len(stats) == 11 and all(np.isfinite(v) for v in stats.values())
+            and k3 and k4):
+        raise RuntimeError("eval chain on the trained checkpoints failed")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    wav, out_wav = (os.path.join(root, "clips", "t0.wav"),
+                    os.path.join(root, "denoised.wav"))
+    run_cli(denoise, ["--input", wav, "--output", out_wav, "--detector_ckpt",
+                      "latest", "--denoiser_ckpt", "latest", "--profile",
+                      "int8", *exp])
+    scales = os.path.join(model_dir("smoke", "denoiser"),
+                          "int8_calibration.json")
+    audio = audio_io.read_wav(out_wav)[0]
+    k67 = {k: LAUNCHES[k] for k in ("int8_conv", "int8_inpaint")}
+    log(f"denoise --profile int8 on the trained checkpoints: "
+        f"{time.perf_counter() - t0:.1f} s, scale file "
+        f"{os.path.isfile(scales)}, {audio.shape[0]} samples finite "
+        f"{bool(np.isfinite(audio).all())}; launches {k67}")
+    if not (os.path.isfile(scales) and np.isfinite(audio).all()
+            and audio.size and all(k67.values())):
+        raise RuntimeError("denoise --profile int8 on the trained "
+                           "checkpoints failed")
+
+    t0 = time.perf_counter()
+    pth = os.path.join(root, "ckpt_epoch3.pth")
+    torch.save({"model_state_dict": reference_detector_state(
+        state_dicts["detector"])}, pth)
+    imp = ["--output_root", out, "--name", "imported"]
+    run_cli(import_checkpoint, ["--stage", "detector", "--pth", pth, *imp])
+    got = load_model_state(model_dir("imported", "detector"), "ckpt_epoch3")
+    same = got.keys() == state_dicts["detector"].keys() and all(
+        torch.equal(got[k], v) for k, v in state_dicts["detector"].items())
+    run_cli(train_detector, ["--dataset_json", ds_json, "--noise_root",
+                             noise, "--batch_size", "4", "--continue",
+                             "--ckpt", "3", "--epochs", "4", *imp])
+    clock = _strict_json(os.path.join(model_dir("imported", "detector"),
+                                      "latest.clock.json"))
+    log(f"import_checkpoint + train_detector --continue --ckpt 3 --epochs "
+        f"4: {time.perf_counter() - t0:.1f} s, imported weights exact "
+        f"{same}, latest.clock.json {clock}")
+    if not (same and clock["epoch"] == 4 and clock["step"] > 0):
+        raise RuntimeError("import_checkpoint then --continue failed")
+
+
+def phase_joint_bf16(cfg: ExperimentConfig, gen: torch.Generator,
+                     workdir: str) -> None:
+    """Phase 9 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    state_dicts = fresh_state_dicts(cfg)
+    cpu_s = joint_agreement(cfg, state_dicts, gen)
+    det_cpu16 = bf16_agreement("detector", cfg, state_dicts["detector"], gen,
+                               cpu_s["detector"])
+    # the denoiser's CPU bf16 step, estimated from the detector's bf16 and
+    # f32 CPU steps and the denoiser's f32 one
+    den_est = (cpu_s["denoiser"] * det_cpu16 / cpu_s["detector"]
+               if det_cpu16 is not None else float("inf"))
+    bf16_agreement("denoiser", cfg, state_dicts["denoiser"], gen, den_est)
+    cfg16 = bf16_config(cfg)
+    for stage, c, batches in (("joint", cfg, None),
+                              ("detector", cfg16, None),
+                              ("denoiser", cfg16, (40, 32, 24, 16)),
+                              ("joint", cfg16, None)):
+        launches = timed_training(stage, c, state_dicts, gen, batches)
+        if stage == "joint" and any(
+                launches[k] != v * TRAIN_TIMED_STEPS
+                for k, v in JOINT_LAUNCHES.items()):
+            raise RuntimeError(f"timed joint steps launched {launches}")
+    cli_round_trip(workdir, gen, state_dicts)
+    log(f"joint and bf16 training phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2290,6 +2685,7 @@ def main() -> int:
         launches.update({k: train_launches[k] for k in
                          ("bilstm_train", "bilstm_bwd",
                           "mask_gate_complement")})
+        phase_joint_bf16(cfg, gen, workdir)
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -2,9 +2,15 @@
 dirs, config construction, the flags of the serving, eval and training
 entry points, checkpoint loading, the int8 scale-file convention.
 
-Training runs on one device in float32: `--compute_dtype bfloat16`,
-`--distributed`, `--coordinator` and `--num_devices` above 1 are usage
-errors that name the later slice (ROADMAP.md queue 1 item 5)."""
+Checkpoints: as in `sos_tpu`, `--ckpt` (eval CLIs) and
+`--detector_ckpt`/`--denoiser_ckpt` (`serve`, `denoise`) default to
+`latest` and name `<output_root>/<name>_<stage>/model/<ckpt>.pt`, which
+the train and import_checkpoint CLIs write; a reference-layout `.pth`
+(`--pth`, `--detector_pth`, `--denoiser_pth`) wins when given.
+
+Training runs on one device, in float32 or bfloat16: `--distributed`,
+`--coordinator` and `--num_devices` above 1 are usage errors that name
+the later slice (ROADMAP.md queue 1 item 5)."""
 
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ from typing import Tuple
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.models.torch_import import (import_denoiser_checkpoint,
                                                import_detector_checkpoint)
+from sos_tpu_torch.train.checkpoints import (CheckpointNotReadable,
+                                             load_model_state)
 
 
 def experiment_dirs(cfg: ExperimentConfig, stage: str,
@@ -44,12 +52,12 @@ def add_serving_args(parser: argparse.ArgumentParser) -> None:
                         help="reference-layout detector checkpoint (.pth)")
     parser.add_argument("--denoiser_pth", type=str, default=None,
                         help="reference-layout denoiser checkpoint (.pth)")
-    parser.add_argument("--detector_ckpt", type=str, default=None,
-                        help="sos_tpu orbax checkpoint name: not readable "
-                             "without JAX (use --detector_pth)")
-    parser.add_argument("--denoiser_ckpt", type=str, default=None,
-                        help="sos_tpu orbax checkpoint name: not readable "
-                             "without JAX (use --denoiser_pth)")
+    parser.add_argument("--detector_ckpt", type=str, default="latest",
+                        help="the detector's checkpoint in the experiment "
+                             "('latest', 'best_acc' or an epoch)")
+    parser.add_argument("--denoiser_ckpt", type=str, default="latest",
+                        help="the denoiser's checkpoint in the experiment "
+                             "('latest', 'best_acc' or an epoch)")
     add_device_arg(parser)
 
 
@@ -65,11 +73,12 @@ def add_eval_args(parser: argparse.ArgumentParser,
     """The flags of the eval CLIs (`predict_detector`, `predict_denoiser`):
     `sos_tpu`'s experiment, dataset and checkpoint flags, and the
     device."""
-    parser.add_argument("--ckpt", type=str, default=None,
-                        help="sos_tpu orbax checkpoint ('latest' or an "
-                             "epoch): not readable without JAX (use --pth)")
+    parser.add_argument("--ckpt", type=str, default="latest",
+                        help="checkpoint in the experiment ('latest', "
+                             "'best_acc' or an epoch)")
     parser.add_argument("--pth", type=str, default=None,
-                        help="reference-layout PyTorch checkpoint (.pth)")
+                        help="reference-layout PyTorch checkpoint (.pth); "
+                             "wins over --ckpt")
     parser.add_argument("--dataset_json", type=str, required=need_dataset,
                         help="dataset JSON")
     parser.add_argument("--noise_root", type=str, action="append",
@@ -82,19 +91,23 @@ def add_eval_args(parser: argparse.ArgumentParser,
     add_device_arg(parser)
 
 
-def load_pth_state(parser: argparse.ArgumentParser, args, stage: str):
-    """The `stage` ("detector" | "denoiser") state_dict from `--pth`.
-    Without one it is a usage error: `sos_tpu`'s orbax checkpoints
-    (`--ckpt`) need JAX to read."""
-    if args.pth is None:
-        parser.error(
-            "sos_tpu_torch reads reference-layout .pth checkpoints: pass "
-            "--pth. sos_tpu's orbax checkpoints (--ckpt) need JAX to read; "
-            "their import comes with the port's training slice "
-            "(ROADMAP.md queue 1 item 5)")
-    load = (import_detector_checkpoint if stage == "detector"
-            else import_denoiser_checkpoint)
-    return load(args.pth)
+def load_stage_state(parser: argparse.ArgumentParser, cfg: ExperimentConfig,
+                     stage: str, ckpt: str, pth=None, pth_flag="--pth"):
+    """The `stage` ("detector" | "denoiser") state_dict: from the
+    reference-layout `pth` when given, else checkpoint `ckpt` of the
+    experiment (`checkpoint_name`), as `sos_tpu`'s
+    `load_detector_variables` picks. A checkpoint the port cannot read
+    is a usage error that names the path it looked for."""
+    if pth:
+        load = (import_detector_checkpoint if stage == "detector"
+                else import_denoiser_checkpoint)
+        return load(pth)
+    _, _, model_dir = experiment_dirs(cfg, stage, make=False)
+    try:
+        return load_model_state(model_dir, checkpoint_name(ckpt))
+    except CheckpointNotReadable as e:
+        parser.error(f"{stage} checkpoint: {e}; or pass {pth_flag} with a "
+                     f"reference-layout .pth")
 
 
 def config_from_args(args) -> ExperimentConfig:
@@ -108,20 +121,16 @@ def config_from_args(args) -> ExperimentConfig:
     return ExperimentConfig(name=args.name, output_root=args.output_root)
 
 
-def load_checkpoint_states(parser: argparse.ArgumentParser, args):
-    """(detector state_dict, denoiser state_dict) from the `.pth` files.
-    `sos_tpu`'s orbax checkpoints cannot be read without JAX: that route
-    ends in a usage error."""
-    if args.detector_ckpt is not None or args.denoiser_ckpt is not None \
-            or args.detector_pth is None or args.denoiser_pth is None:
-        parser.error(
-            "sos_tpu_torch reads reference-layout .pth checkpoints: pass "
-            "--detector_pth and --denoiser_pth. sos_tpu's orbax "
-            "checkpoints (--detector_ckpt/--denoiser_ckpt) need JAX to "
-            "read; their import comes with the port's training slice "
-            "(ROADMAP.md queue 1 item 5)")
-    return (import_detector_checkpoint(args.detector_pth),
-            import_denoiser_checkpoint(args.denoiser_pth))
+def load_checkpoint_states(parser: argparse.ArgumentParser, args,
+                           cfg: ExperimentConfig):
+    """(detector state_dict, denoiser state_dict) of the serving CLIs:
+    `--detector_pth`/`--denoiser_pth` when given, else
+    `--detector_ckpt`/`--denoiser_ckpt` of the experiment."""
+    return tuple(load_stage_state(parser, cfg, stage,
+                                  getattr(args, f"{stage}_ckpt"),
+                                  getattr(args, f"{stage}_pth"),
+                                  f"--{stage}_pth")
+                 for stage in ("detector", "denoiser"))
 
 
 def default_calibration_path(denoiser_model_dir: str, profile,
@@ -169,8 +178,10 @@ def add_common_train_args(parser: argparse.ArgumentParser,
                              "a later slice)")
     parser.add_argument("--compute_dtype", type=str, default=None,
                         choices=("float32", "bfloat16"),
-                        help="training compute dtype: float32 (bfloat16 "
-                             "training is a later slice)")
+                        help="training compute dtype of the conv trunks: "
+                             "float32 (default, reference-exact) or "
+                             "bfloat16 (the BiLSTM, heads and losses stay "
+                             "float32); pair it with --no_remat")
     parser.add_argument("--no_remat", action="store_true",
                         help="disable per-block rematerialization "
                              "(faster; needs the activations to fit)")
@@ -188,11 +199,9 @@ def add_common_train_args(parser: argparse.ArgumentParser,
 
 def check_single_device(parser: argparse.ArgumentParser, args) -> None:
     """Refuse what the port cannot train yet, rather than silently train
-    something else (float32 on one card)."""
+    something else (one device)."""
     later = ("is a later slice of the port (ROADMAP.md queue 1 item 5); "
-             "this one trains float32 on one device")
-    if args.compute_dtype == "bfloat16":
-        parser.error(f"--compute_dtype bfloat16: bfloat16 training {later}")
+             "this one trains on one device")
     if args.distributed or args.coordinator:
         parser.error(f"--distributed/--coordinator: multi-process training "
                      f"{later}")
@@ -204,7 +213,8 @@ def check_single_device(parser: argparse.ArgumentParser, args) -> None:
 def train_config_from_args(args, stage: str) -> ExperimentConfig:
     """`config_from_args` plus `sos_tpu`'s training overrides; the
     denoiser's batch defaults to 40 (m2 common.py:52) without a config
-    file."""
+    file, the detector's and the joint step's (`stage="joint"`) to
+    `TrainConfig`'s 15."""
     base = config_from_args(args)
     train_kw = {}
     if args.epochs is not None:

@@ -3,7 +3,8 @@
 
 Usage:
     python -m sos_tpu_torch.cli.denoise --input noisy.wav --output clean.wav \\
-        --detector_pth det.pth --denoiser_pth den.pth \\
+        [--detector_ckpt latest --denoiser_ckpt latest | \\
+         --detector_pth det.pth --denoiser_pth den.pth] \\
         [--chunk_seconds 2.0 --overlap_seconds 0.5] [--profile int8] \\
         [--device cpu]
 
@@ -87,7 +88,7 @@ def main() -> None:
                      "--output_dir is required")
 
     cfg = config_from_args(args)
-    det_state, den_state = load_checkpoint_states(parser, args)
+    det_state, den_state = load_checkpoint_states(parser, args, cfg)
     _, _, den_dir = experiment_dirs(cfg, "denoiser")
     profile = args.profile or ("bf16" if args.bf16 else None)
     calib = default_calibration_path(den_dir, profile,

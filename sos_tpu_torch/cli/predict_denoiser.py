@@ -3,7 +3,7 @@
 
 Usage:
     python -m sos_tpu_torch.cli.predict_denoiser --pred_data outputs/pred_data.json \
-        --pth ckpt_epoch24.pth [--snr 0] [--buckets 256 512 1024] \
+        [--ckpt latest | --pth ckpt_epoch24.pth] [--snr 0] [--buckets 256 512 1024] \
         [--eval_batch_size 8] [--unknown_clean_signal true] [--device cpu]
 
 Equivalent of model_2 `predict.py` (m2 predict.py:255-626): per file
@@ -18,7 +18,7 @@ import os
 
 from sos_tpu_torch.cli.common import (add_eval_args, config_from_args,
                                       default_calibration_path,
-                                      experiment_dirs, load_pth_state)
+                                      experiment_dirs, load_stage_state)
 from sos_tpu_torch.infer.denoise import DenoiserPredictor
 from sos_tpu_torch.infer.evaluate import evaluate_denoiser
 
@@ -56,7 +56,8 @@ def main() -> None:
     exp_dir, _, model_dir = experiment_dirs(cfg, "denoiser")
     outputs = args.outputs or os.path.join(exp_dir, "outputs")
 
-    state = load_pth_state(parser, args, "denoiser")
+    state = load_stage_state(parser, cfg, "denoiser", args.ckpt,
+                             args.pth)
     calib = default_calibration_path(model_dir, args.profile,
                                      args.calibration_json)
     predictor = DenoiserPredictor(cfg, state, buckets=args.buckets or None,

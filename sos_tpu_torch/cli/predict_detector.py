@@ -3,7 +3,7 @@
 
 Usage:
     python -m sos_tpu_torch.cli.predict_detector --dataset_json data/sos.json \
-        --pth ckpt_epoch87.pth [--snr_idx 3] [--buckets 256 512 1024] \
+        [--ckpt latest | --pth ckpt_epoch87.pth] [--snr_idx 3] [--buckets 256 512 1024] \
         [--eval_batch_size 8] [--unknown_clean_signal true] \
         --noise_root data/noise_data_DEMAND/test_noise [--device cpu]
 
@@ -20,7 +20,7 @@ import os
 
 from sos_tpu_torch.cli.common import (add_eval_args, config_from_args,
                                       default_calibration_path,
-                                      experiment_dirs, load_pth_state)
+                                      experiment_dirs, load_stage_state)
 from sos_tpu_torch.data import NoiseBank
 from sos_tpu_torch.infer.detect import DetectorPredictor
 from sos_tpu_torch.infer.evaluate import evaluate_detector
@@ -60,7 +60,8 @@ def main() -> None:
 
     outputs = args.outputs or os.path.join(exp_dir, "outputs", os.path.basename(
         args.dataset_json).split(".json")[0])
-    state = load_pth_state(parser, args, "detector")
+    state = load_stage_state(parser, cfg, "detector", args.ckpt,
+                             args.pth)
     _, _, den_model_dir = experiment_dirs(cfg, "denoiser", make=False)
     calib = default_calibration_path(den_model_dir, args.profile,
                                      args.calibration_json)

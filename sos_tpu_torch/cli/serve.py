@@ -2,8 +2,9 @@
 (port of `sos_tpu/cli/serve.py`).
 
 Usage:
-    python -m sos_tpu_torch.cli.serve --detector_pth det.pth \
-        --denoiser_pth den.pth [--profile int8] [--warmup] \
+    python -m sos_tpu_torch.cli.serve [--detector_ckpt latest \
+        --denoiser_ckpt latest | --detector_pth det.pth \
+        --denoiser_pth den.pth] [--profile int8] [--warmup] \
         [--chunk_seconds 2.0] [--threshold 0.5] [--device cpu]
 
 Protocol (stdin/stdout, one request per line), `sos_tpu`'s:
@@ -405,7 +406,7 @@ def main() -> None:
     args = parser.parse_args()
 
     cfg = config_from_args(args)
-    det_state, den_state = load_checkpoint_states(parser, args)
+    det_state, den_state = load_checkpoint_states(parser, args, cfg)
     _, _, den_dir = experiment_dirs(cfg, "denoiser")
     calib = default_calibration_path(den_dir, args.profile,
                                      args.calibration_json)

@@ -161,7 +161,7 @@ class TrainConfig:
     seed: int = 0
     data_axis: str = "data"         # mesh axis name for data parallelism
     param_dtype: str = "float32"
-    compute_dtype: str = "float32"  # the port trains float32 only
+    compute_dtype: str = "float32"  # conv trunks: "float32" or "bfloat16"
     # Rematerialize each conv block's forward in the backward pass
     # (training memory; torch.utils.checkpoint around sos_tpu's nn.remat
     # blocks).

@@ -12,19 +12,45 @@ A checkpoint `<name>` is one `torch.save` file `<model_dir>/<name>.pt`
 (`{"model": state_dict, "optimizer": state_dict, "step": int}`) and
 `<model_dir>/<name>.clock.json`, each written to a temporary file,
 flushed to disk and renamed over the old one, so a kill mid-write
-leaves the previous file whole. `sos_tpu`'s orbax checkpoints need JAX
-to read and are not read here.
+leaves the previous file whole. `load_model_state` reads the weights
+alone, as the eval and serving CLIs take them.
+`sos_tpu`'s orbax checkpoints (a directory `<model_dir>/<name>/`) need
+JAX to read and are not read here.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from sos_tpu_torch.train.state import TrainClock, TrainState
+
+
+class CheckpointNotReadable(ValueError):
+    """A checkpoint that is missing, or in a layout the port cannot read;
+    the message names the path looked for."""
+
+
+def load_model_state(model_dir: str, name: str) -> Dict[str, torch.Tensor]:
+    """The model's state_dict of checkpoint `name` (`latest`, `best_acc`,
+    `ckpt_epoch{N}`) in `model_dir`, on the CPU. Raises
+    `CheckpointNotReadable` when `<model_dir>/<name>.pt` is missing; when
+    `<model_dir>/<name>/` is a directory instead (`sos_tpu`'s orbax
+    layout), it says so."""
+    path = os.path.join(model_dir, name + ".pt")
+    if os.path.isfile(path):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        return blob["model"]
+    orbax = os.path.join(model_dir, name)
+    if os.path.isdir(orbax):
+        raise CheckpointNotReadable(
+            f"{orbax} is sos_tpu's orbax checkpoint: reading it needs JAX, "
+            f"which sos_tpu_torch does not use; the port reads {path}, "
+            f"which its train and import_checkpoint CLIs write")
+    raise CheckpointNotReadable(f"no checkpoint {path}")
 
 
 def _replace_durably(tmp: str, path: str) -> None:

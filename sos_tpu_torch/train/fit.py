@@ -110,7 +110,7 @@ class MetricsLog:
 PROFILE_STEPS = (10, 15)
 
 
-class _Profile:
+class StepProfile:
     """A `torch.profiler` trace over PROFILE_STEPS, written as a Chrome
     trace to `<profile_dir>/trace.json`."""
 
@@ -174,7 +174,7 @@ def fit(
 
     start_epoch, start_minibatch = clock.epoch, clock.minibatch
     stop = GracefulStop().install()
-    profiler = _Profile(profile_dir)
+    profiler = StepProfile(profile_dir)
     preempted = False
     try:
         for epoch in range(start_epoch, cfg.train.nr_epochs):

@@ -26,6 +26,16 @@ backward both run inside `exact_fp32`: cuDNN's convolutions (and their
 weight- and data-gradient kernels) and the matmuls stay in full fp32,
 `sos_tpu`'s reference-exact f32. Checking the gradients costs one host
 synchronisation a step.
+
+`cfg.train.compute_dtype = "bfloat16"` runs the conv trunks in bf16, as
+`sos_tpu`'s does (parameters float32, cast to bf16 at each conv;
+BatchNorm's statistics and normalisation in float32, its output cast
+back; the gradients reach the float32 parameters through those casts).
+The BiLSTM (K4's training instance and K4b), the heads, the models'
+outputs and so the losses stay float32, so no bf16 matmul runs (PyTorch's
+reduced-precision bf16 reductions do not arise) and `exact_fp32` still
+holds the float32 parts to full fp32. `cfg.train.remat = False` keeps
+every block's activations instead of running its forward again.
 """
 
 from __future__ import annotations
@@ -92,39 +102,37 @@ def fresh_state_dict(model: torch.nn.Module, seed: int) -> Dict:
     return model.state_dict()
 
 
-def _check_dtype(cfg: ExperimentConfig) -> None:
-    if cfg.train.compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype {cfg.train.compute_dtype}: the port trains in "
-            "float32 only; bfloat16 training is a later slice (ROADMAP.md "
-            "queue 1 item 5)")
-
-
 def _init_state(model: torch.nn.Module, cfg: ExperimentConfig, device,
-                state_dict: Optional[Dict]) -> TrainState:
+                state_dict: Optional[Dict], seed: Optional[int]) -> TrainState:
     if state_dict is None:
-        state_dict = fresh_state_dict(model, cfg.train.seed)
+        state_dict = fresh_state_dict(
+            model, cfg.train.seed if seed is None else seed)
     model.load_state_dict(state_dict)
     model.to(resolve_device(device))
     return TrainState(model, make_optimizer(cfg, model), 0)
 
 
 def init_detector_state(cfg: ExperimentConfig, device="cuda",
-                        state_dict: Optional[Dict] = None
+                        state_dict: Optional[Dict] = None,
+                        seed: Optional[int] = None
                         ) -> Tuple[SilenceDetector, TrainState]:
-    """A detector to train on `device` (the card unless "cpu"), from
-    `state_dict` or from fresh weights seeded by `cfg.train.seed`."""
-    _check_dtype(cfg)
-    model = SilenceDetector(cfg.detector, remat=cfg.train.remat)
-    return model, _init_state(model, cfg, device, state_dict)
+    """A detector to train on `device` (the card unless "cpu") in
+    `cfg.train.compute_dtype`, from `state_dict` or from fresh weights
+    seeded by `seed` (default `cfg.train.seed`)."""
+    model = SilenceDetector(cfg.detector,
+                            compute_dtype=cfg.train.compute_dtype,
+                            remat=cfg.train.remat)
+    return model, _init_state(model, cfg, device, state_dict, seed)
 
 
 def init_denoiser_state(cfg: ExperimentConfig, device="cuda",
-                        state_dict: Optional[Dict] = None
+                        state_dict: Optional[Dict] = None,
+                        seed: Optional[int] = None
                         ) -> Tuple[JointDenoiser, TrainState]:
-    _check_dtype(cfg)
-    model = JointDenoiser(cfg.denoiser, remat=cfg.train.remat)
-    return model, _init_state(model, cfg, device, state_dict)
+    model = JointDenoiser(cfg.denoiser,
+                          compute_dtype=cfg.train.compute_dtype,
+                          remat=cfg.train.remat)
+    return model, _init_state(model, cfg, device, state_dict, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -299,6 +299,10 @@ def test_clis_on_pth_files_write_the_in_process_results(corpus, runs):
 
 
 def test_predict_clis_refuse_a_ckpt_without_pth(corpus):
+    """`--ckpt latest` without `--pth` reads the experiment's
+    `latest.pt`, which the port's train CLIs write; where there is none
+    it is a usage error naming the path it looked for (once a refusal of
+    every `--ckpt`)."""
     root = corpus["root"]
     proc = subprocess.run(
         [sys.executable, "-m", "sos_tpu_torch.cli.predict_detector",
@@ -307,4 +311,6 @@ def test_predict_clis_refuse_a_ckpt_without_pth(corpus):
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
-    assert "--pth" in proc.stderr and "training slice" in proc.stderr
+    looked_for = root / "refused" / "experiment_detector" / "model" / "latest.pt"
+    assert str(looked_for) in " ".join(proc.stderr.split())
+    assert "--pth" in proc.stderr

@@ -34,6 +34,8 @@ def test_importing_every_module_loads_no_jax_flax_or_sos_tpu():
                          capture_output=True, text=True, timeout=300)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(_modules()) >= 12
+    assert {"sos_tpu_torch.train.joint", "sos_tpu_torch.cli.train_joint",
+            "sos_tpu_torch.cli.import_checkpoint"} <= set(_modules())
 
 
 def test_sources_import_no_jax_or_sos_tpu():

@@ -279,11 +279,12 @@ def test_backward_single_buffered_dgates_would_race():
 
 @pytest.mark.parametrize("batch,hidden,cluster,bt",
                          [(15, 100, 1, 2), (40, 200, 4, 4), (2, 200, 4, 4),
-                          (2, 100, 1, 2), (128, 200, 4, 6)])
+                          (2, 100, 1, 2), (128, 200, 4, 6), (15, 200, 4, 4)])
 def test_backward_plans_of_the_training_path(batch, hidden, cluster, bt):
-    """The detector (B 15, H 100), the denoiser (B 40, H 200) and the
-    agreement step (B 2): W_hh's columns of a rank's units and both
-    dgates buffers fit a block's shared memory; B 40 fits one wave."""
+    """The detector (B 15, H 100), the denoiser (B 40, H 200), the joint
+    step's denoiser (B 15, H 200) and the agreement step (B 2): W_hh's
+    columns of a rank's units and both dgates buffers fit a block's
+    shared memory; B 40 fits one wave."""
     plan = lstm.backward_plan(batch, hidden)
     assert (plan.cluster, plan.bt) == (cluster, bt)
     assert plan.smem_bytes <= lstm.SMEM_LIMIT
@@ -310,3 +311,16 @@ def test_backward_lanes_update_every_cell_once(batch, hidden):
 def test_backward_plan_refuses_hidden_past_a_cluster():
     with pytest.raises(ValueError, match="fits no K4b plan"):
         lstm.backward_plan(40, 300)
+
+
+def test_recurrence_plan_of_the_joint_denoiser():
+    """K4's training instance at the joint step's denoiser shape (B 15,
+    H 200): a cluster of 4, 8 rows a block (two tiles, the last ragged,
+    as B 9's emulated above), W_hh's columns of a rank's units in shared
+    memory, one wave."""
+    plan = recurrence_plan(15, 200)
+    assert (plan.cluster, plan.bt) == (4, 8)
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT
+    assert sum(n for _, n in plan.units) == 200
+    assert plan.blocks == 2 * 2 * 4  # directions x tiles x ranks
+    assert plan.blocks // plan.cluster <= lstm.CLUSTER4_SLOTS

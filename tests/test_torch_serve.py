@@ -417,15 +417,28 @@ def test_serve_without_a_card_raises(checkpoints, tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [["--detector_ckpt", "latest"], []],
                          ids=["orbax name", "no checkpoint"])
 def test_cli_refuses_the_orbax_route(tmp_path, monkeypatch, capsys, argv):
+    """`--detector_ckpt` (default `latest`) reads the port's own
+    `<model dir>/latest.pt`. `sos_tpu`'s orbax checkpoint there (a
+    directory) stays a usage error that says why (JAX); with no
+    checkpoint at all the error names the file it looked for."""
     from sos_tpu_torch.cli import denoise
 
+    model_dir = tmp_path / "experiment_detector" / "model"
+    if argv:
+        (model_dir / "latest").mkdir(parents=True)
     monkeypatch.setattr(sys, "argv", ["denoise", "--input", "a.wav",
                                       "--output", "b.wav", "--device", "cpu",
                                       "--output_root", str(tmp_path), *argv])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as exit_info:
         denoise.main()
-    err = capsys.readouterr().err
-    assert "--detector_pth" in err and "training slice" in err
+    assert exit_info.value.code == 2
+    err = " ".join(capsys.readouterr().err.split())
+    assert "--detector_pth" in err
+    if argv:
+        assert str(model_dir / "latest") in err
+        assert "orbax" in err and "JAX" in err
+    else:
+        assert str(model_dir / "latest.pt") in err
 
 
 @pytest.fixture(autouse=True)

@@ -29,10 +29,23 @@ widths of tests/torch_port_fixtures.py, from the same weights and batch.
   applied once;
 * a non-finite batch leaves parameters, Adam moments and count and the
   running statistics bit-identical, with `finite` 0;
-* the lr staircase follows the optimizer's own count after a skip.
+* the lr staircase follows the optimizer's own count after a skip;
+* bf16 (`compute_dtype="bfloat16"`), remat on and off: the loss and the
+  gradients within the distance bf16 moves `sos_tpu`'s own step from
+  its f32 step on the same weights and batch (relative loss gap,
+  relative L2 of all gradients), measured in the same run. `sos_tpu`'s
+  bf16 step runs with XLA's excess precision off (`STRICT_BF16`): by
+  default XLA's CPU compiler keeps a bf16 conv's f32 result into the
+  BatchNorm after it, where cuDNN's bf16 conv, and so the port, rounds
+  it to bf16 first.
 """
 
 import copy
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +69,10 @@ from tests.torch_port_fixtures import (make_clips, oracle_variables,
                                        tiny_configs)
 
 STEPS_PER_EPOCH = 4
+REPO = Path(__file__).resolve().parents[1]
+# `sos_tpu`'s bf16 rounded where its dtypes say; XLA reads its flags once
+# a process, so those steps run in a process of their own
+STRICT_BF16 = "--xla_allow_excess_precision=false"
 
 
 @pytest.fixture(scope="module")
@@ -387,12 +404,171 @@ def test_eval_steps_report_sos_tpu_keys(setup):
     assert all(np.isfinite(v) for v in out.values())
 
 
+def _train_cfg(cfg, compute_dtype: str, remat: bool):
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype=compute_dtype, remat=remat))
+
+
+# the batch seeds over which bf16's move of `sos_tpu`'s step is measured
+BF16_SEEDS = tuple(range(11, 19))
+# the tier-1 bf16 cases take the first four
+BF16_TEST_SEEDS = BF16_SEEDS[:4]
+
+
+def sos_tpu_steps_main(out: str, cases, seeds, full_depth: bool,
+                       weight_seeds=(3,)) -> None:
+    """In a process of its own (`sos_tpu_steps`): `sos_tpu`'s train-step
+    loss and gradients (in the port's layout) of every `(stage,
+    compute_dtype, remat)` case at each batch seed, from the oracle
+    weights of `tiny_configs(full_depth)` drawn with each weight seed,
+    one compile a case; saved to `out` as
+    {"stage/dtype/remat/weight seed/batch seed": {"loss", "grads"}}."""
+    jax.config.update("jax_platforms", "cpu")
+    cfg, _ = tiny_configs(full_depth)
+    weights = {w: dict(zip(("detector", "denoiser"),
+                           oracle_variables(cfg, seed=w)))
+               for w in weight_seeds}
+    results = {}
+    for stage, dtype, remat in cases:
+        step = jax.jit(_jax_loss_and_grads(_train_cfg(cfg, dtype, remat),
+                                           stage, weights[weight_seeds[0]]
+                                           [stage]))
+        convert = detector_from_jax if stage == "detector" else denoiser_from_jax
+        for w in weight_seeds:
+            variables = weights[w][stage]
+            for seed in seeds:
+                batch = {k: jnp.asarray(v) for k, v in _batch(seed).items()}
+                loss, grads = step(variables["params"],
+                                   variables["batch_stats"], batch)
+                grads = convert({"params": jax.tree.map(np.asarray, grads),
+                                 "batch_stats": variables["batch_stats"]})
+                results[f"{stage}/{dtype}/{remat}/{w}/{seed}"] = {
+                    "loss": float(loss),
+                    "grads": {k: v for k, v in grads.items()
+                              if "running" not in k}}
+    torch.save(results, out)
+
+
+def sos_tpu_steps(tmp_path, cases, seeds=BF16_SEEDS, full_depth=False,
+                  weight_seeds=(3,)):
+    """`sos_tpu_steps_main`'s results, run in a fresh process with
+    STRICT_BF16."""
+    out = tmp_path / "sos_tpu_steps.pt"
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+            f"from tests.test_torch_train import sos_tpu_steps_main; "
+            f"sos_tpu_steps_main({str(out)!r}, {list(cases)!r}, "
+            f"{list(seeds)!r}, {full_depth!r}, {tuple(weight_seeds)!r})")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "") + " " + STRICT_BF16).strip())
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=900)
+    return torch.load(out, weights_only=True)
+
+
+def _jax_loss_and_grads(cfg, stage, variables):
+    """`sos_tpu`'s train-step loss as a function of (params, batch
+    statistics, batch) -> (loss, gradients), the body of its jitted
+    step."""
+    init = (jloop.init_detector_state if stage == "detector"
+            else jloop.init_denoiser_state)
+    model, _ = init(cfg, STEPS_PER_EPOCH, variables=variables)
+
+    def loss_fn(params, batch_stats, b):
+        current = {"params": params, "batch_stats": batch_stats}
+        if stage == "detector":
+            prep = jax_mix_det(b["clean"], b["noise"], b["snr"], b["bits"],
+                               cfg.data, cfg.stft)
+            logits, _ = model.apply(current, prep["audio"],
+                                    num_frames=cfg.data.clip_frames,
+                                    train=True, mutable=["batch_stats"])
+            return jloop._bce_with_logits(logits, prep["label"])
+        d = jax_mix_den(b["clean"], b["noise"], b["snr"], b["bits"],
+                        cfg.data, cfg.stft)
+        (noise_pred, mask), _ = model.apply(current, d["mixed"], d["noise"],
+                                            train=True,
+                                            mutable=["batch_stats"])
+        rec = jax_apply_crm(d["mixed"], mask)
+        return (jnp.mean((noise_pred - d["full_noise"]) ** 2)
+                + jnp.mean((rec - d["clean"]) ** 2))
+    return jax.value_and_grad(loss_fn)
+
+
+def bf16_gap(steps, key, loss=None, grads=None):
+    """(relative loss gap, relative L2 of all gradients) of a bf16 step
+    against `sos_tpu`'s, `key` = "stage/remat/weight seed/batch seed":
+    `sos_tpu`'s bf16 step against its f32 step when `loss`/`grads` are
+    None (the yardstick), else the given ones against its bf16 step."""
+    stage, remat, rest = key.split("/", 2)
+    ref = steps[f"{stage}/bfloat16/{remat}/{rest}"]
+    if loss is None:
+        loss, grads = ref["loss"], ref["grads"]
+        ref = steps[f"{stage}/float32/False/{rest}"]
+    return (abs(loss - ref["loss"]) / abs(ref["loss"]),
+            _relative_l2(grads, ref["grads"]))
+
+
+@pytest.fixture(scope="module")
+def bf16_steps(tmp_path_factory):
+    """`sos_tpu`'s f32 and bf16 steps, without remat (the port's steps
+    with remat on and off are both held to them)."""
+    cases = [(stage, dtype, False) for stage in ("detector", "denoiser")
+             for dtype in ("float32", "bfloat16")]
+    return sos_tpu_steps(tmp_path_factory.mktemp("bf16"), cases,
+                         seeds=BF16_TEST_SEEDS)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+@pytest.mark.parametrize("stage", ["detector", "denoiser"])
+def test_bf16_step_matches_sos_tpu(setup, bf16_steps, stage, remat):
+    """The port's bf16 step (bf16 trunks), remat on and off, against
+    `sos_tpu`'s (strict bf16) on the same weights, at each batch seed of
+    BF16_TEST_SEEDS: within the yardstick, the farthest bf16 moves
+    `sos_tpu`'s step from its f32 step over those batches, in both
+    measures. (At one batch the two bf16 steps' 1-ulp differences,
+    accumulated over the denoiser's 19 InpaintNet blocks, can put the
+    loss past that batch's own gap.)"""
+    _, pcfg, det_vars, den_vars = setup
+    variables = det_vars if stage == "detector" else den_vars
+    yard = [bf16_gap(bf16_steps, f"{stage}/False/3/{seed}")
+            for seed in BF16_TEST_SEEDS]
+    yard_loss, yard_grads = (max(g) for g in zip(*yard))
+    got = []
+    for seed in BF16_TEST_SEEDS:
+        state, cfg = _port_state(_train_cfg(pcfg, "bfloat16", remat), stage,
+                                 variables, remat)
+        loss, grads = _port_grads(cfg, stage, state, _batch(seed))
+        got.append(bf16_gap(bf16_steps, f"{stage}/False/3/{seed}", loss,
+                            grads))
+    got_loss, got_grads = (max(g) for g in zip(*got))
+    print(f"bf16 {stage} remat {remat}, batch seeds {BF16_TEST_SEEDS[0]}-"
+          f"{BF16_TEST_SEEDS[-1]}: sos_tpu bf16 against its f32 (yardstick), "
+          f"worst loss {yard_loss:.3e}, gradients {yard_grads:.3e}; the "
+          f"port's bf16 against sos_tpu's bf16, worst loss {got_loss:.3e}, "
+          f"gradients {got_grads:.3e}")
+    assert got_loss <= yard_loss and got_grads <= yard_grads
+
+
 def test_training_refuses_bfloat16(setup):
-    _, pcfg, _, _ = setup
-    pcfg = copy.deepcopy(pcfg)
-    object.__setattr__(pcfg.train, "compute_dtype", "bfloat16")
-    with pytest.raises(ValueError, match="float32 only"):
-        tloop.init_detector_state(pcfg, device="cpu")
+    """The bf16 refusal is lifted: `compute_dtype="bfloat16"` trains the
+    conv trunks in bf16 (their activations are bf16), while the BiLSTM,
+    the heads and the loss stay float32, as in `sos_tpu`; a train step
+    runs and applies."""
+    _, pcfg, det_vars, _ = setup
+    state, pcfg = _port_state(_train_cfg(pcfg, "bfloat16", False),
+                              "detector", det_vars, remat=False)
+    assert state.model.dtype == torch.bfloat16
+    seen = {}
+    hooks = [state.model.conv0.register_forward_hook(
+                 lambda m, i, o: seen.update(trunk=o.dtype)),
+             state.model.fc2.register_forward_hook(
+                 lambda m, i, o: seen.update(head=o.dtype))]
+    _, metrics = tloop.make_detector_train_step(pcfg, STEPS_PER_EPOCH)(
+        state, _batch(22))
+    for h in hooks:
+        h.remove()
+    assert seen == {"trunk": torch.bfloat16, "head": torch.float32}
+    assert metrics["finite"] == 1.0 and np.isfinite(metrics["loss"])
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
 
 
 def test_batchnorm_training_matches_flax_biased_update():

@@ -28,17 +28,20 @@ CLIP = 28000
 SPECS = (((1, 7), (1, 1)), ((5, 5), (2, 2)))
 
 
-def tiny_configs():
+def tiny_configs(full_depth: bool = False):
     """The same small experiment as sos_tpu's and as the port's config
-    (the port's is parsed from sos_tpu's JSON)."""
+    (the port's is parsed from sos_tpu's JSON). `full_depth`: every conv
+    block of the reference models (11 in the detector, 14 in each
+    ContextAggNet encoder) at the same small widths."""
     ks = tuple(s[0] for s in SPECS)
     dils = tuple(s[1] for s in SPECS)
-    det = DetectorModelConfig(nf=4, outf=2, kernel_sizes=ks, dilations=dils,
-                              lstm_hidden=4, fc_hidden=4)
+    det_specs = {} if full_depth else dict(kernel_sizes=ks, dilations=dils)
+    den_specs = {} if full_depth else dict(kernel_sizes=ks, dilations=dils)
+    det = DetectorModelConfig(nf=4, outf=2, lstm_hidden=4, fc_hidden=4,
+                              **det_specs)
     den = DenoiserModelConfig(nf_mixed=8, nf_noise=4, outf_mixed=8,
-                              outf_noise=4, kernel_sizes=ks, dilations=dils,
-                              lstm_hidden=8, fc_hidden=16,
-                              inpaint_ch=(4, 6, 8))
+                              outf_noise=4, lstm_hidden=8, fc_hidden=16,
+                              inpaint_ch=(4, 6, 8), **den_specs)
     cfg = ExperimentConfig(detector=det, denoiser=den, data=DataConfig())
     return cfg, PortExperimentConfig.from_json(cfg.to_json())
 
@@ -52,9 +55,11 @@ def oracle_variables(cfg, seed: int = 0):
     torch.manual_seed(seed)
     gen = torch.Generator().manual_seed(seed + 100)
     d, n = cfg.detector, cfg.denoiser
-    det = DetectorOracle(SPECS, freq_bins=d.freq_bins, nf=d.nf, outf=d.outf,
+    det = DetectorOracle(tuple(zip(d.kernel_sizes, d.dilations)),
+                         freq_bins=d.freq_bins, nf=d.nf, outf=d.outf,
                          hidden=d.lstm_hidden, fc_hidden=d.fc_hidden)
-    den = JointOracle(SPECS, freq_bins=n.freq_bins, ch=n.inpaint_ch,
+    den = JointOracle(tuple(zip(n.kernel_sizes, n.dilations)),
+                      freq_bins=n.freq_bins, ch=n.inpaint_ch,
                       nf=n.nf_mixed, hidden=n.lstm_hidden,
                       fc_hidden=n.fc_hidden)
     with torch.no_grad():
