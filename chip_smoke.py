@@ -119,7 +119,30 @@ Phases, in order; any failure ends the run with a nonzero exit:
    --denoiser_ckpt latest --profile int8` (the scale file, finite audio;
    K6 and K7 launch), and `import_checkpoint` of a reference-layout
    `ckpt_epoch3.pth` (the weights back exactly) then `train_detector
-   --continue --ckpt 3 --epochs 4` (`latest.clock.json` at epoch 4).
+   --continue --ckpt 3 --epochs 4` (`latest.clock.json` at epoch 4);
+10. data parallelism and the synthetic eval, at full width: (a) two
+   ranks on the one card in a gloo process group with CUDA tensors
+   (NCCL refuses two ranks on one device), spawned processes, one
+   detector and one denoiser step at a local batch of 2 against one
+   process at 4 on the card: the ranks' new states bit-identical, loss
+   within 1e-4 relative, BatchNorm statistics 1e-5, gradients 5e-2
+   relative L2 (phase 8's bounds), K1, K2's complement, K4's training
+   instance and K4b launched in each rank; (b) NCCL at world size 1
+   under torchrun's variables: `train_denoiser --distributed` for 1
+   epoch on a generated corpus, then `--continue` to epoch 2, and the
+   synced denoiser step timed at batch 40 beside phase 8's plain step
+   (the cost of the sync-BN and gradient all-reduces); (c)
+   `FusedDenoisePipeline.shard` over every visible card against the
+   unsharded call, f32 and int8, the card count printed; (d)
+   `eval_synthetic --noisy_baseline` in f32, bf16 and int8 on (b)'s
+   checkpoint, SNR indices 0/3/6, batch 8, 2 batches: 11 finite metrics
+   at each SNR and the eval's kernels launched; the device part's
+   audio-s/s, the host metric seconds, and one batch on the card against
+   the CPU within 1e-3 (f32).
+
+Phase 3 also holds K7 on a short utterance's row (mid_dil16, pad 16 on
+12 columns, `reflect_prepad` then pad 0) against its plain version,
+exactly, and checks that it launched.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -156,7 +179,8 @@ from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
                                          halo_plan, inpaint_conv_int8,
                                          inpaint_conv_int8_plain, inpaint_plan,
-                                         inpaint_valid_out, up_pads)
+                                         inpaint_valid_out, needs_prepad,
+                                         up_pads)
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
@@ -537,6 +561,13 @@ def phase_kernels(gen: torch.Generator):
                + f" at B {EVAL_BATCH}, per-row valid_t 2-1024 (sum)")
     for case in K7_LONG_CASES:  # the exact mode's long rows, no valid_t
         int8_conv_case("int8_inpaint", case, cgen, dev, batch=EVAL_BATCH)
+    # a short utterance's mid_dil16 (pad 16 on 12 columns): through K7
+    # (one launch a call), exactly as its plain version
+    for case in K7_SHORT_CASES:
+        before = LAUNCHES["int8_inpaint"]
+        int8_conv_case("int8_inpaint", case, cgen, dev, batch=EVAL_BATCH)
+        if LAUNCHES["int8_inpaint"] == before:
+            raise RuntimeError(f"int8_inpaint {case[0]}: K7 never launched")
     return rows, k5_launches
 
 
@@ -906,6 +937,13 @@ K7_VALID_CASES = (
 # K7 without valid_t at the same widths: the exact mode's long rows, in
 # segments on the tile (checked and logged)
 K7_LONG_CASES = tuple((f"{c[0]} W {c[-1]}",) + c[1:] for c in K7_VALID_CASES)
+# K7 on a short row: the mid_dil16 block of a 0.5 s utterance (45
+# frames, 12 columns after the two stride-2 blocks), whose reflect pad
+# 16 reaches past the row (checked and logged)
+K7_SHORT_CASES = (
+    ("mid_dil16 256->256 k3 d16 short row W 12", "down", 3, 1, 16, 256, 256,
+     64, 12),
+)
 
 
 def valid_widths(batch: int, width: int, gen: torch.Generator,
@@ -951,9 +989,18 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     else:
         label, kind, k, st, d, cin, cout, h, w = case
         kh = kw = k
-        plan = inpaint_plan(kind, k, st, d, h, w, cin, cout)
+        prepad = needs_prepad(kind, k, d, h, w)
+        if prepad:  # the wrapper pads by a gather, then K7 with pad 0
+            pp = (k - 1) // 2 * d
+            plan = inpaint_plan(kind, k, st, d, h + 2 * pp, w + 2 * pp, cin,
+                                cout, 0)
+        else:
+            plan = inpaint_plan(kind, k, st, d, h, w, cin, cout)
+        prefix = "reflect_prepad gather, pad 0: " if prepad else ""
+        route = prefix + route
         if plan is not None:
-            route = (f"wgmma halo tile, {len(plan.phases)} phase(s), "
+            route = prefix + (
+                     f"wgmma halo tile, {len(plan.phases)} phase(s), "
                      f"{plan.rows} row(s) x pitch {plan.pitch}, "
                      f"{plan.nseg} segment(s) of {plan.seg_len} in "
                      f"{plan.mt} m64 ({plan.m_share():.3f} of m rows used), "
@@ -1929,6 +1976,8 @@ TRAIN_KERNELS = {
 }
 TRAIN_BATCH = {"detector": 15, "denoiser": 40}  # TrainConfig, m2 common.py:52
 TRAIN_TIMED_STEPS = 5
+# median step ms of each timed training: (stage, dtype, remat, batch) -> ms
+STEP_MS = {}
 # device-time categories of one train step, matched in this order
 TRAIN_CATEGORIES = (
     ("K4b bilstm backward", ("bilstm_bwd_kernel",)),
@@ -2249,6 +2298,7 @@ def timed_training(stage, cfg, state_dicts, gen, batches=None):
             raise RuntimeError(f"timed training {stage}: non-finite step")
     launches = dict(LAUNCHES)
     med = statistics.median(times)
+    STEP_MS[(stage, cfg.train.compute_dtype, cfg.train.remat, n)] = med * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     kernels = TRAIN_KERNELS["denoiser" if stage == "joint" else stage]
     log(f"training {stage} ({dtype}) {card_note()}: batch {n}, median "
@@ -2272,20 +2322,21 @@ def timed_training(stage, cfg, state_dicts, gen, batches=None):
     return launches
 
 
-def train_corpus(root: str, gen: torch.Generator) -> str:
-    """Four seeded 6 s utterances with bitstreams and two 8 s noise WAVs
-    (`root/noise`): 20 detector windows. Returns the dataset JSON."""
+def train_corpus(root: str, gen: torch.Generator, seconds: int = 6) -> str:
+    """Four seeded utterances of `seconds` (6 s: 20 detector windows)
+    with bitstreams and two 8 s noise WAVs (`root/noise`). Returns the
+    dataset JSON."""
     os.makedirs(os.path.join(root, "clips"))
     os.makedirs(os.path.join(root, "noise"))
     files = []
     for i in range(4):
-        n = 6 * SR
+        n = seconds * SR
         path = os.path.join(root, "clips", f"t{i}.wav")
         audio_io.write_wav(path, utterance(n, gen), SR)
-        centres = (np.arange(180) + 0.5) / 30.0
+        centres = (np.arange(30 * seconds) + 0.5) / 30.0
         files.append({"path": path, "audio_path": path, "framerate": 30,
                       "audio_sample_rate": SR, "audio_samples": n,
-                      "duration": 6.0, "num_frames": 180,
+                      "duration": float(seconds), "num_frames": 30 * seconds,
                       "bit_stream": "".join(
                           "1" if np.sin(2 * np.pi * 1.5 * c) > 0 else "0"
                           for c in centres)})
@@ -2649,6 +2700,344 @@ def phase_joint_bf16(cfg: ExperimentConfig, gen: torch.Generator,
     log(f"joint and bf16 training phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- data parallelism and the synthetic eval --------------------------------
+
+# phase 10's device ("cpu" only for a dry run of the phase at small widths)
+DEVICE = "cuda"
+DP_WORLD = 2          # phase 10 (a): ranks on the one card
+DP_LOCAL_BATCH = 2
+DP_TIMEOUT_S = 300
+SYNTH_PROFILES = ("f32", "bf16", "int8")
+SYNTH_SNR_IDX = ("0", "3", "6")
+SYNTH_BATCH = 8
+SYNTH_BATCHES = 2
+# the kernels of a synthetic-eval batch: K2's complement, K2 and one K1
+# launch (the device mix and four STFTs), K4 (the denoiser's BiLSTM), K3
+# (cRM recover + iSTFT); the int8 profile adds K6 and K7
+SYNTH_KERNELS = {
+    "f32": ("stft", "mask_gate_complement", "mask_gate", "bilstm",
+            "crm_istft"),
+    "bf16": ("stft", "mask_gate_complement", "mask_gate", "bilstm",
+             "crm_istft"),
+    "int8": ("stft", "mask_gate_complement", "mask_gate", "bilstm",
+             "crm_istft", "int8_conv", "int8_inpaint"),
+}
+
+
+def dp_step(stage, cfg, state_dict, batch, device):
+    """One real train step of `stage` on `device` from `state_dict`
+    (within a process group: this process's slice, synced): its metrics,
+    the gradients Adam stepped with, the new state and the launches, on
+    the CPU."""
+    state = _init(stage, cfg, device, state_dict)
+    seen = {}
+
+    def keep(optimizer, args, kwargs):
+        seen["grads"] = {n: p.grad.detach().cpu().clone()
+                         for n, p in state.model.named_parameters()}
+    state.optimizer.register_step_pre_hook(keep)
+    make = (train_loop.make_detector_train_step if stage == "detector"
+            else train_loop.make_denoiser_train_step)
+    reset_launches()
+    _, metrics = make(cfg, 100)(state, batch)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {"metrics": metrics, "grads": seen["grads"],
+            "launches": dict(LAUNCHES),
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()}}
+
+
+def dp_worker(rank: int, world: int, port: int, path: str) -> None:
+    """A rank of phase 10 (a): a process on the saved device (card 0) in
+    a gloo group (NCCL refuses two ranks on one device), one detector and
+    one denoiser step on its slice of the saved global batch, in the
+    saved config; its results to a file."""
+    from sos_tpu_torch.parallel import distributed
+
+    blob = torch.load(os.path.join(path, "inputs.pt"), weights_only=False)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, require=True,
+                           device=blob["device"], backend="gloo")
+    try:
+        cfg = ExperimentConfig.from_json(blob["cfg"])
+        n = len(blob["batch"]["snr"]) // world
+        local = {k: v[rank * n:(rank + 1) * n]
+                 for k, v in blob["batch"].items()}
+        out = {stage: dp_step(stage, cfg, blob[stage], local, blob["device"])
+               for stage in ("detector", "denoiser")}
+        torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def dp_two_ranks(cfg, gen: torch.Generator, workdir: str) -> None:
+    """Phase 10 (a): DP_WORLD ranks on the card over gloo with CUDA
+    tensors, each at DP_LOCAL_BATCH, against one process at the global
+    batch on the card: the ranks' new states bit-identical; loss within
+    1e-4 relative, BatchNorm statistics 1e-5, gradients 5e-2 relative L2
+    (phase 8's bounds); K1, K2's complement, K4's training instance and
+    K4b launch in every rank."""
+    import torch.multiprocessing as mp
+    from sos_tpu_torch.parallel.distributed import free_port
+
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, "dp_ranks")
+    os.makedirs(path)
+    inputs = dict(fresh_state_dicts(cfg), cfg=cfg.to_json(),
+                  device=f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+                  batch=train_batch(DP_WORLD * DP_LOCAL_BATCH, gen))
+    torch.save(inputs, os.path.join(path, "inputs.pt"))
+    ctx = mp.start_processes(dp_worker,
+                             args=(DP_WORLD, free_port(), path),
+                             nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"the gloo ranks did not finish in "
+                               f"{DP_TIMEOUT_S} s")
+    ranks = [torch.load(os.path.join(path, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    t_ranks = time.perf_counter() - t0
+    for stage in ("detector", "denoiser"):
+        one = dp_step(stage, cfg, inputs[stage], inputs["batch"], DEVICE)
+        got = ranks[0][stage]
+        same = all(torch.equal(got["state"][k], r[stage]["state"][k])
+                   for r in ranks[1:] for k in got["state"])
+        loss_gap = (abs(got["metrics"]["loss"] - one["metrics"]["loss"])
+                    / abs(one["metrics"]["loss"]))
+        stats_err = max(float((got["state"][k] - v).abs().max())
+                        for k, v in one["state"].items() if "running" in k)
+        grad_l2 = _relative_l2(got["grads"], one["grads"])
+        launched = [{k: r[stage]["launches"][k] for k in TRAIN_KERNELS[stage]}
+                    for r in ranks]
+        log(f"data-parallel {stage} step {card_note()}: {DP_WORLD} gloo "
+            f"ranks x batch {DP_LOCAL_BATCH} against one process at batch "
+            f"{DP_WORLD * DP_LOCAL_BATCH}: ranks' states bit-identical "
+            f"{same}; loss {got['metrics']['loss']:.7f} vs "
+            f"{one['metrics']['loss']:.7f} (relative {loss_gap:.3e}), BN "
+            f"statistics max |diff| {stats_err:.3e}, gradients relative L2 "
+            f"{grad_l2:.3e}; launches per rank {launched}")
+        if not (same and loss_gap <= 1e-4 and stats_err <= 1e-5
+                and grad_l2 <= 5e-2
+                and all(all(v > 0 for v in lr.values()) for lr in launched)):
+            raise RuntimeError(f"data-parallel {stage} step disagrees")
+    log(f"two gloo ranks on the card: {t_ranks:.1f} s (spawned processes "
+        f"included), the one-process steps "
+        f"{time.perf_counter() - t0 - t_ranks:.1f} s")
+
+
+def _torchrun_env(port: int):
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def dp_nccl_cli(cfg, gen: torch.Generator, workdir: str):
+    """Phase 10 (b): NCCL at world size 1 under torchrun's variables:
+    `train_denoiser --distributed` for 1 epoch on a generated corpus,
+    then `--continue --ckpt latest` to epoch 2 (`latest.clock.json`
+    advances, strict JSON); then the synced denoiser step (sync-BN
+    all-reduces and the gradient all-reduce) timed at batch 40 beside
+    phase 8's plain step. Returns the experiment's flags."""
+    from sos_tpu_torch.cli import train_denoiser
+    from sos_tpu_torch.parallel import distributed
+    from sos_tpu_torch.parallel.distributed import free_port
+
+    root = os.path.join(workdir, "dp_cli")
+    ds_json = train_corpus(root, gen)
+    exp = ["--output_root", os.path.join(root, "out"), "--name", "smoke"]
+    clock_path = os.path.join(root, "out", "smoke_denoiser", "model",
+                              "latest.clock.json")
+    saved = {k: os.environ.get(k) for k in _torchrun_env(0)}
+    clocks = []
+    try:
+        for extra in (["--epochs", "1"],
+                      ["--epochs", "2", "--continue", "--ckpt", "latest"]):
+            os.environ.update(_torchrun_env(free_port()))
+            t0 = time.perf_counter()
+            run_cli(train_denoiser, ["--distributed", "--dataset_json",
+                                     ds_json, "--noise_root",
+                                     os.path.join(root, "noise"),
+                                     "--batch_size", "4", "--device",
+                                     DEVICE, *exp, *extra])
+            clocks.append(_strict_json(clock_path))
+            log(f"train_denoiser --distributed (NCCL, world 1) "
+                f"{' '.join(extra)}: {time.perf_counter() - t0:.1f} s, "
+                f"latest.clock.json {clocks[-1]}")
+            if distributed.is_initialized():
+                raise RuntimeError("train_denoiser left its process group")
+        if not (clocks[0]["epoch"] == 1 and clocks[0]["step"] > 0
+                and clocks[1]["epoch"] == 2
+                and clocks[1]["step"] == 2 * clocks[0]["step"]):
+            raise RuntimeError(f"train_denoiser --distributed --continue "
+                               f"did not advance latest.clock.json: {clocks}")
+        key = ("denoiser", cfg.train.compute_dtype, cfg.train.remat,
+               TRAIN_BATCH["denoiser"])
+        plain_ms = STEP_MS.get(key)
+        os.environ.update(_torchrun_env(free_port()))
+        distributed.initialize(require=True, device=DEVICE)
+        try:
+            timed_training("denoiser", cfg, fresh_state_dicts(cfg), gen)
+        finally:
+            distributed.shutdown()
+        synced_ms = STEP_MS[key]
+        log(f"synced denoiser step (NCCL, world 1) {card_note()}: batch "
+            f"{key[-1]}, median {synced_ms:.1f} ms against phase 8's plain "
+            + ("step: not measured in this run" if plain_ms is None else
+               f"{plain_ms:.1f} ms: overhead {synced_ms - plain_ms:+.1f} ms "
+               f"({(synced_ms / plain_ms - 1) * 100:+.2f} %)"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return exp
+
+
+def dp_shard(cfg, det_state, den_state, gen: torch.Generator) -> None:
+    """Phase 10 (c): `FusedDenoisePipeline.shard` over every visible card
+    against the unsharded call on 8 clips, f32 and int8: equal bits, the
+    waveforms within 1e-4 (bit for bit on one card)."""
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if DEVICE == "cuda" else [DEVICE])
+    clips = make_clips(SYNTH_BATCH, gen)
+    for profile in ("f32", "int8"):
+        one = FusedDenoisePipeline(cfg, det_state, den_state, profile=profile,
+                                   device=DEVICE)
+        shard = FusedDenoisePipeline(cfg, det_state, den_state,
+                                     profile=profile,
+                                     device=DEVICE).shard(devices)
+        y1, b1 = one(clips)
+        reset_launches()
+        y2, b2 = shard(clips)
+        torch.cuda.synchronize()
+        err = float((y1 - y2).abs().max())
+        log(f"shard over {len(devices)} card(s) {card_note()}, {profile}, "
+            f"{SYNTH_BATCH} clips: bits equal {bool(torch.equal(b1, b2))}, "
+            f"waveforms bit-identical {bool(torch.equal(y1, y2))} (max "
+            f"|diff| {err:.3e}); launches {fused_launches(profile)}")
+        if not (torch.equal(b1, b2) and err <= 1e-4):
+            raise RuntimeError(f"shard ({profile}) disagrees with the "
+                               "unsharded call")
+
+
+def fused_launches(profile: str):
+    keys = (("stft", "bilstm", "mask_gate", "crm_istft") if profile != "int8"
+            else ("stft", "bilstm", "mask_gate", "crm_istft", "int8_conv",
+                  "int8_inpaint"))
+    return {k: LAUNCHES[k] for k in keys}
+
+
+def synthetic_eval_phase(cfg, gen: torch.Generator, workdir: str,
+                         exp) -> None:
+    """Phase 10 (d): `eval_synthetic --noisy_baseline` in f32, bf16 and
+    int8 on phase 10 (b)'s trained denoiser over a generated corpus, SNR
+    indices 0/3/6, batch 8, 2 batches: 11 finite metrics (and their
+    noisy baselines) at every SNR, the kernels of SYNTH_KERNELS launched;
+    then the device part alone (audio-s/s on the card, median of 3 after
+    1) and the host metric seconds of one batch, and one batch of 2 on
+    the card against the CPU (f32, within 1e-3)."""
+    from sos_tpu_torch.cli import eval_synthetic
+    from sos_tpu_torch.data import (DatasetIndex, DenoiserBatcher, NoiseBank,
+                                    denoiser_windows)
+    from sos_tpu_torch.infer.synthetic_eval import (SyntheticDenoise,
+                                                    clip_metrics)
+
+    root = os.path.join(workdir, "synth")
+    ds_json = train_corpus(root, gen, seconds=8)
+    noise = os.path.join(root, "noise")
+    for profile in SYNTH_PROFILES:
+        out_json = os.path.join(root, f"report_{profile}.json")
+        reset_launches()
+        t0 = time.perf_counter()
+        run_cli(eval_synthetic, [
+            "--dataset_json", ds_json, "--noise_root", noise, "--ckpt",
+            "latest", *exp, "--snr_idx", *SYNTH_SNR_IDX, "--batch_size",
+            str(SYNTH_BATCH), "--max_batches", str(SYNTH_BATCHES),
+            "--noisy_baseline", "--profile", profile, "--out", out_json,
+            "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        report = _strict_json(out_json)
+        launched = {k: LAUNCHES[k] for k in SYNTH_KERNELS[profile]}
+        ok = len(report) == len(SYNTH_SNR_IDX) and all(
+            row["num_clips"] == SYNTH_BATCH * SYNTH_BATCHES
+            and sum(k.startswith("avg_") for k in row) == 11
+            and sum(k.startswith("noisy_avg_") for k in row) == 11
+            and all(np.isfinite(v) for v in row.values())
+            for row in report.values())
+        log(f"eval_synthetic --profile {profile} {card_note()}: {wall:.1f} s "
+            f"for {len(report)} SNRs x {SYNTH_BATCH * SYNTH_BATCHES} clips; "
+            + "; ".join(f"{snr}: stoi {row['avg_stoi']:.4f} (noisy "
+                        f"{row['noisy_avg_stoi']:.4f}), pesq "
+                        f"{row['avg_pesq']:.4f}, ssnr "
+                        f"{row['avg_ssnr_regular']:.4f}"
+                        for snr, row in report.items())
+            + f"; launches {launched}")
+        if not (ok and all(v > 0 for v in launched.values())):
+            raise RuntimeError(f"eval_synthetic --profile {profile} failed")
+
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                            snr_idx=3))
+    state = load_model_state(os.path.join(exp[1], "smoke_denoiser", "model"),
+                             "latest")
+    idx = DatasetIndex.load(ds_json)
+    windows = denoiser_windows(idx.files, cfg.data.clip_seconds,
+                               cfg.data.overlap_seconds)
+    bank = NoiseBank.from_roots([noise], cfg.data.sample_rate)
+    batch = next(iter(DenoiserBatcher(windows, bank, cfg.data, SYNTH_BATCH,
+                                      shuffle=False, seed=0)))
+    card = SyntheticDenoise(cfg, state, "f32", noisy_baseline=True,
+                            device=DEVICE)
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        denoised, clean, mixed = card(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dev_s = statistics.median(times[1:])
+    host = [w.cpu().numpy() for w in (denoised, clean, mixed)]
+    t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda i: clip_metrics(host[0][i], host[1][i], SR),
+                      range(SYNTH_BATCH)))
+        list(pool.map(lambda i: clip_metrics(host[2][i], host[1][i], SR),
+                      range(SYNTH_BATCH)))
+    host_s = time.perf_counter() - t0
+    audio_s = SYNTH_BATCH * CLIP / SR
+    log(f"synthetic eval f32 {card_note()}: device part {dev_s * 1e3:.1f} "
+        f"ms a batch of {SYNTH_BATCH} ({audio_s / dev_s:.1f} audio-s/s); "
+        f"host metrics {host_s:.2f} s a batch with the noisy baseline "
+        f"({2 * SYNTH_BATCH} clips on 8 threads, "
+        f"{2 * audio_s / host_s:.1f} audio-s/s)")
+    small = {k: v[:2] for k, v in batch.items()}
+    cpu = SyntheticDenoise(cfg, state, "f32", noisy_baseline=True,
+                           device="cpu")
+    errs = [float((a.cpu() - b).abs().max())
+            for a, b in zip(card(small), cpu(small))]
+    log(f"synthetic eval f32, card against CPU on 2 clips: max |diff| "
+        f"denoised {errs[0]:.3e}, clean {errs[1]:.3e}, mixed {errs[2]:.3e}")
+    if max(errs) > 1e-3:
+        raise RuntimeError("synthetic eval: card and CPU disagree")
+
+
+def phase_data_parallel(cfg: ExperimentConfig, det_state, den_state,
+                        gen: torch.Generator, workdir: str) -> None:
+    """Phase 10 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    log(f"phase 10: {torch.cuda.device_count()} visible card(s)")
+    dp_two_ranks(cfg, gen, workdir)
+    exp = dp_nccl_cli(cfg, gen, workdir)
+    dp_shard(cfg, det_state, den_state, gen)
+    synthetic_eval_phase(cfg, gen, workdir, exp)
+    log(f"data-parallel and synthetic eval phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2686,6 +3075,7 @@ def main() -> int:
                          ("bilstm_train", "bilstm_bwd",
                           "mask_gate_complement")})
         phase_joint_bf16(cfg, gen, workdir)
+        phase_data_parallel(cfg, det_state, den_state, gen, workdir)
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

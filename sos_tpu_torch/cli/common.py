@@ -8,20 +8,30 @@ Checkpoints: as in `sos_tpu`, `--ckpt` (eval CLIs) and
 the train and import_checkpoint CLIs write; a reference-layout `.pth`
 (`--pth`, `--detector_pth`, `--denoiser_pth`) wins when given.
 
-Training runs on one device, in float32 or bfloat16: `--distributed`,
-`--coordinator` and `--num_devices` above 1 are usage errors that name
-the later slice (ROADMAP.md queue 1 item 5)."""
+Training runs in float32 or bfloat16 on one device or data-parallel
+over several, one process a card (`parallel/distributed.py`):
+`--num_devices N` starts N processes on this host (default: every
+visible card, the most that divides the batch; one on the CPU);
+`--distributed` joins the processes torchrun started, `--coordinator
+host:port --num_processes N --process_id K` an explicit group. Each
+process trains on its shard of the data at its slice of the global
+`--batch_size`."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import os
+import sys
 from typing import Tuple
+
+import torch
 
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.models.torch_import import (import_denoiser_checkpoint,
                                                import_detector_checkpoint)
+from sos_tpu_torch.parallel import distributed
 from sos_tpu_torch.train.checkpoints import (CheckpointNotReadable,
                                              load_model_state)
 
@@ -174,8 +184,9 @@ def add_common_train_args(parser: argparse.ArgumentParser,
     parser.add_argument("--seed", type=int, default=None,
                         help="training seed (init + batch order)")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="devices to train on: 1 (data parallelism is "
-                             "a later slice)")
+                        help="data-parallel device count, one process a "
+                             "device (default: every visible card, the "
+                             "most that divides the batch; 1 on the CPU)")
     parser.add_argument("--compute_dtype", type=str, default=None,
                         choices=("float32", "bfloat16"),
                         help="training compute dtype of the conv trunks: "
@@ -186,28 +197,91 @@ def add_common_train_args(parser: argparse.ArgumentParser,
                         help="disable per-block rematerialization "
                              "(faster; needs the activations to fit)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training: a later slice")
+                        help="join a process group of one process a card "
+                             "(torchrun's environment, or --coordinator) "
+                             "and train on this process's data shard")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-process coordinator: a later slice")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+                        help="process group address host:port (with "
+                             "--num_processes and --process_id; implies "
+                             "--distributed)")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="processes in the group (one a card)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's index in the group")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of steps "
                              "[10, 15) here")
     add_device_arg(parser)
 
 
-def check_single_device(parser: argparse.ArgumentParser, args) -> None:
-    """Refuse what the port cannot train yet, rather than silently train
-    something else (one device)."""
-    later = ("is a later slice of the port (ROADMAP.md queue 1 item 5); "
-             "this one trains on one device")
+def launch_data_parallel(parser: argparse.ArgumentParser, args, argv,
+                         module: str, cfg: ExperimentConfig) -> bool:
+    """`--num_devices` N > 1 outside a process group: start N processes
+    of `module` on this host (one a card; gloo processes with `--device
+    cpu`), wait for them and return True. False when this process trains
+    itself. Without `--num_devices`: every visible card, less until the
+    count divides the batch (`sos_tpu`'s warning); one on the CPU."""
     if args.distributed or args.coordinator:
-        parser.error(f"--distributed/--coordinator: multi-process training "
-                     f"{later}")
-    if args.num_devices is not None and args.num_devices != 1:
-        parser.error(f"--num_devices {args.num_devices}: data-parallel "
-                     f"training {later}")
+        return False
+    n = args.num_devices
+    cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    if n is None:
+        n = max(1, cards)
+        while cfg.train.batch_size % n:
+            n -= 1
+        if n < cards:
+            logging.getLogger(__name__).warning(
+                "batch_size=%d does not divide %d devices; training on %d "
+                "device(s). Pick a divisible batch to use every card.",
+                cfg.train.batch_size, cards, n)
+    if n < 1:
+        parser.error(f"--num_devices {n}: at least 1")
+    if n == 1:
+        return False
+    if args.device == "cuda" and n > cards:
+        parser.error(f"--num_devices {n}: this host has {cards} card(s)")
+    if cfg.train.batch_size % n:
+        raise ValueError(
+            f"process count {n} must divide the global batch "
+            f"{cfg.train.batch_size} (pick batch_size as a multiple of {n})")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if args.num_devices is None:
+        argv += ["--num_devices", str(n)]
+    distributed.spawn_local(module, argv, n, cpu=args.device == "cpu")
+    return True
+
+
+def setup_distributed(parser: argparse.ArgumentParser, args) -> Tuple[int, int]:
+    """With `--distributed` or `--coordinator`: join the process group
+    (raising when it cannot be joined; nothing trains alone instead).
+    Returns (process index, process count). Call before any device
+    use."""
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        parser.error("--coordinator needs --num_processes and --process_id "
+                     "(or start the processes with torchrun and pass "
+                     "--distributed)")
+    if args.distributed or args.coordinator:
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id, require=True,
+                               device=args.device)
+        n = distributed.process_count()
+        if args.num_devices is not None and args.num_devices != n:
+            parser.error(f"--num_devices {args.num_devices}: the process "
+                         f"group has {n} processes (one a device)")
+    return distributed.process_index(), distributed.process_count()
+
+
+def shard_batchers_for_host(*batchers, cfg: ExperimentConfig, pid: int,
+                            nproc: int):
+    """Per-process data sharding: disjoint balanced window shards and
+    this process's slice of the global batch size."""
+    if nproc > 1:
+        local_bs = distributed.process_local_batch_size(cfg.train.batch_size)
+        for b in batchers:
+            b.shard(pid, nproc)
+            b.batch_size = local_bs
+    return batchers if len(batchers) > 1 else batchers[0]
 
 
 def train_config_from_args(args, stage: str) -> ExperimentConfig:
@@ -247,7 +321,25 @@ def checkpoint_name(ckpt: str) -> str:
 
 def run_training(stage: str, doc: str, argv=None) -> None:
     """The body of `train_detector` and `train_denoiser`: `sos_tpu`'s
-    windows, batchers, state, resume and `fit`, on `--device`."""
+    windows, batchers, state, resume and `fit`, on `--device`, in one
+    process or one a device (`launch_data_parallel`,
+    `setup_distributed`)."""
+    parser = argparse.ArgumentParser(description=doc)
+    add_common_train_args(parser)
+    args = parser.parse_args(argv)
+    cfg = train_config_from_args(args, stage)
+    if launch_data_parallel(parser, args, argv,
+                            f"sos_tpu_torch.cli.train_{stage}", cfg):
+        return
+    pid, nproc = setup_distributed(parser, args)
+    try:
+        _train_stage(stage, args, cfg, pid, nproc)
+    finally:
+        distributed.shutdown()
+
+
+def _train_stage(stage: str, args, cfg: ExperimentConfig, pid: int,
+                 nproc: int) -> None:
     from sos_tpu_torch.data import (DatasetIndex, DenoiserBatcher,
                                     DetectorBatcher, NoiseBank,
                                     denoiser_windows, detector_windows,
@@ -257,11 +349,6 @@ def run_training(stage: str, doc: str, argv=None) -> None:
     from sos_tpu_torch.train.fit import fit
     from sos_tpu_torch.train.state import TrainClock
 
-    parser = argparse.ArgumentParser(description=doc)
-    add_common_train_args(parser)
-    args = parser.parse_args(argv)
-    check_single_device(parser, args)
-    cfg = train_config_from_args(args, stage)
     _, log_dir, model_dir = experiment_dirs(cfg, stage)
 
     train_idx = DatasetIndex.load(args.dataset_json)
@@ -288,16 +375,19 @@ def run_training(stage: str, doc: str, argv=None) -> None:
                       shuffle=True, seed=cfg.train.seed)
     test_b = batcher(test_windows, noise, cfg.data, cfg.train.batch_size,
                      shuffle=False, seed=cfg.train.seed + 1)
+    train_b, test_b = shard_batchers_for_host(train_b, test_b, cfg=cfg,
+                                              pid=pid, nproc=nproc)
 
     steps_per_epoch = max(1, len(train_b))
     init = (loop.init_detector_state if stage == "detector"
             else loop.init_denoiser_state)
-    _, state = init(cfg, device=args.device)
+    _, state = init(cfg, device=distributed.local_device(args.device))
     clock = TrainClock()
     if args.cont:
         name = checkpoint_name(args.ckpt)
         state, clock = CheckpointManager(model_dir).load(name, state)
-        print(f"resumed from {name} at epoch {clock.epoch}")
+        if pid == 0:
+            print(f"resumed from {name} at epoch {clock.epoch}")
     if stage == "detector":
         train_step = loop.make_detector_train_step(cfg, steps_per_epoch)
         eval_step = loop.make_detector_eval_step(cfg)

@@ -52,6 +52,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -348,8 +350,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 template <int BT, int C, bool kTrain>
 cudaError_t set_smem(int smem) {
-  static int granted = 0;  // per instantiation: set once, raise as needed
-  if (smem <= granted) return cudaSuccess;
+  // per instantiation and device: set once, raise as needed
+  static int granted[sosdev::kMaxDevices] = {};
+  const int dev = sosdev::current_device();
+  if (smem <= granted[dev]) return cudaSuccess;
   cudaError_t err;
   if constexpr (kTrain) {
     err = cudaFuncSetAttribute(bilstm_train_kernel<BT, C>,
@@ -360,7 +364,7 @@ cudaError_t set_smem(int smem) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   }
-  if (err == cudaSuccess) granted = smem;
+  if (err == cudaSuccess) granted[dev] = smem;
   return err;
 }
 

@@ -37,6 +37,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -199,13 +201,15 @@ cudaError_t launch(const float* dout, const float* gates, const float* cs,
                    const float* whh_f, const float* whh_b, float* dxp, int B,
                    int T, int H, int U, int jp, int threads, int smem,
                    cudaStream_t stream) {
-  static int granted = 0;  // per instantiation: set once, raise as needed
-  if (smem > granted) {
+  // per instantiation and device: set once, raise as needed
+  static int granted[sosdev::kMaxDevices] = {};
+  const int dev = sosdev::current_device();
+  if (smem > granted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         bilstm_bwd_kernel<BT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
-    granted = smem;
+    granted[dev] = smem;
   }
   const int tiles = (B + BT - 1) / BT;
   cudaLaunchConfig_t cfg = {};

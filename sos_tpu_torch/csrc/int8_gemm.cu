@@ -22,6 +22,7 @@
 // Bound on an H100: bytes at the sweep's narrow shapes, where the int32
 // output dominates: at M 4096, K 1280, N 48, 0.39 GOP (0.2 us at 1,979
 // TOPS) against 6.1 MB (1.8 us at 3.35 TB/s).
+#include "per_device.cuh"
 #include "int8_wgmma.cuh"
 
 namespace {
@@ -161,12 +162,14 @@ cudaError_t launch(const int8_t* a, const int8_t* bt, int* out, int M, int N,
   if (err == cudaSuccess)
     err = sosw::make_map(&bmap, bt, 2, bdims, stride, bbox,
                          CU_TENSOR_MAP_SWIZZLE_128B);
-  static bool smem_set = false;  // once per tile width and process
-  if (err == cudaSuccess && !smem_set) {
+  // once per tile width and device
+  static bool smem_set[sosdev::kMaxDevices] = {};
+  const int dev = sosdev::current_device();
+  if (err == cudaSuccess && !smem_set[dev]) {
     err = cudaFuncSetAttribute(gemm_tma_s8<BN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                GemmSmem<BN>::kBytes);
-    smem_set = err == cudaSuccess;
+    smem_set[dev] = err == cudaSuccess;
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kRows - 1) / kRows, (N + BN - 1) / BN);

@@ -20,7 +20,6 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
-from scipy import signal as _signal
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -91,6 +90,10 @@ def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
         return np.asarray(y, dtype=np.float32)
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
+    # imported here: scipy.signal takes seconds to import, and most
+    # processes that import this module never resample
+    from scipy import signal as _signal
+
     out = _signal.resample_poly(y, up, down, window=("kaiser", 12.9846))
     return out.astype(np.float32)
 

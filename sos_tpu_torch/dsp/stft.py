@@ -100,7 +100,8 @@ def _synthesis_matrix(n_fft: int, win_length: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _device_table(name: str, n_fft: int, win_length: int,
                   device: torch.device) -> torch.Tensor:
-    """Analysis/synthesis matrix as a tensor on `device` (built once)."""
+    """Analysis/synthesis matrix as a tensor on `device` (built once a
+    device: callers pass a tensor's device, which names its card)."""
     table = {"analysis": _analysis_matrix,
              "synthesis": _synthesis_matrix}[name](n_fft, win_length)
     return torch.from_numpy(table).to(device)
@@ -163,9 +164,18 @@ def pfa_tables() -> Dict[str, np.ndarray]:
     return tables
 
 
+def device_pfa_tables(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pfa_tables` packed as the kernels read them: (floats, slots), on
+    `device`, built once a device (a bare "cuda" names the current one,
+    so each card keeps its own copy)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _pfa_tables_on(device)
+
+
 @functools.lru_cache(maxsize=8)
-def device_pfa_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`pfa_tables` packed as the kernels read them: (floats, slots)."""
+def _pfa_tables_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     tables = pfa_tables()
     floats = np.concatenate([tables[k].ravel() for k in PFA_FLOAT_TABLES])
     slots = np.concatenate([tables[k] for k in PFA_INT_TABLES])

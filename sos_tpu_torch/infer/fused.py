@@ -23,17 +23,22 @@ cuDNN defaults to TF32, so every call runs inside `exact_fp32`: the fp32
 parts of every profile stay exact fp32 (the bf16 profile's convs are
 bf16 anyway).
 
-`shard()` is not ported yet.
+`shard(devices)` serves data-parallel in one process: one replica of
+the pipeline a device, each call's batch split in order over them and
+run at once, one host thread a device (`sos_tpu`'s batch-sharded SPMD
+program over a mesh).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import tempfile
 import threading
-from typing import Mapping, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from sos_tpu_torch.models.layers import exact_fp32, resolve_device
 from sos_tpu_torch.models.quant import (CALIBRATION_SCHEMA_ERRORS,
                                         QuantizedDenoiser, QuantizedDetector,
                                         parse_calibration_file)
+from sos_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
 
 # -- int16 wire format -----------------------------------------------------
 # 16-bit PCM decodes to exact multiples of 1/32768, so shipping waveform
@@ -110,6 +116,13 @@ class FusedDenoisePipeline:
             raise ValueError(f"wire_dtype must be float32|int16, "
                              f"got {wire_dtype!r}")
         self.device = resolve_device(device)
+        # what a replica on another device is built from (`shard`)
+        self._replica_args = (cfg, detector_state, denoiser_state,
+                              dict(threshold=threshold,
+                                   clip_seconds=clip_seconds,
+                                   profile=profile, wire_dtype=wire_dtype,
+                                   bf16_head_proj=bf16_head_proj))
+        self._mesh = self._replicas = None
         self.cfg = cfg
         self.profile = profile
         self.wire_dtype = wire_dtype
@@ -187,6 +200,26 @@ class FusedDenoisePipeline:
     @torch.no_grad()
     def __call__(self, mixed) -> Tuple[torch.Tensor, torch.Tensor]:
         """mixed: (B, clip_samples) -> (denoised (B, (T-1)*hop), bits (B, frames))."""
+        if self._replicas is not None:
+            return self._sharded("_call_local", mixed)
+        return self._call_local(mixed)
+
+    @torch.no_grad()
+    def detect_bits(self, mixed) -> torch.Tensor:
+        """(B, n) -> thresholded bits (B, _nf(n)); n is normally
+        clip_samples, longer for a streaming detector-context halo."""
+        if self._replicas is not None:
+            return self._sharded("_detect_local", mixed)
+        return self._detect_local(mixed)
+
+    @torch.no_grad()
+    def denoise_with_bits(self, mixed, bits) -> torch.Tensor:
+        """Denoise with externally supplied (e.g. reconciled) bits."""
+        if self._replicas is not None:
+            return self._sharded("_denoise_local", mixed, bits)
+        return self._denoise_local(mixed, bits)
+
+    def _call_local(self, mixed):
         mixed = self._ingest(mixed)
         self._check_clip(mixed)
         self._maybe_calibrate(mixed)
@@ -195,24 +228,79 @@ class FusedDenoisePipeline:
             bits = self._bits(mixed_cat, self.num_frames)
             return self._emit(self._denoise(mixed, mixed_cat, bits)), bits
 
-    @torch.no_grad()
-    def detect_bits(self, mixed) -> torch.Tensor:
-        """(B, n) -> thresholded bits (B, _nf(n)); n is normally
-        clip_samples, longer for a streaming detector-context halo."""
+    def _detect_local(self, mixed):
         mixed = self._ingest(mixed)
         self._maybe_calibrate(mixed)
         with exact_fp32():
             return self._bits(self._stft(mixed), self._nf(mixed.shape[-1]))
 
-    @torch.no_grad()
-    def denoise_with_bits(self, mixed, bits) -> torch.Tensor:
-        """Denoise with externally supplied (e.g. reconciled) bits."""
+    def _denoise_local(self, mixed, bits):
         mixed = self._ingest(mixed)
         self._check_clip(mixed)
         self._maybe_calibrate(mixed)
         bits = torch.as_tensor(bits, device=self.device).float()
         with exact_fp32():
             return self._emit(self._denoise(mixed, self._stft(mixed), bits))
+
+    # -- data parallelism ------------------------------------------------
+
+    def shard(self, devices: Sequence) -> "FusedDenoisePipeline":
+        """Serve data-parallel over `devices` in this process (`sos_tpu`'s
+        `shard(mesh)`): one replica of the pipeline a device (this one
+        where the device is its own; elsewhere the weights copied, and an
+        int8 replica takes this pipeline's calibration scales); then each
+        call of `__call__`, `detect_bits` and `denoise_with_bits` splits
+        its batch in order into one slice a device (the batch must divide
+        the device count, as `sos_tpu`'s batch-sharded arrays require),
+        runs the slices at once (one host thread a device) and returns
+        the results concatenated on this pipeline's device. An int8
+        pipeline not yet calibrated calibrates on the whole first batch,
+        as the unsharded call does. Returns self."""
+        mesh = make_mesh(devices=[resolve_device(d) for d in devices])
+        cfg, det_state, den_state, kwargs = self._replica_args
+        self._replicas = []
+        for dev in mesh.devices:
+            own = dev == self.device and self not in self._replicas
+            self._replicas.append(self if own else FusedDenoisePipeline(
+                cfg, det_state, den_state, device=dev, **kwargs))
+        self._mesh = mesh
+        return self
+
+    def _sharded(self, method: str, mixed, *rest):
+        if self._quant is not None and not self._quant._calibrated:
+            self._maybe_calibrate(self._ingest(mixed))
+        self._sync_scales()
+        pieces = [shard_batch(torch.as_tensor(a), self._mesh)
+                  for a in (mixed, *rest)]
+
+        def run(i):
+            rep = self._replicas[i]
+            scope = (torch.cuda.device(rep.device)
+                     if rep.device.type == "cuda" else contextlib.nullcontext())
+            with scope, torch.no_grad():
+                return getattr(rep, method)(*(p[i] for p in pieces))
+
+        with ThreadPoolExecutor(max_workers=len(self._replicas)) as pool:
+            results = list(pool.map(run, range(len(self._replicas))))
+        if isinstance(results[0], tuple):
+            return tuple(gather_batch(r, self.device) for r in zip(*results))
+        return gather_batch(results, self.device)
+
+    def _sync_scales(self) -> None:
+        """Give every int8 replica this pipeline's scales (once a change)."""
+        if self._quant is None or not self._quant._calibrated:
+            return
+        den = self._quant.calibration_state()
+        det = self._quant_det.calibration_state()
+        for rep in self._replicas:
+            if rep is self:
+                continue
+            if not (rep._quant._calibrated and
+                    rep._quant.calibration_state() == den):
+                rep._quant.load_calibration(den)
+            if not (rep._quant_det._calibrated and
+                    rep._quant_det.calibration_state() == det):
+                rep._quant_det.load_calibration(det)
 
     # -- int8 calibration ------------------------------------------------
 

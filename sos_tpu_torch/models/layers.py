@@ -34,6 +34,7 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -102,6 +103,46 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over the processes of the group, with its
+    gradient: the forward all-reduces each process's tensor, the
+    backward all-reduces the gradients, because every process's sums
+    feed every process's normalisation (as `nn.SyncBatchNorm` does).
+    Every process runs both in the same order, remat's second forward
+    included, since their graphs are the same."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        return grad
+
+
+def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and flax's biased variance, `max(0, E[x^2] -
+    E[x]^2)`, of NCHW `x` over (B, F, T), in x's dtype, from the sums of
+    x and of x^2 and the count. Within a process group (`torch.distributed`
+    initialized) those are all-reduced, differentiably, so the moments are
+    the global batch's, as `sos_tpu` computes them over its sharded batch
+    (sync-BN)."""
+    c = x.shape[1]
+    count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                       device=x.device)
+    sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                      count])
+    if dist.is_available() and dist.is_initialized():
+        sums = _GroupSum.apply(sums)
+    mean = sums[:c] / sums[2 * c]
+    var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+    return mean, var
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm2d (eps 1e-5) in flax's order of operations:
     `(x - mean) * (rsqrt(var + eps) * scale) + bias`, computed in float32
@@ -110,7 +151,8 @@ class TorchBatchNorm(nn.Module):
     Eval mode normalises by the running statistics. Training mode
     (`self.training`) normalises by the batch's, over (B, F, T) in
     float32: the mean and the biased variance as flax computes it,
-    `max(0, E[x^2] - E[x]^2)`. It leaves its buffers alone and keeps the
+    `max(0, E[x^2] - E[x]^2)`, over the global batch within a process
+    group (`batch_moments`). It leaves its buffers alone and keeps the
     batch's statistics in `pending_stats`; `commit_stats` then applies
     flax's update with momentum 0.9 and the biased variance (torch's
     `batch_norm(training=True)` would update with the unbiased one).
@@ -135,10 +177,7 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, var = batch_moments(x.float())
             self.pending_stats = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
@@ -209,7 +248,7 @@ class ConvBlock(nn.Module):
         return torch.relu(self.bn(x))
 
 
-def _reflect_index(size: int, lo: int, hi: int, device) -> torch.Tensor:
+def reflect_index(size: int, lo: int, hi: int, device) -> torch.Tensor:
     """Source indices of numpy's "reflect" padding by (lo, hi) of a
     length-`size` axis, for any pad: the extension of period 2(size-1)."""
     i = torch.arange(-lo, size + hi, device=device)
@@ -228,8 +267,8 @@ def reflect_pad(x: torch.Tensor, pads: Tuple[int, int, int, int]) -> torch.Tenso
     h, w = x.shape[2], x.shape[3]
     if max(left, right) < w and max(top, bottom) < h:
         return F.pad(x, pads, mode="reflect")
-    x = torch.index_select(x, 3, _reflect_index(w, left, right, x.device))
-    return torch.index_select(x, 2, _reflect_index(h, top, bottom, x.device))
+    x = torch.index_select(x, 3, reflect_index(w, left, right, x.device))
+    return torch.index_select(x, 2, reflect_index(h, top, bottom, x.device))
 
 
 def time_mask(x: torch.Tensor, valid_t: torch.Tensor,

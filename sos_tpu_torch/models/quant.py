@@ -479,7 +479,7 @@ class QuantizedDenoiser:
         x = x.permute(0, 3, 1, 2).float()
         if kind == "down":
             pad = (k - 1) // 2 * d
-            xp = F.pad(x, (pad,) * 4, mode="reflect") if pad else x
+            xp = reflect_pad(x, (pad,) * 4) if pad else x
             y = F.conv2d(xp, _oihw(w_f, x.device), stride=s, dilation=d)
         else:
             lo, hi = up_pads(k)

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from sos_tpu_torch.kernels import aligned16, launch, on_device
+from sos_tpu_torch.models.layers import reflect_index, reflect_pad
 
 K_ALIGN = 64  # the kernel's reduction stage, in int8 values
 
@@ -342,19 +343,36 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _inpaint_geometry(kind: str, k: int, s: int, d: int, h: int, w: int):
-    """(pad or lo, Ho, Wo) of one InpaintNet block."""
+def _inpaint_geometry(kind: str, k: int, s: int, d: int, h: int, w: int,
+                      pad: Optional[int] = None):
+    """(pad or lo, Ho, Wo) of one InpaintNet block; `pad` overrides a
+    down block's reflect pad (0 for an input `reflect_prepad` padded)."""
     if kind == "down":
-        pad = (k - 1) // 2 * d
-        if pad >= min(h, w):
-            raise ValueError(f"reflect pad {pad} needs inputs larger than "
-                             f"{h}x{w}")
+        if pad is None:
+            pad = (k - 1) // 2 * d
         return (pad, (h + 2 * pad - d * (k - 1) - 1) // s + 1,
                 (w + 2 * pad - d * (k - 1) - 1) // s + 1)
     if kind != "up":
         raise ValueError(f"kind must be down|up, got {kind!r}")
     lo, hi = up_pads(k)
     return (lo, (h - 1) * s + lo + hi - k + 2, (w - 1) * s + lo + hi - k + 2)
+
+
+def needs_prepad(kind: str, k: int, d: int, h: int, w: int) -> bool:
+    """Whether a down block's reflect pad reaches the width of an input
+    axis (a short utterance's mid blocks: T <= 64 frames), where
+    `jnp.pad(mode="reflect")` reflects again and the kernel's one
+    reflection does not reach."""
+    return kind == "down" and (k - 1) // 2 * d >= min(h, w)
+
+
+def reflect_prepad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """NHWC `x` reflect-padded by `pad` in H and W by an index gather,
+    repeating the reflection where `pad` reaches an axis' width, as
+    `jnp.pad(mode="reflect")` does; the block then runs with pad 0."""
+    h, w = x.shape[1], x.shape[2]
+    x = torch.index_select(x, 2, reflect_index(w, pad, pad, x.device))
+    return torch.index_select(x, 1, reflect_index(h, pad, pad, x.device))
 
 
 def inpaint_valid_out(kind: str, k: int, s: int, d: int, valid_t):
@@ -566,18 +584,20 @@ def _inpaint_steps(wtaps, cg, cpt, nph, plane):
 
 @functools.lru_cache(maxsize=None)
 def inpaint_plan(kind: str, k: int, stride: int, dilation: int, h: int,
-                 w: int, cin: int, cout: int) -> Optional[InpaintPlan]:
+                 w: int, cin: int, cout: int,
+                 pad: Optional[int] = None) -> Optional[InpaintPlan]:
     """K7's Hopper-tile plan, or None for the shapes that stay on the
     `mma.sync` gather: a Cout the tile has no width for (not a multiple of
     16 up to 128, or of 128 above), a kernel wider than 5 taps, up blocks
     other than stride 2 with Cin % 16 == 0, or a stage too large for two
     in shared memory. Cin = 2 (the input blocks) is padded to 16 channels
     with zero weights behind them. Rows of any width: a row whose output
-    and halo exceed 192 positions runs in segments."""
+    and halo exceed 192 positions runs in segments. `pad` 0: a down block
+    over an input `reflect_prepad` padded (no reflection left to do)."""
     n = min(cout, 128)
     if n not in INPAINT_TILE_N or cout % n or k > INPAINT_MAX_TAPS:
         return None
-    pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, w)
+    pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, w, pad)
     if kind == "up":
         if stride != 2 or cin % 16 or min(d for ph in (0, 1)
                                           for _, d in subpixel_taps(k, ph)) < 0:
@@ -680,7 +700,7 @@ def inpaint_conv_int8_plain(x: torch.Tensor, w: torch.Tensor,
     pad, _, _ = _inpaint_geometry(kind, k, stride, dilation, *x.shape[1:3])
     if kind == "down":
         if pad and valid_t is None:
-            xd = F.pad(xd, (pad,) * 4, mode="reflect")
+            xd = reflect_pad(xd, (pad,) * 4)
         elif pad:
             bsz, c, h, wid = xd.shape
             idx, keep = valid_columns(valid_t, pad, wid)
@@ -709,20 +729,28 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     the transposed conv (`w` packed flipped). `alpha`: the PReLU slope,
     a one-element float32 tensor. `valid_t` `(B,)`: each row's valid
     input width (the length-bucketed path; `inpaint_valid_out` gives the
-    output's). Kernel K7 on CUDA tensors, the plain version on CPU
-    tensors."""
+    output's). A down block whose pad reaches the input's width (a short
+    utterance) pads by `reflect_prepad` first and runs K7 with pad 0.
+    Kernel K7 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return inpaint_conv_int8_plain(x, w, w_s, b, alpha, kind, k, stride,
                                        dilation, valid_t)
     _check("inpaint_conv_int8", x, w, w_s, b, k * k, (alpha,))
     vt = _valid_arg("inpaint_conv_int8", valid_t, x)
+    pad = None
+    if needs_prepad(kind, k, dilation, *x.shape[1:3]):
+        if vt is not None:
+            raise ValueError("inpaint_conv_int8: per-row valid_t needs "
+                             "inputs wider than the reflect pad")
+        # a short row: the repeated reflection by a gather, then pad 0
+        x, pad = reflect_prepad(x, (k - 1) // 2 * dilation), 0
     # both routes read x as packed NHWC and w as rows kpad bytes apart
     x, w = aligned16(x), aligned16(w)
     bsz, h, wid, cin = x.shape
-    pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, wid)
+    pad, ho, wo = _inpaint_geometry(kind, k, stride, dilation, h, wid, pad)
     cout = w.shape[0]
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
-    plan = inpaint_plan(kind, k, stride, dilation, h, wid, cin, cout)
+    plan = inpaint_plan(kind, k, stride, dilation, h, wid, cin, cout, pad)
     scalars = (w_s.contiguous(), b.contiguous(), alpha.float().contiguous())
     vt_in = vt_out = None
     if vt is not None:

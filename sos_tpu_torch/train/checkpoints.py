@@ -12,8 +12,10 @@ A checkpoint `<name>` is one `torch.save` file `<model_dir>/<name>.pt`
 (`{"model": state_dict, "optimizer": state_dict, "step": int}`) and
 `<model_dir>/<name>.clock.json`, each written to a temporary file,
 flushed to disk and renamed over the old one, so a kill mid-write
-leaves the previous file whole. `load_model_state` reads the weights
-alone, as the eval and serving CLIs take them.
+leaves the previous file whole. In a process group process 0 writes,
+then every process passes a barrier; every process reads.
+`load_model_state` reads the weights alone, as the eval and serving
+CLIs take them.
 `sos_tpu`'s orbax checkpoints (a directory `<model_dir>/<name>/`) need
 JAX to read and are not read here.
 """
@@ -26,6 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from sos_tpu_torch.parallel import distributed
 from sos_tpu_torch.train.state import TrainClock, TrainState
 
 
@@ -72,6 +75,21 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, state: TrainState, clock: TrainClock, name: str) -> str:
+        """Write checkpoint `name`. In a process group the state is the
+        same on every process, so process 0 writes and every process
+        then waits at a barrier: none reports the checkpoint done (and
+        may be torn down) before the file is durable."""
+        path = self._path(name)
+        try:
+            if distributed.process_index() == 0:
+                self._write(state, clock, name)
+        finally:
+            # in the finally: a failed write on process 0 still releases
+            # the others (process 0 then raises the real error)
+            distributed.barrier()
+        return path
+
+    def _write(self, state: TrainState, clock: TrainClock, name: str) -> None:
         path = self._path(name)
         tmp = path + ".tmp"
         torch.save({"model": state.model.state_dict(),
@@ -86,7 +104,6 @@ class CheckpointManager:
         with open(tmp, "w") as fp:
             json.dump(clock.to_dict(), fp, allow_nan=False)
         _replace_durably(tmp, self._clock_path(name))
-        return path
 
     def save_epoch(self, state: TrainState, clock: TrainClock) -> str:
         path = self.save(state, clock, f"ckpt_epoch{clock.epoch}")
@@ -112,7 +129,8 @@ class CheckpointManager:
 
     def load(self, name: str, state: TrainState) -> Tuple[TrainState, TrainClock]:
         """Restore checkpoint `name` into `state`'s model and optimizer
-        (on the model's device) and return it with the saved clock."""
+        (on the model's device) and return it with the saved clock; in a
+        process group every process reads it."""
         device = next(state.model.parameters()).device
         blob = torch.load(self._path(name), map_location=device,
                           weights_only=True)

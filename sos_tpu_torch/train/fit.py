@@ -1,5 +1,5 @@
 """The epoch loop of training, shared by both stages (port of
-`sos_tpu/train/fit.py`, on one device).
+`sos_tpu/train/fit.py`).
 
 Reproduces the reference training protocol (m1 train.py:44-99):
 
@@ -20,6 +20,15 @@ Reproduces the reference training protocol (m1 train.py:44-99):
 With `profile_dir`, steps [10, 15) (`PROFILE_STEPS`) run under
 `torch.profiler`, whose Chrome trace is written to
 `<profile_dir>/trace.json`.
+
+Within a process group (one process a card, `parallel/distributed.py`)
+every process runs this loop over its shard of the batchers: process 0's
+state is broadcast first, the steps keep every process's state the
+same, and only process 0 writes the log, the tensorboard events, the
+trace and the checkpoints (each save ends at a barrier); the best-metric
+peek is process 0's, broadcast, and a SIGTERM is agreed on every
+`GracefulStop.SYNC_EVERY` steps, so no process waits alone at a
+collective.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.data.prefetch import prefetch
+from sos_tpu_torch.parallel import distributed
 from sos_tpu_torch.train.checkpoints import CheckpointManager
 from sos_tpu_torch.train.state import TrainClock, TrainState
 from sos_tpu_torch.utils import StepTimer, cycle
@@ -59,9 +69,16 @@ class GracefulStop:
     """SIGTERM-aware preemption flag: the signal only sets a flag; fit()
     checks it at step boundaries, saves `latest` and returns cleanly, so
     a preempted run resumes exactly via `--continue`. Installed for the
-    duration of fit() only; the previous handler is restored."""
+    duration of fit() only; the previous handler is restored. Within a
+    process group the flag is agreed (any process signalled: all stop at
+    the same step), so the checkpoint barrier cannot deadlock."""
 
     _NOT_INSTALLED = object()  # distinct from a previous handler of None
+
+    # in a group, agree on the flag only every N steps: a collective a
+    # step would block the host each step; every process checks at the
+    # same steps, and the response lags at most N steps
+    SYNC_EVERY = 10
 
     def __init__(self):
         self.requested = False
@@ -86,24 +103,39 @@ class GracefulStop:
             signal.signal(signal.SIGTERM, self._prev)
             self._prev = self._NOT_INSTALLED
 
+    def should_stop(self, step: int) -> bool:
+        if distributed.process_count() > 1:
+            # a stop requested here still waits for the common sync step:
+            # stopping alone would deadlock the others' next collective
+            if step % self.SYNC_EVERY != 0:
+                return False
+            return distributed.any_process(self.requested)
+        return self.requested
+
 
 class MetricsLog:
     """Append-only JSONL training log: one line per event,
     {"kind": "train"|"val"|"epoch", "step", "epoch", ...metrics}; append
-    mode keeps the history across resumed runs."""
+    mode keeps the history across resumed runs. In a process group only
+    process 0 writes (the metrics are the group's means)."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        self._fp = open(os.path.join(log_dir, "metrics.jsonl"), "a",
-                        buffering=1)
+        self._fp = None
+        if distributed.process_index() == 0:
+            os.makedirs(log_dir, exist_ok=True)
+            self._fp = open(os.path.join(log_dir, "metrics.jsonl"), "a",
+                            buffering=1)
 
     def write(self, kind: str, step: int, epoch: int, metrics: Dict) -> None:
+        if self._fp is None:
+            return
         row = {"kind": kind, "step": step, "epoch": epoch}
         row.update(_scalars(metrics))
         self._fp.write(json.dumps(row) + "\n")
 
     def close(self) -> None:
-        self._fp.close()
+        if self._fp is not None:
+            self._fp.close()
 
 
 # the train steps [start, stop) that `profile_dir` traces
@@ -112,10 +144,11 @@ PROFILE_STEPS = (10, 15)
 
 class StepProfile:
     """A `torch.profiler` trace over PROFILE_STEPS, written as a Chrome
-    trace to `<profile_dir>/trace.json`."""
+    trace to `<profile_dir>/trace.json` (by process 0 of a group)."""
 
     def __init__(self, profile_dir: Optional[str]):
-        self.dir, self._prof = profile_dir, None
+        self.dir = profile_dir if distributed.process_index() == 0 else None
+        self._prof = None
 
     def at(self, step: int) -> None:
         if self.dir and self._prof is None and step == PROFILE_STEPS[0]:
@@ -153,9 +186,11 @@ def fit(
     track_accuracy: bool = False,
     profile_dir: Optional[str] = None,
 ) -> TrainState:
-    """Train to cfg.train.nr_epochs on the model's device."""
+    """Train to cfg.train.nr_epochs on the model's device (in a process
+    group: on every process, each over its shard of the batchers)."""
     mgr = CheckpointManager(model_dir)
-    train_tb, val_tb = _writers(log_dir)
+    is_main = distributed.process_index() == 0
+    train_tb, val_tb = _writers(log_dir) if is_main else (None, None)
     jsonl = MetricsLog(log_dir)
     timer = StepTimer()
     # restored on --continue (clock.best_metric persists in the sidecar)
@@ -166,7 +201,11 @@ def fit(
     # per-run in-memory best (m1 train.py:57,84-88).
     best_metric = clock.best_metric
     if track_accuracy and (clock.step > 0 or clock.epoch > 0):
-        best_metric = max(best_metric, mgr.peek_best_metric("best_acc"))
+        # the peek feeds the condition of the barriered best_acc save:
+        # every process must see one value, so process 0 reads it
+        peek = mgr.peek_best_metric("best_acc") if is_main else -np.inf
+        best_metric = max(best_metric, distributed.broadcast_float(peek))
+    distributed.replicate([state.model])
 
     val_batcher.set_epoch(0)
     has_val = len(val_batcher) > 0
@@ -220,7 +259,7 @@ def fit(
                     if (cfg.train.save_step_frequency and clock.step
                             % cfg.train.save_step_frequency == 0):
                         mgr.save(state, clock, "latest")
-                    if stop.requested:
+                    if stop.should_stop(clock.step):
                         # preemption: fall through to the final `latest`
                         # save; the minibatch cursor in the clock resumes
                         # at the NEXT batch of this epoch exactly

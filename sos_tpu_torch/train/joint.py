@@ -1,5 +1,5 @@
 """Joint training: the detector and the denoiser in one step (port of
-`sos_tpu/train/joint.py`, on one device).
+`sos_tpu/train/joint.py`).
 
 The reference trains the stages apart (stage 2 consumes ground-truth
 silent intervals, m2 dataset.py:167-193). One joint step:
@@ -17,8 +17,10 @@ silent intervals, m2 dataset.py:167-193). One joint step:
     only when both applied.
 
 Both `step` counters advance every step. The step runs in
-`cfg.train.compute_dtype` as `train/loop.py`'s steps do. `sos_tpu`'s
-psum over the data mesh waits for the port's data-parallel slice.
+`cfg.train.compute_dtype` as `train/loop.py`'s steps do. Within a
+process group each stage's update averages its own gradients over the
+group first (`guarded_update`; `sos_tpu`'s psum of both trees) and the
+metrics are the group's means.
 """
 
 from __future__ import annotations
@@ -30,11 +32,17 @@ import torch
 
 from sos_tpu_torch.config import ExperimentConfig
 from sos_tpu_torch.models.layers import exact_fp32
+from sos_tpu_torch.parallel import distributed
 from sos_tpu_torch.train.loop import (adam_count, denoiser_inputs,
                                       denoiser_loss, detector_loss,
                                       guarded_update, init_denoiser_state,
                                       init_detector_state, make_lr_schedule)
 from sos_tpu_torch.train.state import TrainState
+
+
+# the metrics averaged over the process group
+_MEAN_METRICS = ("detector_loss", "detector_accuracy", "denoiser_loss",
+                 "stage1", "stage2")
 
 
 def init_joint_states(cfg: ExperimentConfig, device="cuda", seed: int = 0):
@@ -89,11 +97,11 @@ def make_joint_train_step(cfg: ExperimentConfig,
                           == bits).float())
         det_state.step += 1
         den_state.step += 1
-        return det_state, den_state, {
+        return det_state, den_state, distributed.mean_over_processes({
             "detector_loss": float(det_loss.detach()),
             "detector_accuracy": float(acc),
             "denoiser_loss": float(den_loss.detach()),
             "stage1": float(l1.detach()), "stage2": float(l2.detach()),
-            "finite": float(det_fin and den_fin)}
+            "finite": float(det_fin and den_fin)}, _MEAN_METRICS)
 
     return train_step

@@ -27,6 +27,13 @@ weight- and data-gradient kernels) and the matmuls stay in full fp32,
 `sos_tpu`'s reference-exact f32. Checking the gradients costs one host
 synchronisation a step.
 
+Within a process group (`parallel/distributed.py`, one process a card)
+each process steps on its slice of the global batch: BatchNorm takes the
+global batch's statistics (sync-BN), `guarded_update` averages the
+gradients over the group before it decides, and the steps' metrics are
+the group's means, so every process holds the same state after a step,
+that of one process stepping on the global batch.
+
 `cfg.train.compute_dtype = "bfloat16"` runs the conv trunks in bf16, as
 `sos_tpu`'s does (parameters float32, cast to bf16 at each conv;
 BatchNorm's statistics and normalisation in float32, its output cast
@@ -54,6 +61,7 @@ from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import (batch_norms, commit_batch_stats,
                                          discard_batch_stats, exact_fp32,
                                          init_state_dict, resolve_device)
+from sos_tpu_torch.parallel import distributed
 from sos_tpu_torch.train.state import TrainState
 
 ADAM_BETAS = (0.9, 0.999)
@@ -148,10 +156,13 @@ def all_finite(model: torch.nn.Module) -> bool:
 
 
 def guarded_update(state: TrainState, lr: float, enabled: bool) -> bool:
-    """Apply Adam and the BatchNorm statistics only when EVERY gradient
-    is finite (with `enabled`; else always). A skipped step leaves the
-    parameters, the Adam moments and count and the running statistics
-    as they were. Returns whether the update was applied."""
+    """Average the gradients over the process group (a no-op in one
+    process), then apply Adam and the BatchNorm statistics only when
+    EVERY averaged gradient is finite (with `enabled`; else always), so
+    every process applies or skips the same step. A skipped step leaves
+    the parameters, the Adam moments and count and the running
+    statistics as they were. Returns whether the update was applied."""
+    distributed.reduce_gradients(state.model)
     finite = all_finite(state.model) if enabled else True
     if finite:
         for group in state.optimizer.param_groups:
@@ -229,8 +240,9 @@ def make_detector_train_step(cfg: ExperimentConfig,
         acc = torch.mean(((torch.sigmoid(logits.detach()) >= 0.5).float()
                           == label).float())
         state.step += 1
-        return state, {"loss": float(loss.detach()), "accuracy": float(acc),
-                       "finite": float(finite), "lr": lr}
+        return state, distributed.mean_over_processes(
+            {"loss": float(loss.detach()), "accuracy": float(acc),
+             "finite": float(finite), "lr": lr}, ("loss", "accuracy"))
 
     return train_step
 
@@ -244,8 +256,10 @@ def make_detector_eval_step(cfg: ExperimentConfig) -> Callable:
             loss, logits, label = detector_loss(cfg, state.model, inputs)
         pred = (torch.sigmoid(logits) >= 0.5).float()
         acc = torch.mean((pred == label).float())
-        return {"loss": float(loss), "accuracy": float(acc),
-                "pred": pred.cpu().numpy(), "label": label.cpu().numpy()}
+        return distributed.mean_over_processes(
+            {"loss": float(loss), "accuracy": float(acc),
+             "pred": pred.cpu().numpy(), "label": label.cpu().numpy()},
+            ("loss", "accuracy"))
 
     return eval_step
 
@@ -290,9 +304,10 @@ def make_denoiser_train_step(cfg: ExperimentConfig,
             loss.backward()
             finite = guarded_update(state, lr, cfg.train.skip_nonfinite_updates)
         state.step += 1
-        return state, {"loss": float(loss.detach()), "stage1": float(l1.detach()),
-                       "stage2": float(l2.detach()), "finite": float(finite),
-                       "lr": lr}
+        return state, distributed.mean_over_processes(
+            {"loss": float(loss.detach()), "stage1": float(l1.detach()),
+             "stage2": float(l2.detach()), "finite": float(finite),
+             "lr": lr}, ("loss", "stage1", "stage2"))
 
     return train_step
 
@@ -304,6 +319,7 @@ def make_denoiser_eval_step(cfg: ExperimentConfig) -> Callable:
         with exact_fp32():
             inputs = denoiser_inputs(cfg, batch, _device_of(state.model))
             _, l1, l2 = denoiser_loss(cfg, state.model, inputs)
-        return {"stage1": float(l1), "stage2": float(l2)}
+        return distributed.mean_over_processes(
+            {"stage1": float(l1), "stage2": float(l2)}, ("stage1", "stage2"))
 
     return eval_step

@@ -206,27 +206,36 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, corpus, stage):
 
 
 # bfloat16 training, once refused here, is a case of its own below (ids
-# kept as they were)
-@pytest.mark.parametrize("flags,match", [
-    pytest.param(["--distributed"], "multi-process",
+# kept as they were). The multi-process flags, refused before the port
+# trained data-parallel, now train (tests/test_torch_parallel.py); here
+# they refuse what cannot run: --distributed with no torchrun
+# environment to join, a coordinator without the group's size and this
+# process's index, and 4 processes for a global batch of 15.
+@pytest.mark.parametrize("flags,match,error", [
+    pytest.param(["--distributed"], "torchrun environment", RuntimeError,
                  id="flags1-multi-process"),
-    pytest.param(["--coordinator", "localhost:1234"], "multi-process",
-                 id="flags2-multi-process"),
-    pytest.param(["--num_devices", "4"], "data-parallel",
-                 id="flags3-data-parallel"),
+    pytest.param(["--coordinator", "localhost:1234"], "--num_processes",
+                 SystemExit, id="flags2-multi-process"),
+    pytest.param(["--num_devices", "4"], "must divide the global batch 15",
+                 ValueError, id="flags3-data-parallel"),
 ])
 def test_train_cli_refuses_what_a_later_slice_brings(tmp_path, corpus, flags,
-                                                      match, capsys):
+                                                      match, error, capsys,
+                                                      monkeypatch):
     from sos_tpu_torch.cli import train_detector
 
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     ds_json, noise_dir = corpus
-    with pytest.raises(SystemExit) as exit_info:
+    with pytest.raises(error) as exit_info:
         train_detector.main(["--device", "cpu", "--dataset_json", ds_json,
                              "--noise_root", noise_dir, "--output_root",
                              str(tmp_path / "out"), *flags])
-    assert exit_info.value.code == 2
-    err = capsys.readouterr().err
-    assert match in err and "later slice" in err
+    if error is SystemExit:
+        assert exit_info.value.code == 2
+        assert match in capsys.readouterr().err
+    else:
+        assert match in str(exit_info.value)
     assert not (tmp_path / "out").exists()
 
 

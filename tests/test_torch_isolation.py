@@ -35,7 +35,11 @@ def test_importing_every_module_loads_no_jax_flax_or_sos_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(_modules()) >= 12
     assert {"sos_tpu_torch.train.joint", "sos_tpu_torch.cli.train_joint",
-            "sos_tpu_torch.cli.import_checkpoint"} <= set(_modules())
+            "sos_tpu_torch.cli.import_checkpoint",
+            "sos_tpu_torch.parallel.distributed", "sos_tpu_torch.parallel.mesh",
+            "sos_tpu_torch.infer.synthetic_eval",
+            "sos_tpu_torch.cli.eval_synthetic",
+            "sos_tpu_torch.eval.pesq_conformance"} <= set(_modules())
 
 
 def test_sources_import_no_jax_or_sos_tpu():

@@ -906,3 +906,82 @@ def test_small_int8_pipeline_card_matches_cpu(cuda_device):
         "int8_inpaint"))
     torch.testing.assert_close(y.cpu(), host.denoise_with_bits(x, bits),
                                atol=1e-3, rtol=0)
+
+
+def _launch_sites():
+    """Every `launch(...)` call of the port -> (module, whether it lies in
+    a `with on_device(...)` block)."""
+    import ast
+    root = kbuild.CSRC.parent
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        guarded = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.With) and any(
+                    isinstance(it.context_expr, ast.Call)
+                    and getattr(it.context_expr.func, "id", None) == "on_device"
+                    for it in node.items):
+                guarded.update(id(n) for n in ast.walk(node))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) == "launch"):
+                found.append((path.relative_to(root).as_posix(),
+                              id(node) in guarded))
+    return found
+
+
+def test_every_launch_is_made_on_the_device_of_its_input():
+    """Each C entry point is called only inside `on_device(...)`, which
+    makes the card of the wrapper's input current, so the launch, its
+    kernels' shared-memory attributes and the occupancy queries act on
+    the card that holds the tensors, whatever device the calling thread
+    has current; and no launch helper keeps its shared-memory grant in
+    one per-process scalar (a second card would launch with the first
+    card's grant)."""
+    sites = _launch_sites()
+    assert {m for m, _ in sites} == {
+        "dsp/mixing.py", "dsp/stft.py", "ops/int8_conv.py",
+        "ops/int8_gemm.py", "ops/lstm.py"}
+    assert all(ok for _, ok in sites), sites
+    text = "\n".join(p.read_text() for p in kbuild.CSRC.glob("*.cu*"))
+    assert not re.findall(r"static\s+(?:int|bool)\s+\w+\s*=", text)
+    assert len(re.findall(r"\[sosdev::kMaxDevices\]", text)) == 3
+
+
+@pytest.mark.cuda
+def test_kernels_run_on_the_device_of_their_inputs(cuda_device):
+    """Two cards: K1's wrapper on tensors of card 1 while card 0 is
+    current (the result lies on card 1 and card 0 stays current after
+    it), and K4, K4's training instance, K4b and K5 on
+    card 0 then card 1 (each card its own shared-memory grant), each
+    against its plain version. A host with one card cannot show this;
+    it runs where two cards are."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    gen = torch.Generator().manual_seed(5)
+    y = torch.randn(3, 28000, generator=gen)
+    ref = stft.stft_cat_plain(y)
+    with torch.cuda.device(d0):
+        before = kbuild.LAUNCHES["stft"]
+        out = stft.stft_cat(y.to(d1))
+        assert kbuild.LAUNCHES["stft"] == before + 1
+        assert out.device == d1 and torch.cuda.current_device() == 0
+    torch.cuda.synchronize(d1)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+    for dev in (d0, d1):
+        xp_f, xp_b, w_f, w_b = _recurrence_inputs(dev, 40, 178, 200, 7)
+        torch.testing.assert_close(
+            lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b),
+            lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b),
+            atol=5e-5, rtol=0)
+        h, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+        dout = torch.randn_like(h)
+        torch.testing.assert_close(
+            lstm.bilstm_recurrence_backward(dout, gates, c, w_f, w_b),
+            lstm.bilstm_recurrence_backward_plain(dout, gates, c, w_f, w_b),
+            atol=1e-4, rtol=1e-4)
+        a, b = _int8((4096, 1280), gen, dev), _int8((1280, 128), gen, dev)
+        assert torch.equal(int8_gemm.int8_matmul(a, b),
+                           int8_gemm.int8_matmul_plain(a, b))

@@ -316,3 +316,34 @@ def test_predictors_default_to_the_card(env):
         DetectorPredictor(port_cfg, det_state)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenoiserPredictor(port_cfg, den_state, buckets=(256,))
+
+
+def test_int8_exact_short_utterance_matches_sos_tpu(env, tmp_path):
+    """A 0.5 s utterance (45 frames): the InpaintNet's mid_dil16 block
+    pads 16 columns on a 12-wide input, where `jnp.pad` reflects again;
+    the port's int8 exact denoiser computes it as `sos_tpu` does (within
+    the int8 budget, with one scale file)."""
+    cfg, port_cfg, det_vars, den_vars, det_state, den_state = env[:6]
+    rng = np.random.default_rng(23)
+    wav = (rng.standard_normal(7000) * 0.2).astype(np.float32)
+    bits = "".join(rng.choice(list("01"), 15))
+    jax_det = JaxDetectorPredictor(cfg, det_vars, profile="int8")
+    jax_den = JaxDenoiserPredictor(cfg, den_vars, profile="int8")
+    ref_bits, ref_conf = jax_det.predict_waveform(wav, 15)
+    ref = jax_den.denoise_waveform(wav, bits)
+    path = tmp_path / "int8_calibration.json"
+    path.write_text(json.dumps({
+        "detector": jax_det._quant.calibration_state(),
+        "denoiser": jax_den._quant.calibration_state()}))
+    det = DetectorPredictor(port_cfg, det_state, profile="int8",
+                            calibration_path=str(path), device="cpu")
+    den = DenoiserPredictor(port_cfg, den_state, profile="int8",
+                            calibration_path=str(path), device="cpu")
+    got_bits, got_conf = det.predict_waveform(wav, 15)
+    np.testing.assert_allclose(got_conf, ref_conf, atol=INT8_BUDGET)
+    _assert_bits(got_bits, ref_bits, ref_conf, margin=INT8_BUDGET)
+    got = den.denoise_waveform(wav, bits)
+    for key in KEYS:
+        assert got[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(got[key], ref[key], atol=INT8_BUDGET,
+                                   err_msg=key)
