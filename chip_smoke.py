@@ -140,9 +140,36 @@ Phases, in order; any failure ends the run with a nonzero exit:
    audio-s/s, the host metric seconds, and one batch on the card against
    the CPU within 1e-3 (f32).
 
+11. the deployment path, at full width on a generated corpus of eight
+   8.5 s WAVs: (a) `calibrate` in this process at `--clip_seconds 2`
+   (K1, K2, K4 launch), at 8 s (K2's gather-map table launches) and at
+   2 s with `despeckle_min_run` 600 (K2's despeckle instance launches),
+   4 clips each, the 2 s scale file against the CPU's on the same clips
+   within rtol 1e-5 with equal bits (threshold where the float
+   detector's probabilities split); (b) `export_serving` of an f32
+   batch-16 2 s, an int8 batch-8 8 s and an int16-wire int8 batch-16
+   2 s artifact (int8 with (a)'s 2 s file), each loaded with
+   `load_denoise_program` on the card (one CUDA graph) and held against
+   the eager pipeline on the card (bits equal, 1e-5) and the same
+   artifact's pipeline on the CPU over its first 1-4 rows (1e-3, equal
+   bits; the CPU's plain int8 path is slow), the
+   kernels launched at capture checked; the median of 10 replayed calls
+   beside 10 eager calls at batch 128, 2 s (int8, bf16), in audio-s/s;
+   (c) `doctor --json` on (b)'s experiment (accelerator, compile-cache,
+   native-engine and the experiment's checks ok, exit 0); (d)
+   `parity_check` on full-size fabricated reference `.pth` files over 4
+   short utterances: finite statistics, its own output as manifest
+   exits 0, one perturbed tensor exits 1; (e) `python -m sos_tpu_torch
+   --help` and `doctor` through the dispatcher; (f) the native audio
+   engine builds and its threaded decode equals the Python decode
+   exactly.
+
 Phase 3 also holds K7 on a short utterance's row (mid_dil16, pad 16 on
 12 columns, `reflect_prepad` then pad 0) against its plain version,
-exactly, and checks that it launched.
+exactly, and checks that it launched; and K2's long windows (8 x 60 s
+and 2 x 600 s, 18,000 frames, gate and complement: the gather maps'
+table) and its generic despeckle (`despeckle_min_run` 600 at 2 s and
+8 s, gate and complement), exactly, each timed with its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -463,6 +490,7 @@ def phase_kernels(gen: torch.Generator):
            shape="T60/H100 + T178/H200 at B 128 (sum of the two)")
 
     bucketed_cases(gen, dev, record, window, table_bytes)
+    k2_window_cases(torch.Generator().manual_seed(SEED + 2), dev, record)
     # a generator of its own: the later phases keep the weights and data
     # they were validated on (drawn from `gen`). Phase 7's corpus holds
     # no resize tie (see `resize_ties`)
@@ -749,6 +777,70 @@ def training_cases(gen, dev, record):
            "sos_tpu/dsp/mixing.py:285", k2["err"], k2["exact"], "exact",
            k2["ms"], k2["plain_ms"], None, 5.0 * 55 * CLIP, k2["bytes"],
            shape="x (15, 28000) + (40, 28000), bits (B, 60) -> x * (1 - mask)")
+
+
+# K2's windows past the dense matrices' 2^24 elements (the gather maps'
+# table; 600 s is 18,000 frames, past the former shared-memory limit of
+# 7,264) and its generic despeckle (`despeckle_min_run` 600 > the frame
+# body of ~466 samples): (rows, seconds, min_run, complement)
+K2_LONG_CASES = ((8, 60, 5, False), (8, 60, 5, True), (2, 600, 5, False),
+                 (2, 600, 5, True))
+K2_DESPECKLE_CASES = ((16, 2, 600, False), (16, 2, 600, True),
+                      (8, 8, 600, False), (8, 8, 600, True))
+
+
+def k2_window_cases(gen, dev, record):
+    """K2's long-window and generic-despeckle cases against their plain
+    versions, exactly; one row each (the sum of its cases). Bound: bytes,
+    the samples read and written once, the bits, and the geometry table
+    (a word a sample and a frame range a 256-sample chunk)."""
+    ratio = 14000 / 30.0
+    for name, cases in (("mask_gate_long", K2_LONG_CASES),
+                        ("mask_gate_despeckle", K2_DESPECKLE_CASES)):
+        acc = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+               "exact": True, "err": 0.0}
+        shapes = []
+        for rows, seconds, min_run, comp in cases:
+            length, frames = seconds * 14000, seconds * 30
+            y = (torch.randn(rows, length, generator=gen) * 0.3).to(dev)
+            bits = (torch.rand(rows, frames, generator=gen) < 0.5).float().to(dev)
+            if min_run > 5:  # runs of 1-3 frames: short and long runs
+                reps = torch.randint(1, 4, (frames,), generator=gen)
+                bits = bits.repeat_interleave(reps.to(dev), dim=1)[:, :frames]
+            before = LAUNCHES[name]
+            got = mask_gate(y, bits, ratio, min_run, complement=comp)
+            ref = mask_gate_plain(y, bits, ratio, min_run, complement=comp)
+            torch.cuda.synchronize()
+            if LAUNCHES[name] != before + 1:
+                raise RuntimeError(f"{name}: the call did not launch its case")
+            exact = bool(torch.equal(got, ref))
+            err = float((got - ref).abs().max())
+            ms = time_ms(lambda: mask_gate(y, bits, ratio, min_run,
+                                           complement=comp))
+            plain_ms = time_ms(lambda: mask_gate_plain(
+                y, bits, ratio, min_run, complement=comp), reps=5, warmup=1)
+            nbytes = 4.0 * (2 * rows * length + rows * frames + length) \
+                + 8.0 * -(-length // 256)
+            bound_ms = bound(4.0 * rows * length, nbytes)[0]
+            log(f"{name} {rows} x {seconds} s ({frames} frames, {length} "
+                f"samples, min_run {min_run}, "
+                f"{'complement' if comp else 'gate'}): exact {exact}  "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms (bytes)")
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            acc["bytes"] += nbytes
+            acc["ops"] += 4.0 * rows * length
+            acc["exact"] = acc["exact"] and exact
+            acc["err"] = max(acc["err"], err)
+            shapes.append(f"{rows}x{seconds}s{' 1-mask' if comp else ''}")
+        record(name, "sos_tpu_torch/csrc/mask_gate.cu",
+               "sos_tpu/dsp/mixing.py:271" if name == "mask_gate_long"
+               else "sos_tpu/dsp/mixing.py:312", acc["err"], acc["exact"],
+               "exact", acc["ms"], acc["plain_ms"], None, acc["ops"],
+               acc["bytes"],
+               shape=" + ".join(shapes) + (" (min_run 600)" if "despeckle"
+                                            in name else "") + " (sum)")
 
 
 def lstm_library_ms(xp_f, w_f, w_b, lengths, dev) -> float:
@@ -2570,6 +2662,56 @@ def reference_detector_state(state_dict):
     return {k: v.clone() for k, v in out.items()}
 
 
+# the port's InpaintNet blocks -> the reference's `stage1` paths
+# (`JointModel`, m2 networks.py; `models/torch_import.py` reads them)
+INPAINT_PATHS = {"a_in": "down1.0", "a_d1": "down2.0", "a_d2": "down2.1",
+                 "b_in": "down3.0", "b_d1": "down4.0", "b_d2": "down4.1",
+                 "mid0": "mid.0", "mid1": "mid.1", "mid_dil2": "mid.2",
+                 "mid_dil4": "mid.3", "mid_dil8": "mid.4", "mid_dil16": "mid.5",
+                 "mid2": "mid.6", "mid3": "mid.7", "mid_up": "mid.8",
+                 "up1_conv": "up1.0", "up1_up": "up1.1", "up2_conv": "up2.0",
+                 "out": "up2.1"}
+
+
+def reference_denoiser_state(state_dict):
+    """The port's denoiser weights in the reference's `.pth` layout: down
+    blocks as `block.{1,2,3}` (conv, BN, PReLU after the reflect pad),
+    up blocks as `block.{0,1,2}`, the encoders' blocks as `block.{0,1}`
+    with the projection last, the LSTM in torch's names, the head as
+    `stage2.fc.{0,2,4}`. Tensors keep their layout (the port's are the
+    reference's); PReLU slopes become shape (1,)."""
+    out = {}
+    for name, path in INPAINT_PATHS.items():
+        src, dst = f"inpaint.{name}.", f"stage1.{path}.block."
+        conv, bn, act = (0, 1, 2) if name.endswith("_up") else (1, 2, 3)
+        out[f"{dst}{conv}.weight"] = state_dict[src + "weight"]
+        if name == "out":
+            out[f"{dst}{conv}.bias"] = state_dict[src + "bias"]
+            continue
+        for part in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}{bn}.{part}"] = state_dict[f"{src}bn.{part}"]
+        out[f"{dst}{act}.weight"] = state_dict[src + "act.weight"].reshape(1)
+    for enc in ("x", "n"):
+        blocks = sorted({k.split(".")[1] for k in state_dict
+                         if k.startswith(f"context.enc_{enc}")
+                         and not k.startswith(f"context.enc_{enc}proj")},
+                        key=lambda b: int(b[len(f"enc_{enc}"):]))
+        for i, block in enumerate(blocks + [f"enc_{enc}proj"]):
+            src, dst = f"context.{block}.", f"stage2.encoder_{enc}.{i}.block."
+            out[dst + "0.weight"] = state_dict[src + "weight"]
+            for part in ("weight", "bias", "running_mean", "running_var"):
+                out[f"{dst}1.{part}"] = state_dict[f"{src}bn.{part}"]
+    for mine, theirs in (("fwd", "l0"), ("bwd", "l0_reverse")):
+        for kind in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            torch_kind = ("weight_" if kind[0] == "w" else "bias_") + kind[2:]
+            out[f"stage2.lstm.{torch_kind}_{theirs}"] = \
+                state_dict[f"context.lstm.{kind}_{mine}"]
+    for i in range(3):
+        for part in ("weight", "bias"):
+            out[f"stage2.fc.{2 * i}.{part}"] = state_dict[f"context.fc{i}.{part}"]
+    return {k: v.clone() for k, v in out.items()}
+
+
 def cli_round_trip(workdir: str, gen: torch.Generator, state_dicts) -> None:
     """Phase 9.4, at full width on the card over a generated corpus:
     `train_joint` (1 epoch, batch 4) writes both stages' `ckpt_epoch1`
@@ -3038,6 +3180,401 @@ def phase_data_parallel(cfg: ExperimentConfig, det_state, den_state,
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 11: the deployment path --------------------------------------
+
+DEPLOY_NAME = "deploy"
+DEPLOY_FILES, DEPLOY_SECONDS = 8, 8.5   # the calibration corpus
+DEPLOY_CLIPS = 4                        # clips a calibrate run takes
+# (name, profile, batch, clip seconds, wire dtype, rows the CPU checks)
+# of the artifacts: the CPU's plain int8 path is slow, so the CPU runs
+# the artifact's pipeline on its first rows
+ARTIFACTS = (("f32_b16_2s", "f32", 16, 2.0, "float32", 4),
+             ("int8_b8_8s", "int8", 8, 8.0, "float32", 1),
+             ("int8_b16_2s_int16", "int8", 16, 2.0, "int16", 1))
+ARTIFACT_KERNELS = {"f32": ("stft", "crm_istft", "bilstm"),
+                    "int8": ("stft", "crm_istft", "bilstm", "int8_conv",
+                             "int8_inpaint")}  # and K2, by window
+PARITY_SECONDS = (2.0, 2.5, 3.0, 3.5)
+# the doctor checks that must be ok on the card's machine; media-tools
+# and pesq-backend may warn (ffmpeg and pypesq are not installed there)
+DOCTOR_OK = ("accelerator", "compile-cache", "native-engine",
+             "experiment/detector", "experiment/denoiser",
+             "experiment/int8-calibration")
+
+
+def deploy_corpus(root: str, gen: torch.Generator):
+    """`DEPLOY_FILES` seeded utterances of `DEPLOY_SECONDS` as 14 kHz WAVs
+    in `root/corpus`; returns (the directory, the paths)."""
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    paths = []
+    for i in range(DEPLOY_FILES):
+        paths.append(os.path.join(corpus, f"c{i}.wav"))
+        audio_io.write_wav(paths[-1], utterance(int(DEPLOY_SECONDS * SR), gen),
+                           SR)
+    return corpus, paths
+
+
+def detector_bits(cfg, det_state, clips: np.ndarray, threshold, device):
+    """The float detector's probabilities and bits on (N, 28000) clips."""
+    det = SilenceDetector(cfg.detector)
+    det.load_state_dict(det_state)
+    det.to(device).eval()
+    with torch.no_grad(), exact_fp32():
+        prob = torch.sigmoid(det(stft(torch.from_numpy(clips).to(device)),
+                                 int(2.0 * cfg.data.frame_rate))).cpu()
+    return prob, None if threshold is None else (prob >= threshold).float()
+
+
+def run_calibrate(argv, expect, what):
+    """`calibrate` in this process with the counts set to 0 just before;
+    every kernel in `expect` must launch. Returns the counts."""
+    from sos_tpu_torch.cli import calibrate
+    t0 = time.perf_counter()
+    reset_launches()
+    run_cli(calibrate, argv)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    got = {k: counts[k] for k in expect}
+    log(f"calibrate {what}: {time.perf_counter() - t0:.1f} s, launches {got}")
+    if not all(got.values()):
+        raise RuntimeError(f"calibrate {what}: a kernel never launched: {got}")
+    return counts
+
+
+def flat_scales(path: str) -> np.ndarray:
+    with open(path) as fp:
+        state = json.load(fp)
+    den, det = state["denoiser"], state["detector"]
+    return np.array(den["enc_x"] + den["enc_n"] + det["conv"]
+                    + [den["inpaint"][k] for k in sorted(den["inpaint"])])
+
+
+def deploy_calibrate(cfg, det_state, root, corpus, paths, flags):
+    """Phase 11 (a). Returns (threshold, the 2 s scale file, the K2
+    launches of the long-window and despeckle runs)."""
+    from sos_tpu_torch.cli.calibrate import chunk_corpus
+    clips = chunk_corpus(paths, SR, CLIP, DEPLOY_CLIPS)
+    prob, _ = detector_bits(cfg, det_state, clips, None, DEVICE)
+    threshold = pick_threshold(prob)
+    common = ["--input_dir", corpus, "--threshold", repr(threshold),
+              "--batch", str(DEPLOY_CLIPS), "--max_clips", str(DEPLOY_CLIPS)]
+    run_calibrate(flags + common, ("stft", "mask_gate", "bilstm"),
+                  "2 s on the card")
+    scales = os.path.join(root, "out", f"{DEPLOY_NAME}_denoiser", "model",
+                          "int8_calibration.json")
+    long_counts = run_calibrate(
+        flags + common + ["--clip_seconds", "8",
+                          "--out", os.path.join(root, "scales_8s.json")],
+        ("stft", "mask_gate_long", "bilstm"), "8 s on the card (K2's "
+        "gather-map table, 240 frames x 112,000 samples)")
+    cfg600 = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, despeckle_min_run=600))
+    cfg600_json = os.path.join(root, "despeckle600.json")
+    with open(cfg600_json, "w") as fp:
+        fp.write(cfg600.to_json())
+    desp_counts = run_calibrate(
+        flags + common + ["--config_json", cfg600_json,
+                          "--out", os.path.join(root, "scales_600.json")],
+        ("stft", "mask_gate_despeckle", "bilstm"),
+        "2 s, despeckle_min_run 600, on the card (K2's despeckle instance)")
+    t0 = time.perf_counter()
+    cpu_scales = os.path.join(root, "scales_cpu.json")
+    from sos_tpu_torch.cli import calibrate
+    run_cli(calibrate, flags + common + ["--out", cpu_scales,
+                                         "--device", "cpu"])
+    _, bits_card = detector_bits(cfg, det_state, clips, threshold, DEVICE)
+    _, bits_cpu = detector_bits(cfg, det_state, clips, threshold, "cpu")
+    same_bits = bool(torch.equal(bits_card, bits_cpu))
+    card, host = flat_scales(scales), flat_scales(cpu_scales)
+    rel = float(np.max(np.abs(card - host) / np.abs(host)))
+    log(f"calibrate 2 s on the CPU: {time.perf_counter() - t0:.1f} s; "
+        f"threshold {threshold:.6f}, voiced {int(bits_card.sum())}/"
+        f"{bits_card.numel()}, min margin "
+        f"{float((prob - threshold).abs().min()):.3e}, bits equal "
+        f"{same_bits}; {len(card)} scales, max relative |card - cpu| "
+        f"{rel:.3e} (tolerance 1e-5)")
+    if not (same_bits and rel <= 1e-5):
+        raise RuntimeError("calibrate: the card's 2 s scale file disagrees "
+                           "with the CPU's")
+    return threshold, scales, {
+        "mask_gate_long": long_counts["mask_gate_long"],
+        "mask_gate_despeckle": desp_counts["mask_gate_despeckle"]}
+
+
+def program_prob(pipe, x: torch.Tensor) -> torch.Tensor:
+    """The detector's probabilities inside a pipeline, on its device."""
+    from sos_tpu_torch.infer.fused import _wire_in
+    with torch.no_grad(), exact_fp32():
+        mixed_cat = pipe._stft(_wire_in(x.to(pipe.device)))
+        if pipe._quant_det is not None:
+            logits = pipe._quant_det.logits_cat(mixed_cat, pipe.num_frames)
+        else:
+            logits = pipe.detector.forward_nchw(_nchw(mixed_cat),
+                                                pipe.num_frames)
+    return torch.sigmoid(logits).cpu()
+
+
+def deploy_export(cfg, det_state, den_state, root, paths, flags, threshold,
+                  scales, gen):
+    """Phase 11 (b)."""
+    from sos_tpu_torch.cli import export_serving
+    from sos_tpu_torch.cli.calibrate import chunk_corpus
+    from sos_tpu_torch.infer.export import (export_denoise_program,
+                                            load_denoise_program)
+    from sos_tpu_torch.infer.fused import wire_decode, wire_encode
+    for name, profile, batch, seconds, wire, cpu_rows in ARTIFACTS:
+        path = os.path.join(root, f"{name}.pt")
+        argv = flags + ["--output", path, "--batch", str(batch),
+                        "--clip_seconds", str(seconds), "--threshold",
+                        repr(threshold), "--profile", profile,
+                        "--transfer_dtype", wire]
+        run_cli(export_serving, argv + (["--calibration_json", scales]
+                                        if seconds != 2.0 else []))
+        t0 = time.perf_counter()
+        prog = load_denoise_program(path, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        k2 = "mask_gate_long" if seconds > 6.3 else "mask_gate"
+        captured = prog.capture_launches
+        missing = [k for k in ARTIFACT_KERNELS[profile] + (k2,)
+                   if not captured.get(k)]
+        x = chunk_corpus(paths, SR, int(seconds * SR), batch)
+        if len(x) < batch:
+            raise RuntimeError(f"{name}: the corpus gives {len(x)} clips")
+        x = wire_encode(x) if wire == "int16" else x
+        y, bits = prog(torch.from_numpy(x).to(DEVICE))
+        eager = FusedDenoisePipeline(
+            cfg, det_state, den_state, threshold=threshold,
+            clip_seconds=seconds, profile=profile, wire_dtype=wire,
+            calibration_path=scales if profile == "int8" else None,
+            device=DEVICE)
+        y_e, bits_e = eager(torch.from_numpy(x).to(DEVICE))
+        t0 = time.perf_counter()
+        host = load_denoise_program(path, device="cpu").pipe
+        x_c, bits_k = torch.from_numpy(x[:cpu_rows]), bits[:cpu_rows].cpu()
+        y_c, bits_c = host(x_c)
+        cpu_s = time.perf_counter() - t0
+        eq_c = bool(torch.equal(bits_k, bits_c))
+        if not eq_c:  # a frame within 1e-3 of the threshold flipped
+            margin = (program_prob(host, x_c) - threshold).abs()
+            near = int((bits_k != bits_c).sum())
+            eq_c = bool(torch.equal(bits_k[margin > 1e-3],
+                                    bits_c[margin > 1e-3]))
+            log(f"artifact {name}: {near} bits flipped between the card and "
+                f"the CPU, all within 1e-3 of the threshold {eq_c}; the "
+                "CPU denoises with the card's bits")
+            y_c = host.denoise_with_bits(x_c, bits_k)
+        as_f32 = wire_decode if wire == "int16" else np.asarray
+        y, y_e, y_c = (as_f32(t.cpu().numpy()) for t in (y, y_e, y_c))
+        d_eager = float(np.abs(y - y_e).max())
+        d_cpu = float(np.abs(y[:cpu_rows] - y_c).max())
+        eq_e = bool(torch.equal(bits.cpu(), bits_e.cpu()))
+        log(f"artifact {name} ({os.path.getsize(path) / 1e6:.1f} MB): load "
+            f"and capture {load_s:.1f} s, launches at capture {captured}; "
+            f"replay against eager on the card: bits equal {eq_e}, max "
+            f"|diff| {d_eager:.3e} (tolerance 1e-5); against the artifact "
+            f"on the CPU, its first {cpu_rows} rows ({cpu_s:.1f} s): bits "
+            f"equal {eq_c}, max |diff| "
+            f"{d_cpu:.3e} (tolerance 1e-3); voiced {int(bits.sum())}/"
+            f"{bits.numel()}, finite {bool(np.isfinite(y).all())}")
+        if missing or not (eq_e and eq_c and d_eager <= 1e-5
+                           and d_cpu <= 1e-3 and np.isfinite(y).all()):
+            raise RuntimeError(f"artifact {name} failed (kernels not "
+                               f"captured: {missing})")
+        del prog, eager
+        torch.cuda.empty_cache()
+
+    # replay against eager calls at batch 128, 2 s: audio-s/s
+    x = make_clips(BATCH, gen).to(DEVICE)
+    for profile in ("int8", "bf16"):
+        path = os.path.join(root, f"{profile}_b{BATCH}_2s.pt")
+        export_denoise_program(cfg, det_state, den_state, path, BATCH,
+                               threshold=threshold, profile=profile,
+                               calibration_path=scales if profile == "int8"
+                               else None)
+        prog = load_denoise_program(path, device=DEVICE)
+        times = {"replayed": [], "eager": []}
+        for _ in range(10):
+            for kind, fn in (("replayed", prog), ("eager", prog.pipe)):
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"artifact {profile} b{BATCH} 2 s {card_note()}: median of 10 "
+            f"replayed calls {med['replayed'] * 1e3:.2f} ms -> "
+            f"{BATCH * CLIP / SR / med['replayed']:.1f} audio-s/s; eager "
+            f"calls {med['eager'] * 1e3:.2f} ms -> "
+            f"{BATCH * CLIP / SR / med['eager']:.1f} audio-s/s")
+        del prog
+        torch.cuda.empty_cache()
+
+
+def deploy_parity(cfg, root: str, gen: torch.Generator) -> None:
+    """Phase 11 (d): `parity_check` on full-size fabricated reference
+    `.pth` files over 4 short utterances."""
+    from sos_tpu_torch.cli import parity_check
+    from sos_tpu_torch.models.torch_import import (import_denoiser_checkpoint,
+                                                   import_detector_checkpoint)
+    det_state = init_state_dict(SilenceDetector(cfg.detector), gen)
+    den_state = init_state_dict(JointDenoiser(cfg.denoiser), gen)
+    proot = os.path.join(root, "parity")
+    for sub in ("clips", "noise"):
+        os.makedirs(os.path.join(proot, sub))
+    det_pth, den_pth, den_bad = (os.path.join(proot, f) for f in (
+        "ckpt_epoch87.pth", "ckpt_epoch24.pth", "ckpt_epoch24_bad.pth"))
+    torch.save({"model_state_dict": reference_detector_state(det_state)},
+               det_pth)
+    ref = reference_denoiser_state(den_state)
+    torch.save({"model_state_dict": ref}, den_pth)
+    back = (import_detector_checkpoint(det_pth),
+            import_denoiser_checkpoint(den_pth))
+    if not all(got.keys() == want.keys() and all(
+            torch.equal(got[k], v) for k, v in want.items())
+            for got, want in zip(back, (det_state, den_state))):
+        raise RuntimeError("parity_check: the fabricated .pth files do not "
+                           "import back to their weights")
+    ref["stage2.fc.4.bias"] = ref["stage2.fc.4.bias"] + 4.0
+    torch.save({"model_state_dict": ref}, den_bad)
+    files = []
+    for i, dur in enumerate(PARITY_SECONDS):
+        path = os.path.join(proot, "clips", f"p{i}.wav")
+        nsamp = int(dur * SR)
+        audio_io.write_wav(path, utterance(nsamp, gen), SR)
+        centres = (np.arange(int(dur * 30)) + 0.5) / 30.0
+        files.append({"path": path, "audio_path": path, "framerate": 30,
+                      "audio_sample_rate": SR, "audio_samples": nsamp,
+                      "duration": dur, "num_frames": int(dur * 30),
+                      "bit_stream": "".join(
+                          "1" if np.sin(2 * np.pi * 1.5 * c) > 0 else "0"
+                          for c in centres)})
+    for i in range(2):
+        audio_io.write_wav(os.path.join(proot, "noise", f"n{i}.wav"),
+                           (torch.randn(8 * SR, generator=gen) * 0.1).numpy(),
+                           SR)
+    ds = os.path.join(proot, "ds.json")
+    with open(ds, "w") as fp:
+        json.dump({"dataset_path": os.path.join(proot, "clips"),
+                   "num_videos": len(files), "files": files}, fp)
+    outputs = os.path.join(proot, "out")
+
+    def run(den_path, extra):
+        argv = ["--detector_pth", det_pth, "--denoiser_pth", den_path,
+                "--dataset_json", ds, "--noise_root",
+                os.path.join(proot, "noise"), "--output_root",
+                os.path.join(proot, "model_output"), "--name", "parity",
+                "--outputs", outputs, "--snr_idx", "3", "--device", DEVICE] + extra
+        t0 = time.perf_counter()
+        try:
+            run_cli(parity_check, argv)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        return code, time.perf_counter() - t0
+
+    code, secs = run(den_pth, [])
+    manifest = os.path.join(proot, "manifest.json")
+    with open(os.path.join(outputs, "eval_results_snr0.json")) as fp:
+        stats = json.load(fp)["denoise_statistics"]
+    with open(manifest, "w") as fp:
+        json.dump({"denoise_statistics": stats}, fp)
+    finite = len(stats) == 11 and all(np.isfinite(v) for v in stats.values())
+    code_same, _ = run(den_pth, ["--manifest", manifest])
+    code_bad, _ = run(den_bad, ["--manifest", manifest])
+    log(f"parity_check (full-size fabricated .pth, {len(files)} utterances, "
+        f"{secs:.1f} s a run): statistics finite {finite} {stats}; its own "
+        f"output as manifest: exit {code_same}; one perturbed tensor "
+        f"(stage2.fc.4.bias + 4): exit {code_bad}")
+    if not (code == 0 and finite and code_same == 0 and code_bad == 1):
+        raise RuntimeError("parity_check failed its controls")
+
+
+def deploy_doctor_and_dispatcher(out: str) -> None:
+    """Phase 11 (c) and (e)."""
+    import contextlib
+    import io
+    from sos_tpu_torch.cli import doctor
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            run_cli(doctor, ["--json", "--output_root", out, "--name",
+                             DEPLOY_NAME, "--device", DEVICE])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    status = {c["name"]: c["status"] for c in report["checks"]}
+    log(f"doctor --json: exit {code}, " + "; ".join(
+        f"{c['name']} {c['status']}: {c['detail']}" for c in report["checks"]))
+    if code != 0 or any(status.get(k) != "ok" for k in DOCTOR_OK):
+        raise RuntimeError(f"doctor: {status}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    helped = subprocess.run([sys.executable, "-m", "sos_tpu_torch", "--help"],
+                            capture_output=True, text=True, timeout=120,
+                            cwd=repo)
+    listed = [line.split()[0] for line in helped.stdout.splitlines()
+              if line.startswith("  ")]
+    dispatched = subprocess.run(
+        [sys.executable, "-m", "sos_tpu_torch", "doctor", "--json",
+         "--output_root", out, "--name", DEPLOY_NAME, "--device", DEVICE],
+        capture_output=True, text=True, timeout=300, cwd=repo)
+    if not dispatched.stdout.strip():
+        raise RuntimeError("python -m sos_tpu_torch doctor printed nothing: "
+                           + dispatched.stderr[-2000:])
+    ok = json.loads(dispatched.stdout.strip().splitlines()[-1])["ok"]
+    log(f"python -m sos_tpu_torch --help: exit {helped.returncode}, "
+        f"{len(listed)} commands {listed}; python -m sos_tpu_torch doctor "
+        f"--json: exit {dispatched.returncode}, ok {ok}")
+    if helped.returncode != 0 or "calibrate" not in listed or \
+            dispatched.returncode != 0 or not ok:
+        raise RuntimeError("the python -m sos_tpu_torch dispatcher failed")
+
+
+def deploy_native(paths) -> None:
+    """Phase 11 (f): the engine builds here, and its threaded decode gives
+    the Python decoder's samples exactly."""
+    from sos_tpu_torch.runtime import NativeAudioEngine, engine, native_available
+    t0 = time.perf_counter()
+    if not native_available():
+        raise RuntimeError("the native audio engine did not build")
+    eng = NativeAudioEngine(num_threads=4)
+    build_s = time.perf_counter() - t0
+    n_max = max(eng.info(p)[0] for p in paths)
+    buf, lengths = eng.load_batch(paths, SR, n_max)
+    exact = all(np.array_equal(buf[i, :lengths[i]], audio_io.load(p, sr=SR)[0])
+                for i, p in enumerate(paths))
+    log(f"native engine {engine.library_path().name}: built and loaded in "
+        f"{build_s:.1f} s; load_batch of {len(paths)} files equals the "
+        f"Python decode exactly {exact}")
+    if not exact:
+        raise RuntimeError("the native engine's decode differs")
+
+
+def phase_deployment(cfg: ExperimentConfig, det_state, den_state,
+                     gen: torch.Generator, workdir: str):
+    """Phase 11 (see the module docstring). Returns the launches of K2's
+    long-window and despeckle cases on this path."""
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "deploy")
+    out = os.path.join(root, "out")
+    for stage, state in (("detector", det_state), ("denoiser", den_state)):
+        model_dir = os.path.join(out, f"{DEPLOY_NAME}_{stage}", "model")
+        os.makedirs(model_dir)
+        torch.save({"model": state}, os.path.join(model_dir, "latest.pt"))
+    corpus, paths = deploy_corpus(root, gen)
+    flags = ["--output_root", out, "--name", DEPLOY_NAME, "--device", DEVICE]
+    deploy_native(paths)
+    threshold, scales, k2_launches = deploy_calibrate(
+        cfg, det_state, root, corpus, paths, flags)
+    deploy_export(cfg, det_state, den_state, root, paths, flags, threshold,
+                  scales, gen)
+    deploy_doctor_and_dispatcher(out)
+    deploy_parity(cfg, root, gen)
+    log(f"deployment phase: {time.perf_counter() - t_phase:.1f} s")
+    return k2_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3076,6 +3613,8 @@ def main() -> int:
                           "mask_gate_complement")})
         phase_joint_bf16(cfg, gen, workdir)
         phase_data_parallel(cfg, det_state, den_state, gen, workdir)
+        launches.update(phase_deployment(cfg, det_state, den_state, gen,
+                                         workdir))
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

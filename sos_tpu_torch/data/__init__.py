@@ -1,6 +1,6 @@
 """Data layer: the dataset-JSON index, bitstream windows, the noise bank
 and the training pipelines (the port's copies of
-`sos_tpu/data/{index,windows,sampling,pipeline,prefetch}.py`)."""
+`sos_tpu/data/{index,windows,sampling,pipeline,prefetch,media}.py`)."""
 
 from sos_tpu_torch.data.index import DatasetIndex, FileRecord  # noqa: F401
 from sos_tpu_torch.data.pipeline import (  # noqa: F401

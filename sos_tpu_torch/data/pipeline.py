@@ -16,8 +16,10 @@ Batch layouts (numpy from the batchers, tensors on the device):
   detector:  clean (B, 28000), noise (B, 28000), snr (B,), bits (B, 60)
   denoiser:  clean (B, 28000), noise (B, 28000), snr (B,), bits (B, 60)
 
-The WAV cache decodes with `dsp/audio_io.load`; `sos_tpu`'s C++ decode
-engine (`runtime/`) is not ported, so the cache has no native route.
+The WAV cache decodes through the C++ engine (`runtime/`) when its
+library builds, as `sos_tpu`'s does, with `dsp/audio_io.load` as the
+fallback, and bulk-decodes each batch's cache misses on the engine's
+threads.
 """
 
 from __future__ import annotations
@@ -103,13 +105,21 @@ class _WavCache:
 
     Eviction is least-recently-USED (hits refresh recency), so a corpus
     larger than `capacity` keeps its hot set resident instead of
-    cycling. Decoding is `dsp/audio_io.load`'s."""
+    cycling.
+
+    Decode+resample run through the C++ engine (`sos_tpu_torch.runtime`)
+    when its library builds, else through `dsp/audio_io.load`.
+    `prefetch_paths` bulk-decodes a batch's cache misses with the
+    engine's threaded `load_batch`."""
 
     def __init__(self, sample_rate: int, capacity: int = 2048):
+        from sos_tpu_torch.runtime import NativeAudioEngine, native_available
+
         self.sample_rate = sample_rate
         self.capacity = capacity
         self._store: "collections.OrderedDict[str, np.ndarray]" = \
             collections.OrderedDict()
+        self._engine = NativeAudioEngine() if native_available() else None
 
     def _put(self, path: str, wav: np.ndarray) -> None:
         if self.capacity <= 0:
@@ -123,9 +133,36 @@ class _WavCache:
         if hit is not None:
             self._store.move_to_end(path)
             return hit
-        wav, _ = audio_io.load(path, sr=self.sample_rate)
+        if self._engine is not None:
+            wav, _ = self._engine.load(path, sr=self.sample_rate)
+        else:
+            wav, _ = audio_io.load(path, sr=self.sample_rate)
         self._put(path, wav)
         return wav
+
+    def prefetch_paths(self, paths) -> None:
+        """Decode all cache misses among `paths` in one threaded native
+        call (no-op without the native engine: `get` then decodes each
+        path in turn)."""
+        missing = [p for p in dict.fromkeys(paths) if p not in self._store]
+        if self._engine is None or len(missing) < 2:
+            return
+        from sos_tpu_torch.runtime import resampled_length
+
+        max_out = 0
+        for p in missing:
+            try:
+                n, native_sr = self._engine.info(p)
+            except OSError:
+                return  # get() surfaces the error per file
+            max_out = max(max_out,
+                          resampled_length(n, native_sr, self.sample_rate))
+        if max_out == 0:
+            return
+        buf, lengths = self._engine.load_batch(missing, self.sample_rate,
+                                               max_out)
+        for i, p in enumerate(missing):
+            self._put(p, buf[i, : lengths[i]].copy())
 
 
 class _BatcherBase:
@@ -227,6 +264,9 @@ class _BatcherBase:
                 for _ in sel:
                     self._draw_noise(rng, length)
                 continue
+            # bulk-decode this batch's cache misses (threaded C++ engine)
+            self.cache.prefetch_paths(
+                [self.windows[wi].audio_path for wi in sel])
             clean = np.zeros((len(sel), length), dtype=np.float32)
             noise = np.zeros((len(sel), length), dtype=np.float32)
             snr = np.zeros((len(sel),), dtype=np.float32)

@@ -8,52 +8,50 @@ Reproduces the reference's mask quirks (m1 tools.py:770-792) exactly as
 * runs shorter than `despeckle_min_run` samples flip, which with the
   production geometry means: an interior gap flips iff both neighbouring
   frames are silent, and the final gap + tail flips iff the last frame is.
+  Geometries whose frame bodies are shorter than `despeckle_min_run`, or
+  clipped, take the generic run-length despeckle.
+
+`bitstream_to_sample_mask` takes `sos_tpu`'s two routes: the dense
+(frames, samples) matrices up to 2^24 elements, O(num_samples) gather
+maps (`_frame_sample_maps`) past them, so a window of any length runs.
 
 Kernel K2 (`mask_gate`, `csrc/mask_gate.cu`) fuses the mask with the gate
 multiply `mixed * mask`, or, with `complement=True`, `x * (1 - mask)`
 (the training recipe's silencing of the clean signal). Its geometry
-table (two int16 halves a sample) is built here on the host in float64
-from the same matrices `sos_tpu` uses.
+table (two int16 halves a sample, and the frames each 256-sample chunk
+reads) is built here on the host from the gather maps, in O(L). Its
+despeckle instance runs the generic despeckle on the card.
 
 `mix_at_snr` is the batched on-device SNR mix of the training step
 (`sos_tpu`'s jnp version, per-item SNR, joint peak normalisation).
 
 The host numpy helpers of the eval chain (`*_np`, `truncate_padding`,
 `bandpass_filter`, `filter_bitstream`) are copied from `sos_tpu` as they
-are. `bitstream_to_sample_mask_np` expands bits with an O(num_samples)
-difference array, so the full-utterance predictors have no length
-limit; the dense device path (K2 and its plain version) keeps its 2^24
-limit.
-
-Not ported yet: the >2^24-element gather-map path of the device mask
-(`_frame_sample_maps`).
+are.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sos_tpu_torch.kernels import aligned16, launch, on_device
 
-# Above this many (num_frames * num_samples) elements sos_tpu swaps the
-# dense matrices for O(num_samples) gather maps; that path is not ported.
+# Above this many (num_frames * num_samples) elements the dense
+# assignment/gap matrices are replaced by O(num_samples) gather maps
+# (sos_tpu's limit: a 60 s window's matrices would take ~6 GB).
 _DENSE_MASK_MAX_ELEMS = 1 << 24
-# K2 keeps 8 rows of bits in a block's 227 KB of shared memory
-_MAX_GATE_FRAMES = 232448 // (8 * 4)
-
-
-def _check_dense(num_frames: int, num_samples: int) -> None:
-    """Both the plain path and K2's tables build dense (frames, samples)
-    matrices on the host; past sos_tpu's dense limit they raise."""
-    if num_frames * num_samples > _DENSE_MASK_MAX_ELEMS:
-        raise NotImplementedError(
-            "bitstream_to_sample_mask: the >2^24-element gather-map path "
-            "is not ported yet (ROADMAP.md queue 1 item 3, queue 2 A1); "
-            "the eval chain's bitstream_to_sample_mask_np has no limit")
+# K2's table words hold frame indices in int16 halves
+_MAX_GATE_FRAMES = 32767
+# K2: samples a (first, end) pair of its table covers; samples of one
+# despeckle block; rows a block; shared memory a block may take
+_GATE_CHUNK = 256
+_GATE_SPAN = 1024
+_GATE_ROWS = 8
+_GATE_SMEM = 232448
 
 
 @functools.lru_cache(maxsize=32)
@@ -101,34 +99,131 @@ def _despeckle_gap_matrix(num_frames: int, num_samples: int, ratio: float,
     return g
 
 
-def _column_owner(mat: np.ndarray) -> np.ndarray:
-    """Per column, the row holding its single 1, or -1 for an empty column."""
-    if np.any(mat.sum(axis=0) > 1):
-        raise ValueError("mask geometry: a sample belongs to two frames")
-    return np.where(mat.any(axis=0), mat.argmax(axis=0), -1).astype(np.int32)
+@functools.lru_cache(maxsize=8)
+def _frame_sample_maps(num_frames: int, num_samples: int, ratio: float,
+                       min_run: int):
+    """O(num_samples) equivalent of the dense matrices (copied from
+    sos_tpu as it is): per-sample covering-frame index + in-body
+    indicator, and the despeckle gap map (same short-run geometry as
+    `_despeckle_gap_matrix`; `gap_ok=False` means the caller must use the
+    generic despeckle)."""
+    f = np.arange(num_frames, dtype=np.float64)
+    lo = (f * ratio).astype(np.int64)
+    hi = ((f + 1.0) * ratio - 1.0).astype(np.int64)
+    hi_c = np.minimum(hi, num_samples)
+    idx = np.arange(num_samples, dtype=np.int64)
+    fmap = np.clip(np.searchsorted(lo, idx, side="right") - 1,
+                   0, num_frames - 1)
+    body = ((idx >= lo[fmap]) & (idx < hi_c[fmap])).astype(np.float32)
+    # gap map: mirrors _despeckle_gap_matrix's validity conditions
+    gmap = np.zeros(num_samples, dtype=np.int32)
+    gmask = np.zeros(num_samples, dtype=np.float32)
+    gap_ok = True
+    if min_run > 1:
+        last_hi = int(num_frames * ratio - 1)
+        if last_hi > num_samples or np.any(hi - lo < min_run):
+            gap_ok = False  # clipped/short frame bodies: generic path
+        else:
+            # all interior gaps lie strictly below last_hi <= num_samples
+            # (monotone hi, ratio > min_run >= 2), so no filtering —
+            # gap at hi[f] is gated by pair element f
+            interior = hi[:-1]
+            gmask[interior] = 1.0
+            gmap[interior] = np.arange(num_frames - 1, dtype=np.int32)
+            tail_len = num_samples - last_hi
+            if 0 < tail_len < min_run:
+                gmask[last_hi:] = 1.0
+                gmap[last_hi:] = num_frames - 1
+    return fmap.astype(np.int32), body, gmap, gmask, gap_ok
+
+
+class GateTables(NamedTuple):
+    """K2's geometry on one device."""
+    words: torch.Tensor   # (L,) int32: body frame low int16, gap pair high
+    spans: torch.Tensor   # (chunks, 2) int32: frames each chunk reads
+    span_frames: int      # the most frames one 1,024-sample span reads
+    despeckle: bool       # the generic despeckle instance
+    rows_per_block: int   # the despeckle instance's rows a block
+
+
+def gate_words(num_frames: int, num_samples: int, ratio: float,
+               min_run: int) -> Tuple[np.ndarray, bool]:
+    """K2's table words from the gather maps, in O(L): one int32 a
+    sample, the frame whose body covers it in the low int16 and the gap
+    pair that gates it in the high int16 (-1 = none); and whether the
+    geometry needs the generic despeckle."""
+    fmap, body, gmap, gmask, gap_ok = _frame_sample_maps(
+        num_frames, num_samples, ratio, min_run)
+    body_idx = np.where(body > 0, fmap, -1).astype(np.int64)
+    pair_idx = np.where(gmask > 0, gmap, -1).astype(np.int64)
+    words = (pair_idx << 16) | (body_idx & 0xFFFF)
+    return words.astype(np.int32), min_run > 1 and not gap_ok
+
+
+def gate_spans(words: np.ndarray, num_frames: int) -> np.ndarray:
+    """(first, end) of the frames each 256-sample chunk's words read:
+    its bodies' frames and g, g + 1 of its gaps (first 32,767 and end 0
+    where it reads none)."""
+    body, pair = (words << 16) >> 16, words >> 16
+    none = _MAX_GATE_FRAMES
+    lo = np.minimum(np.where(body >= 0, body, none),
+                    np.where(pair >= 0, pair, none))
+    hi = np.maximum(np.where(body >= 0, body + 1, 0),
+                    np.where(pair >= 0, np.minimum(pair + 2, num_frames), 0))
+    pad = -len(words) % _GATE_CHUNK
+    lo = np.pad(lo, (0, pad), constant_values=none).reshape(-1, _GATE_CHUNK)
+    hi = np.pad(hi, (0, pad)).reshape(-1, _GATE_CHUNK)
+    return np.stack([lo.min(axis=1), hi.max(axis=1)], axis=1).astype(np.int32)
+
+
+def _span_frames(spans: np.ndarray) -> int:
+    """The most frames the chunks of one 1,024-sample span read."""
+    per = _GATE_SPAN // _GATE_CHUNK
+    pad = -len(spans) % per
+    first = np.pad(spans[:, 0], (0, pad), constant_values=_MAX_GATE_FRAMES)
+    end = np.pad(spans[:, 1], (0, pad))
+    width = end.reshape(-1, per).max(axis=1) - first.reshape(-1, per).min(axis=1)
+    return max(1, int(width.max(initial=0)))
+
+
+def _despeckle_rows(min_run: int) -> int:
+    """Rows a block of K2's despeckle instance takes: each row's window of
+    1,024 + 2 (min_run - 1) floats, beside one window of ints, the span's
+    1,024 floats and the block scan's 2 KB."""
+    window = _GATE_SPAN + 2 * (min_run - 1)
+    free = (_GATE_SMEM - 2048) // 4 - window - _GATE_SPAN
+    return min(_GATE_ROWS, max(0, free // window))
 
 
 @functools.lru_cache(maxsize=16)
 def _gate_tables(num_frames: int, num_samples: int, ratio: float,
-                 min_run: int, device: torch.device) -> torch.Tensor:
-    """K2's geometry on `device`: one int32 word a sample, the frame whose
-    body covers it in the low int16 and the gap pair that gates it in the
-    high int16 (-1 = none; frames < 32,768)."""
-    _check_dense(num_frames, num_samples)
+                 min_run: int, device: torch.device) -> GateTables:
+    """K2's geometry on `device` (see `GateTables`). Raises past the
+    int16 halves' 32,767 frames, and where one block's shared memory
+    cannot hold what it stages."""
     if num_frames > _MAX_GATE_FRAMES:
         raise ValueError(f"mask_gate: {num_frames} frames exceed the "
-                         f"kernel's {_MAX_GATE_FRAMES} (int16 tables, one "
-                         "block's shared memory)")
-    gap = _despeckle_gap_matrix(num_frames, num_samples, ratio, min_run)
-    if gap is None:
-        raise NotImplementedError(
-            "mask_gate: this clip geometry needs the generic despeckle, "
-            "which has no kernel yet (ROADMAP.md queue 2 A1); run on "
-            "the CPU")
-    body = _column_owner(frame_sample_matrix(num_frames, num_samples, ratio))
-    pair = _column_owner(gap)
-    words = (pair.astype(np.int64) << 16) | (body.astype(np.int64) & 0xFFFF)
-    return torch.from_numpy(words.astype(np.int32)).to(device)
+                         f"kernel's {_MAX_GATE_FRAMES} (int16 frame "
+                         "indices in its table)")
+    words, despeckle = gate_words(num_frames, num_samples, ratio, min_run)
+    spans = gate_spans(words, num_frames)
+    span_frames = _span_frames(spans)
+    if _GATE_ROWS * span_frames * 4 > _GATE_SMEM:
+        raise ValueError(f"mask_gate: {span_frames} frames in "
+                         f"{_GATE_SPAN} samples exceed a block's shared "
+                         "memory (ratio below 1/6 sample a frame)")
+    rows = 0
+    if despeckle:
+        rows = _despeckle_rows(min_run)
+        if rows < 1:
+            window = ((_GATE_SMEM - 2048) // 4 - _GATE_SPAN) // 2
+            most = (window - _GATE_SPAN) // 2 + 1
+            raise ValueError(f"mask_gate: despeckle_min_run {min_run} "
+                             "exceeds a block's shared memory (at most "
+                             f"{most})")
+    return GateTables(torch.from_numpy(words).to(device),
+                      torch.from_numpy(spans).to(device), span_frames,
+                      despeckle, rows)
 
 
 def despeckle_mask(mask: torch.Tensor, min_run: int = 5) -> torch.Tensor:
@@ -149,16 +244,29 @@ def bitstream_to_sample_mask(bits: torch.Tensor, ratio: float, num_samples: int,
                              despeckle_min_run: int = 5) -> torch.Tensor:
     """Batched bits `(..., num_frames)` -> despeckled mask `(..., num_samples)`."""
     num_frames = bits.shape[-1]
-    _check_dense(num_frames, num_samples)
     inv = 1.0 - bits.float()
+    dev = inv.device
+    if num_frames * num_samples > _DENSE_MASK_MAX_ELEMS:
+        fmap, body, gmap, gmask, gap_ok = _frame_sample_maps(
+            num_frames, num_samples, ratio, despeckle_min_run)
+        mask = (torch.index_select(inv, -1, torch.from_numpy(fmap).to(dev))
+                * torch.from_numpy(body).to(dev))
+        if despeckle_min_run <= 1:
+            return mask
+        if not gap_ok:
+            return despeckle_mask(mask, despeckle_min_run)
+        pair = torch.cat([inv[..., :-1] * inv[..., 1:], inv[..., -1:]], dim=-1)
+        return mask + (torch.index_select(pair, -1,
+                                          torch.from_numpy(gmap).to(dev))
+                       * torch.from_numpy(gmask).to(dev))
     a = torch.from_numpy(frame_sample_matrix(num_frames, num_samples, ratio))
-    mask = torch.matmul(inv, a.to(inv.device))
+    mask = torch.matmul(inv, a.to(dev))
     gap = _despeckle_gap_matrix(num_frames, num_samples, ratio,
                                 despeckle_min_run)
     if gap is None:
         return despeckle_mask(mask, despeckle_min_run)
     pair = torch.cat([inv[..., :-1] * inv[..., 1:], inv[..., -1:]], dim=-1)
-    return mask + torch.matmul(pair, torch.from_numpy(gap).to(inv.device))
+    return mask + torch.matmul(pair, torch.from_numpy(gap).to(dev))
 
 
 def mask_gate_plain(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
@@ -177,9 +285,12 @@ def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
     """Gate `(B, L)` samples by the silence mask of `(B, num_frames)` bits:
     `mixed * mask`, or `mixed * (1 - mask)` with `complement`.
 
-    Kernel K2 on CUDA tensors, `mask_gate_plain` on CPU tensors. On the
-    card a geometry without a gap matrix raises (see `_gate_tables`).
-    The complement counts its launches under "mask_gate_complement".
+    Kernel K2 on CUDA tensors, `mask_gate_plain` on CPU tensors. Any
+    window length up to 32,767 frames runs on the card; a geometry that
+    needs the generic despeckle runs K2's despeckle instance. Launches
+    count under "mask_gate_despeckle" (the despeckle instance),
+    "mask_gate_long" (a window past the dense matrices' 2^24 elements),
+    "mask_gate_complement" or "mask_gate".
     """
     if mixed.device.type == "cpu" and bits.device.type == "cpu":
         return mask_gate_plain(mixed, bits, ratio, despeckle_min_run,
@@ -195,15 +306,27 @@ def mask_gate(mixed: torch.Tensor, bits: torch.Tensor, ratio: float,
     num_frames = bits.shape[1]
     geom = _gate_tables(num_frames, length, ratio, despeckle_min_run,
                         mixed.device)
+    if geom.despeckle:
+        name = "mask_gate_despeckle"
+    elif num_frames * length > _DENSE_MASK_MAX_ELEMS:
+        name = "mask_gate_long"
+    else:
+        name = "mask_gate_complement" if complement else "mask_gate"
     # `aligned16`: 16-byte rows for the kernel's four-sample route
     mixed = aligned16(mixed.float())
     bits = bits.float().contiguous()
     out = torch.empty_like(mixed)
     with on_device(mixed.device) as stream:
-        launch("mask_gate_complement" if complement else "mask_gate",
-               "sos_mask_gate", mixed.data_ptr(), bits.data_ptr(),
-               geom.data_ptr(), out.data_ptr(), batch, length, num_frames,
-               int(complement), stream)
+        if geom.despeckle:
+            launch(name, "sos_mask_despeckle", mixed.data_ptr(),
+                   bits.data_ptr(), geom.words.data_ptr(), out.data_ptr(),
+                   batch, length, num_frames, despeckle_min_run,
+                   geom.rows_per_block, int(complement), stream)
+        else:
+            launch(name, "sos_mask_gate", mixed.data_ptr(), bits.data_ptr(),
+                   geom.words.data_ptr(), geom.spans.data_ptr(),
+                   out.data_ptr(), batch, length, num_frames,
+                   geom.span_frames, int(complement), stream)
     return out
 
 

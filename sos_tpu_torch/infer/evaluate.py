@@ -402,9 +402,19 @@ def create_data_from_prediction(
 
 
 def _load_many(paths: List[str], sr: int) -> List[np.ndarray]:
-    """Decode many wavs with the python decoder (`sos_tpu`'s threaded C++
-    engine, `runtime/`, comes with the port's training slice; its
-    decode-only route gives the same samples)."""
+    """Decode many wavs; the threaded C++ engine (`runtime/`) when its
+    library builds AND no resample is needed (the native resampler
+    differs from the python one by float rounding; decode-only gives
+    the serial path's samples)."""
+    from sos_tpu_torch.runtime import NativeAudioEngine, native_available
+
+    if paths and native_available():
+        eng = NativeAudioEngine(num_threads=8)
+        infos = [eng.info(p) for p in paths]
+        if all(s == sr for _, s in infos):
+            max_n = max(n for n, _ in infos)
+            buf, lengths = eng.load_batch(paths, sr, max_n)
+            return [buf[i, : lengths[i]].copy() for i in range(len(paths))]
     return [audio_io.load(p, sr=sr)[0] for p in paths]
 
 

@@ -319,15 +319,25 @@ class FusedDenoisePipeline:
         then self-calibrates and rewrites it). Strict: raises ValueError
         naming the file and the problem. A rejected file leaves the
         scales the pipeline had before."""
+        state, problem = parse_calibration_file(path)
+        return self.load_calibration_state(state, strict,
+                                           f"calibration file {path}",
+                                           problem)
+
+    def load_calibration_state(self, state: Optional[dict],
+                               strict: bool = False,
+                               source: str = "calibration state",
+                               problem: str = "no state") -> bool:
+        """Load int8 scales from a parsed `{"denoiser": ..., "detector":
+        ...}` dict (None: `problem` says why there is none), as
+        `load_calibration_file` does, naming `source` in its messages."""
         def _fail(msg):
             if strict:
-                raise ValueError(f"calibration file {path}: {msg}")
+                raise ValueError(f"{source}: {msg}")
             logging.getLogger(__name__).warning(
-                "calibration file %s: %s — self-calibrating instead",
-                path, msg)
+                "%s: %s — self-calibrating instead", source, msg)
             return False
 
-        state, problem = parse_calibration_file(path)
         if state is None:
             return _fail(problem)
         if "denoiser" not in state:

@@ -5,7 +5,8 @@ plain PyTorch versions sit in the module of the op they replace:
 
   K1 `dsp/stft.py`   `stft_cat`       STFT (prime-factor real FFT)
   K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate (or,
-     `complement=True`, the gate by 1 - mask)
+     `complement=True`, the gate by 1 - mask), any window length; its
+     despeckle instance runs the generic run-length despeckle
   K3 `dsp/stft.py`   `crm_istft`      cRM recover + complex multiply + iSTFT
      (inverse prime-factor FFT, overlap-add)
   K4 `ops/lstm.py`   `bilstm_recurrence`  BiLSTM recurrence, both directions

@@ -43,9 +43,13 @@ SIGNATURES = {
     # y, PFA float table, PFA slots, out, B, L, T, pad (255 centered, 0
     # for center=False), stream
     "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # mixed, bits, geometry (body | gap << 16), out, B, L, num_frames,
+    # mixed, bits, geometry (body | gap << 16), frames of each 256-sample
+    # chunk, out, B, L, num_frames, the most frames a span reads,
     # complement (1: gate by 1 - mask), stream
-    "sos_mask_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "sos_mask_gate": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # the generic despeckle: mixed, bits, geometry, out, B, L, num_frames,
+    # min_run, rows a block, complement, stream
+    "sos_mask_despeckle": (_P,) * 4 + (_I,) * 6 + (_P,),
     # crm, spec, PFA float table, PFA slots, valid_t (int32 (B,) or NULL),
     # out, B, T, out_len, stream
     "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -86,9 +90,11 @@ SIGNATURES = {
 # launches from two threads. The length-bucketed cases count apart: K1
 # with center=False, K3 with per-row valid_t, K4 with per-row lengths,
 # K6 and K7 with per-row valid_t; so do the training path's instances:
-# K2 gating by 1 - mask, K4's training forward and its backward K4b.
+# K2 gating by 1 - mask, K4's training forward and its backward K4b; and
+# K2's windows past 2^24 mask elements and its generic despeckle.
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
                             "mask_gate": 0, "mask_gate_complement": 0,
+                            "mask_gate_long": 0, "mask_gate_despeckle": 0,
                             "crm_istft": 0,
                             "crm_istft_valid_t": 0, "bilstm": 0,
                             "bilstm_lengths": 0, "bilstm_train": 0,

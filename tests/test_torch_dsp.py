@@ -225,8 +225,10 @@ def test_gate_tables_rebuild_the_dense_mask():
     """K2's host table (two int16 halves a sample), evaluated with the
     kernel's formula in numpy, gives exactly the dense-path mask (the
     kernel itself needs a card)."""
-    packed = tmix._gate_tables(60, CLIP, RATIO, 5, torch.device("cpu"))
+    tables = tmix._gate_tables(60, CLIP, RATIO, 5, torch.device("cpu"))
+    packed = tables.words
     assert packed.dtype == torch.int32 and packed.shape == (CLIP,)
+    assert not tables.despeckle
     words = packed.numpy()
     body, pair = (words << 16) >> 16, words >> 16  # the kernel's int16 halves
     assert body.dtype == pair.dtype == np.int32
@@ -242,14 +244,22 @@ def test_gate_tables_rebuild_the_dense_mask():
 
 
 def test_gate_tables_refuse_geometry_without_gap_matrix():
-    with pytest.raises(NotImplementedError, match="generic despeckle"):
-        tmix._gate_tables(20, 80, 4.0, 5, torch.device("cpu"))
+    """A geometry without a gap matrix (frame bodies shorter than
+    min_run) no longer raises: its table selects K2's generic-despeckle
+    instance and holds no gap pairs."""
+    tables = tmix._gate_tables(20, 80, 4.0, 5, torch.device("cpu"))
+    assert tables.despeckle and tables.rows_per_block == 8
+    assert np.all(tables.words.numpy() >> 16 == -1)
 
 
 def test_gather_map_path_not_ported():
-    bits = torch.zeros(1, 1800)
-    with pytest.raises(NotImplementedError, match="gather-map"):
-        tmix.bitstream_to_sample_mask(bits, RATIO, 840000)
-    # K2's tables refuse it too, before building a 1800 x 840000 matrix
-    with pytest.raises(NotImplementedError, match="gather-map"):
-        tmix._gate_tables(1800, 840000, RATIO, 5, torch.device("cpu"))
+    """The gather-map path past 2^24 elements (60 s: 1800 x 840000) is
+    ported: the mask equals sos_tpu's exactly, and K2's table is built
+    from the maps without a dense matrix."""
+    bits = (np.random.default_rng(19).random((1, 1800)) < 0.5).astype(np.float32)
+    got = tmix.bitstream_to_sample_mask(torch.from_numpy(bits), RATIO, 840000)
+    ref = np.asarray(jmix.bitstream_to_sample_mask(jnp.asarray(bits), RATIO,
+                                                   840000))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    tables = tmix._gate_tables(1800, 840000, RATIO, 5, torch.device("cpu"))
+    assert tables.words.shape == (840000,) and not tables.despeckle

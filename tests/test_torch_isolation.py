@@ -39,7 +39,12 @@ def test_importing_every_module_loads_no_jax_flax_or_sos_tpu():
             "sos_tpu_torch.parallel.distributed", "sos_tpu_torch.parallel.mesh",
             "sos_tpu_torch.infer.synthetic_eval",
             "sos_tpu_torch.cli.eval_synthetic",
-            "sos_tpu_torch.eval.pesq_conformance"} <= set(_modules())
+            "sos_tpu_torch.eval.pesq_conformance",
+            "sos_tpu_torch.cli.calibrate", "sos_tpu_torch.cli.export_serving",
+            "sos_tpu_torch.cli.doctor", "sos_tpu_torch.cli.parity_check",
+            "sos_tpu_torch.infer.export", "sos_tpu_torch.runtime.engine",
+            "sos_tpu_torch.data.media",
+            "sos_tpu_torch.__main__"} <= set(_modules())
 
 
 def test_sources_import_no_jax_or_sos_tpu():

@@ -247,6 +247,30 @@ def test_mask_gate_complement_kernel_exact(cuda_device, batch, length, view):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,seconds,extra,min_run,complement", [
+    (8, 60, 0, 5, False), (2, 600, 0, 5, True), (3, 8, 3, 5, False),
+    (5, 2, 0, 600, False), (3, 8, 0, 600, True), (2, 8, 1, 600, False),
+    (4, 8, 0, 1, False)])
+def test_mask_gate_long_and_despeckle_kernel_exact(cuda_device, batch,
+                                                   seconds, extra, min_run,
+                                                   complement):
+    """K2 past the dense matrices' 2^24 elements (the gather maps' table,
+    18,000 frames at 600 s) and its generic-despeckle instance
+    (`despeckle_min_run` 600 > the frame body), gate and complement, on
+    both routes, exactly."""
+    length, frames = seconds * 14000 + extra, seconds * 30
+    y = torch.randn(batch, length, device=cuda_device)
+    bits = (torch.rand(batch, frames, device=cuda_device) < 0.5).float()
+    key = ("mask_gate_despeckle" if min_run == 600 else "mask_gate_long"
+           if frames * length > mixing._DENSE_MASK_MAX_ELEMS else "mask_gate")
+    before = LAUNCHES[key]
+    got = mixing.mask_gate(y, bits, RATIO, min_run, complement=complement)
+    assert LAUNCHES[key] == before + 1
+    assert torch.equal(got, mixing.mask_gate_plain(y, bits, RATIO, min_run,
+                                                   complement=complement))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batch,length", STFT_SHAPES)
 def test_crm_istft_kernel_matches_plain(cuda_device, batch, length):
     spec = stft.stft_cat_plain(
