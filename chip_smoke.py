@@ -162,14 +162,50 @@ Phases, in order; any failure ends the run with a nonzero exit:
    exits 0, one perturbed tensor exits 1; (e) `python -m sos_tpu_torch
    --help` and `doctor` through the dispatcher; (f) the native audio
    engine builds and its threaded decode equals the Python decode
-   exactly.
+   exactly;
+12. the training tools and other STFT geometries: (a) `python -m
+   sos_tpu_torch preprocess --label_silence` in this process on WAVs at
+   44.1 and 14 kHz (host work), each bitstream read back through
+   `DatasetIndex` against `label_bitstream` on the decoded WAV; (b)
+   `fit` at full width, the denoiser for 2 steps at batch 4 with
+   `visualize_frequency` 1 and a recording writer: the hook fires at
+   every step, its panel waveforms (`denoiser_batch_panels`, K3
+   `crm_istft` among their launches) within 1e-3 of the same call on
+   the CPU on the first item, rendered by `make_denoiser_visualize_hook`
+   where matplotlib imports (said beforehand); (c) `report
+   --results_dir` on phase 7's detector and denoiser outputs and
+   `--train_log` on (b)'s log: exit 0, finite tables; (d)
+   `QuantizedDenoiser(inpaint_dtype="bfloat16")` at full width, 16 x 2
+   s, calibrated on the first 2 rows on the card and on the CPU: cRM
+   within 1e-3 there, K6 launched and K7 not, its ms beside the int8
+   mode's; (e) the f32 pipeline at (1022, 256, 1022) with 512 bins and
+   at (254, 64, 254) with 128, seeded weights, 16 x 2 s, against the CPU
+   on 2 rows (bits equal off the threshold, those within 1e-4 of it
+   counted; waveform within 1e-3), the generic K1/K3 instances launched
+   and the prime-factor ones not, audio-s/s beside the default
+   geometry's; at the first, bf16 (the detector's confidences within
+   1e-3 of f32's, the spread of f32's printed beside; the bits equal on
+   every frame farther than that drift from the threshold, at least
+   half the frames; the waveform on the f32 bits within 2e-2 relative
+   L2) and int8 (K6 and K7 at F = 512; the card calibrates, the
+   CPU loads its scale file; 1 row against the CPU); at the second, the
+   length-bucketed denoiser (K1 center=False and K3 with valid_t on their generic
+   instances; the card against the CPU on a 1.5 s utterance).
+
+Phase 3 also holds K1's and K3's generic instances (every geometry but
+n_fft 510, hop 158, win 400: the dense product over the float64-built
+tables) against their plain versions at (128, 28000) at (1022, 256,
+1022) and (511, 158, 400) and their inverses, K1 center=False and K3
+with per-row valid_t at (254, 64, 254), eager and in a CUDA graph beside
+torch.stft / torch.istft, the bound (bytes; an FFT's operations) with
+the dense product's GFLOP beside it.
 
 Phase 3 also holds K7 on a short utterance's row (mid_dil16, pad 16 on
 12 columns, `reflect_prepad` then pad 0) against its plain version,
 exactly, and checks that it launched; and K2's long windows (8 x 60 s
 and 2 x 600 s, 18,000 frames, gate and complement: the gather maps'
-table) and its generic despeckle (`despeckle_min_run` 600 at 2 s and
-8 s, gate and complement), exactly, each timed with its bound.
+table) and its generic despeckle (`despeckle_min_run` 600 at 2 s and 8
+s, gate and complement), exactly, each timed with its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -190,12 +226,12 @@ import numpy as np
 import torch
 
 from sos_tpu_torch.cli.serve import ServeLoop
-from sos_tpu_torch.config import ExperimentConfig
+from sos_tpu_torch.config import ExperimentConfig, StftConfig
 from sos_tpu_torch.dsp import audio_io
 from sos_tpu_torch.dsp.mixing import mask_gate, mask_gate_plain
 from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain,
                                     device_pfa_tables, padded_window, stft,
-                                    stft_cat, stft_cat_plain)
+                                    stft_cat, stft_cat_plain, stft_num_frames)
 from sos_tpu_torch.infer import StreamingDenoiser, StreamingSession
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline, _nchw
 from sos_tpu_torch.kernels import (ENTRY_LAUNCHES, LAUNCHES, library,
@@ -496,6 +532,8 @@ def phase_kernels(gen: torch.Generator):
     # no resize tie (see `resize_ties`)
     training_cases(torch.Generator().manual_seed(SEED + 1), dev, record)
 
+    generic_stft_cases(torch.Generator().manual_seed(SEED + 3), dev, record)
+
     # K5 — int8 GEMM at every shape of the narrow-N sweep, its own path:
     # exact against the plain version on the sweep's operands, then the
     # sweep itself with the counts set to 0
@@ -597,6 +635,138 @@ def phase_kernels(gen: torch.Generator):
         if LAUNCHES["int8_inpaint"] == before:
             raise RuntimeError(f"int8_inpaint {case[0]}: K7 never launched")
     return rows, k5_launches
+
+
+# K1's and K3's generic instances (every STFT geometry but the default):
+# (n_fft, hop, win) of the centered STFT at (128, 28000) and its inverse,
+# summed in one row each; and of the bucketed cases (K1 center=False on
+# 128 rows, K3 with per-row valid_t on 16 rows of a 1,024-frame bucket)
+GENERIC_GEOMETRIES = ((1022, 256, 1022), (511, 158, 400))
+GENERIC_BUCKETED = (254, 64, 254)
+
+
+def fft_flops_per_frame(n_fft: int) -> float:
+    """fp32 operations of one frame of a real FFT of n_fft points (~2.5 n
+    log2 n) plus the window: the least arithmetic of K1's and K3's
+    function at a geometry the prime-factor tables do not cover."""
+    return 2.5 * n_fft * np.log2(n_fft) + n_fft
+
+
+def generic_stft_cases(gen, dev, record):
+    """K1's and K3's generic instances (the dense product over the
+    float64-built tables) against their plain versions, eager, in a CUDA
+    graph, beside torch.stft / torch.istft at the same geometry; the
+    bound counts the bytes in and out once and an FFT's operations, the
+    dense product's GFLOP logged beside it."""
+    def case(name, fn, plain, lib, flops, dense, nbytes, shape, rows):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, ok = within(got, ref, 1e-4, 1e-4)
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        lib_ms = None if lib is None else time_ms(lib)
+        g_ms = graph_ms(fn)
+        b_ms, by = bound(flops, nbytes)
+        log(f"{name} {shape}: max_abs_err {err:.3e} (tolerance atol 1e-4 + "
+            f"rtol 1e-4) {'ok' if ok else 'FAILED'}  kernel {ms:.4f} ms (in "
+            f"a CUDA graph {g_ms:.4f})  plain {plain_ms:.4f} ms  library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+            f"{b_ms:.4f} ms ({by}); dense product {dense / 1e9:.2f} GFLOP "
+            f"= {dense / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 peak, "
+            f"{dense / ms / 1e9:.1f} TFLOP/s {card_note()}")
+        if not ok:
+            raise RuntimeError(f"{name} {shape}: kernel disagrees with its "
+                               "plain version")
+        for key, val in (("err", err), ("ms", ms), ("plain_ms", plain_ms),
+                         ("lib_ms", lib_ms), ("flops", flops),
+                         ("bytes", nbytes)):
+            if key == "err":
+                rows[key] = max(rows.get(key, 0.0), val)
+            elif key == "lib_ms" and (val is None or rows.get(key, 0.0)
+                                      is None):
+                rows[key] = None
+            else:
+                rows[key] = rows.get(key, 0.0) + val
+        rows.setdefault("shapes", []).append(shape)
+
+    y = (torch.randn(BATCH, CLIP, generator=gen) * 0.3).to(dev)
+    k1, k3 = {}, {}
+    for nf, hop, win in GENERIC_GEOMETRIES:
+        bins, frames = nf // 2 + 1, stft_num_frames(CLIP, nf, hop)
+        out_len = (frames - 1) * hop + nf % 2
+        window = torch.from_numpy(padded_window(nf, win).astype(
+            np.float32)).to(dev)
+        geo = f"({nf}, {hop}, {win})"
+        case("stft_generic", lambda: stft_cat(y, nf, hop, win),
+             lambda: stft_cat_plain(y, nf, hop, win),
+             lambda: torch.stft(y, nf, hop, window=window, center=True,
+                                pad_mode="reflect", return_complex=True),
+             BATCH * frames * fft_flops_per_frame(nf),
+             2.0 * BATCH * frames * nf * 2 * bins,
+             4.0 * (BATCH * CLIP + BATCH * frames * 2 * bins),
+             f"{geo} (128, 28000) -> (128, {frames}, {2 * bins})", k1)
+        spec = stft_cat_plain(y, nf, hop, win)
+        crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
+        clean = torch.complex(spec[..., :bins], spec[..., bins:]).transpose(1, 2)
+        case("crm_istft_generic", lambda: crm_istft(crm, spec, nf, hop, win),
+             lambda: crm_istft_plain(crm, spec, nf, hop, win),
+             lambda: torch.istft(clean, nf, hop, window=window,
+                                 center=True),
+             BATCH * frames * (fft_flops_per_frame(nf) + 20 * bins),
+             2.0 * BATCH * frames * 2 * bins * nf,
+             4.0 * (2 * BATCH * frames * 2 * bins + BATCH * out_len),
+             f"{geo} (128, {frames}, {2 * bins}) x 2 -> (128, {out_len})", k3)
+    record("stft_generic", "sos_tpu_torch/csrc/stft_dense.cu",
+           "sos_tpu/dsp/stft.py:139", k1["err"], True,
+           "atol 1e-4 + rtol 1e-4", k1["ms"], k1["plain_ms"], k1["lib_ms"],
+           k1["flops"], k1["bytes"], shape=" + ".join(k1["shapes"]))
+    record("crm_istft_generic", "sos_tpu_torch/csrc/crm_istft_dense.cu",
+           "sos_tpu/dsp/stft.py:169", k3["err"], True,
+           "atol 1e-4 + rtol 1e-4", k3["ms"], k3["plain_ms"], k3["lib_ms"],
+           k3["flops"], k3["bytes"], shape=" + ".join(k3["shapes"]))
+
+    # the bucketed cases at (254, 64, 254): K1 over pre-padded buffers
+    # (no reflect), K3 with a valid frame count per row
+    nf, hop, win = GENERIC_BUCKETED
+    bins, geo = nf // 2 + 1, f"({nf}, {hop}, {win})"
+    window = torch.from_numpy(padded_window(nf, win).astype(np.float32)).to(dev)
+    frames = stft_num_frames(CLIP, nf, hop, center=False)
+    k1c, k3v = {}, {}
+    case("stft_generic_center_false",
+         lambda: stft_cat(y, nf, hop, win, center=False),
+         lambda: stft_cat_plain(y, nf, hop, win, center=False),
+         lambda: torch.stft(y, nf, hop, window=window, center=False,
+                            return_complex=True),
+         BATCH * frames * fft_flops_per_frame(nf),
+         2.0 * BATCH * frames * nf * 2 * bins,
+         4.0 * (BATCH * CLIP + BATCH * frames * 2 * bins),
+         f"{geo} (128, 28000) -> (128, {frames}, {2 * bins})", k1c)
+    rows_v, bucket = EVAL_BATCH * 2, 1024
+    spec = stft_cat_plain((torch.randn(rows_v, (bucket - 1) * hop,
+                                       generator=gen) * 0.3).to(dev),
+                          nf, hop, win)
+    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
+    vt = torch.randint(2, bucket + 1, (rows_v,), generator=gen)
+    vt[0], vt[1] = bucket, 2
+    valid = int(vt.sum())
+    vt = vt.to(dev)
+    out_len = (bucket - 1) * hop
+    case("crm_istft_generic_valid_t",
+         lambda: crm_istft(crm, spec, nf, hop, win, valid_t=vt),
+         lambda: crm_istft_plain(crm, spec, nf, hop, win, valid_t=vt), None,
+         valid * (fft_flops_per_frame(nf) + 20 * bins),
+         2.0 * valid * 2 * bins * nf,
+         4.0 * (2 * valid * 2 * bins + valid * hop),
+         f"{geo} ({rows_v}, {bucket}, {2 * bins}) x 2, valid_t 2-{bucket} "
+         f"({valid} valid frames) -> ({rows_v}, {out_len})", k3v)
+    for name, source, replaces, r in (
+            ("stft_generic_center_false", "sos_tpu_torch/csrc/stft_dense.cu",
+             "sos_tpu/dsp/stft.py:139", k1c),
+            ("crm_istft_generic_valid_t",
+             "sos_tpu_torch/csrc/crm_istft_dense.cu",
+             "sos_tpu/dsp/stft.py:170", k3v)):
+        record(name, source, replaces, r["err"], True,
+               "atol 1e-4 + rtol 1e-4", r["ms"], r["plain_ms"], r["lib_ms"],
+               r["flops"], r["bytes"], shape=r["shapes"][0])
 
 
 # the training path's BiLSTM shapes: (batch, steps, hidden) of the
@@ -2324,9 +2494,19 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
             f"{sum(v > 1e-3 for v in e.values())}/{len(e)}")
     if missing:
         raise RuntimeError(f"train step {name} never launched {missing}")
-    if not (all(out[r][3] for r in runs) and rel <= 1e-4 and s_err <= 1e-5
-            and head_errs[head_worst] <= 1e-3 and l2 <= 5e-2):
-        raise RuntimeError(f"train step {name}: card disagrees with the CPU")
+    failed = [what for what, ok in (
+        (f"applied {[out[r][3] for r in runs]}",
+         all(out[r][3] for r in runs)),
+        (f"loss {rel:.3e} relative (tolerance 1e-4)", rel <= 1e-4),
+        (f"BN statistics {s_err:.3e} (tolerance 1e-5)", s_err <= 1e-5),
+        (f"BiLSTM and heads {head_worst} {head_errs[head_worst]:.3e} of its "
+         f"max |g| (tolerance 1e-3)", head_errs[head_worst] <= 1e-3),
+        (f"gradients {l2:.3e} relative L2 (tolerance 5e-2); worst tensors "
+         f"{_worst(errs, True)}, {_worst(errs, False)}", l2 <= 5e-2))
+        if not ok]
+    if failed:
+        raise RuntimeError(f"train step {name}: card disagrees with the CPU: "
+                           + "; ".join(failed))
     return l_gpu, t_cpu
 
 
@@ -3575,6 +3755,468 @@ def phase_deployment(cfg: ExperimentConfig, det_state, den_state,
     return k2_launches
 
 
+# -- phase 12: the training tools and other STFT geometries ---------------
+
+TOOLS_SRS = (44100, 14000)    # (a) the generated corpus's sample rates
+TOOLS_BATCH = 4               # (b) fit: batch and steps
+TOOLS_STEPS = 2
+QUANT_BATCH = 16              # (d) the bf16-InpaintNet mode's batch
+QUANT_CPU_ROWS = 2            # (d) rows calibrated and compared on the CPU
+GEOMETRY_BATCH = 16           # (e) the pipelines' batch
+GEOMETRY_CPU_ROWS = 2         # (e) rows the CPU runs (f32); int8: 1
+OTHER_GEOMETRIES = ((1022, 256, 1022), (254, 64, 254))
+# (e) the bf16 detector's confidences against f32's (seen 6.4e-5 at
+# n_fft 1022, full width)
+BF16_PROB_BOUND = 1e-3
+# (e) the length-bucketed predictor at the second geometry
+GEOMETRY_BUCKETS = (256, 512, 1024)
+GEOMETRY_SECONDS = (1.5, 2.0, 3.0, 4.5)  # T <= 1,024 frames at hop 64
+
+
+class RecordingWriter:
+    """A tensorboard writer that keeps each image's tag, shape and step."""
+
+    def __init__(self):
+        self.images = []
+
+    def add_image(self, tag, img, global_step=None):
+        self.images.append((tag, tuple(img.shape), global_step))
+
+
+class ListBatches:
+    """A batcher over a fixed list of batches, as `fit` iterates one."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def run_dispatcher(argv):
+    """`python -m sos_tpu_torch <argv>` in this process: (exit code,
+    standard output)."""
+    import contextlib
+    import io
+
+    from sos_tpu_torch import __main__ as dispatcher
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dispatcher.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def tools_preprocess(root: str, gen: torch.Generator) -> None:
+    """(a) `preprocess --label_silence` on WAVs at 44.1 and 14 kHz; each
+    bitstream against `label_bitstream` on the decoded, resampled WAV."""
+    from sos_tpu_torch.data.index import DatasetIndex
+    from sos_tpu_torch.data.preprocess import CANONICAL_SR, label_bitstream
+
+    wavs = os.path.join(root, "wavs")
+    os.makedirs(wavs)
+    for i, sr in enumerate(TOOLS_SRS * 2):
+        n = int(sr * (1.5 + 0.5 * i))
+        quiet = (np.arange(n) // (sr // 2)) % 2 == 1  # every other 0.5 s
+        y = utterance(n, gen) * np.where(quiet, 0.02, 1.0)
+        audio_io.write_wav(os.path.join(wavs, f"u{i}_{sr}.wav"),
+                           y.astype(np.float32), sr)
+    out_json = os.path.join(root, "ds.json")
+    t0 = time.perf_counter()
+    rc, out = run_dispatcher(["preprocess", "--audio_dir", wavs,
+                              "--output_json", out_json, "--label_silence"])
+    secs = time.perf_counter() - t0
+    index = DatasetIndex.load(out_json)
+    for rec in index.files:
+        y, sr = audio_io.load(rec.audio_path, sr=None, mono=True)
+        if sr != CANONICAL_SR:
+            y = audio_io.resample(y, sr, CANONICAL_SR)
+        want = label_bitstream(y, CANONICAL_SR).ljust(
+            rec.num_frames, "1")[:rec.num_frames]
+        if rec.bit_stream != want or set(want) != {"0", "1"}:
+            raise RuntimeError(f"preprocess: {rec.audio_path} bitstream "
+                               "differs from label_bitstream")
+    log(f"phase 12 (a) preprocess (host work, no device): {out.strip()} in "
+        f"{secs:.2f} s; {index.num_files} records read back, each bitstream "
+        "equal to label_bitstream on the decoded WAV "
+        f"({', '.join(str(f.num_frames) for f in index.files)} frames)")
+    if rc != 0 or index.num_files != 2 * len(TOOLS_SRS):
+        raise RuntimeError("preprocess: wrong exit code or record count")
+
+
+def tools_fit(cfg: ExperimentConfig, root: str, gen: torch.Generator) -> str:
+    """(b) `fit` at full width with `visualize_hook`: the denoiser for
+    TOOLS_STEPS steps at TOOLS_BATCH, visualize_frequency 1, a recording
+    writer. Returns the log directory."""
+    import importlib.util
+
+    from sos_tpu_torch.train import visualize
+    from sos_tpu_torch.train.fit import fit
+    from sos_tpu_torch.train.state import TrainClock
+
+    render = importlib.util.find_spec("matplotlib") is not None
+    log("phase 12 (b): matplotlib "
+        + ("imports here: the panels are rendered" if render else
+           "is not installed here: the panel waveforms are checked, not "
+           "rendered"))
+    tcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, nr_epochs=1, batch_size=TOOLS_BATCH, visualize_frequency=1))
+    _, state = train_loop.init_denoiser_state(tcfg, device="cuda", seed=SEED)
+    writer, calls = RecordingWriter(), []
+    # the hook the port ships renders; beside it, its panel waveforms on
+    # the card are held against the same call on the CPU
+    render_hook = visualize.make_denoiser_visualize_hook(tcfg)
+
+    def hook(train_writer, st, batch, step):
+        before = LAUNCHES["crm_istft"]
+        waves = visualize.denoiser_batch_panels(tcfg, st.model, batch)
+        torch.cuda.synchronize()
+        k3 = LAUNCHES["crm_istft"] - before
+        if render:
+            render_hook(writer, st, batch, step)
+        diff = None
+        if not calls:  # the same call on the CPU, first item
+            host = JointDenoiser(tcfg.denoiser)
+            host.load_state_dict({k: v.cpu() for k, v in
+                                  st.model.state_dict().items()})
+            waves_c = visualize.denoiser_batch_panels(
+                tcfg, host, {k: v[:1] for k, v in batch.items()})
+            diff = max(float((waves[k].cpu() - waves_c[k]).abs().max())
+                       for k in visualize.PANELS)
+        calls.append((step, k3, diff, {k: tuple(v.shape)
+                                       for k, v in waves.items()}))
+
+    log_dir = os.path.join(root, "fit", "log")
+    batches = [train_batch(TOOLS_BATCH, gen) for _ in range(TOOLS_STEPS)]
+    t0 = time.perf_counter()
+    fit(tcfg, state, TrainClock(), train_loop.make_denoiser_train_step(
+        tcfg, TOOLS_STEPS), train_loop.make_denoiser_eval_step(tcfg),
+        ListBatches(batches), ListBatches([]),
+        os.path.join(root, "fit", "model"), log_dir, visualize_hook=hook)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for step, k3, diff, shapes in calls:
+        log(f"phase 12 (b) visualize_hook at step {step}: crm_istft "
+            f"launches {k3}, panels {shapes}"
+            + ("" if diff is None else
+               f", max |card - cpu| over the panels {diff:.3e} (tolerance "
+               "1e-3)"))
+    log(f"phase 12 (b) fit: {TOOLS_STEPS} denoiser steps at batch "
+        f"{TOOLS_BATCH}, full width, with the hook, {secs:.2f} s; images "
+        f"written {[(t, shp, st) for t, shp, st in writer.images]} "
+        f"{card_note()}")
+    if [c[0] for c in calls] != list(range(TOOLS_STEPS)):
+        raise RuntimeError(f"fit: the hook fired at {[c[0] for c in calls]}")
+    if any(c[1] == 0 for c in calls) or not calls[0][2] <= 1e-3:
+        raise RuntimeError("fit: the hook's panels missed K3 or disagree "
+                           "with the CPU")
+    if render and len(writer.images) != TOOLS_STEPS:
+        raise RuntimeError("fit: the hook rendered no image")
+    return log_dir
+
+
+def tools_report(workdir: str, log_dir: str) -> None:
+    """(c) `report` on phase 7's eval outputs and (b)'s metrics log."""
+    import re
+
+    for argv in (["--results_dir", os.path.join(workdir, "eval", "det")],
+                 ["--results_dir", os.path.join(workdir, "eval", "den")],
+                 ["--train_log", log_dir]):
+        rc, out = run_dispatcher(["report"] + argv)
+        log(f"phase 12 (c) report {' '.join(argv)}: exit {rc}")
+        for line in out.strip().splitlines():
+            log(f"    {line}")
+        numbers = re.findall(r"(?<![A-Za-z_])[-+]?(?:\d+\.\d+|nan|inf)", out)
+        if rc != 0 or not numbers or not all(np.isfinite(float(v))
+                                             for v in numbers):
+            raise RuntimeError(f"report {argv}: no finite table")
+
+
+def tools_bf16_inpaint(cfg: ExperimentConfig, den_state,
+                       gen: torch.Generator) -> None:
+    """(d) `QuantizedDenoiser(inpaint_dtype="bfloat16")` at full width:
+    int8 trunks (K6), bf16 InpaintNet on cuDNN (no K7); card against CPU
+    on the first QUANT_CPU_ROWS rows, both calibrated on those rows;
+    timed beside the int8 mode at QUANT_BATCH."""
+    from sos_tpu_torch.models.quant import QuantizedDenoiser
+
+    x = make_clips(QUANT_BATCH, gen)
+    gate = (torch.arange(CLIP) % 7000 < 3500).float()
+    mixed, gated = stft(x.cuda()), stft((x * gate).cuda())
+    rows = QUANT_CPU_ROWS
+    timings = {}
+    for mode in ("bfloat16", "int8"):
+        q = QuantizedDenoiser(cfg.denoiser, den_state, inpaint_dtype=mode)
+        q.calibrate([(mixed[:rows], gated[:rows])])
+        reset_launches()
+        noise, crm = q(mixed, gated)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            q(mixed, gated)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        timings[mode] = statistics.median(times)
+        if mode == "bfloat16":
+            card_scales = q.calibration_state()
+            host = QuantizedDenoiser(cfg.denoiser, den_state,
+                                     inpaint_dtype=mode, device="cpu")
+            t0 = time.perf_counter()
+            host.calibrate([(mixed[:rows].cpu(), gated[:rows].cpu())])
+            _, crm_host = host(mixed[:rows].cpu(), gated[:rows].cpu())
+            host_s = time.perf_counter() - t0
+            scale_gap = max(abs(a / b - 1) for key in card_scales
+                            for a, b in zip(card_scales[key],
+                                            host.calibration_state()[key]))
+            diff = float((crm[:rows].cpu() - crm_host).abs().max())
+            log(f"phase 12 (d) QuantizedDenoiser(inpaint_dtype='bfloat16'), "
+                f"full width, {QUANT_BATCH} x 2 s: launches int8_conv "
+                f"{launches['int8_conv']}, int8_inpaint "
+                f"{launches['int8_inpaint']}; scales {sorted(card_scales)}, "
+                f"card against CPU relative gap {scale_gap:.3e}; cRM "
+                f"{tuple(crm.shape)} max |card - cpu| over {rows} rows "
+                f"{diff:.3e} (tolerance 1e-3; the CPU's calibrate + call "
+                f"{host_s:.1f} s)")
+            if (launches["int8_conv"] == 0 or launches["int8_inpaint"] != 0
+                    or not diff <= 1e-3
+                    or not bool(torch.isfinite(crm).all())):
+                raise RuntimeError("bf16 InpaintNet mode: wrong kernels or "
+                                   "card and CPU disagree")
+        elif launches["int8_inpaint"] == 0:
+            raise RuntimeError("int8 InpaintNet mode never launched K7")
+    log(f"phase 12 (d) median of 5 calls at {QUANT_BATCH} x 2 s: "
+        f"inpaint_dtype bfloat16 {timings['bfloat16']:.2f} ms, int8 "
+        f"{timings['int8']:.2f} ms {card_note()}")
+
+
+def geometry_config(cfg: ExperimentConfig, n_fft: int, hop: int,
+                    win: int) -> ExperimentConfig:
+    """`cfg` at another STFT geometry, both models at its bins."""
+    bins = n_fft // 2 + 1
+    return dataclasses.replace(
+        cfg, stft=StftConfig(n_fft, hop, win),
+        detector=dataclasses.replace(cfg.detector, freq_bins=bins),
+        denoiser=dataclasses.replace(cfg.denoiser, freq_bins=bins))
+
+
+def median_call_ms(pipe, x) -> float:
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def geometry_agreement(label, card, host, x, prob, rows):
+    """The card pipeline against the CPU one on the first `rows` clips:
+    bits equal off the threshold (those within 1e-4 reported), waveform
+    within 1e-3 on the same bits. Returns the card's (y, bits)."""
+    y, bits = card(x)
+    y_host, bits_host = host(x[:rows].cpu())
+    margin = (prob[:rows].cpu() - card.threshold).abs()
+    clear = margin > 1e-4
+    bits_c = bits[:rows].cpu()
+    if not torch.equal(bits_c[clear], bits_host[clear]):
+        raise RuntimeError(f"{label}: card and CPU bits differ off the "
+                           "threshold")
+    y_cmp = (y[:rows].cpu() if torch.equal(bits_c, bits_host) else
+             card.denoise_with_bits(x[:rows], bits_host.cuda()).cpu())
+    diff = float((y_cmp - y_host).abs().max())
+    log(f"phase 12 (e) {label}: waveform {tuple(y.shape)} finite "
+        f"{bool(torch.isfinite(y).all())}, max |card - cpu| over {rows} "
+        f"rows {diff:.3e} (tolerance 1e-3), bits equal "
+        f"{bool(torch.equal(bits_c, bits_host))}, frames within 1e-4 of "
+        f"the threshold {int((~clear).sum())}, voiced "
+        f"{int(bits.sum())}/{bits.numel()}")
+    if not diff <= 1e-3 or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"{label}: card and CPU disagree")
+    return y, bits
+
+
+def tools_geometries(cfg: ExperimentConfig, det_state, den_state,
+                     gen: torch.Generator, workdir: str):
+    """(e) the pipelines at other STFT geometries (see the module
+    docstring). Returns the generic instances' launches."""
+    x = make_clips(GEOMETRY_BATCH, gen).cuda()
+    base = FusedDenoisePipeline(cfg, det_state, den_state)
+    base(x)
+    torch.cuda.synchronize()
+    base_ms = median_call_ms(base, x)
+    del base
+    audio_s = GEOMETRY_BATCH * CLIP / float(SR)
+    log(f"phase 12 (e) f32 at the default geometry (510, 158, 400): "
+        f"{base_ms:.2f} ms a call of {GEOMETRY_BATCH} x 2 s, "
+        f"{audio_s / base_ms * 1e3:.1f} audio-s/s {card_note()}")
+    counts = {k: 0 for k in ("stft_generic", "crm_istft_generic",
+                             "stft_generic_center_false",
+                             "crm_istft_generic_valid_t")}
+    for index, (nf, hop, win) in enumerate(OTHER_GEOMETRIES):
+        gcfg = geometry_config(cfg, nf, hop, win)
+        det_g = init_state_dict(SilenceDetector(gcfg.detector), gen)
+        den_g = init_state_dict(JointDenoiser(gcfg.denoiser), gen)
+        geo = f"({nf}, {hop}, {win}), {nf // 2 + 1} bins"
+        card = FusedDenoisePipeline(gcfg, det_g, den_g)
+        host = FusedDenoisePipeline(gcfg, det_g, den_g, device="cpu")
+        with torch.no_grad():
+            prob = torch.sigmoid(card.detector(stft(x, nf, hop, win)))
+        card.threshold = host.threshold = pick_threshold(prob)
+        reset_launches()
+        y, bits = geometry_agreement(f"f32 at {geo}", card, host, x, prob,
+                                     GEOMETRY_CPU_ROWS)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        for key in ("stft_generic", "crm_istft_generic"):
+            counts[key] += launches[key]
+        log(f"phase 12 (e) f32 at {geo} launches: {launches}")
+        if (launches["stft_generic"] == 0 or launches["crm_istft_generic"] == 0
+                or launches["stft"] or launches["crm_istft"]):
+            raise RuntimeError(f"f32 at {geo}: not the generic instances")
+        ms = median_call_ms(card, x)
+        log(f"phase 12 (e) f32 at {geo}: {ms:.2f} ms a call, "
+            f"{audio_s / ms * 1e3:.1f} audio-s/s (the default geometry "
+            f"{audio_s / base_ms * 1e3:.1f}) {card_note()}")
+        if index == 0:
+            geometry_profiles(gcfg, det_g, den_g, card, x, y, bits, prob,
+                              workdir, audio_s)
+        else:
+            counts.update(geometry_bucketed(gcfg, den_g, gen))
+        del card, host
+        torch.cuda.empty_cache()
+    return counts
+
+
+def geometry_profiles(gcfg, det_g, den_g, card, x, y, bits, prob, workdir,
+                      audio_s) -> None:
+    """(e) bf16 and int8 at the first other geometry."""
+    nf = gcfg.stft.n_fft
+    bf16 = FusedDenoisePipeline(gcfg, det_g, den_g, profile="bf16",
+                                threshold=card.threshold)
+    y_b, bits_b = bf16(x)
+    with torch.no_grad():
+        prob_b = torch.sigmoid(bf16.detector(stft(
+            x, nf, gcfg.stft.hop_length, gcfg.stft.win_length)))
+    agree = float((bits_b == bits).float().mean())
+    # random weights crowd the confidences about the threshold (phase 7's
+    # 98 % agreement does not carry over), so the confidences are held:
+    # bf16 within BF16_PROB_BOUND of f32. The pipeline's bits must equal
+    # f32's on every frame farther than that drift from the threshold
+    # (implied by the drift where the pipeline's bits are its detector's
+    # confidences thresholded: that is what it checks), and at least half
+    # the frames must be that far, so that the drift decides them
+    drift = float((prob_b - prob).abs().max())
+    clear = (prob - card.threshold).abs() > drift
+    p5, p95 = (float(v) for v in torch.quantile(
+        prob.flatten().double(), torch.tensor([0.05, 0.95]).double().cuda()))
+    y_bb = bf16.denoise_with_bits(x, bits)
+    rel = float((y_bb - y).norm() / y.norm())
+    ms = median_call_ms(bf16, x)
+    log(f"phase 12 (e) bf16 at n_fft {nf}: max |p bf16 - p f32| "
+        f"{drift:.3e} (bound {BF16_PROB_BOUND}; f32's confidences span "
+        f"{p5:.4f}-{p95:.4f}, 5th-95th percentile); bits agree with f32 "
+        f"on {agree:.4f} of frames, on all {int(clear.sum())} of "
+        f"{clear.numel()} farther than that drift from the threshold "
+        f"{bool(torch.equal(bits_b[clear], bits[clear]))}; waveform on the "
+        f"f32 bits relative L2 {rel:.3e} (bound 2e-2), finite "
+        f"{bool(torch.isfinite(y_b).all())}; {ms:.2f} ms a call, "
+        f"{audio_s / ms * 1e3:.1f} audio-s/s {card_note()}")
+    if (not drift <= BF16_PROB_BOUND or not rel <= 2e-2
+            or not torch.equal(bits_b[clear], bits[clear])
+            or 2 * int(clear.sum()) < clear.numel()
+            or not bool(torch.isfinite(y_b).all())):
+        raise RuntimeError(f"bf16 at n_fft {nf}: outside its bounds")
+    del bf16
+    path = os.path.join(workdir, f"int8_calibration_{nf}.json")
+    int8 = FusedDenoisePipeline(gcfg, det_g, den_g, profile="int8",
+                                threshold=card.threshold,
+                                calibration_path=path)
+    reset_launches()
+    int8(x)  # the first batch calibrates and writes the scale file
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    host = FusedDenoisePipeline(gcfg, det_g, den_g, profile="int8",
+                                threshold=card.threshold,
+                                calibration_path=path, device="cpu")
+    with torch.no_grad():
+        prob_i = torch.sigmoid(int8._quant_det.logits_cat(
+            stft_cat(x, nf, gcfg.stft.hop_length, gcfg.stft.win_length),
+            int8.num_frames))
+    geometry_agreement(f"int8 at n_fft {nf}", int8, host, x, prob_i, 1)
+    ms = median_call_ms(int8, x)
+    log(f"phase 12 (e) int8 at n_fft {nf}: K6 and K7 take F = "
+        f"{nf // 2 + 1}: launches int8_conv {launches['int8_conv']}, "
+        f"int8_inpaint {launches['int8_inpaint']}, stft_generic "
+        f"{launches['stft_generic']}, crm_istft_generic "
+        f"{launches['crm_istft_generic']}; {ms:.2f} ms a call, "
+        f"{audio_s / ms * 1e3:.1f} audio-s/s {card_note()}")
+    if not all(launches[k] for k in ("int8_conv", "int8_inpaint",
+                                      "stft_generic", "crm_istft_generic")):
+        raise RuntimeError(f"int8 at n_fft {nf}: a kernel never launched")
+
+
+def geometry_bucketed(gcfg, den_g, gen):
+    """(e) the length-bucketed denoiser at the second other geometry:
+    K1 center=False and K3 with per-row valid_t on their generic
+    instances; the card against the CPU on the shortest utterance."""
+    from sos_tpu_torch.infer import DenoiserPredictor
+
+    wavs = [utterance(int(s * SR), gen) for s in GEOMETRY_SECONDS]
+    bits = ["".join("1" if (j // 15) % 2 == 0 else "0"
+                    for j in range(int(s * 30))) for s in GEOMETRY_SECONDS]
+    card = DenoiserPredictor(gcfg, den_g, buckets=GEOMETRY_BUCKETS)
+    reset_launches()
+    out = card.denoise_batch(wavs, bits, batch_size=EVAL_BATCH,
+                             keys=("denoised",))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    host = DenoiserPredictor(gcfg, den_g, buckets=GEOMETRY_BUCKETS,
+                             device="cpu")
+    ref = host.denoise_batch(wavs[:1], bits[:1], keys=("denoised",))
+    diff = float(np.abs(np.asarray(out[0]["denoised"])
+                        - np.asarray(ref[0]["denoised"])).max())
+    log(f"phase 12 (e) bucketed denoiser at ({gcfg.stft.n_fft}, "
+        f"{gcfg.stft.hop_length}, {gcfg.stft.win_length}), buckets "
+        f"{GEOMETRY_BUCKETS}, {len(wavs)} utterances of "
+        f"{GEOMETRY_SECONDS} s: launches stft_generic_center_false "
+        f"{launches['stft_generic_center_false']}, "
+        f"crm_istft_generic_valid_t {launches['crm_istft_generic_valid_t']}"
+        f"; the {GEOMETRY_SECONDS[0]} s utterance max |card - cpu| "
+        f"{diff:.3e} (tolerance 1e-3)")
+    if (not launches["stft_generic_center_false"]
+            or not launches["crm_istft_generic_valid_t"]
+            or not diff <= 1e-3):
+        raise RuntimeError("bucketed denoiser at another geometry: a generic "
+                           "case never launched or the card disagrees")
+    return {k: launches[k] for k in ("stft_generic_center_false",
+                                     "crm_istft_generic_valid_t")}
+
+
+def phase_tools_and_geometries(cfg: ExperimentConfig, det_state, den_state,
+                               workdir: str):
+    """Phase 12 (see the module docstring). Returns the generic
+    instances' launches."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 12)
+    root = os.path.join(workdir, "tools")
+    os.makedirs(root)
+    tools_preprocess(root, gen)
+    log_dir = tools_fit(cfg, root, gen)
+    tools_report(workdir, log_dir)
+    tools_bf16_inpaint(cfg, den_state, gen)
+    counts = tools_geometries(cfg, det_state, den_state, gen, workdir)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3615,6 +4257,8 @@ def main() -> int:
         phase_data_parallel(cfg, det_state, den_state, gen, workdir)
         launches.update(phase_deployment(cfg, det_state, den_state, gen,
                                          workdir))
+        launches.update(phase_tools_and_geometries(cfg, det_state, den_state,
+                                                   workdir))
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -8,8 +8,8 @@ One discoverable entry for every CLI of the port:
 
 `python -m sos_tpu_torch.cli.<command>` remains equivalent; this wrapper
 only resolves the name and delegates, so both forms share argparse
-behavior. Every command runs on the CUDA card unless given `--device
-cpu`.
+behavior. Every command with device work runs on the CUDA card unless
+given `--device cpu`; `preprocess` and `report` are host work.
 """
 import ast
 import importlib
@@ -17,8 +17,8 @@ import os
 import sys
 
 COMMANDS = (
-    "train_detector", "train_denoiser", "train_joint",
-    "predict_detector", "bridge", "predict_denoiser",
+    "preprocess", "train_detector", "train_denoiser", "train_joint",
+    "predict_detector", "bridge", "predict_denoiser", "report",
     "denoise", "serve", "eval_synthetic", "export_serving",
     "import_checkpoint", "calibrate", "parity_check", "doctor",
 )

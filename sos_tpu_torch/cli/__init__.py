@@ -2,6 +2,7 @@
 
     python -m sos_tpu_torch <command> [args...]   (the dispatcher, __main__.py)
 
+    preprocess        a directory of WAVs -> the dataset JSON (host)
     train_detector    train stage 1 (f32 or bf16; one device or data-parallel)
     train_denoiser    train stage 2 (the same)
     train_joint       train both stages together, one step for both
@@ -9,6 +10,7 @@
     predict_detector  stage-1 eval over a dataset JSON
     bridge            stage-1 results -> stage-2 input
     predict_denoiser  stage-2 eval with the metric suite
+    report            per-SNR tables and plots, training curves (host)
     eval_synthetic    batched synthetic-mixture quality eval per SNR
     denoise           one-shot wav -> wav (streaming)
     serve             long-lived denoising server
@@ -18,11 +20,10 @@
     parity_check      released `.pth` -> end to end -> deltas vs a manifest
     doctor            environment and deployment diagnostics
 
-Each runs as `python -m sos_tpu_torch.cli.<command>` too. They run on
-the CUDA card unless given `--device cpu`. The serving, eval and ops
+Each runs as `python -m sos_tpu_torch.cli.<command>` too. Those with
+device work run on the CUDA card unless given `--device cpu`. The serving, eval and ops
 CLIs read the experiment's own checkpoints (`--ckpt`/`--*_ckpt`,
 default `latest`) or reference-layout `.pth` files (`--pth`,
 `--detector_pth`, `--denoiser_pth`); the train CLIs write and resume
-torch-format checkpoints (`train/checkpoints.py`). `sos_tpu`'s
-`preprocess` and `report` are not ported yet (ROADMAP.md queue 1).
+torch-format checkpoints (`train/checkpoints.py`).
 """

@@ -57,8 +57,10 @@ class StftConfig:
         return self.n_fft // 2 + 1
 
     def num_frames(self, num_samples: int) -> int:
-        """Frame count for a centered STFT of `num_samples` samples."""
-        return 1 + num_samples // self.hop_length
+        """Frame count for a centered STFT of `num_samples` samples
+        (1 + L // hop at even n_fft, 1 + (L - 1) // hop at odd)."""
+        pad = self.n_fft // 2
+        return 1 + (num_samples + 2 * pad - self.n_fft) // self.hop_length
 
     def num_output_samples(self, num_frames: int) -> int:
         """iSTFT output length for `num_frames` frames (librosa center=True)."""

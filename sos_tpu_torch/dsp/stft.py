@@ -17,14 +17,19 @@ Two kernels live here:
   valid_t[b] and divides by the window-square envelope of its valid
   frames only (`sos_tpu`'s `istft(valid_t=)`, vmapped over rows).
 
-Both kernels compute the 510-point real DFT as a 255-point complex
-prime-factor FFT (3 * 5 * 17, `csrc/pfa.cuh`) from the tables that
-`pfa_tables` builds here in float64; they take only the geometry of every
-config (n_fft 510, hop 158, win 400). Each wrapper runs its plain PyTorch
-version (`*_plain`, the dense DFT matmuls) on a CPU tensor and launches
-its kernel on a CUDA tensor. The plain products run in full fp32
-(`sos_tpu` uses Precision.HIGHEST): callers on the card keep
-`torch.backends.cuda.matmul.allow_tf32` False.
+Each kernel has two instances, chosen by `kernel_instance`: at the
+default geometry (n_fft 510, hop 158, win 400) the 510-point real DFT
+runs as a 255-point complex prime-factor FFT (3 * 5 * 17, `csrc/pfa.cuh`)
+from the tables that `pfa_tables` builds here in float64 (`csrc/stft.cu`,
+`csrc/crm_istft.cu`); at any other geometry a generic instance runs the
+dense product with the float64-built `_analysis_matrix` /
+`_synthesis_matrix` that the plain versions read (`csrc/stft_dense.cu`,
+`csrc/crm_istft_dense.cu`; launches counted apart, under
+"stft_generic*" and "crm_istft_generic*"). Each wrapper runs its plain
+PyTorch version (`*_plain`, the dense DFT matmuls) on a CPU tensor and
+launches a kernel on a CUDA tensor, whatever the geometry. The plain
+products run in full fp32 (`sos_tpu` uses Precision.HIGHEST): callers on
+the card keep `torch.backends.cuda.matmul.allow_tf32` False.
 
 Layout convention of the public functions: spectrograms `(..., F, T, 2)`
 as in `sos_tpu`; the packed form is `(..., T, 2F)`.
@@ -107,6 +112,26 @@ def _device_table(name: str, n_fft: int, win_length: int,
     return torch.from_numpy(table).to(device)
 
 
+# K1's generic instance multiplies in tiles of 8 window samples by 128
+# output columns (`csrc/stft_dense.cu` kBK, kBN)
+DENSE_K_TILE, DENSE_N_TILE = 8, 128
+
+
+@functools.lru_cache(maxsize=16)
+def _device_dense_analysis(n_fft: int, win_length: int,
+                           device: torch.device) -> torch.Tensor:
+    """`_analysis_matrix`'s rows inside the window's support, zero-padded
+    to whole tiles of K1's generic instance (rows to a multiple of
+    DENSE_K_TILE, columns to a multiple of DENSE_N_TILE), on `device`."""
+    table = _analysis_matrix(n_fft, win_length)
+    lpad = (n_fft - win_length) // 2
+    rows = -(-win_length // DENSE_K_TILE) * DENSE_K_TILE
+    cols = -(-table.shape[1] // DENSE_N_TILE) * DENSE_N_TILE
+    out = np.zeros((rows, cols), dtype=np.float32)
+    out[:win_length, :table.shape[1]] = table[lpad:lpad + win_length]
+    return torch.from_numpy(out).to(device)
+
+
 PFA_FACTORS = (3, 5, 17)  # 255 = n_fft / 2 complex points, coprime factors
 # the kernels' float table, in this order (offsets in csrc/pfa.cuh)
 PFA_FLOAT_TABLES = ("twiddle", "dft3", "dft5", "dft17", "window",
@@ -114,14 +139,27 @@ PFA_FLOAT_TABLES = ("twiddle", "dft3", "dft5", "dft17", "window",
 PFA_INT_TABLES = ("slot_in", "slot_out", "out_index")
 
 
-def _check_kernel_geometry(n_fft: int, hop_length: int, win_length: int,
-                           name: str) -> None:
-    """K1 and K3 are compiled for (n_fft, hop, win) = (510, 158, 400)."""
-    if (n_fft, hop_length, win_length) != (N_FFT, HOP_LENGTH, WIN_LENGTH):
-        raise ValueError(
-            f"{name}: the kernel takes the STFT geometry n_fft {N_FFT}, hop "
-            f"{HOP_LENGTH}, win {WIN_LENGTH}, got {n_fft}, {hop_length}, "
-            f"{win_length}; run other geometries on the CPU")
+# K3's generic instance keeps the masked spectrum of 64 + chunks - 1
+# frames in shared memory, chunks = ceil(n_fft / hop)
+# (`csrc/crm_istft_dense.cu` kMaxChunks)
+DENSE_MAX_CHUNKS = 1024
+
+
+def kernel_instance(n_fft: int, hop_length: int, win_length: int) -> str:
+    """The K1/K3 instance a geometry launches: "pfa" (the prime-factor
+    FFT, built for n_fft 510, hop 158, win 400) or "generic" (the dense
+    product with the float64-built tables)."""
+    if (n_fft, hop_length, win_length) == (N_FFT, HOP_LENGTH, WIN_LENGTH):
+        return "pfa"
+    return "generic"
+
+
+def _check_geometry(n_fft: int, hop_length: int, win_length: int,
+                    name: str) -> None:
+    if n_fft < 2 or hop_length < 1 or not 1 <= win_length <= n_fft:
+        raise ValueError(f"{name}: needs n_fft >= 2, hop >= 1 and 1 <= win "
+                         f"<= n_fft, got {n_fft}, {hop_length}, "
+                         f"{win_length}")
 
 
 def _cos_sin(angles: np.ndarray) -> np.ndarray:
@@ -131,7 +169,7 @@ def _cos_sin(angles: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=1)
 def pfa_tables() -> Dict[str, np.ndarray]:
     """The tables of K1's and K3's prime-factor real DFT, built in float64
-    for the one geometry the kernels take (n_fft 510, win 400).
+    for the geometry of the prime-factor instances (n_fft 510, win 400).
 
     * `slot_in[m]`: where complex point m of a frame (x[2m] + i x[2m+1])
       sits in the [3][5][17] Good-Thomas array, m = (85 n1 + 51 n2 + 15 n3)
@@ -268,8 +306,8 @@ def stft_cat_plain(y: torch.Tensor, n_fft: int = N_FFT,
                    win_length: int = WIN_LENGTH,
                    center: bool = True) -> torch.Tensor:
     """Plain version of K1: STFT `(..., L)` -> `(..., T, 2*bins)`,
-    centered (T = 1 + L // hop) or, with `center=False`, over the buffer
-    as given (T = 1 + (L - n_fft) // hop)."""
+    centered or, with `center=False`, over the buffer as given (T as
+    `stft_num_frames` gives it)."""
     pad = n_fft // 2
     y = y.float()
     lead, length = y.shape[:-1], y.shape[-1]
@@ -282,17 +320,29 @@ def stft_cat_plain(y: torch.Tensor, n_fft: int = N_FFT,
     return spec.reshape(*lead, *spec.shape[-2:])
 
 
+def stft_num_frames(length: int, n_fft: int, hop_length: int,
+                    center: bool = True) -> int:
+    """Frames of an STFT of `length` samples: those of `frame_signal` on
+    the reflect-padded signal (n_fft // 2 at each end; 1 + L // hop at
+    even n_fft, 1 + (L - 1) // hop at odd), or on the buffer as given
+    with `center=False`."""
+    pad = n_fft // 2 if center else 0
+    return 1 + (length + 2 * pad - n_fft) // hop_length
+
+
 def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
              win_length: int = WIN_LENGTH, center: bool = True) -> torch.Tensor:
     """STFT `(..., L)` -> packed `(..., T, 2*bins)` = [re | im]; centered,
     or with `center=False` over the caller's pre-padded buffer.
 
-    Kernel K1 on a CUDA tensor, `stft_cat_plain` on a CPU tensor. The
-    launches count under "stft" (centered) or "stft_center_false".
+    Kernel K1 on a CUDA tensor (the instance `kernel_instance` names),
+    `stft_cat_plain` on a CPU tensor. The launches count under "stft"
+    (centered) or "stft_center_false", and at a geometry other than the
+    default under "stft_generic" or "stft_generic_center_false".
     """
     if y.device.type == "cpu":
         return stft_cat_plain(y, n_fft, hop_length, win_length, center)
-    _check_kernel_geometry(n_fft, hop_length, win_length, "stft_cat")
+    _check_geometry(n_fft, hop_length, win_length, "stft_cat")
     if y.device.type != "cuda":
         raise ValueError(f"stft_cat: unsupported device {y.device}")
     pad = n_fft // 2
@@ -305,17 +355,26 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
                          f"samples, got {length}")
     y2 = y.float().reshape(-1, length).contiguous()
     batch = y2.shape[0]
-    frames = (1 + length // hop_length if center
-              else 1 + (length - n_fft) // hop_length)
+    frames = stft_num_frames(length, n_fft, hop_length, center)
     n_out = 2 * (n_fft // 2 + 1)
-    tab, slots = device_pfa_tables(y.device)
     out = torch.empty((batch, frames, n_out), dtype=torch.float32,
                       device=y.device)
+    if kernel_instance(n_fft, hop_length, win_length) == "pfa":
+        tab, slots = device_pfa_tables(y.device)
+        with on_device(y.device) as stream:
+            launch("stft" if center else "stft_center_false", "sos_stft",
+                   y2.data_ptr(), tab.data_ptr(), slots.data_ptr(),
+                   out.data_ptr(), batch, length, frames,
+                   pad if center else 0, stream)
+        return out.reshape(*lead, frames, n_out)
+    # the table's rows outside the window's support are zero: skipped
+    mat = _device_dense_analysis(n_fft, win_length, y.device)
     with on_device(y.device) as stream:
-        launch("stft" if center else "stft_center_false", "sos_stft",
-               y2.data_ptr(), tab.data_ptr(), slots.data_ptr(),
-               out.data_ptr(), batch, length, frames, pad if center else 0,
-               stream)
+        launch("stft_generic" if center else "stft_generic_center_false",
+               "sos_stft_dense", y2.data_ptr(), mat.data_ptr(),
+               out.data_ptr(), batch, length, frames, n_out, mat.shape[1],
+               hop_length, pad if center else 0, (n_fft - win_length) // 2,
+               win_length, stream)
     return out.reshape(*lead, frames, n_out)
 
 
@@ -400,14 +459,17 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
     `valid_t` `(B,)` (integers, on the device): row b keeps its frames
     below valid_t[b] and divides by their envelope alone.
 
-    Kernel K3 on CUDA tensors, `crm_istft_plain` on CPU tensors. The
-    launches count under "crm_istft", or "crm_istft_valid_t" with
-    `valid_t`.
+    Kernel K3 on CUDA tensors (the instance `kernel_instance` names),
+    `crm_istft_plain` on CPU tensors. The launches count under
+    "crm_istft", or "crm_istft_valid_t" with `valid_t`, and at a geometry
+    other than the default under "crm_istft_generic" or
+    "crm_istft_generic_valid_t". `(T - 1) * hop + n_fft % 2` samples come
+    out, as from `istft`.
     """
     if crm.device.type == "cpu" and spec.device.type == "cpu":
         return crm_istft_plain(crm, spec, n_fft, hop_length, win_length,
                                valid_t)
-    _check_kernel_geometry(n_fft, hop_length, win_length, "crm_istft")
+    _check_geometry(n_fft, hop_length, win_length, "crm_istft")
     bins = n_fft // 2 + 1
     if crm.device.type != "cuda" or spec.device != crm.device:
         raise ValueError(f"crm_istft: tensors on {crm.device} and "
@@ -423,15 +485,29 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
         # a device tensor stays on the device: no host sync
         vt = torch.as_tensor(valid_t, device=crm.device)
         vt = vt.to(torch.int32).expand(batch).contiguous()
-    out_len = (num_frames - 1) * hop_length
+    out_len = (num_frames - 1) * hop_length + n_fft % 2
     out = torch.empty((batch, out_len), dtype=torch.float32, device=crm.device)
     if out_len == 0:
         return out
-    tab, slots = device_pfa_tables(crm.device)
+    vt_ptr = None if vt is None else vt.data_ptr()
+    if kernel_instance(n_fft, hop_length, win_length) == "pfa":
+        tab, slots = device_pfa_tables(crm.device)
+        with on_device(crm.device) as stream:
+            launch("crm_istft" if vt is None else "crm_istft_valid_t",
+                   "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
+                   tab.data_ptr(), slots.data_ptr(), vt_ptr, out.data_ptr(),
+                   batch, num_frames, out_len, stream)
+        return out
+    if -(-n_fft // hop_length) > DENSE_MAX_CHUNKS:
+        raise ValueError(f"crm_istft: the kernel takes at most "
+                         f"{DENSE_MAX_CHUNKS} hops a frame, got n_fft "
+                         f"{n_fft}, hop {hop_length}")
+    mat = _device_table("synthesis", n_fft, win_length, crm.device)
+    wsq = _device_window_square(n_fft, win_length, crm.device)
     with on_device(crm.device) as stream:
-        launch("crm_istft" if vt is None else "crm_istft_valid_t",
-               "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
-               tab.data_ptr(), slots.data_ptr(),
-               None if vt is None else vt.data_ptr(), out.data_ptr(), batch,
-               num_frames, out_len, stream)
+        launch("crm_istft_generic" if vt is None
+               else "crm_istft_generic_valid_t", "sos_crm_istft_dense",
+               crm.data_ptr(), spec.data_ptr(), mat.data_ptr(),
+               wsq.data_ptr(), vt_ptr, out.data_ptr(), batch, num_frames,
+               bins, n_fft, hop_length, out_len, stream)
     return out

@@ -56,7 +56,12 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def bucket_buffer(signal: np.ndarray, n_fft: int, need: int) -> np.ndarray:
     """The centered STFT's reflect padding applied on the host, then
-    zero-extended (or cut) to `need` samples."""
+    zero-extended (or cut) to `need` samples.
+
+    The predictors count `1 + L // hop` valid frames, as `sos_tpu` does:
+    at odd n_fft where the hop divides L that is one frame more than the
+    centered STFT has (`dsp/stft.py` `stft_num_frames`), and that frame
+    reads the first sample of the zero extension."""
     reflected = np.pad(np.asarray(signal, np.float32), n_fft // 2,
                        mode="reflect")
     out = np.zeros(need, np.float32)

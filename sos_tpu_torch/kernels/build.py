@@ -43,6 +43,11 @@ SIGNATURES = {
     # y, PFA float table, PFA slots, out, B, L, T, pad (255 centered, 0
     # for center=False), stream
     "sos_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # K1's generic instance: y, the analysis table's rows in the window's
+    # support, zero-padded to whole tiles (k_pad, n_pad), out, B, L, T,
+    # n_out, n_pad, hop, pad (n_fft // 2 centered, 0 for center=False),
+    # the window's first table row and its length, stream
+    "sos_stft_dense": (_P, _P, _P) + (_I,) * 9 + (_P,),
     # mixed, bits, geometry (body | gap << 16), frames of each 256-sample
     # chunk, out, B, L, num_frames, the most frames a span reads,
     # complement (1: gate by 1 - mask), stream
@@ -53,6 +58,10 @@ SIGNATURES = {
     # crm, spec, PFA float table, PFA slots, valid_t (int32 (B,) or NULL),
     # out, B, T, out_len, stream
     "sos_crm_istft": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K3's generic instance: crm, spec, synthesis table (2F, n_fft), the
+    # squared window, valid_t (int32 (B,) or NULL), out, B, T, F, n_fft,
+    # hop, out_len, stream
+    "sos_crm_istft_dense": (_P,) * 6 + (_I,) * 6 + (_P,),
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths (int32 (B,) or NULL), out,
     # B, T, H, then the plan: rows a block, cluster, units a block, kp,
     # threads, shared bytes; stream
@@ -91,12 +100,17 @@ SIGNATURES = {
 # with center=False, K3 with per-row valid_t, K4 with per-row lengths,
 # K6 and K7 with per-row valid_t; so do the training path's instances:
 # K2 gating by 1 - mask, K4's training forward and its backward K4b; and
-# K2's windows past 2^24 mask elements and its generic despeckle.
+# K2's windows past 2^24 mask elements and its generic despeckle; and
+# K1's and K3's generic instances (every STFT geometry but the default).
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
+                            "stft_generic": 0,
+                            "stft_generic_center_false": 0,
                             "mask_gate": 0, "mask_gate_complement": 0,
                             "mask_gate_long": 0, "mask_gate_despeckle": 0,
                             "crm_istft": 0,
-                            "crm_istft_valid_t": 0, "bilstm": 0,
+                            "crm_istft_valid_t": 0,
+                            "crm_istft_generic": 0,
+                            "crm_istft_generic_valid_t": 0, "bilstm": 0,
                             "bilstm_lengths": 0, "bilstm_train": 0,
                             "bilstm_bwd": 0, "int8_gemm": 0,
                             "int8_conv": 0, "int8_conv_valid_t": 0,

@@ -7,7 +7,9 @@ The int8 profile's models, built from the port's own state_dicts:
   default);
 * `QuantizedDenoiser`: both ContextAggNet encoders in int8 [K6] and the
   InpaintNet in int8 [K7], with the float32 `out` conv (cuDNN) and the
-  float32 mask head.
+  float32 mask head; or, with `inpaint_dtype="bfloat16"` (or
+  "float32"), sos_tpu's intermediate mode: the InpaintNet float in that
+  type on cuDNN (`models/denoiser.py` `InpaintNet`), the trunks int8.
 
 The scheme is sos_tpu's, unchanged: BatchNorm folds into the conv;
 weights are symmetric per-output-channel int8 over the folded kernel,
@@ -30,9 +32,6 @@ width through its blocks (K7 reflects each row at its own boundary and
 zeroes its output past the propagated width), the junctions resample
 each row's valid region, and the BiLSTMs take per-row lengths.
 
-Not ported yet: the "bfloat16" InpaintNet mode (`inpaint_dtype`,
-ROADMAP.md queue 1 item 4).
-
 Calibration runs folded-float convs; on the card it must run with TF32
 off, so `calibrate` enters `exact_fp32` itself.
 """
@@ -50,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from sos_tpu_torch.config import DenoiserModelConfig, DetectorModelConfig
+from sos_tpu_torch.models.denoiser import InpaintNet
 from sos_tpu_torch.models.layers import (TorchLinear, exact_fp32,
                                          reflect_pad, reflect_time_tail,
                                          resolve_device, zero_time_tail)
@@ -372,22 +372,38 @@ class QuantizedDenoiser:
     """JointDenoiser with int8 ContextAggNet encoders and InpaintNet.
 
     `__call__(mixed, gated)` takes and returns sos_tpu's `(B, F, T, 2)`
-    spectra: (noise_pred, compressed cRM). The LSTM/FC mask head is
+    spectra: (noise_pred, compressed cRM). InpaintNet runs in
+    `inpaint_dtype`: "int8" (the default, kernel K7) or, as sos_tpu's
+    intermediate mode, "bfloat16" or "float32", a float InpaintNet in
+    that type on cuDNN (no int8 InpaintNet parameters, no K7 launch, no
+    InpaintNet scales in the calibration). The LSTM/FC mask head is
     float32 except the hoisted LSTM input projection, which runs in bf16
     by default (`bf16_head_proj`). `calibrate()` or `load_calibration()`
     must run before the first forward (static activation scales).
     `device`: "cuda" (default) or "cpu", as for `FusedDenoisePipeline`.
     """
 
+    INPAINT_DTYPES = ("int8", "bfloat16", "float32")
+
     def __init__(self, cfg: DenoiserModelConfig, state: Mapping,
-                 bf16_head_proj: bool = True, device="cuda"):
+                 inpaint_dtype: str = "int8", bf16_head_proj: bool = True,
+                 device="cuda"):
+        if inpaint_dtype not in self.INPAINT_DTYPES:
+            raise ValueError(f"inpaint_dtype: one of {self.INPAINT_DTYPES}, "
+                             f"got {inpaint_dtype!r}")
         self.cfg = cfg
         self.device = device = resolve_device(device)
         self.bf16_head_proj = bf16_head_proj
         n = len(cfg.kernel_sizes)
         self.enc_x = QuantEncoderParams(state, "context.enc_x", n, device)
         self.enc_n = QuantEncoderParams(state, "context.enc_n", n, device)
-        self.qinpaint = QuantInpaintParams(state, device)
+        self.qinpaint = self.inpaint = None
+        if inpaint_dtype == "int8":
+            self.qinpaint = QuantInpaintParams(state, device)
+        else:
+            self.inpaint = _submodule(
+                InpaintNet(cfg.inpaint_ch, compute_dtype=inpaint_dtype),
+                state, "inpaint.", device)
         feats = (cfg.outf_mixed + cfg.outf_noise) * cfg.freq_bins
         self.lstm = _submodule(BiLSTM(feats, cfg.lstm_hidden,
                                       bf16_proj=bf16_head_proj),
@@ -490,6 +506,15 @@ class QuantizedDenoiser:
         record[name] = max(record.get(name, 0.0), float(y.abs().max()))
         return y.permute(0, 2, 3, 1)
 
+    def _run_inpaint(self, gated: torch.Tensor, mixed: torch.Tensor,
+                     valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NHWC spectra -> the noise prediction NCHW `(B, 2, F, T)`, by
+        the int8 InpaintNet or the float one."""
+        if self.inpaint is None:
+            return self._inpaint_int8(gated, mixed, valid_t)
+        return self.inpaint(gated.permute(0, 3, 1, 2),
+                            mixed.permute(0, 3, 1, 2), valid_t)
+
     def _inpaint_int8(self, gated: torch.Tensor, mixed: torch.Tensor,
                       valid_t: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
@@ -525,7 +550,7 @@ class QuantizedDenoiser:
         """NHWC spectra -> (noise NCHW, packed sigmoid head (B, T, 2F))."""
         assert self._calibrated, "call calibrate() before the first forward"
         with torch.no_grad(), exact_fp32():
-            noise = self._inpaint_int8(gated, mixed, valid_t)
+            noise = self._run_inpaint(gated, mixed, valid_t)
             f_x = self._encoder_int8(self.enc_x, mixed, valid_t)
             f_n = self._encoder_int8(self.enc_n, noise.permute(0, 2, 3, 1),
                                      valid_t)
@@ -578,13 +603,16 @@ class QuantizedDenoiser:
             for mixed, gated in sample_batches:
                 mixed = _on_device(mixed, self.device, "calibrate")
                 gated = _on_device(gated, self.device, "calibrate")
-                rec["__gated__"] = max(rec.get("__gated__", 0.0),
-                                       float(gated.abs().max()))
-                rec["__mixed__"] = max(rec.get("__mixed__", 0.0),
-                                       float(mixed.abs().max()))
-                noise = self._inpaint_geometry(
-                    gated, mixed,
-                    lambda nm, x: self._inpaint_block_float(nm, x, rec))
+                if self.inpaint is not None:
+                    noise = self._run_inpaint(gated, mixed)
+                else:
+                    rec["__gated__"] = max(rec.get("__gated__", 0.0),
+                                           float(gated.abs().max()))
+                    rec["__mixed__"] = max(rec.get("__mixed__", 0.0),
+                                           float(mixed.abs().max()))
+                    noise = self._inpaint_geometry(
+                        gated, mixed,
+                        lambda nm, x: self._inpaint_block_float(nm, x, rec))
                 specs = _encoder_specs(self.cfg)
                 mx = _run_encoder_float_maxes(self.enc_x, specs, mixed)
                 mn = _run_encoder_float_maxes(self.enc_n, specs,
@@ -597,26 +625,32 @@ class QuantizedDenoiser:
         self.enc_n.act_scales = [_to_scale(m) for m in maxes_n]
         self.enc_x.finalize()
         self.enc_n.finalize()
-        self.qinpaint.out_scales = {k: _to_scale(m) for k, m in rec.items()}
-        self.qinpaint.finalize()
+        if self.qinpaint is not None:
+            self.qinpaint.out_scales = {k: _to_scale(m)
+                                        for k, m in rec.items()}
+            self.qinpaint.finalize()
         self._calibrated = True
 
     def calibration_state(self) -> Dict:
         """The calibrated activation scales as a JSON-serializable dict,
-        the same schema sos_tpu writes."""
+        the same schema sos_tpu writes (no "inpaint" entry unless the
+        InpaintNet is int8)."""
         assert self._calibrated
-        return {"enc_x": list(self.enc_x.act_scales),
-                "enc_n": list(self.enc_n.act_scales),
-                "inpaint": dict(self.qinpaint.out_scales)}
+        state = {"enc_x": list(self.enc_x.act_scales),
+                 "enc_n": list(self.enc_n.act_scales)}
+        if self.qinpaint is not None:
+            state["inpaint"] = dict(self.qinpaint.out_scales)
+        return state
 
     def load_calibration(self, state: Dict) -> None:
         self.enc_x.act_scales = [float(s) for s in state["enc_x"]]
         self.enc_n.act_scales = [float(s) for s in state["enc_n"]]
         self.enc_x.finalize()
         self.enc_n.finalize()
-        self.qinpaint.out_scales = {k: float(v)
-                                    for k, v in state["inpaint"].items()}
-        self.qinpaint.finalize()
+        if self.qinpaint is not None:
+            self.qinpaint.out_scales = {k: float(v)
+                                        for k, v in state["inpaint"].items()}
+            self.qinpaint.finalize()
         self._calibrated = True
 
 

@@ -1,6 +1,6 @@
-"""Training on one device: train states, train/eval steps, checkpoints,
-the epoch loop (port of `sos_tpu/train`, without `joint.py` and
-`visualize.py`)."""
+"""Training: train states, train/eval steps, checkpoints, the epoch loop
+on one device or data-parallel, joint training and the tensorboard
+visualizer (port of `sos_tpu/train`)."""
 
 from sos_tpu_torch.train.loop import (  # noqa: F401
     init_denoiser_state,

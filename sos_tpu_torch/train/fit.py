@@ -184,10 +184,16 @@ def fit(
     model_dir: str,
     log_dir: str,
     track_accuracy: bool = False,
+    visualize_hook: Optional[Callable] = None,
     profile_dir: Optional[str] = None,
 ) -> TrainState:
     """Train to cfg.train.nr_epochs on the model's device (in a process
-    group: on every process, each over its shard of the batchers)."""
+    group: on every process, each over its shard of the batchers).
+
+    `visualize_hook(train_writer, state, batch, step)` runs on process 0
+    every `cfg.train.visualize_frequency` steps, after the step and its
+    logging (the train writer is None without tensorboardX); see
+    `train/visualize.py`."""
     mgr = CheckpointManager(model_dir)
     is_main = distributed.process_index() == 0
     train_tb, val_tb = _writers(log_dir) if is_main else (None, None)
@@ -255,6 +261,9 @@ def fit(
                             for k, v in _scalars(vmetrics).items():
                                 val_tb.add_scalar(k, v, global_step=clock.step)
                         jsonl.write("val", clock.step, clock.epoch, vmetrics)
+                    if (visualize_hook and is_main and clock.step
+                            % cfg.train.visualize_frequency == 0):
+                        visualize_hook(train_tb, state, batch, clock.step)
                     clock.tick()
                     if (cfg.train.save_step_frequency and clock.step
                             % cfg.train.save_step_frequency == 0):

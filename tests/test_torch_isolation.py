@@ -44,6 +44,8 @@ def test_importing_every_module_loads_no_jax_flax_or_sos_tpu():
             "sos_tpu_torch.cli.doctor", "sos_tpu_torch.cli.parity_check",
             "sos_tpu_torch.infer.export", "sos_tpu_torch.runtime.engine",
             "sos_tpu_torch.data.media",
+            "sos_tpu_torch.data.preprocess", "sos_tpu_torch.cli.preprocess",
+            "sos_tpu_torch.cli.report", "sos_tpu_torch.train.visualize",
             "sos_tpu_torch.__main__"} <= set(_modules())
 
 
@@ -67,3 +69,10 @@ def test_pipeline_without_a_card_raises_instead_of_running_on_the_cpu():
         FusedDenoisePipeline(ExperimentConfig(), {}, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FusedDenoisePipeline(ExperimentConfig(), {}, {}, device="cuda")
+
+
+def test_every_sos_tpu_module_has_a_port():
+    """The port's file list covers `sos_tpu`'s: no module is unported."""
+    def modules(root):
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    assert modules(REPO / "sos_tpu") <= modules(PKG_DIR)

@@ -16,7 +16,12 @@ Tolerances:
 * the fused int8 pipeline: bits equal wherever sos_tpu's sigmoid is more
   than 1e-3 from the threshold, the waveform within atol 5e-3;
 * self-calibrated scales within rtol 1e-5 (the float calibration convs
-  sum in another order); scales carried by a calibration file are equal.
+  sum in another order); scales carried by a calibration file are equal;
+* the "bfloat16" InpaintNet mode (`QuantizedDenoiser(inpaint_dtype=
+  "bfloat16")`: int8 trunks, a float InpaintNet in bf16): the compressed
+  cRM within 5e-3 of `sos_tpu`'s same mode (both self-calibrate on the
+  same batch) and within 5e-3 of the port's f32 `JointDenoiser` (the
+  bound of sos_tpu's own test of this mode, tests/test_quant.py:149).
 """
 
 import importlib
@@ -36,6 +41,7 @@ from sos_tpu.models.quant import QuantizedDetector as JaxQuantDetector
 from sos_tpu.models.quant import _conv_same
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline
 from sos_tpu_torch.kernels import LAUNCHES
+from sos_tpu_torch.models import JointDenoiser
 from sos_tpu_torch.models.quant import (QuantizedDenoiser, QuantizedDetector,
                                         load_persisted_calibration,
                                         parse_calibration_file)
@@ -426,3 +432,50 @@ def test_calibrate_refuses_inputs_off_the_model_device(env):
     with pytest.raises(TypeError, match="torch.Tensor"):
         det.calibrate([np.zeros((1, 256, 178, 2), np.float32)])
     assert not det._calibrated and not den._calibrated
+
+
+@pytest.fixture(scope="module")
+def bf16_pair(env):
+    cfg, port_cfg, _, den_vars, _, den_state, clips = env
+    spec = jstft.stft(jnp.asarray(clips))
+    gated = jstft.stft(jnp.asarray(clips[:, ::-1].copy()))
+    jq = JaxQuantDenoiser(cfg.denoiser, den_vars, inpaint_dtype="bfloat16")
+    jq.calibrate([(spec, gated)])
+    pq = QuantizedDenoiser(port_cfg.denoiser, den_state,
+                           inpaint_dtype="bfloat16", device="cpu")
+    x, g = torch.from_numpy(np.array(spec)), torch.from_numpy(np.array(gated))
+    pq.calibrate([(x, g)])
+    return jq, pq, spec, gated, x, g
+
+
+def test_bf16_inpaint_mode_matches_sos_tpu(bf16_pair):
+    jq, pq, spec, gated, x, g = bf16_pair
+    assert pq.qinpaint is None and pq.inpaint is not None
+    assert pq.inpaint.dtype == torch.bfloat16
+    state = pq.calibration_state()
+    assert sorted(state) == sorted(jq.calibration_state()) == ["enc_n",
+                                                               "enc_x"]
+    np.testing.assert_allclose(state["enc_x"],
+                               jq.calibration_state()["enc_x"], rtol=1e-5)
+    ref_n, ref_c = (np.asarray(a) for a in jq(spec, gated))
+    got_n, got_c = pq(x, g)
+    assert got_c.shape == ref_c.shape and got_n.shape == ref_n.shape
+    err = float(np.abs(got_c.numpy() - ref_c).max())
+    print(f"bf16-InpaintNet cRM: max |port - sos_tpu| {err:.3e}")
+    assert err <= BUDGET
+
+
+def test_bf16_inpaint_mode_near_f32_joint_denoiser(env, bf16_pair):
+    port_cfg, den_state = env[1], env[5]
+    _, pq, _, _, x, g = bf16_pair
+    model = JointDenoiser(port_cfg.denoiser)
+    model.load_state_dict(den_state)
+    with torch.no_grad():
+        _, ref_c = model.eval()(x, g)
+    _, got_c = pq(x, g)
+    err = float((got_c - ref_c).abs().max())
+    print(f"bf16-InpaintNet cRM: max |mode - f32| {err:.3e}")
+    assert err < 5e-3
+    with pytest.raises(ValueError, match="inpaint_dtype"):
+        QuantizedDenoiser(port_cfg.denoiser, den_state, inpaint_dtype="fp8",
+                          device="cpu")
