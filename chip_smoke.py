@@ -181,24 +181,28 @@ Phases, in order; any failure ends the run with a nonzero exit:
    mode's; (e) the f32 pipeline at (1022, 256, 1022) with 512 bins and
    at (254, 64, 254) with 128, seeded weights, 16 x 2 s, against the CPU
    on 2 rows (bits equal off the threshold, those within 1e-4 of it
-   counted; waveform within 1e-3), the generic K1/K3 instances launched
-   and the prime-factor ones not, audio-s/s beside the default
-   geometry's; at the first, bf16 (the detector's confidences within
+   counted; waveform within 1e-3), K1/K3's "fft" instances launched at
+   the first and the generic ones at the second (`kernel_instance`), the
+   others and the default prime-factor ones not, audio-s/s beside the
+   default geometry's; at the first, bf16 (the detector's confidences within
    1e-3 of f32's, the spread of f32's printed beside; the bits equal on
    every frame farther than that drift from the threshold, at least
    half the frames; the waveform on the f32 bits within 2e-2 relative
    L2) and int8 (K6 and K7 at F = 512; the card calibrates, the
-   CPU loads its scale file; 1 row against the CPU); at the second, the
-   length-bucketed denoiser (K1 center=False and K3 with valid_t on their generic
-   instances; the card against the CPU on a 1.5 s utterance).
+   CPU loads its scale file; 1 row against the CPU); at both, the
+   length-bucketed denoiser (K1 center=False and K3 with valid_t on the
+   geometry's instances; the card against the CPU on a 1.5 s utterance).
 
-Phase 3 also holds K1's and K3's generic instances (every geometry but
-n_fft 510, hop 158, win 400: the dense product over the float64-built
-tables) against their plain versions at (128, 28000) at (1022, 256,
-1022) and (511, 158, 400) and their inverses, K1 center=False and K3
-with per-row valid_t at (254, 64, 254), eager and in a CUDA graph beside
-torch.stft / torch.istft, the bound (bytes; an FFT's operations) with
-the dense product's GFLOP beside it.
+Phase 3 also holds K1's and K3's instances at other geometries against
+their plain versions, eager and in a CUDA graph beside torch.stft /
+torch.istft, each geometry printed: the "fft" instances (a prime-factor
+FFT from `fft_tables`) at (128, 28000) at (1022, 256, 1022), (511, 158,
+400) and (512, 128, 512) and their inverses, K1 center=False on 128 rows
+and K3 with per-row valid_t on 16 rows of a 1,024-frame bucket at (1022,
+256, 1022); the generic instances (the dense product over the
+float64-built tables) the same way at (254, 64, 254), where 127 points
+do not factor. Bounds: bytes, and the instance's operations (an FFT's for
+the dense instance, the dense product's GFLOP beside it).
 
 Phase 3 also holds K7 on a short utterance's row (mid_dil16, pad 16 on
 12 columns, `reflect_prepad` then pad 0) against its plain version,
@@ -229,9 +233,13 @@ from sos_tpu_torch.cli.serve import ServeLoop
 from sos_tpu_torch.config import ExperimentConfig, StftConfig
 from sos_tpu_torch.dsp import audio_io
 from sos_tpu_torch.dsp.mixing import mask_gate, mask_gate_plain
-from sos_tpu_torch.dsp.stft import (crm_istft, crm_istft_plain,
-                                    device_pfa_tables, padded_window, stft,
-                                    stft_cat, stft_cat_plain, stft_num_frames)
+from sos_tpu_torch.dsp.stft import (FFT_DENSE, FFT_PASS_INTS,
+                                    FFT_PLAN_HEADER, crm_istft,
+                                    crm_istft_plain, device_pfa_tables,
+                                    fft_points, fft_tables, kernel_instance,
+                                    padded_window,
+                                    stft, stft_cat, stft_cat_plain,
+                                    stft_num_frames)
 from sos_tpu_torch.infer import StreamingDenoiser, StreamingSession
 from sos_tpu_torch.infer.fused import FusedDenoisePipeline, _nchw
 from sos_tpu_torch.kernels import (ENTRY_LAUNCHES, LAUNCHES, library,
@@ -344,6 +352,43 @@ def within(kernel: torch.Tensor, plain: torch.Tensor, atol: float,
            rtol: float):
     err = (kernel - plain).abs()
     return float(err.max()), bool((err <= atol + rtol * plain.abs()).all())
+
+
+def within_valid(kernel, plain, valid_t, n_fft, hop, win, atol, rtol):
+    """K3 with per-row valid_t against its plain version: within atol +
+    rtol on the samples a caller keeps, j < (valid_t - 1) hop (the
+    predictors slice there; `istft_packed`), and, on every sample, the
+    overlap-added sum before the envelope divide (the output times the
+    row's envelope) within atol + rtol. Past (valid_t - 1) hop only the
+    tail of the last valid frame reaches a sample, the divide by its
+    squared window value (down to ~1e-10 at win = n_fft) amplifies fp32
+    rounding, and the plain version's own error there exceeds the
+    tolerance. Returns (max error on the kept samples, ok, a note with
+    the samples outside atol + rtol in a plain comparison)."""
+    rows, out_len = plain.shape
+    frames = (out_len - n_fft % 2) // hop + 1
+    mask = (torch.arange(frames, device=plain.device)[None]
+            < valid_t[:, None]).double()
+    wsq = torch.from_numpy(padded_window(n_fft, win) ** 2).to(plain.device)
+    env = torch.zeros(rows, (frames - 1) * hop + n_fft, dtype=torch.float64,
+                      device=plain.device)
+    for t in range(frames):
+        env[:, t * hop:t * hop + n_fft] += mask[:, t:t + 1] * wsq
+    env = env[:, n_fft // 2:n_fft // 2 + out_len]
+    keep = (torch.arange(out_len, device=plain.device)[None]
+            < ((valid_t - 1) * hop)[:, None])
+    err = (kernel - plain).abs()
+    bad = err > atol + rtol * plain.abs()
+    num_err = (kernel.double() - plain.double()).abs() * env
+    num_ok = bool((num_err <= atol + rtol * (plain.double() * env).abs()).all())
+    past = bad & ~keep
+    note = (f"plain comparison: {int(bad.sum())} samples outside, "
+            f"{int(past.sum())} of them past (valid_t - 1) hop"
+            + (f" (envelope there {float(env[past].min()):.3e}-"
+               f"{float(env[past].max()):.3e})" if past.any() else "")
+            + f"; summed frames max |error| {float(num_err.max()):.3e}")
+    return (float(err[keep].max()), bool(not (bad & keep).any()) and num_ok,
+            note)
 
 
 CARD = "card not queried"
@@ -532,7 +577,7 @@ def phase_kernels(gen: torch.Generator):
     # no resize tie (see `resize_ties`)
     training_cases(torch.Generator().manual_seed(SEED + 1), dev, record)
 
-    generic_stft_cases(torch.Generator().manual_seed(SEED + 3), dev, record)
+    stft_instance_cases(torch.Generator().manual_seed(SEED + 3), dev, record)
 
     # K5 — int8 GEMM at every shape of the narrow-N sweep, its own path:
     # exact against the plain version on the sweep's operands, then the
@@ -637,42 +682,85 @@ def phase_kernels(gen: torch.Generator):
     return rows, k5_launches
 
 
-# K1's and K3's generic instances (every STFT geometry but the default):
-# (n_fft, hop, win) of the centered STFT at (128, 28000) and its inverse,
-# summed in one row each; and of the bucketed cases (K1 center=False on
-# 128 rows, K3 with per-row valid_t on 16 rows of a 1,024-frame bucket)
-GENERIC_GEOMETRIES = ((1022, 256, 1022), (511, 158, 400))
-GENERIC_BUCKETED = (254, 64, 254)
+# K1's and K3's instances at other STFT geometries: (n_fft, hop, win) of
+# the "fft" instances' centered STFT at (128, 28000) and its inverse, one
+# row each summed over the geometries, and of their bucketed cases (K1
+# center=False on 128 rows, K3 with per-row valid_t on 16 rows, of a
+# 1,024-frame bucket); the generic (dense) instances at a geometry the
+# "fft" ones do not take (127 points), centered and bucketed
+FFT_GEOMETRIES = ((1022, 256, 1022), (511, 158, 400), (512, 128, 512))
+FFT_BUCKETED = (1022, 256, 1022)
+GENERIC_GEOMETRY = (254, 64, 254)
+BUCKET_FRAMES = 1024
 
 
 def fft_flops_per_frame(n_fft: int) -> float:
     """fp32 operations of one frame of a real FFT of n_fft points (~2.5 n
     log2 n) plus the window: the least arithmetic of K1's and K3's
-    function at a geometry the prime-factor tables do not cover."""
+    function at a geometry no prime-factor table covers."""
     return 2.5 * n_fft * np.log2(n_fft) + n_fft
 
 
-def generic_stft_cases(gen, dev, record):
-    """K1's and K3's generic instances (the dense product over the
+def fft_instance_flops(n_fft: int, inverse: bool) -> float:
+    """fp32 operations of one frame of K1's (forward) or K3's (inverse)
+    "fft" instance as `fft_tables`' plan factorizes it: a dense q-point
+    pass 8h^2 + 14h a DFT (h = (q-1)/2, `pfa_flops_per_frame`'s count), a
+    radix-4 butterfly 34 (16 additions, 3 complex products), a radix-2 one
+    10, over a transform of M points (a frame pair at odd n_fft, so half a
+    transform a frame); K1 adds the window (n_fft) and the split (16 a
+    bin); K3 the recover and product (20 a bin), the inverse split (12 a
+    point), the window (n_fft) and the overlap-add with the envelope (17
+    a sample of the frame's hop, counted as n_fft / 4)."""
+    m, bins = fft_points(n_fft), n_fft // 2 + 1
+    plan = fft_tables(n_fft, n_fft)["plan"]
+    passes = 0.0
+    for i in range(int(plan[2])):
+        kind, n = (int(v) for v in plan[FFT_PLAN_HEADER + FFT_PASS_INTS * i:][:2])
+        if kind == FFT_DENSE:
+            h = (n - 1) // 2
+            passes += m // n * (8 * h * h + 14 * h)
+        else:
+            passes += m // kind * (34 if kind == 4 else 10)
+    per_frame = passes / (1 + n_fft % 2)
+    if not inverse:
+        return per_frame + n_fft + 16 * bins
+    return per_frame + 20 * bins + 12 * m / (1 + n_fft % 2) + n_fft + 17 * n_fft / 4
+
+
+def stft_instance_cases(gen, dev, record):
+    """K1's and K3's "fft" instances (the prime-factor FFT from
+    `fft_tables`) and generic instances (the dense product over the
     float64-built tables) against their plain versions, eager, in a CUDA
-    graph, beside torch.stft / torch.istft at the same geometry; the
-    bound counts the bytes in and out once and an FFT's operations, the
-    dense product's GFLOP logged beside it."""
-    def case(name, fn, plain, lib, flops, dense, nbytes, shape, rows):
+    graph, beside torch.stft / torch.istft at the same geometry, each
+    geometry printed; the bound counts the bytes in and out once and the
+    instance's operations (an FFT's for the dense instance, whose product's
+    GFLOP is logged beside it). Each case checks that its instance
+    launched."""
+    def case(name, fn, plain, lib, flops, nbytes, shape, rows, dense=None,
+             compare=None):
+        before = LAUNCHES[name]
         got, ref = fn(), plain()
         torch.cuda.synchronize()
+        if LAUNCHES[name] != before + 1:
+            raise RuntimeError(f"{name} {shape}: {name} did not launch")
         err, ok = within(got, ref, 1e-4, 1e-4)
+        if compare is not None:
+            err, ok, note = compare(got, ref)
+            log(f"{name} {shape}: {note}")
         ms, plain_ms = time_ms(fn), time_ms(plain)
         lib_ms = None if lib is None else time_ms(lib)
         g_ms = graph_ms(fn)
         b_ms, by = bound(flops, nbytes)
+        extra = ("" if dense is None else
+                 f"; dense product {dense / 1e9:.2f} GFLOP = "
+                 f"{dense / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 peak, "
+                 f"{dense / ms / 1e9:.1f} TFLOP/s")
         log(f"{name} {shape}: max_abs_err {err:.3e} (tolerance atol 1e-4 + "
             f"rtol 1e-4) {'ok' if ok else 'FAILED'}  kernel {ms:.4f} ms (in "
             f"a CUDA graph {g_ms:.4f})  plain {plain_ms:.4f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-            f"{b_ms:.4f} ms ({by}); dense product {dense / 1e9:.2f} GFLOP "
-            f"= {dense / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 peak, "
-            f"{dense / ms / 1e9:.1f} TFLOP/s {card_note()}")
+            f"{b_ms:.4f} ms ({by}); {flops / 1e9:.3f} GFLOP{extra} "
+            f"{card_note()}")
         if not ok:
             raise RuntimeError(f"{name} {shape}: kernel disagrees with its "
                                "plain version")
@@ -688,85 +776,104 @@ def generic_stft_cases(gen, dev, record):
                 rows[key] = rows.get(key, 0.0) + val
         rows.setdefault("shapes", []).append(shape)
 
-    y = (torch.randn(BATCH, CLIP, generator=gen) * 0.3).to(dev)
-    k1, k3 = {}, {}
-    for nf, hop, win in GENERIC_GEOMETRIES:
+    def centered(instance, nf, hop, win, k1, k3):
         bins, frames = nf // 2 + 1, stft_num_frames(CLIP, nf, hop)
         out_len = (frames - 1) * hop + nf % 2
         window = torch.from_numpy(padded_window(nf, win).astype(
             np.float32)).to(dev)
+        fft = instance == "fft"
         geo = f"({nf}, {hop}, {win})"
-        case("stft_generic", lambda: stft_cat(y, nf, hop, win),
+        case(f"stft_{instance}", lambda: stft_cat(y, nf, hop, win),
              lambda: stft_cat_plain(y, nf, hop, win),
              lambda: torch.stft(y, nf, hop, window=window, center=True,
                                 pad_mode="reflect", return_complex=True),
-             BATCH * frames * fft_flops_per_frame(nf),
-             2.0 * BATCH * frames * nf * 2 * bins,
+             BATCH * frames * (fft_instance_flops(nf, False) if fft
+                               else fft_flops_per_frame(nf)),
              4.0 * (BATCH * CLIP + BATCH * frames * 2 * bins),
-             f"{geo} (128, 28000) -> (128, {frames}, {2 * bins})", k1)
+             f"{geo} (128, 28000) -> (128, {frames}, {2 * bins})", k1,
+             None if fft else 2.0 * BATCH * frames * nf * 2 * bins)
         spec = stft_cat_plain(y, nf, hop, win)
         crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
         clean = torch.complex(spec[..., :bins], spec[..., bins:]).transpose(1, 2)
-        case("crm_istft_generic", lambda: crm_istft(crm, spec, nf, hop, win),
+        case(f"crm_istft_{instance}", lambda: crm_istft(crm, spec, nf, hop, win),
              lambda: crm_istft_plain(crm, spec, nf, hop, win),
              lambda: torch.istft(clean, nf, hop, window=window,
                                  center=True),
-             BATCH * frames * (fft_flops_per_frame(nf) + 20 * bins),
-             2.0 * BATCH * frames * 2 * bins * nf,
+             BATCH * frames * (fft_instance_flops(nf, True) if fft
+                               else fft_flops_per_frame(nf) + 20 * bins),
              4.0 * (2 * BATCH * frames * 2 * bins + BATCH * out_len),
-             f"{geo} (128, {frames}, {2 * bins}) x 2 -> (128, {out_len})", k3)
-    record("stft_generic", "sos_tpu_torch/csrc/stft_dense.cu",
-           "sos_tpu/dsp/stft.py:139", k1["err"], True,
-           "atol 1e-4 + rtol 1e-4", k1["ms"], k1["plain_ms"], k1["lib_ms"],
-           k1["flops"], k1["bytes"], shape=" + ".join(k1["shapes"]))
-    record("crm_istft_generic", "sos_tpu_torch/csrc/crm_istft_dense.cu",
-           "sos_tpu/dsp/stft.py:169", k3["err"], True,
-           "atol 1e-4 + rtol 1e-4", k3["ms"], k3["plain_ms"], k3["lib_ms"],
-           k3["flops"], k3["bytes"], shape=" + ".join(k3["shapes"]))
+             f"{geo} (128, {frames}, {2 * bins}) x 2 -> (128, {out_len})", k3,
+             None if fft else 2.0 * BATCH * frames * 2 * bins * nf)
 
-    # the bucketed cases at (254, 64, 254): K1 over pre-padded buffers
-    # (no reflect), K3 with a valid frame count per row
-    nf, hop, win = GENERIC_BUCKETED
-    bins, geo = nf // 2 + 1, f"({nf}, {hop}, {win})"
-    window = torch.from_numpy(padded_window(nf, win).astype(np.float32)).to(dev)
-    frames = stft_num_frames(CLIP, nf, hop, center=False)
-    k1c, k3v = {}, {}
-    case("stft_generic_center_false",
-         lambda: stft_cat(y, nf, hop, win, center=False),
-         lambda: stft_cat_plain(y, nf, hop, win, center=False),
-         lambda: torch.stft(y, nf, hop, window=window, center=False,
-                            return_complex=True),
-         BATCH * frames * fft_flops_per_frame(nf),
-         2.0 * BATCH * frames * nf * 2 * bins,
-         4.0 * (BATCH * CLIP + BATCH * frames * 2 * bins),
-         f"{geo} (128, 28000) -> (128, {frames}, {2 * bins})", k1c)
-    rows_v, bucket = EVAL_BATCH * 2, 1024
-    spec = stft_cat_plain((torch.randn(rows_v, (bucket - 1) * hop,
-                                       generator=gen) * 0.3).to(dev),
-                          nf, hop, win)
-    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
-    vt = torch.randint(2, bucket + 1, (rows_v,), generator=gen)
-    vt[0], vt[1] = bucket, 2
-    valid = int(vt.sum())
-    vt = vt.to(dev)
-    out_len = (bucket - 1) * hop
-    case("crm_istft_generic_valid_t",
-         lambda: crm_istft(crm, spec, nf, hop, win, valid_t=vt),
-         lambda: crm_istft_plain(crm, spec, nf, hop, win, valid_t=vt), None,
-         valid * (fft_flops_per_frame(nf) + 20 * bins),
-         2.0 * valid * 2 * bins * nf,
-         4.0 * (2 * valid * 2 * bins + valid * hop),
-         f"{geo} ({rows_v}, {bucket}, {2 * bins}) x 2, valid_t 2-{bucket} "
-         f"({valid} valid frames) -> ({rows_v}, {out_len})", k3v)
-    for name, source, replaces, r in (
-            ("stft_generic_center_false", "sos_tpu_torch/csrc/stft_dense.cu",
-             "sos_tpu/dsp/stft.py:139", k1c),
-            ("crm_istft_generic_valid_t",
-             "sos_tpu_torch/csrc/crm_istft_dense.cu",
-             "sos_tpu/dsp/stft.py:170", k3v)):
-        record(name, source, replaces, r["err"], True,
-               "atol 1e-4 + rtol 1e-4", r["ms"], r["plain_ms"], r["lib_ms"],
-               r["flops"], r["bytes"], shape=r["shapes"][0])
+    def bucketed(instance, nf, hop, win, k1c, k3v):
+        """K1 over pre-padded buffers of a 1,024-frame bucket (no
+        reflect), K3 with a valid frame count per row on 16 rows"""
+        bins, geo = nf // 2 + 1, f"({nf}, {hop}, {win})"
+        fft = instance == "fft"
+        window = torch.from_numpy(padded_window(nf, win).astype(np.float32)).to(dev)
+        buf = (y if not fft else (torch.randn(
+            BATCH, (BUCKET_FRAMES - 1) * hop + nf, generator=gen) * 0.3).to(dev))
+        frames = stft_num_frames(buf.shape[1], nf, hop, center=False)
+        case(f"stft_{instance}_center_false",
+             lambda: stft_cat(buf, nf, hop, win, center=False),
+             lambda: stft_cat_plain(buf, nf, hop, win, center=False),
+             lambda: torch.stft(buf, nf, hop, window=window, center=False,
+                                return_complex=True),
+             BATCH * frames * (fft_instance_flops(nf, False) if fft
+                               else fft_flops_per_frame(nf)),
+             4.0 * (BATCH * buf.shape[1] + BATCH * frames * 2 * bins),
+             f"{geo} (128, {buf.shape[1]}) -> (128, {frames}, {2 * bins})",
+             k1c, None if fft else 2.0 * BATCH * frames * nf * 2 * bins)
+        del buf
+        rows_v = EVAL_BATCH * 2
+        spec = stft_cat_plain((torch.randn(rows_v, (BUCKET_FRAMES - 1) * hop,
+                                           generator=gen) * 0.3).to(dev),
+                              nf, hop, win)
+        crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(dev)
+        vt = torch.randint(2, BUCKET_FRAMES + 1, (rows_v,), generator=gen)
+        vt[0], vt[1] = BUCKET_FRAMES, 2
+        valid = int(vt.sum())
+        vt = vt.to(dev)
+        out_len = (BUCKET_FRAMES - 1) * hop + nf % 2
+        compare = None if not fft else (
+            lambda got, ref: within_valid(got, ref, vt, nf, hop, win, 1e-4,
+                                          1e-4))
+        case(f"crm_istft_{instance}_valid_t",
+             lambda: crm_istft(crm, spec, nf, hop, win, valid_t=vt),
+             lambda: crm_istft_plain(crm, spec, nf, hop, win, valid_t=vt),
+             None,
+             valid * (fft_instance_flops(nf, True) if fft
+                      else fft_flops_per_frame(nf) + 20 * bins),
+             4.0 * (2 * valid * 2 * bins + valid * hop),
+             f"{geo} ({rows_v}, {BUCKET_FRAMES}, {2 * bins}) x 2, valid_t "
+             f"2-{BUCKET_FRAMES} ({valid} valid frames) -> ({rows_v}, "
+             f"{out_len})", k3v,
+             None if fft else 2.0 * valid * 2 * bins * nf, compare)
+
+    y = (torch.randn(BATCH, CLIP, generator=gen) * 0.3).to(dev)
+    found = {}
+    for nf, hop, win in FFT_GEOMETRIES:
+        centered("fft", nf, hop, win, found.setdefault("stft_fft", {}),
+                 found.setdefault("crm_istft_fft", {}))
+    bucketed("fft", *FFT_BUCKETED, found.setdefault("stft_fft_center_false", {}),
+             found.setdefault("crm_istft_fft_valid_t", {}))
+    centered("generic", *GENERIC_GEOMETRY, found.setdefault("stft_generic", {}),
+             found.setdefault("crm_istft_generic", {}))
+    bucketed("generic", *GENERIC_GEOMETRY,
+             found.setdefault("stft_generic_center_false", {}),
+             found.setdefault("crm_istft_generic_valid_t", {}))
+    sources = {"stft_fft": "stft_fft.cu", "crm_istft_fft": "crm_istft_fft.cu",
+               "stft_generic": "stft_dense.cu",
+               "crm_istft_generic": "crm_istft_dense.cu"}
+    for name, r in found.items():
+        kernel = name.replace("_center_false", "").replace("_valid_t", "")
+        replaces = ("sos_tpu/dsp/stft.py:170" if name.endswith("_valid_t")
+                    else "sos_tpu/dsp/stft.py:169" if name.startswith("crm")
+                    else "sos_tpu/dsp/stft.py:139")
+        record(name, f"sos_tpu_torch/csrc/{sources[kernel]}", replaces,
+               r["err"], True, "atol 1e-4 + rtol 1e-4", r["ms"],
+               r["plain_ms"], r["lib_ms"], r["flops"], r["bytes"],
+               shape=" + ".join(r["shapes"]))
 
 
 # the training path's BiLSTM shapes: (batch, steps, hidden) of the
@@ -2301,12 +2408,18 @@ def _head_modules(stage, model):
     return m.lstm, [getattr(m, n) for n in fcs]
 
 
-def head_forward(stage, model, x):
-    """The BiLSTM and heads from their input features to the logits."""
+def head_forward(stage, model, x, masks=None, pre=None):
+    """The BiLSTM and heads from their input features to the logits.
+    `masks`: a mask for each ReLU, taken in place of its own sign test
+    (z * mask, whose gradient is the incoming one times the mask);
+    `pre`: a list that receives each ReLU's pre-activations z."""
     lstm, fcs = _head_modules(stage, model)
     h = lstm(x)
-    for fc in fcs[:-1]:
-        h = torch.relu(fc(h))
+    for i, fc in enumerate(fcs[:-1]):
+        z = fc(h)
+        if pre is not None:
+            pre.append(z.detach())
+        h = torch.relu(z) if masks is None else z * masks[i].to(z)
     return fcs[-1](h)
 
 
@@ -2343,19 +2456,73 @@ def step_with_gradients(stage, cfg, state, batch, inputs):
     return float(loss.detach()), grads, applied, head
 
 
-def head_gradients(stage, cfg, state_dict, dev, x, g):
+def head_gradients(stage, cfg, state_dict, dev, x, g, masks=None):
     """The BiLSTM's and heads' gradients (and the features') on `dev`
-    from the given features `x` and logits' gradient `g`."""
+    from the given features `x` and logits' gradient `g`, and the ReLUs'
+    pre-activations on the CPU. `masks`: as `head_forward`'s."""
     model = _init(stage, cfg, dev, state_dict).model.train()
     x = x.detach().to(dev).requires_grad_(True)
+    pre = []
     with exact_fp32():
-        head_forward(stage, model, x).backward(g.to(dev))
+        head_forward(stage, model, x, masks, pre).backward(g.to(dev))
     lstm, fcs = _head_modules(stage, model)
     grads = {f"{pre}{n}": p.grad.detach().cpu() for pre, mod in
              (("lstm.", lstm), ("fc.", torch.nn.ModuleList(fcs)))
              for n, p in mod.named_parameters()}
     grads["features"] = x.grad.detach().cpu()
-    return grads
+    return grads, [z.cpu() for z in pre]
+
+
+# How close to 0 (of the layer's max |z|) a ReLU's pre-activation may lie
+# where the card's and the CPU's signs differ: a few times the rounding
+# of a 400- or 600-term fp32 dot product, far below any real fault.
+KINK_BAND = 1e-5
+
+
+def head_agreement(stage, cfg, state_dict, x, g):
+    """The BiLSTM's and heads' gradients (and the features'), card
+    against CPU, from the same features `x` and logits' gradient `g`.
+
+    ReLU has no derivative at 0. Where a pre-activation lies within the
+    two devices' rounding of 0, either side may take either branch, and
+    that unit's whole gradient then differs: one such unit of the
+    denoiser's 427,200 moves the features' gradient by 1e-3 of its max
+    or more, with no fault on either side. So the CPU takes the card's ReLU masks, and the units
+    whose own signs differ are counted and must lie within KINK_BAND of
+    0. Returns a dict: `errs` (per tensor, of its max |g|), `l2`
+    (relative, all tensors), `launches` (the card's BiLSTM kernels),
+    `worst` (the tensor of the largest error), and of the ReLUs'
+    pre-activations, each of its layer's max |z|: `gap` (the largest
+    |z_card - z_cpu|), `kinks` (units whose signs differ), `widest` (the
+    largest |z| of those) and `nearest` (the smallest |z| of all)."""
+    reset_launches()
+    card, z_card = head_gradients(stage, cfg, state_dict, "cuda", x, g)
+    launches = {k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")}
+    cpu, z_cpu = head_gradients(stage, cfg, state_dict, "cpu", x, g,
+                                masks=[z > 0 for z in z_card])
+    errs, l2 = _gradient_spread(card, cpu)
+    out = {"errs": errs, "l2": l2, "launches": launches,
+           "worst": max(errs, key=errs.get), "gap": 0.0, "kinks": 0,
+           "widest": 0.0, "nearest": 1.0}
+    for zc, zp in zip(z_card, z_cpu):
+        scale = float(zp.abs().max())
+        differ = (zc > 0) != (zp > 0)
+        out["gap"] = max(out["gap"], float((zc - zp).abs().max()) / scale)
+        out["kinks"] += int(differ.sum())
+        out["nearest"] = min(out["nearest"], float(zp.abs().min()) / scale)
+        if differ.any():
+            out["widest"] = max(out["widest"], float(torch.maximum(
+                zc[differ].abs(), zp[differ].abs()).max()) / scale)
+    return out
+
+
+def kink_note(head) -> str:
+    """`head_agreement`'s ReLU figures for a log line."""
+    return (f"ReLU pre-activations card against CPU {head['gap']:.2e} of "
+            f"their max, nearest to 0 {head['nearest']:.2e}, "
+            f"{head['kinks']} of differing sign (the CPU takes the "
+            f"card's) within {head['widest']:.2e} of 0 (band "
+            f"{KINK_BAND:g})")
 
 
 # the parameters past the conv trunks: the BiLSTM (whose gradients K4's
@@ -2447,16 +2614,10 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
     errs, l2 = _gradient_spread(g_gpu, g_cpu)
     feat = float((h_gpu["x"].cpu() - h_cpu["x"]).abs().max()
                  / h_cpu["x"].abs().max())
-    reset_launches()
-    head_card = head_gradients(stage, cfg, state_dict, "cuda", h_gpu["x"],
-                               h_gpu["g"])
-    head_launches = {k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")}
-    head_cpu = head_gradients(stage, cfg, state_dict, "cpu", h_gpu["x"],
-                              h_gpu["g"])
-    head_errs, head_l2 = _gradient_spread(head_card, head_cpu)
-    head_worst = max(head_errs, key=head_errs.get)
+    heads = head_agreement(stage, cfg, state_dict, h_gpu["x"], h_gpu["g"])
+    head_errs, head_worst = heads["errs"], heads["worst"]
     missing = [k for k in TRAIN_KERNELS[stage] if launches[k] == 0]
-    missing += [k for k, v in head_launches.items() if v == 0]
+    missing += [k for k, v in heads["launches"].items() if v == 0]
     log(f"train agreement {name} (batch 2, full width): loss card "
         f"{l_gpu:.6f} " + " ".join(f"{r} {out[r][0]:.6f}" for r in runs
                                    if r.startswith("cpu"))
@@ -2474,7 +2635,8 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
     log(f"  BiLSTM and heads {name} from the card step's features and "
         f"logits' gradient, card against CPU: worst {head_worst} "
         f"{head_errs[head_worst]:.2e} of its max |g| (tolerance 1e-3), "
-        f"relative L2 {head_l2:.2e}; launches {head_launches}")
+        f"relative L2 {heads['l2']:.2e}; launches {heads['launches']}; "
+        + kink_note(heads))
     log(f"  the head's features {name}, card against CPU on the fixed "
         f"input: {feat:.2e} of their max |x|")
     witnesses = [("card against CPU, fixed input", (errs, l2))]
@@ -2501,6 +2663,9 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
         (f"BN statistics {s_err:.3e} (tolerance 1e-5)", s_err <= 1e-5),
         (f"BiLSTM and heads {head_worst} {head_errs[head_worst]:.3e} of its "
          f"max |g| (tolerance 1e-3)", head_errs[head_worst] <= 1e-3),
+        (f"{heads['kinks']} ReLU units of differing sign, within "
+         f"{heads['widest']:.3e} of 0 (band {KINK_BAND:g})",
+         heads["widest"] <= KINK_BAND),
         (f"gradients {l2:.3e} relative L2 (tolerance 5e-2); worst tensors "
          f"{_worst(errs, True)}, {_worst(errs, False)}", l2 <= 5e-2))
         if not ok]
@@ -2771,21 +2936,19 @@ def bf16_agreement(stage, cfg, state_dict, gen, cpu_estimate_s):
     torch.cuda.synchronize()
     launches.update({k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")})
     gap = (abs(l16 - l32) / abs(l32), _relative_l2(g16, g32))
-    head_errs, _ = _gradient_spread(
-        head_gradients(stage, cfg16, state_dict, "cuda", head["x"],
-                       head["g"]),
-        head_gradients(stage, cfg16, state_dict, "cpu", head["x"],
-                       head["g"]))
-    head_worst = max(head_errs, key=head_errs.get)
+    heads = head_agreement(stage, cfg16, state_dict, head["x"], head["g"])
+    head_errs, head_worst = heads["errs"], heads["worst"]
     bounds = BF16_BOUNDS[stage]
     log(f"bf16 step {stage} (batch 2, full width, no remat) against the "
         f"f32 step, card: loss {l16:.6f} / {l32:.6f}, gap {gap[0]:.3e} "
         f"(bound {bounds[0]:.1e}), gradients relative L2 {gap[1]:.3e} "
         f"(bound {bounds[1]}); BiLSTM and heads from its features, card "
         f"against CPU: worst {head_worst} {head_errs[head_worst]:.2e} "
-        f"(tolerance 1e-3); launches {launches}")
+        f"(tolerance 1e-3), {kink_note(heads)}; launches {launches}")
     ok = (applied and gap[0] <= bounds[0] and gap[1] <= bounds[1]
-          and head_errs[head_worst] <= 1e-3 and all(launches.values()))
+          and head_errs[head_worst] <= 1e-3
+          and heads["widest"] <= KINK_BAND
+          and all(launches.values()))
     cpu_s = None
     if cpu_estimate_s < CPU_BF16_LIMIT_S:
         t0 = time.perf_counter()
@@ -4046,7 +4209,7 @@ def geometry_agreement(label, card, host, x, prob, rows):
 def tools_geometries(cfg: ExperimentConfig, det_state, den_state,
                      gen: torch.Generator, workdir: str):
     """(e) the pipelines at other STFT geometries (see the module
-    docstring). Returns the generic instances' launches."""
+    docstring). Returns the "fft" and generic instances' launches."""
     x = make_clips(GEOMETRY_BATCH, gen).cuda()
     base = FusedDenoisePipeline(cfg, det_state, den_state)
     base(x)
@@ -4057,10 +4220,10 @@ def tools_geometries(cfg: ExperimentConfig, det_state, den_state,
     log(f"phase 12 (e) f32 at the default geometry (510, 158, 400): "
         f"{base_ms:.2f} ms a call of {GEOMETRY_BATCH} x 2 s, "
         f"{audio_s / base_ms * 1e3:.1f} audio-s/s {card_note()}")
-    counts = {k: 0 for k in ("stft_generic", "crm_istft_generic",
-                             "stft_generic_center_false",
-                             "crm_istft_generic_valid_t")}
+    counts = {}
     for index, (nf, hop, win) in enumerate(OTHER_GEOMETRIES):
+        instance = kernel_instance(nf, hop, win)
+        other = "generic" if instance == "fft" else "fft"
         gcfg = geometry_config(cfg, nf, hop, win)
         det_g = init_state_dict(SilenceDetector(gcfg.detector), gen)
         den_g = init_state_dict(JointDenoiser(gcfg.denoiser), gen)
@@ -4075,12 +4238,14 @@ def tools_geometries(cfg: ExperimentConfig, det_state, den_state,
                                      GEOMETRY_CPU_ROWS)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
-        for key in ("stft_generic", "crm_istft_generic"):
-            counts[key] += launches[key]
+        for key in (f"stft_{instance}", f"crm_istft_{instance}"):
+            counts[key] = counts.get(key, 0) + launches[key]
         log(f"phase 12 (e) f32 at {geo} launches: {launches}")
-        if (launches["stft_generic"] == 0 or launches["crm_istft_generic"] == 0
-                or launches["stft"] or launches["crm_istft"]):
-            raise RuntimeError(f"f32 at {geo}: not the generic instances")
+        if (launches[f"stft_{instance}"] == 0
+                or launches[f"crm_istft_{instance}"] == 0
+                or launches["stft"] or launches["crm_istft"]
+                or launches[f"stft_{other}"] or launches[f"crm_istft_{other}"]):
+            raise RuntimeError(f"f32 at {geo}: not the {instance} instances")
         ms = median_call_ms(card, x)
         log(f"phase 12 (e) f32 at {geo}: {ms:.2f} ms a call, "
             f"{audio_s / ms * 1e3:.1f} audio-s/s (the default geometry "
@@ -4088,8 +4253,7 @@ def tools_geometries(cfg: ExperimentConfig, det_state, den_state,
         if index == 0:
             geometry_profiles(gcfg, det_g, den_g, card, x, y, bits, prob,
                               workdir, audio_s)
-        else:
-            counts.update(geometry_bucketed(gcfg, den_g, gen))
+        counts.update(geometry_bucketed(gcfg, den_g, gen))
         del card, host
         torch.cuda.empty_cache()
     return counts
@@ -4152,21 +4316,24 @@ def geometry_profiles(gcfg, det_g, den_g, card, x, y, bits, prob, workdir,
             int8.num_frames))
     geometry_agreement(f"int8 at n_fft {nf}", int8, host, x, prob_i, 1)
     ms = median_call_ms(int8, x)
+    instance = kernel_instance(nf, gcfg.stft.hop_length, gcfg.stft.win_length)
     log(f"phase 12 (e) int8 at n_fft {nf}: K6 and K7 take F = "
         f"{nf // 2 + 1}: launches int8_conv {launches['int8_conv']}, "
-        f"int8_inpaint {launches['int8_inpaint']}, stft_generic "
-        f"{launches['stft_generic']}, crm_istft_generic "
-        f"{launches['crm_istft_generic']}; {ms:.2f} ms a call, "
+        f"int8_inpaint {launches['int8_inpaint']}, stft_{instance} "
+        f"{launches[f'stft_{instance}']}, crm_istft_{instance} "
+        f"{launches[f'crm_istft_{instance}']}; {ms:.2f} ms a call, "
         f"{audio_s / ms * 1e3:.1f} audio-s/s {card_note()}")
     if not all(launches[k] for k in ("int8_conv", "int8_inpaint",
-                                      "stft_generic", "crm_istft_generic")):
+                                      f"stft_{instance}",
+                                      f"crm_istft_{instance}")):
         raise RuntimeError(f"int8 at n_fft {nf}: a kernel never launched")
 
 
 def geometry_bucketed(gcfg, den_g, gen):
-    """(e) the length-bucketed denoiser at the second other geometry:
-    K1 center=False and K3 with per-row valid_t on their generic
-    instances; the card against the CPU on the shortest utterance."""
+    """(e) the length-bucketed denoiser at another geometry: K1
+    center=False and K3 with per-row valid_t on the geometry's instances
+    ("fft" or generic); the card against the CPU on the shortest
+    utterance."""
     from sos_tpu_torch.infer import DenoiserPredictor
 
     wavs = [utterance(int(s * SR), gen) for s in GEOMETRY_SECONDS]
@@ -4178,6 +4345,9 @@ def geometry_bucketed(gcfg, den_g, gen):
                              keys=("denoised",))
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    instance = kernel_instance(gcfg.stft.n_fft, gcfg.stft.hop_length,
+                               gcfg.stft.win_length)
+    k1, k3 = f"stft_{instance}_center_false", f"crm_istft_{instance}_valid_t"
     host = DenoiserPredictor(gcfg, den_g, buckets=GEOMETRY_BUCKETS,
                              device="cpu")
     ref = host.denoise_batch(wavs[:1], bits[:1], keys=("denoised",))
@@ -4186,24 +4356,19 @@ def geometry_bucketed(gcfg, den_g, gen):
     log(f"phase 12 (e) bucketed denoiser at ({gcfg.stft.n_fft}, "
         f"{gcfg.stft.hop_length}, {gcfg.stft.win_length}), buckets "
         f"{GEOMETRY_BUCKETS}, {len(wavs)} utterances of "
-        f"{GEOMETRY_SECONDS} s: launches stft_generic_center_false "
-        f"{launches['stft_generic_center_false']}, "
-        f"crm_istft_generic_valid_t {launches['crm_istft_generic_valid_t']}"
-        f"; the {GEOMETRY_SECONDS[0]} s utterance max |card - cpu| "
-        f"{diff:.3e} (tolerance 1e-3)")
-    if (not launches["stft_generic_center_false"]
-            or not launches["crm_istft_generic_valid_t"]
-            or not diff <= 1e-3):
-        raise RuntimeError("bucketed denoiser at another geometry: a generic "
-                           "case never launched or the card disagrees")
-    return {k: launches[k] for k in ("stft_generic_center_false",
-                                     "crm_istft_generic_valid_t")}
+        f"{GEOMETRY_SECONDS} s: launches {k1} {launches[k1]}, {k3} "
+        f"{launches[k3]}; the {GEOMETRY_SECONDS[0]} s utterance max |card - "
+        f"cpu| {diff:.3e} (tolerance 1e-3)")
+    if not launches[k1] or not launches[k3] or not diff <= 1e-3:
+        raise RuntimeError(f"bucketed denoiser at another geometry: {k1} or "
+                           f"{k3} never launched or the card disagrees")
+    return {k: launches[k] for k in (k1, k3)}
 
 
 def phase_tools_and_geometries(cfg: ExperimentConfig, det_state, den_state,
                                workdir: str):
-    """Phase 12 (see the module docstring). Returns the generic
-    instances' launches."""
+    """Phase 12 (see the module docstring). Returns the "fft" and
+    generic instances' launches."""
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 12)
     root = os.path.join(workdir, "tools")

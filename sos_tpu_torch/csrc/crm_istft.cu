@@ -36,12 +36,13 @@
 // the waveform (14.3 MB) out take 0.032 ms at 3.35 TB/s; the factorized
 // transform is about 18 kflop a frame.
 //
-// The recover keeps sos_tpu's epsilon placement with a = 0.1, b = 0
-// (the pipeline's defaults): 1/a * (log(o / (1 - o + 1e-8) + 1e-10) + b).
-// Explicit _rn intrinsics stop nvcc from contracting the products into
-// FMAs, so the masked spectrum is bit-equal to the plain version's.
+// The recover (crm.cuh) keeps sos_tpu's epsilon placement with a = 0.1,
+// b = 0 (the pipeline's defaults). Explicit _rn intrinsics there and in
+// the complex product stop nvcc from contracting the products into FMAs,
+// so the masked spectrum is bit-equal to the plain version's.
 #include <cfloat>
 
+#include "crm.cuh"
 #include "pfa.cuh"
 
 namespace {
@@ -56,12 +57,6 @@ static_assert(kThreads == kBins, "one thread a bin");
 // per frame: the cRM row (later the masked spectrum) and the spectrum row
 // (later the frame's 255 complex points)
 constexpr size_t kSmem = (size_t)kFrames * 2 * kRow * sizeof(float);
-
-__device__ __forceinline__ float crm_recover(float o) {
-  const float den = __fadd_rn(__fsub_rn(1.0f, o), 1e-8f);
-  const float ratio = __fadd_rn(__fdiv_rn(o, den), 1e-10f);
-  return __fmul_rn(10.0f, __fadd_rn(logf(ratio), 0.0f));
-}
 
 __global__ void __launch_bounds__(kThreads, 3)
 crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,

@@ -41,16 +41,18 @@
 // n_fft / log2 n_fft times an FFT's, so this instance stays far from its
 // bound; a mixed-radix FFT instance is the redesign.
 //
-// The recover is the prime-factor instance's (sos_tpu's epsilon placement,
-// a = 0.1, b = 0; explicit _rn intrinsics keep nvcc from contracting the
-// products into FMAs, so the masked spectrum is bit-equal to the plain
-// version's).
+// The recover is crm.cuh's, and the complex product is taken with _rn
+// intrinsics, so the masked spectrum is bit-equal to the plain version's.
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstddef>
 
+#include "crm.cuh"
+
 namespace {
+
+using sos::crm_recover;
 
 constexpr int kTileM = 64;   // hop rows a block
 constexpr int kTileN = 64;   // columns r (samples within a hop) a block
@@ -59,12 +61,6 @@ constexpr int kTileK = 2 * kBinsK;
 constexpr int kZStride = kTileK + 1;
 constexpr int kThreads = 256;
 constexpr int kMaxChunks = 1024;  // ceil(n_fft / hop): Z rows in shared memory
-
-__device__ __forceinline__ float crm_recover(float o) {
-  const float den = __fadd_rn(__fsub_rn(1.0f, o), 1e-8f);
-  const float ratio = __fadd_rn(__fdiv_rn(o, den), 1e-10f);
-  return __fmul_rn(10.0f, __fadd_rn(logf(ratio), 0.0f));
-}
 
 __global__ void __launch_bounds__(kThreads)
 crm_istft_dense_kernel(const float* __restrict__ crm, const float* __restrict__ spec,

@@ -17,14 +17,20 @@ Two kernels live here:
   valid_t[b] and divides by the window-square envelope of its valid
   frames only (`sos_tpu`'s `istft(valid_t=)`, vmapped over rows).
 
-Each kernel has two instances, chosen by `kernel_instance`: at the
+Each kernel has three instances, chosen by `kernel_instance`: at the
 default geometry (n_fft 510, hop 158, win 400) the 510-point real DFT
 runs as a 255-point complex prime-factor FFT (3 * 5 * 17, `csrc/pfa.cuh`)
 from the tables that `pfa_tables` builds here in float64 (`csrc/stft.cu`,
-`csrc/crm_istft.cu`); at any other geometry a generic instance runs the
-dense product with the float64-built `_analysis_matrix` /
-`_synthesis_matrix` that the plain versions read (`csrc/stft_dense.cu`,
-`csrc/crm_istft_dense.cu`; launches counted apart, under
+`csrc/crm_istft.cu`); at another geometry whose M complex points (n_fft
+/ 2 at even n_fft, n_fft frame pairs at odd) split into odd prime powers
+<= 73 and a power of two, n_fft <= 2048, the "fft" instance runs the
+same Good-Thomas scheme at run time from `fft_tables` (dense passes for
+the odd factors, radix-4/2 stages inside the power of two;
+`csrc/fft.cuh`, `csrc/stft_fft.cu`, `csrc/crm_istft_fft.cu`; launches
+under "stft_fft*" and "crm_istft_fft*"); at any other geometry a generic
+instance runs the dense product with the float64-built
+`_analysis_matrix` / `_synthesis_matrix` that the plain versions read
+(`csrc/stft_dense.cu`, `csrc/crm_istft_dense.cu`; launches under
 "stft_generic*" and "crm_istft_generic*"). Each wrapper runs its plain
 PyTorch version (`*_plain`, the dense DFT matmuls) on a CPU tensor and
 launches a kernel on a CUDA tensor, whatever the geometry. The plain
@@ -147,10 +153,15 @@ DENSE_MAX_CHUNKS = 1024
 
 def kernel_instance(n_fft: int, hop_length: int, win_length: int) -> str:
     """The K1/K3 instance a geometry launches: "pfa" (the prime-factor
-    FFT, built for n_fft 510, hop 158, win 400) or "generic" (the dense
-    product with the float64-built tables)."""
+    FFT built for n_fft 510, hop 158, win 400), "fft" (a prime-factor
+    FFT at any geometry whose transform `fft_factors` splits and whose
+    blocks `fft_launch_shape` fits; n_fft <= FFT_MAX_N_FFT) or "generic"
+    (the dense product with the float64-built tables)."""
     if (n_fft, hop_length, win_length) == (N_FFT, HOP_LENGTH, WIN_LENGTH):
         return "pfa"
+    if (n_fft <= FFT_MAX_N_FFT and fft_factors(n_fft) is not None
+            and fft_launch_shape(n_fft, hop_length) is not None):
+        return "fft"
     return "generic"
 
 
@@ -219,6 +230,248 @@ def _pfa_tables_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     slots = np.concatenate([tables[k] for k in PFA_INT_TABLES])
     return (torch.from_numpy(floats).to(device),
             torch.from_numpy(slots).to(device))
+
+
+# K1's and K3's "fft" instances (`csrc/fft.cuh`, `csrc/stft_fft.cu`,
+# `csrc/crm_istft_fft.cu`): the largest n_fft they take, the largest odd
+# prime power that runs as one dense pass, the output pairs a thread of a
+# dense pass computes (kKB), the plan's layout (a header, then one record
+# a pass) and the pass kinds
+FFT_MAX_N_FFT = 2048
+FFT_MAX_DENSE = 73
+FFT_K_BLOCK = 4
+FFT_PLAN_HEADER = 4  # plan length, M, passes, coefficient pairs
+FFT_PASS_INTS = 5    # kind, n, axis stride, axis length, first coefficient
+FFT_DENSE, FFT_RADIX2, FFT_RADIX4 = 1, 2, 4
+# the kernels' float table, in this order, and their int table
+FFT_FLOAT_TABLES = ("twiddle", "window", "synth_window", "coefs")
+FFT_INT_TABLES = ("plan", "slot_in", "slot_out")
+# shared memory a block: the usual share (three blocks an SM with the 1 KB
+# each reserves, the fastest on an H100 at every geometry measured), and
+# the most K3 takes when its frames need more (one block an SM)
+FFT_SMEM = 75 * 1024
+FFT_SMEM_MAX = 200 * 1024
+FFT_MAX_FRAMES = 16  # frames a K1 block, output hops a K3 block
+
+
+def fft_points(n_fft: int) -> int:
+    """Complex points M of the transform: n_fft / 2 at even n_fft (a real
+    frame packed as x[2m] + i x[2m+1]), n_fft at odd (two real frames
+    packed as one complex frame, separated by conjugate symmetry)."""
+    return n_fft // 2 if n_fft % 2 == 0 else n_fft
+
+
+@functools.lru_cache(maxsize=64)
+def fft_factors(n_fft: int):
+    """M's prime powers, the power of two first, if each is either odd
+    and at most FFT_MAX_DENSE (one dense pass) or a power of two (radix-4
+    passes, and one radix-2 pass at an odd exponent); else None."""
+    m, factors, p = fft_points(n_fft), [], 2
+    if m < 2:
+        return None
+    while p * p <= m:
+        if m % p == 0:
+            q = 1
+            while m % p == 0:
+                q, m = q * p, m // p
+            factors.append(q)
+        p += 1
+    if m > 1:
+        factors.append(m)
+    if any(q % 2 and q > FFT_MAX_DENSE for q in factors):
+        return None
+    return tuple(factors)
+
+
+def _fft_passes(factors):
+    """(kind, n, axis stride, axis length) of each pass, in order, over
+    the Good-Thomas array [q1][q2]...: the last axis first; a
+    power-of-two axis of length N as radix-4 stages of block length N,
+    N/4, ... (decimation in frequency), then a radix-2 stage at block
+    length 2 when log2 N is odd."""
+    strides = [int(np.prod(factors[i + 1:])) for i in range(len(factors))]
+    passes = []
+    for q, stride in reversed(list(zip(factors, strides))):
+        if q % 2:
+            passes.append((FFT_DENSE, q, stride, q))
+            continue
+        length = q
+        while length >= 4:
+            passes.append((FFT_RADIX4, length, stride, q))
+            length //= 4
+        if length == 2:
+            passes.append((FFT_RADIX2, 2, stride, q))
+    return passes
+
+
+def _digit_reversal(n: int, radices) -> np.ndarray:
+    """Where frequency k of an n-point decimation-in-frequency FFT with
+    these radices (first stage first) comes out: position digits (m1,
+    m2, ...) of place values n/r1, n/(r1 r2), ... hold frequency m1 +
+    r1 m2 + r1 r2 m3 + ...."""
+    pos = np.arange(n)
+    freq, rest, place, weight = np.zeros(n, np.int64), pos.copy(), n, 1
+    for r in radices:
+        place //= r
+        digit = rest // place
+        rest = rest % place
+        freq += digit * weight
+        weight *= r
+    out = np.empty(n, np.int64)
+    out[freq] = pos
+    return out
+
+
+def _dense_coefs(q: int) -> np.ndarray:
+    """A dense pass's (cos, sin)(2 pi (j k mod q) / q) at row k - 1,
+    column j - 1 (j, k = 1 .. (q-1)/2), rows zero-padded to whole blocks
+    of FFT_K_BLOCK."""
+    h = (q - 1) // 2
+    rows = -(-h // FFT_K_BLOCK) * FFT_K_BLOCK
+    k = np.arange(1, rows + 1)[:, None]
+    j = np.arange(1, h + 1)[None, :]
+    table = _cos_sin(2.0 * np.pi * ((j * k) % q) / q).astype(np.float64)
+    table[h:] = 0.0
+    return table.reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_tables(n_fft: int, win_length: int) -> Dict[str, np.ndarray]:
+    """The tables of K1's and K3's "fft" instances at one geometry, built
+    in float64 (the generalisation of `pfa_tables`):
+
+    * `plan` (int32): FFT_PLAN_HEADER values (the plan's length, M, the
+      passes, the coefficient pairs), then per pass (kind, n, axis
+      stride, axis length, its first coefficient pair), `_fft_passes`'
+      order: a dense pass of n = q points, or a radix-4/2 stage of block
+      length n on an axis of the given length;
+    * `slot_in[m]`: the slot of input point m, m = (sum_i n_i M / q_i)
+      mod M at slot sum_i n_i stride_i (Good-Thomas, no twiddles between
+      the factors); `slot_out[k]`: the slot where output k comes out, k
+      = (sum_i k_i (M / q_i) ((M / q_i)^-1 mod q_i)) mod M, the
+      power-of-two axis's k_i at its digit-reversed position;
+    * `coefs`: each dense pass's `_dense_coefs`, then the power-of-two
+      axis's twiddles (cos, sin)(2 pi i / N), i < N;
+    * `twiddle`: (cos, sin)(2 pi k / n_fft), k <= M, of the real split
+      (even n_fft; empty at odd, where frame pairs need none);
+    * `window` and `synth_window` (the window / n_fft).
+    """
+    factors = fft_factors(n_fft)
+    if factors is None:
+        raise ValueError(f"fft_tables: n_fft {n_fft} does not factor into "
+                         f"odd prime powers <= {FFT_MAX_DENSE} and a power "
+                         "of two")
+    m = fft_points(n_fft)
+    strides = [int(np.prod(factors[i + 1:])) for i in range(len(factors))]
+    idx = np.indices(factors).reshape(len(factors), -1)  # slot order
+    slot = np.arange(m)
+    inner = [m // q for q in factors]
+    index_in = (np.asarray(inner)[:, None] * idx).sum(axis=0) % m
+    slot_in = np.empty(m, np.int32)
+    slot_in[index_in] = slot
+    # output: frequency k_i of axis i sits at position pos_i(k_i)
+    freq = idx.copy()
+    for i, q in enumerate(factors):
+        if q % 2 == 0:
+            radices = [4] * (q.bit_length() - 1 >> 1) + [2] * (
+                (q.bit_length() - 1) & 1)
+            where = _digit_reversal(q, radices)
+            freq[i] = np.argsort(where)[idx[i]]
+    crt = [c * pow(c, -1, q) for c, q in zip(inner, factors)]
+    index_out = (np.asarray(crt)[:, None] * freq).sum(axis=0) % m
+    slot_out = np.empty(m, np.int32)
+    slot_out[index_out] = slot
+    passes, coefs, offsets = _fft_passes(factors), [], {}
+    for kind, n, stride, axis in passes:
+        key = (kind == FFT_DENSE, axis)
+        if key not in offsets:
+            offsets[key] = sum(len(c) for c in coefs)
+            coefs.append(_dense_coefs(n) if kind == FFT_DENSE else
+                         _cos_sin(2.0 * np.pi * np.arange(axis) / axis))
+    header = FFT_PLAN_HEADER + FFT_PASS_INTS * len(passes)
+    plan = [header, m, len(passes), sum(len(c) for c in coefs)]
+    for kind, n, stride, axis in passes:
+        plan += [kind, n, stride, axis, offsets[(kind == FFT_DENSE, axis)]]
+    window = padded_window(n_fft, win_length)
+    half = np.arange(m + 1) if n_fft % 2 == 0 else np.arange(0)
+    return {"plan": np.asarray(plan, np.int32), "slot_in": slot_in,
+            "slot_out": slot_out,
+            "coefs": np.concatenate(coefs).astype(np.float32),
+            "twiddle": _cos_sin(2.0 * np.pi * half / n_fft).reshape(-1, 2),
+            "window": window.astype(np.float32),
+            "synth_window": (window / n_fft).astype(np.float32)}
+
+
+@functools.lru_cache(maxsize=64)
+def fft_launch_shape(n_fft: int, hop_length: int):
+    """How the "fft" instances cut their work, or None where a K3 block
+    cannot hold the frames of one output hop: (K1's transforms a block,
+    K1's shared bytes, K3's output hops a block, K3's transforms a
+    block, K3's shared bytes). A transform is one frame (even n_fft) or
+    a pair (odd); a block keeps two buffers of M + 1 points a transform
+    and the coefficients in shared memory (`_fft_shared_bytes`). K1 takes
+    up to FFT_MAX_FRAMES frames in FFT_SMEM; K3's hops need ceil(n_fft /
+    hop) - 1 frames more than they hold, up to FFT_MAX_FRAMES hops in
+    FFT_SMEM, or in FFT_SMEM_MAX where FFT_SMEM holds fewer hops than
+    that (more than half the frames would be computed twice)."""
+    factors = fft_factors(n_fft)
+    if factors is None:
+        return None
+    m, pair = fft_points(n_fft), 1 + n_fft % 2
+    ncoef = sum(len(_dense_coefs(q)) if q % 2 else q for q in factors)
+    chunks = -(-n_fft // hop_length)
+
+    def transforms(budget):
+        nt = 0
+        while _fft_shared_bytes(ncoef, nt + 1, m) <= budget:
+            nt += 1
+        return nt
+
+    k1 = min(FFT_MAX_FRAMES // pair, transforms(FFT_SMEM)) or min(
+        1, transforms(FFT_SMEM_MAX))
+    if k1 == 0:
+        return None
+    hops = min(FFT_MAX_FRAMES, transforms(FFT_SMEM) * pair - chunks + 1)
+    if hops < chunks:  # more than half of the frames computed twice
+        hops = max(hops, min(FFT_MAX_FRAMES,
+                             transforms(FFT_SMEM_MAX) * pair - chunks + 1))
+    if hops < 1:
+        return None
+    k3 = -(-(hops + chunks - 1) // pair)
+    return (k1, _fft_shared_bytes(ncoef, k1, m), hops, k3,
+            _fft_shared_bytes(ncoef, k3, m))
+
+
+def _fft_shared_bytes(ncoef: int, transforms: int, m: int) -> int:
+    """Shared bytes of a block of the "fft" instances (`csrc/fft.cuh`):
+    `ncoef` coefficient pairs and two buffers of `transforms` transforms
+    of S points (S = M + 1, or M + 2 where that is even); where M is
+    divisible by 16, one pad point after every 16 (`padded`) and one
+    more."""
+    n = transforms * ((m + 1) | 1)
+    return 8 * ncoef + 16 * (n + (n // 16 + 1 if m % 16 == 0 else 0))
+
+
+def device_fft_tables(n_fft: int, win_length: int,
+                      device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fft_tables` packed as the kernels read them: (floats in
+    FFT_FLOAT_TABLES order, ints in FFT_INT_TABLES order), on `device`,
+    built once a geometry and device (a bare "cuda" names the current
+    card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _fft_tables_on(n_fft, win_length, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_tables_on(n_fft: int, win_length: int, device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    tables = fft_tables(n_fft, win_length)
+    floats = np.concatenate([tables[k].ravel() for k in FFT_FLOAT_TABLES])
+    ints = np.concatenate([tables[k] for k in FFT_INT_TABLES])
+    return (torch.from_numpy(floats).to(device),
+            torch.from_numpy(ints).to(device))
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -338,7 +591,8 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
     Kernel K1 on a CUDA tensor (the instance `kernel_instance` names),
     `stft_cat_plain` on a CPU tensor. The launches count under "stft"
     (centered) or "stft_center_false", and at a geometry other than the
-    default under "stft_generic" or "stft_generic_center_false".
+    default under "stft_fft" / "stft_fft_center_false" ("fft" instance)
+    or "stft_generic" / "stft_generic_center_false" (dense instance).
     """
     if y.device.type == "cpu":
         return stft_cat_plain(y, n_fft, hop_length, win_length, center)
@@ -366,6 +620,17 @@ def stft_cat(y: torch.Tensor, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH,
                    y2.data_ptr(), tab.data_ptr(), slots.data_ptr(),
                    out.data_ptr(), batch, length, frames,
                    pad if center else 0, stream)
+        return out.reshape(*lead, frames, n_out)
+    if kernel_instance(n_fft, hop_length, win_length) == "fft":
+        tab, ints = device_fft_tables(n_fft, win_length, y.device)
+        per_block, smem = fft_launch_shape(n_fft, hop_length)[:2]
+        with on_device(y.device) as stream:
+            launch("stft_fft" if center else "stft_fft_center_false",
+                   "sos_stft_fft", y2.data_ptr(), tab.data_ptr(),
+                   ints.data_ptr(), out.data_ptr(), batch, length, frames,
+                   n_fft, hop_length, pad if center else 0,
+                   (n_fft - win_length) // 2, win_length, per_block, smem,
+                   stream)
         return out.reshape(*lead, frames, n_out)
     # the table's rows outside the window's support are zero: skipped
     mat = _device_dense_analysis(n_fft, win_length, y.device)
@@ -462,8 +727,9 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
     Kernel K3 on CUDA tensors (the instance `kernel_instance` names),
     `crm_istft_plain` on CPU tensors. The launches count under
     "crm_istft", or "crm_istft_valid_t" with `valid_t`, and at a geometry
-    other than the default under "crm_istft_generic" or
-    "crm_istft_generic_valid_t". `(T - 1) * hop + n_fft % 2` samples come
+    other than the default under "crm_istft_fft" / "crm_istft_fft_valid_t"
+    ("fft" instance) or "crm_istft_generic" / "crm_istft_generic_valid_t"
+    (dense instance). `(T - 1) * hop + n_fft % 2` samples come
     out, as from `istft`.
     """
     if crm.device.type == "cpu" and spec.device.type == "cpu":
@@ -497,6 +763,16 @@ def crm_istft(crm: torch.Tensor, spec: torch.Tensor, n_fft: int = N_FFT,
                    "sos_crm_istft", crm.data_ptr(), spec.data_ptr(),
                    tab.data_ptr(), slots.data_ptr(), vt_ptr, out.data_ptr(),
                    batch, num_frames, out_len, stream)
+        return out
+    if kernel_instance(n_fft, hop_length, win_length) == "fft":
+        tab, ints = device_fft_tables(n_fft, win_length, crm.device)
+        _, _, hops, per_block, smem = fft_launch_shape(n_fft, hop_length)
+        with on_device(crm.device) as stream:
+            launch("crm_istft_fft" if vt is None else "crm_istft_fft_valid_t",
+                   "sos_crm_istft_fft", crm.data_ptr(), spec.data_ptr(),
+                   tab.data_ptr(), ints.data_ptr(), vt_ptr, out.data_ptr(),
+                   batch, num_frames, n_fft, hop_length, hops, per_block,
+                   smem, out_len, stream)
         return out
     if -(-n_fft // hop_length) > DENSE_MAX_CHUNKS:
         raise ValueError(f"crm_istft: the kernel takes at most "

@@ -3,7 +3,8 @@
 The kernels themselves live in `sos_tpu_torch/csrc/`; their wrappers and
 plain PyTorch versions sit in the module of the op they replace:
 
-  K1 `dsp/stft.py`   `stft_cat`       STFT (prime-factor real FFT)
+  K1 `dsp/stft.py`   `stft_cat`       STFT (prime-factor real FFT; at
+     other geometries its "fft" instance or the dense generic one)
   K2 `dsp/mixing.py` `mask_gate`      bits -> silence mask -> gate (or,
      `complement=True`, the gate by 1 - mask), any window length; its
      despeckle instance runs the generic run-length despeckle

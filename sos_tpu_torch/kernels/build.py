@@ -48,6 +48,11 @@ SIGNATURES = {
     # n_out, n_pad, hop, pad (n_fft // 2 centered, 0 for center=False),
     # the window's first table row and its length, stream
     "sos_stft_dense": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    # K1's "fft" instance: y, the `device_fft_tables` floats and ints, out,
+    # B, L, T, n_fft, hop, pad (n_fft // 2 centered, 0 for center=False),
+    # the window's first sample and its length, transforms a block,
+    # shared bytes (`fft_launch_shape`), stream
+    "sos_stft_fft": (_P,) * 4 + (_I,) * 10 + (_P,),
     # mixed, bits, geometry (body | gap << 16), frames of each 256-sample
     # chunk, out, B, L, num_frames, the most frames a span reads,
     # complement (1: gate by 1 - mask), stream
@@ -62,6 +67,11 @@ SIGNATURES = {
     # squared window, valid_t (int32 (B,) or NULL), out, B, T, F, n_fft,
     # hop, out_len, stream
     "sos_crm_istft_dense": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # K3's "fft" instance: crm, spec, the `device_fft_tables` floats and
+    # ints, valid_t (int32 (B,) or NULL), out, B, T, n_fft, hop, output
+    # hops a block, transforms a block, shared bytes (`fft_launch_shape`),
+    # out_len, stream
+    "sos_crm_istft_fft": (_P,) * 6 + (_I,) * 8 + (_P,),
     # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths (int32 (B,) or NULL), out,
     # B, T, H, then the plan: rows a block, cluster, units a block, kp,
     # threads, shared bytes; stream
@@ -101,14 +111,17 @@ SIGNATURES = {
 # K6 and K7 with per-row valid_t; so do the training path's instances:
 # K2 gating by 1 - mask, K4's training forward and its backward K4b; and
 # K2's windows past 2^24 mask elements and its generic despeckle; and
-# K1's and K3's generic instances (every STFT geometry but the default).
+# K1's and K3's "fft" and generic instances (every STFT geometry but the
+# default).
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
+                            "stft_fft": 0, "stft_fft_center_false": 0,
                             "stft_generic": 0,
                             "stft_generic_center_false": 0,
                             "mask_gate": 0, "mask_gate_complement": 0,
                             "mask_gate_long": 0, "mask_gate_despeckle": 0,
                             "crm_istft": 0,
                             "crm_istft_valid_t": 0,
+                            "crm_istft_fft": 0, "crm_istft_fft_valid_t": 0,
                             "crm_istft_generic": 0,
                             "crm_istft_generic_valid_t": 0, "bilstm": 0,
                             "bilstm_lengths": 0, "bilstm_train": 0,

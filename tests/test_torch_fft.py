@@ -14,6 +14,14 @@ It is held against the plain versions (dense DFT matmuls) and against `sos_tpu`'
 cRM + iSTFT within the repo's atol 1e-4 + rtol 1e-4 (its recovered masks
 reach +-46). The kernels themselves run only on a card
 (tests/test_torch_kernels.py, chip_smoke.py).
+
+The "fft" instances (`csrc/fft.cuh`) are emulated the same way from the
+tables `device_fft_tables` hands them, unpacked by the offsets the
+kernels compute, at (1022, 256, 1022) (7 * 73), (511, 158, 400) (7 * 73
+on frame pairs) and (512, 128, 512) (2^8): the plan's passes run in its
+order (a dense q-point pass in the conjugate-pair form, radix-4/2
+decimation-in-frequency stages), centered and `center=False` K1, K3 with
+and without `valid_t`, at the same tolerances, on clips of a few frames.
 """
 
 import importlib
@@ -240,3 +248,241 @@ def test_crm_istft_valid_t_emulation_matches_plain_and_sos_tpu():
                                           spec[row:row + 1, :v])
             torch.testing.assert_close(got[row, :n], alone[0, :n],
                                        atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The "fft" instances at other geometries (`fft_tables`, csrc/fft.cuh)
+# ---------------------------------------------------------------------------
+
+FFT_GEOMETRIES = [(1022, 256, 1022), (511, 158, 400), (512, 128, 512)]
+
+
+def _fft_tabs(n_fft, win):
+    """The "fft" tables as the kernels receive them, unpacked by the
+    offsets the kernels compute: the float table's twiddles (2 (M + 1)
+    floats at even n_fft, none at odd), window, synthesis window, then
+    the coefficients; the int table's plan (its length is its first
+    value), then slot_in and slot_out (M each)."""
+    floats, ints = (t.numpy() for t in tstft.device_fft_tables(
+        n_fft, win, torch.device("cpu")))
+    plan_len, m = int(ints[0]), int(ints[1])
+    tw = 2 * (m + 1) if n_fft % 2 == 0 else 0
+    out = {"plan": ints[:plan_len].astype(np.int64),
+           "slot_in": torch.from_numpy(ints[plan_len:plan_len + m].astype(np.int64)),
+           "slot_out": torch.from_numpy(ints[plan_len + m:plan_len + 2 * m].astype(np.int64))}
+    assert ints.size == plan_len + 2 * m
+    for name, lo, hi in (("twiddle", 0, tw), ("window", tw, tw + n_fft),
+                         ("synth_window", tw + n_fft, tw + 2 * n_fft),
+                         ("coefs", tw + 2 * n_fft, floats.size)):
+        out[name] = torch.from_numpy(floats[lo:hi].copy())
+    out["twiddle"] = out["twiddle"].reshape(-1, 2)
+    out["coefs"] = out["coefs"].reshape(-1, 2)
+    assert out["coefs"].shape[0] == out["plan"][3]
+    return out
+
+
+def _fft_passes(z, tabs, inverse):
+    """The plan's passes over z (..., M), complex, in slot order: a dense
+    q-point pass in the conjugate-pair form (S_j = a_j + a_{q-j}, D_j =
+    a_j - a_{q-j}; out[k] = a_0 + sum_j c S_j -/+ i sum_j s D_j, out[q-k]
+    the other sign), or a radix-4/2 decimation-in-frequency stage of
+    block length L (a 4- or 2-point DFT, then the twiddles W_L^{jm})."""
+    plan, coefs = tabs["plan"], tabs["coefs"]
+    lead, m = z.shape[:-1], z.shape[-1]
+    sign = 1.0 if inverse else -1.0
+    for i in range(int(plan[2])):
+        kind, n, stride, axis, off = (int(v) for v in plan[
+            tstft.FFT_PLAN_HEADER + tstft.FFT_PASS_INTS * i:][:5])
+        a = z.reshape(*lead, m // (stride * axis), axis, stride)
+        if kind == tstft.FFT_DENSE:
+            h = (n - 1) // 2
+            rows = -(-h // tstft.FFT_K_BLOCK) * tstft.FFT_K_BLOCK
+            tab = coefs[off:off + rows * h].reshape(rows, h, 2)[:h]
+            a0, u = a[..., :1, :], a[..., 1:h + 1, :]
+            v = torch.flip(a[..., n - h:, :], dims=[-2])  # a[q - j]
+            s_j, d_j = u + v, u - v
+            p = a0 + torch.einsum("kj,...js->...ks", tab[..., 0].to(z.dtype), s_j)
+            q = torch.einsum("kj,...js->...ks", tab[..., 1].to(z.dtype), d_j)
+            first, second = p + sign * 1j * q, p - sign * 1j * q
+            z = torch.cat([a0 + s_j.sum(-2, keepdim=True), first,
+                           torch.flip(second, dims=[-2])], dim=-2)
+        else:
+            r = 4 if kind == tstft.FFT_RADIX4 else 2
+            b = a.reshape(*lead, m // (stride * axis), axis // n, r, n // r,
+                          stride)
+            x = [b[..., l, :, :] for l in range(r)]
+            if r == 4:
+                t0, t1, t2, t3 = x[0] + x[2], x[0] - x[2], x[1] + x[3], x[1] - x[3]
+                y = [t0 + t2, t1 + sign * 1j * t3, t0 - t2, t1 - sign * 1j * t3]
+            else:
+                y = [x[0] + x[1], x[0] - x[1]]
+            j = torch.arange(n // r)
+            for mm in range(1, r):
+                w = coefs[off + j * mm * (axis // n)]
+                y[mm] = y[mm] * torch.complex(w[:, 0], sign * w[:, 1])[:, None]
+            z = torch.stack(y, dim=-3)
+        z = z.reshape(*lead, m)
+    return z
+
+
+def emulate_fft_stft(y, n_fft, hop, win, center=True):
+    """K1's "fft" instance: (B, L) -> packed (B, T, 2 bins)."""
+    tabs = _fft_tabs(n_fft, win)
+    m, bins, length = tstft.fft_points(n_fft), n_fft // 2 + 1, y.shape[-1]
+    pad = n_fft // 2 if center else 0
+    frames = tstft.stft_num_frames(length, n_fft, hop, center)
+    q = torch.arange(frames)[:, None] * hop + torch.arange(n_fft)[None] - pad
+    q = torch.where(q < 0, -q, q)
+    q = torch.where(q >= length, 2 * (length - 1) - q, q)
+    x = y[:, q] * tabs["window"]
+    if n_fft % 2 == 0:
+        z = torch.complex(x[..., 0::2], x[..., 1::2])
+    else:  # frames 2t and 2t + 1 in one transform
+        x = torch.cat([x, x.new_zeros(x.shape[0], frames % 2, n_fft)], dim=1)
+        z = torch.complex(x[:, 0::2], x[:, 1::2])
+    buf = torch.empty_like(z)
+    buf[..., tabs["slot_in"]] = z
+    zz = _fft_passes(buf, tabs, inverse=False)[..., tabs["slot_out"]]
+    k = torch.arange(bins)
+    zk, zm = zz[..., k % m], zz[..., (m - k) % m].conj()
+    even, odd = (zk + zm) / 2, (zk - zm) / 2j
+    if n_fft % 2 == 0:
+        tw = tabs["twiddle"]
+        spec = even + torch.complex(tw[:, 0], -tw[:, 1]) * odd
+    else:
+        spec = torch.stack([even, odd], dim=2).reshape(y.shape[0], -1, bins)[:, :frames]
+    return torch.cat([spec.real, spec.imag], dim=-1)
+
+
+def emulate_fft_crm_istft(crm, spec, n_fft, hop, win, valid_t=None):
+    """K3's "fft" instance: packed cRM and spectrum (B, T, 2 bins) ->
+    (B, (T - 1) hop + n_fft % 2)."""
+    tabs = _fft_tabs(n_fft, win)
+    m, bins = tstft.fft_points(n_fft), n_fft // 2 + 1
+    batch, frames, _ = crm.shape
+    tv = torch.full((batch,), frames) if valid_t is None else valid_t
+    live = (torch.arange(frames)[None] < tv[:, None]).float()  # (B, T)
+    rr, ri = crm_sigmoid_recover(crm[..., :bins]), crm_sigmoid_recover(crm[..., bins:])
+    mr, mi = spec[..., :bins], spec[..., bins:]
+    im = rr * mi + ri * mr
+    im[..., 0] = 0.0  # bin 0 (and at even n_fft the last) lose their imaginary parts
+    if n_fft % 2 == 0:
+        im[..., -1] = 0.0
+    x = torch.complex(rr * mr - ri * mi, im) * live[..., None]  # absent frames: 0
+    if n_fft % 2 == 0:
+        k = torch.arange(m)
+        a, b = x[..., k], x[..., m - k].conj()
+        tw = tabs["twiddle"][:m]
+        z = (a + b) + 1j * (a - b) * torch.complex(tw[:, 0], tw[:, 1])
+    else:  # Hermitian extension of each frame of a pair, then a + i b
+        x = torch.cat([x, x.new_zeros(batch, frames % 2, bins)], dim=1)
+        ext = torch.cat([x, torch.flip(x[..., 1:], dims=[-1]).conj()], dim=-1)
+        z = ext[:, 0::2] + 1j * ext[:, 1::2]
+    buf = torch.empty_like(z)
+    buf[..., tabs["slot_in"]] = z
+    zz = _fft_passes(buf, tabs, inverse=True)[..., tabs["slot_out"]]
+    if n_fft % 2 == 0:
+        frame = torch.stack([zz.real, zz.imag], dim=-1).reshape(batch, frames, n_fft)
+    else:
+        frame = torch.stack([zz.real, zz.imag], dim=2).reshape(batch, -1, n_fft)[:, :frames]
+    frame = frame * tabs["synth_window"] * live[..., None]
+    wsq = (tabs["window"] * tabs["window"]) * live[..., None]
+    chunks = -(-n_fft // hop)
+    full = torch.zeros(batch, (frames + chunks) * hop)
+    env = torch.zeros(batch, (frames + chunks) * hop)
+    for c in range(chunks):  # chunk c of every frame, chunk 0 first
+        for acc, src in ((full, frame), (env, wsq)):
+            chunk = src[..., c * hop:(c + 1) * hop]
+            acc[:, c * hop:c * hop + frames * hop].view(batch, frames, hop)[
+                ..., :chunk.shape[-1]] += chunk
+    pad, out_len = n_fft // 2, (frames - 1) * hop + n_fft % 2
+    env, y = env[:, pad:pad + out_len], full[:, pad:pad + out_len]
+    tiny = float(np.finfo(np.float32).tiny)
+    return torch.where(env > tiny, y / torch.where(env > tiny, env, 1.0), y)
+
+
+def _short_clips(n_fft, length):
+    """Two short clips of noise with spikes, as `_clips`, where the
+    reflect pad reads (the first and last n_fft / 2 samples)."""
+    y = np.random.default_rng(n_fft + length).standard_normal((2, length)).astype(
+        np.float32) * 0.3
+    y[:, [0, 3, 101, n_fft // 2 - 1]] += np.float32([4.0, -3.0, 2.5, 5.0])
+    y[:, [-1, -2, -97, -(n_fft // 2)]] += np.float32([-4.0, 3.5, 2.0, -5.0])
+    return y
+
+
+def _jax_crm_istft(crm, spec, n_fft, hop, win, valid_t=None):
+    """`sos_tpu`'s recover + apply + istft, per row with `valid_t`."""
+    bins = n_fft // 2 + 1
+    rows = []
+    for row in range(crm.shape[0]):
+        s = jnp.asarray(spec[row:row + 1])
+        rr = jcrm.crm_sigmoid_recover(jnp.asarray(crm[row:row + 1, :, :bins]))
+        ri = jcrm.crm_sigmoid_recover(jnp.asarray(crm[row:row + 1, :, bins:]))
+        mr, mi = s[..., :bins], s[..., bins:]
+        kw = {} if valid_t is None else {"valid_t": jnp.int32(valid_t[row])}
+        z = jnp.stack([rr * mr - ri * mi, rr * mi + ri * mr], -1)
+        rows.append(np.asarray(jstft.istft(jnp.swapaxes(z, -3, -2), n_fft,
+                                           hop, win, **kw)))
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("n_fft,hop,win", FFT_GEOMETRIES)
+def test_fft_tables(n_fft, hop, win):
+    """Which instance, and the slot maps: scattering a frame by slot_in,
+    taking each axis's plain DFT (numpy, float64) and gathering by
+    slot_out gives the M-point DFT, whatever the passes."""
+    assert tstft.kernel_instance(n_fft, hop, win) == "fft"
+    tabs = tstft.fft_tables(n_fft, win)
+    m = tstft.fft_points(n_fft)
+    for name in ("slot_in", "slot_out"):
+        assert tabs[name].dtype == np.int32
+        np.testing.assert_array_equal(np.sort(tabs[name]), np.arange(m))
+    factors = tstft.fft_factors(n_fft)
+    z = np.random.default_rng(m).standard_normal((m, 2)) @ np.array([1.0, 1j])
+    buf = np.empty(m, complex)
+    buf[tabs["slot_in"]] = z
+    a = buf.reshape(factors)
+    for axis, q in enumerate(factors):
+        a = np.fft.fft(a, axis=axis)
+        if q % 2 == 0:  # the radix stages leave frequency f at where[f]
+            e = q.bit_length() - 1
+            where = tstft._digit_reversal(q, [4] * (e // 2) + [2] * (e % 2))
+            a = np.take(a, np.argsort(where), axis=axis)
+    np.testing.assert_allclose(a.reshape(m)[tabs["slot_out"]], np.fft.fft(z),
+                               atol=1e-9)
+    np.testing.assert_array_equal(tabs["window"],
+                                  tstft.padded_window(n_fft, win).astype(np.float32))
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("n_fft,hop,win", FFT_GEOMETRIES)
+def test_fft_stft_emulation_matches_plain_and_sos_tpu(n_fft, hop, win, center):
+    y = _short_clips(n_fft, 5 * hop + n_fft + 37)
+    got = emulate_fft_stft(torch.from_numpy(y), n_fft, hop, win, center)
+    plain = tstft.stft_cat_plain(torch.from_numpy(y), n_fft, hop, win, center)
+    assert got.shape == plain.shape == (
+        2, tstft.stft_num_frames(y.shape[1], n_fft, hop, center), 2 * (n_fft // 2 + 1))
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+    re, im = jstft.stft_packed(jnp.asarray(y), n_fft, hop, win, center=center)
+    ref = np.concatenate([np.asarray(re), np.asarray(im)], axis=-1)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("valid", [False, True])
+@pytest.mark.parametrize("n_fft,hop,win", FFT_GEOMETRIES)
+def test_fft_crm_istft_emulation_matches_plain_and_sos_tpu(n_fft, hop, win, valid):
+    y = _short_clips(n_fft, 6 * hop + 11)
+    spec = tstft.stft_cat_plain(torch.from_numpy(y), n_fft, hop, win)
+    frames = spec.shape[1]
+    o = np.random.default_rng(n_fft).uniform(0.01, 0.99, spec.shape)
+    o.reshape(-1)[::7], o.reshape(-1)[3::7] = 0.01, 0.99
+    crm = torch.from_numpy(o.astype(np.float32))
+    valid_t = torch.tensor([frames, 2]) if valid else None
+    got = emulate_fft_crm_istft(crm, spec, n_fft, hop, win, valid_t)
+    plain = tstft.crm_istft_plain(crm, spec, n_fft, hop, win, valid_t)
+    assert got.shape == plain.shape == (2, (frames - 1) * hop + n_fft % 2)
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    ref = _jax_crm_istft(crm.numpy(), spec.numpy(), n_fft, hop, win,
+                         None if valid_t is None else valid_t.tolist())
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)

@@ -11,8 +11,9 @@
   the tiny widths, on 1 s clips: bits equal (the JAX run's sigmoids checked clear of
   the threshold), waveform within 1e-5;
 * which kernel instance each geometry launches on a card (`kernel_instance`:
-  the prime-factor FFT at the default, the dense generic one elsewhere),
-  checked without a card.
+  the prime-factor FFT at the default, the "fft" instance where the
+  transform factors, the dense generic one elsewhere), checked without a
+  card.
 """
 
 import dataclasses
@@ -141,11 +142,26 @@ def test_istft_and_crm_istft_match_sos_tpu(signals, n_fft, hop, win):
 
 
 def test_kernel_instance_by_geometry():
-    """On a card the default geometry launches the prime-factor FFT and
-    every other one the generic dense instance (never the plain path)."""
+    """On a card the default geometry launches its prime-factor FFT; a
+    geometry whose transform splits into odd prime powers <= 73 and a
+    power of two, n_fft <= 2048, the "fft" instance; every other one the
+    generic dense instance (never the plain path)."""
     assert pstft.kernel_instance(510, 158, 400) == "pfa"
-    for geometry in GEOMETRIES + [(510, 158, 510), (510, 159, 400)]:
+    fft = {(1022, 256, 1022): (7, 73), (511, 158, 400): (7, 73),
+           (512, 128, 512): (256,), (400, 100, 300): (8, 25),
+           (510, 158, 510): (3, 5, 17), (510, 159, 400): (3, 5, 17),
+           (2048, 512, 2048): (1024,)}
+    for geometry, factors in fft.items():
+        assert pstft.kernel_instance(*geometry) == "fft"
+        assert pstft.fft_factors(geometry[0]) == factors
+    # 127 and 89 are primes above 73; 4100 (2 * 25 * 41) is over the cap;
+    # at hop 1 a K3 block cannot hold the 1,022 frames of one hop
+    for geometry in [(254, 64, 254), (178, 64, 178), (4100, 1024, 4100),
+                     (1022, 1, 1022)]:
         assert pstft.kernel_instance(*geometry) == "generic"
+    assert pstft.fft_factors(254) is None and pstft.fft_factors(178) is None
+    assert pstft.fft_factors(4100) == (2, 25, 41)
+    assert pstft.fft_launch_shape(1022, 1) is None
 
 
 def _geometry_configs(n_fft, hop, win):

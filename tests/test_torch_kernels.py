@@ -182,14 +182,17 @@ def _epilogue_params(cout, taps_cin, gen, device):
 
 def test_stft_kernels_refuse_other_geometries():
     """K1 and K3 launch a kernel at every STFT geometry (the prime-factor
-    instance at n_fft 510, hop 158, win 400, the generic one elsewhere),
-    so another geometry off the CPU is a device error like any other,
-    never the plain version; a geometry no STFT has (win > n_fft, hop 0)
-    is refused before a launch."""
+    instance at n_fft 510, hop 158, win 400, the "fft" instance where the
+    transform factors, the generic one elsewhere), so another geometry
+    off the CPU is a device error like any other, never the plain
+    version; a geometry no STFT has (win > n_fft, hop 0) is refused
+    before a launch."""
     meta = torch.device("meta")
     before = dict(LAUNCHES)
-    for kw in ({"n_fft": 512}, {"hop_length": 128}, {"win_length": 510}):
-        assert stft.kernel_instance(**{**GEOMETRY, **kw}) == "generic"
+    for kw, instance in (({"n_fft": 512}, "fft"), ({"hop_length": 128}, "fft"),
+                         ({"win_length": 510}, "fft"),
+                         ({"n_fft": 254, "win_length": 254}, "generic")):
+        assert stft.kernel_instance(**{**GEOMETRY, **kw}) == instance
         with pytest.raises(ValueError, match="meta"):
             stft.stft_cat(torch.empty(2, 28000, device=meta), **kw)
         with pytest.raises(ValueError, match="meta"):
@@ -206,9 +209,32 @@ def test_stft_kernels_refuse_other_geometries():
 
 
 GEOMETRY = {"n_fft": 510, "hop_length": 158, "win_length": 400}
-# other STFT geometries: (n_fft, hop, win), the generic instances'
-OTHER_GEOMETRIES = [(1022, 256, 1022), (511, 158, 400), (512, 128, 512),
-                    (254, 64, 254), (400, 100, 300)]
+# other STFT geometries: (n_fft, hop, win) of the generic instances (a
+# prime factor above 73: 127, 89) and of the "fft" instances (7 * 73,
+# frame pairs of 7 * 73, 2^8, 2^3 * 25)
+OTHER_GEOMETRIES = [(254, 64, 254), (178, 64, 178)]
+FFT_GEOMETRIES = [(1022, 256, 1022), (511, 158, 400), (512, 128, 512),
+                  (400, 100, 300)]
+
+
+def _spiky(n_fft, device, gen, rows=5):
+    y = (torch.randn(rows, 14097, generator=gen) * 0.3).to(device)
+    y[:, :n_fft // 2:17] += 3.0
+    y[:, -(n_fft // 2)::19] -= 3.0
+    return y
+
+
+def _stft_case(device, n_fft, hop, win, center, instance):
+    y = _spiky(n_fft, device, torch.Generator().manual_seed(n_fft + hop))
+    key = f"stft_{instance}" + ("" if center else "_center_false")
+    before = dict(LAUNCHES)
+    got = stft.stft_cat(y, n_fft, hop, win, center=center)
+    assert stft.kernel_instance(n_fft, hop, win) == instance
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+            if LAUNCHES[k] != before[k]} == {key: 1}
+    torch.testing.assert_close(
+        got, stft.stft_cat_plain(y, n_fft, hop, win, center=center),
+        atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -217,36 +243,35 @@ OTHER_GEOMETRIES = [(1022, 256, 1022), (511, 158, 400), (512, 128, 512),
 def test_stft_generic_kernel_matches_plain(cuda_device, n_fft, hop, win,
                                            center):
     """K1's generic instance (the dense product over the float64-built
-    table) at other geometries, centered (spikes where the reflect pad
-    reads) and over a pre-padded buffer."""
-    gen = torch.Generator().manual_seed(n_fft + hop)
-    y = (torch.randn(5, 14097, generator=gen) * 0.3).to(cuda_device)
-    y[:, :n_fft // 2:17] += 3.0
-    y[:, -(n_fft // 2)::19] -= 3.0
-    key = "stft_generic" if center else "stft_generic_center_false"
-    before = dict(LAUNCHES)
-    got = stft.stft_cat(y, n_fft, hop, win, center=center)
-    assert LAUNCHES[key] == before[key] + 1
-    assert LAUNCHES["stft"] == before["stft"]
-    assert LAUNCHES["stft_center_false"] == before["stft_center_false"]
-    torch.testing.assert_close(
-        got, stft.stft_cat_plain(y, n_fft, hop, win, center=center),
-        atol=1e-4, rtol=1e-4)
+    table) at geometries the "fft" instance does not take, centered
+    (spikes where the reflect pad reads) and over a pre-padded buffer."""
+    _stft_case(cuda_device, n_fft, hop, win, center, "generic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win", FFT_GEOMETRIES)
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_fft_kernel_matches_plain(cuda_device, n_fft, hop, win, center):
+    """K1's "fft" instance (csrc/stft_fft.cu) at the geometries whose
+    transform factors, centered and over a pre-padded buffer."""
+    _stft_case(cuda_device, n_fft, hop, win, center, "fft")
 
 
 # odd n_fft at lengths the hop divides: the centered count is
 # 1 + (L - 1) // hop, one frame fewer than 1 + L // hop; the second case
-# reflects the whole signal but one sample (L = n_fft // 2 + 1)
-ODD_N_FFT_CASES = [((511, 100, 400), 28000), ((511, 64, 511), 256)]
+# reflects the whole signal but one sample (L = n_fft // 2 + 1). n_fft 511
+# runs the "fft" instance on frame pairs, 237 (3 * 79) the generic one
+ODD_N_FFT_CASES = [((511, 100, 400), 28000), ((511, 64, 511), 256),
+                   ((237, 100, 200), 28000)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("geometry,length", ODD_N_FFT_CASES)
 def test_stft_generic_kernel_odd_n_fft_frame_count(cuda_device, geometry,
                                                    length):
-    """K1's generic instance frames an odd-n_fft centered STFT as the
-    plain version does (same shape, same values) where the hop divides
-    the length."""
+    """K1 (its "fft" or generic instance) frames an odd-n_fft centered
+    STFT as the plain version does (same shape, same values) where the
+    hop divides the length."""
     n_fft, hop, win = geometry
     gen = torch.Generator().manual_seed(length)
     y = (torch.randn(3, length, generator=gen) * 0.3).to(cuda_device)
@@ -257,32 +282,47 @@ def test_stft_generic_kernel_odd_n_fft_frame_count(cuda_device, geometry,
                                atol=1e-4, rtol=1e-4)
 
 
+def _crm_istft_case(device, n_fft, hop, win, valid, instance):
+    gen = torch.Generator().manual_seed(n_fft * hop)
+    spec = stft.stft_cat_plain(
+        (torch.randn(4, 14097, generator=gen) * 0.3).to(device),
+        n_fft, hop, win)
+    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(device)
+    crm.view(-1)[::7] = 0.01
+    crm.view(-1)[3::7] = 0.99
+    frames = spec.shape[1]
+    valid_t = (torch.tensor([frames, 1, 2, frames // 2], dtype=torch.int64)
+               .to(device) if valid else None)
+    key = f"crm_istft_{instance}" + ("_valid_t" if valid else "")
+    before = dict(LAUNCHES)
+    got = stft.crm_istft(crm, spec, n_fft, hop, win, valid_t=valid_t)
+    assert stft.kernel_instance(n_fft, hop, win) == instance
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+            if LAUNCHES[k] != before[k]} == {key: 1}
+    assert got.shape == (4, (frames - 1) * hop + n_fft % 2)
+    torch.testing.assert_close(
+        got, stft.crm_istft_plain(crm, spec, n_fft, hop, win, valid_t),
+        atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop,win", OTHER_GEOMETRIES)
 @pytest.mark.parametrize("valid", [False, True])
 def test_crm_istft_generic_kernel_matches_plain(cuda_device, n_fft, hop, win,
                                                 valid):
-    """K3's generic instance at other geometries (odd n_fft: one more
-    sample), with and without a valid frame count per row."""
-    gen = torch.Generator().manual_seed(n_fft * hop)
-    spec = stft.stft_cat_plain(
-        (torch.randn(4, 14097, generator=gen) * 0.3).to(cuda_device),
-        n_fft, hop, win)
-    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(cuda_device)
-    crm.view(-1)[::7] = 0.01
-    crm.view(-1)[3::7] = 0.99
-    frames = spec.shape[1]
-    valid_t = (torch.tensor([frames, 1, 2, frames // 2], dtype=torch.int64)
-               .to(cuda_device) if valid else None)
-    key = "crm_istft_generic_valid_t" if valid else "crm_istft_generic"
-    before = dict(LAUNCHES)
-    got = stft.crm_istft(crm, spec, n_fft, hop, win, valid_t=valid_t)
-    assert LAUNCHES[key] == before[key] + 1
-    assert LAUNCHES["crm_istft"] == before["crm_istft"]
-    assert got.shape == (4, (frames - 1) * hop + n_fft % 2)
-    torch.testing.assert_close(
-        got, stft.crm_istft_plain(crm, spec, n_fft, hop, win, valid_t),
-        atol=1e-4, rtol=1e-4)
+    """K3's generic instance at geometries the "fft" instance does not
+    take, with and without a valid frame count per row."""
+    _crm_istft_case(cuda_device, n_fft, hop, win, valid, "generic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win", FFT_GEOMETRIES)
+@pytest.mark.parametrize("valid", [False, True])
+def test_crm_istft_fft_kernel_matches_plain(cuda_device, n_fft, hop, win,
+                                            valid):
+    """K3's "fft" instance (csrc/crm_istft_fft.cu; odd n_fft: frame pairs
+    and one more sample), with and without a valid frame count per row."""
+    _crm_istft_case(cuda_device, n_fft, hop, win, valid, "fft")
 
 
 STFT_SHAPES = [(b, n) for b in (1, 3, 5) for n in (28000, 14000 + 97)]
