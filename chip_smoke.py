@@ -17,8 +17,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    time) and with TF32 allowed,
    each against its plain PyTorch version on the card (K6 and K7
    exactly, in every loader and epilogue form the main path runs, K6 on
-   both its routes: the wgmma halo tile and the mma.sync gather; K7 on
-   its wgmma tile, down, stride-2 and sub-pixel up blocks), with
+   the routes the main path takes: the wgmma halo tile, and the
+   first-layer and projection kernels at each of their five main-path
+   shapes, in records of their own, the projection beside
+   `torch._int_mm` plus its epilogue as torch ops; K7 on its wgmma
+   tile, down, stride-2 and sub-pixel up blocks), with
    the kernel's, the plain version's and the library call's times, TOPS
    and the kernel's bound; the length-bucketed cases of phase 7's path
    the same way: K1 with center=False on 128 rows of a 1,024-frame
@@ -26,7 +29,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    over 2-1,024 frames at 16 rows, K4 with per-row lengths at T 1,024 /
    H 200 and T 384 / H 100, 16 rows (beside cuDNN over a packed
    sequence); those of phase 7's int8 path: K6 with per-row valid_t
-   (enc_x block 7 and the Cin 2 first block) and K7 with per-row valid_t
+   (enc_x block 7 on the tile and the Cin 2 first block on the
+   first-layer kernel) and K7 with per-row valid_t
    on rows in segments (a_in, a_d1, mid_dil16, mid_up), 8 rows of a
    1,024-frame bucket, valid widths over 2-1,024 with garbage past them,
    exactly, and K7 without valid_t at the same widths (the exact mode's
@@ -52,7 +56,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
 5. throughput: `__call__` on 128 clips in the f32, bf16 and int8
    profiles, median of 10 timed calls (the int8 profile's calibrating
    first call excluded), in audio-seconds per second, with a
-   torch.profiler breakdown;
+   torch.profiler breakdown (K6 by route: tile, first layer,
+   projection, gather); the profiled int8 call must launch the
+   first-layer and projection kernels 3 times each and the gather
+   never;
 6. serving: `StreamingDenoiser` at full width, 2 s / 0.5 s chunks, on
    the card against the CPU in the f32 and int8 profiles (the int8 one
    loading phase 4's scale file): a 5 s utterance (4 chunks, two-pass),
@@ -248,7 +255,7 @@ from sos_tpu_torch.kernels.build import build
 from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
-                                         halo_plan, inpaint_conv_int8,
+                                         conv_same_route, inpaint_conv_int8,
                                          inpaint_conv_int8_plain, inpaint_plan,
                                          inpaint_valid_out, needs_prepad,
                                          up_pads)
@@ -625,6 +632,7 @@ def phase_kernels(gen: torch.Generator):
 
     # K6 and K7 — int8 convolutions at full width
     cgen = torch.Generator(device=dev).manual_seed(SEED)
+    k6_results = {}  # label -> result of a K6 case, each shape run once
     for name, source, replaces, cases in (
             ("int8_conv", "sos_tpu_torch/csrc/int8_conv.cu",
              "sos_tpu/models/quant.py:136", K6_CASES),
@@ -634,6 +642,8 @@ def phase_kernels(gen: torch.Generator):
                  "err": 0.0, "exact": True}
         for case in cases:
             res = int8_conv_case(name, case, cgen, dev)
+            if name == "int8_conv":
+                k6_results[case[0]] = res
             for key in ("ms", "plain_ms", "ops", "bytes"):
                 total[key] += res[key]
             total["err"] = max(total["err"], res["err"])
@@ -641,6 +651,30 @@ def phase_kernels(gen: torch.Generator):
         record(name, source, replaces, total["err"], total["exact"], "exact",
                total["ms"], total["plain_ms"], None, total["ops"],
                total["bytes"], PEAK_INT8_OPS,
+               shape=" + ".join(c[0] for c in cases) + " at B 128 (sum)")
+    # K6's first-layer and projection kernels at each of their main-path
+    # shapes (bound by bytes); the projection beside torch._int_mm and
+    # its epilogue as torch ops. A shape the four-case sum ran keeps its
+    # result there; the others draw from a generator of their own, so the
+    # cases after them keep the data of earlier runs
+    egen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for name, cases in (("int8_conv_first", K6_FIRST_CASES),
+                        ("int8_conv_proj", K6_PROJ_CASES)):
+        total = {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+                 "err": 0.0, "exact": True, "library_ms": 0.0}
+        for case in cases:
+            res = k6_results.get(case[0])
+            if res is None:
+                res = int8_conv_case("int8_conv", case, egen, dev)
+            for key in ("ms", "plain_ms", "ops", "bytes", "library_ms"):
+                total[key] += res.get(key, 0.0)
+            total["err"] = max(total["err"], res["err"])
+            total["exact"] = total["exact"] and res["exact"]
+        record(name, "sos_tpu_torch/csrc/int8_conv_edge.cu",
+               "sos_tpu/models/quant.py:136", total["err"], total["exact"],
+               "exact", total["ms"], total["plain_ms"],
+               total["library_ms"] if name == "int8_conv_proj" else None,
+               total["ops"], total["bytes"], PEAK_INT8_OPS,
                shape=" + ".join(c[0] for c in cases) + " at B 128 (sum)")
     for case in K6_LOGGED_CASES:  # checked and logged, outside the sum
         int8_conv_case("int8_conv", case, cgen, dev)
@@ -1255,7 +1289,8 @@ def bucketed_cases(gen, dev, record, window, table_bytes):
 
 
 # K6 cases: (label, Cin, Cout, kernel, dilation, F, T, float32 out); the
-# first is the byte-gather loader (Cin 2), the last the float epilogue
+# first runs on the first-layer kernel, the middle two on the tile, the
+# last on the projection kernel (the routes of `conv_same_route`)
 K6_CASES = (
     ("enc_x block 0 2->96 1x7", 2, 96, (1, 7), (1, 1), 256, 178, False),
     ("enc_x block 7 96->96 5x5 d(32,1)", 96, 96, (5, 5), (32, 1), 256, 178,
@@ -1265,11 +1300,34 @@ K6_CASES = (
     ("enc_x proj 96->8 1x1 float32 out", 96, 8, (1, 1), (1, 1), 256, 178,
      True),
 )
-# further K6 cases, logged beside the sum (which stays comparable with
-# earlier runs): the widest halo
+# K6's first-layer and projection kernels at every first-layer and
+# projection shape of the int8 main path (enc_n's block 0 is the
+# detector's; the detector's proj runs on its 60 frames after time_take)
+K6_FIRST_CASES = (
+    ("detector/enc_n block 0 2->48 1x7", 2, 48, (1, 7), (1, 1), 256, 178,
+     False),
+    ("enc_x block 0 2->96 1x7", 2, 96, (1, 7), (1, 1), 256, 178, False),
+)
+K6_PROJ_CASES = (
+    ("enc_x proj 96->8 1x1 float32 out", 96, 8, (1, 1), (1, 1), 256, 178,
+     True),
+    ("enc_n proj 48->4 1x1 float32 out", 48, 4, (1, 1), (1, 1), 256, 178,
+     True),
+    ("detector proj 48->8 1x1 float32 out at 60 frames", 48, 8, (1, 1),
+     (1, 1), 256, 60, True),
+)
+# further K6 cases, checked and logged beside the sum (which stays
+# comparable with earlier runs): the widest halo, then the mma.sync
+# gather's two loaders and two epilogues at shapes no full-width model
+# routes elsewhere (a narrow first layer, a 1x1 with int8 out, a narrow
+# float projection)
 K6_LOGGED_CASES = (
     ("enc_x block 13 96->96 5x5 d(32,32)", 96, 96, (5, 5), (32, 32), 256,
      178, False),
+    ("narrow block 0 2->8 1x7", 2, 8, (1, 7), (1, 1), 256, 178, False),
+    ("1x1 48->8 int8 out", 48, 8, (1, 1), (1, 1), 256, 178, False),
+    ("narrow proj 16->8 1x1 float32 out", 16, 8, (1, 1), (1, 1), 256, 178,
+     True),
 )
 # K7 cases: (label, kind, k, stride, dilation, Cin, Cout, F, T); a_in is
 # the Cin = 2 input block (padded to 16 channels on the tile)
@@ -1335,11 +1393,13 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     input's bytes."""
     out_f32, route = False, "mma.sync gather"
     vt = None
+    library = None
+    entry = None  # K6: the entry point its route must launch
     if kernel == "int8_conv":
         label, cin, cout, ks, dil, h, w, out_f32 = case
         kh, kw = ks
-        if not out_f32 and halo_plan(w, cin, cout, ks, dil) is not None:
-            route = "wgmma halo tile"
+        k6_route = conv_same_route(w, cin, cout, ks, dil, out_f32)
+        route, entry = K6_ROUTE_LABELS[k6_route], K6_ROUTE_ENTRIES[k6_route]
         ho, wo = h, w
         if valid:
             vt = valid_widths(batch, w, gen, dev)
@@ -1352,6 +1412,8 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
             return fn(x, wq, ws, b, ks, dil, out_f32, valid_t=vt)
 
         plain = lambda x: run(x, conv_same_int8_plain)  # noqa: E731
+        if k6_route == "proj" and not valid:
+            library = int_mm_projection
         pads = ((kh - 1) // 2 * dil[0], (kw - 1) // 2 * dil[1])
         ctx = lambda: torch.nn.functional.conv2d(  # noqa: E731
             xb, wb, padding=pads, dilation=dil)
@@ -1415,8 +1477,12 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     b = torch.randn(cout, generator=gen, device=dev) * 20
     x = torch.randint(-127, 128, (batch, h, w, cin), generator=gen,
                       device=dev, dtype=torch.int8)
+    before = ENTRY_LAUNCHES[entry] if entry else 0
     got, ref = run(x), plain(x)
     torch.cuda.synchronize()
+    if entry and ENTRY_LAUNCHES[entry] != before + 1:
+        raise RuntimeError(f"{kernel} {label}: {entry} launched "
+                           f"{ENTRY_LAUNCHES[entry] - before} times, not 1")
     exact = bool(torch.equal(got, ref))
     err = float((got.float() - ref.float()).abs().max())
     if vt is not None:  # zeros past each row's valid output width
@@ -1435,6 +1501,7 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     ctx_ms = time_ms(ctx)
     del xb, wb
+    lib = {} if library is None else library(x, wq, ws, b, ref_fn=plain)
     nbytes = float(h * v_in * cin
                    + batch * ho * wo * cout * (4 if out_f32 else 1)
                    + cout * kpad + 8 * cout + (8 * batch if valid else 0))
@@ -1445,12 +1512,51 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
         f"({batch}, {ho}, {wo}, {cout}){tag}; exact {exact} (max |err| "
         f"{err:.3e})  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS)  plain "
         f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({by})  cuDNN bf16 conv "
-        f"at this shape (context, not the same function) {ctx_ms:.4f} ms")
+        f"at this shape (context, not the same function) {ctx_ms:.4f} ms"
+        + ("" if not lib else
+           f"  torch._int_mm + epilogue {lib['library_ms']:.4f} ms "
+           f"(torch._int_mm alone {lib['int_mm_ms']:.4f} ms; same result "
+           f"{lib['equal']})"))
     if not exact:
         raise RuntimeError(f"{kernel} {label}: kernel disagrees with its "
                            "plain version")
     return {"ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
-            "err": err, "exact": exact}
+            "err": err, "exact": exact, **lib}
+
+
+K6_ROUTE_LABELS = {"tile": "wgmma halo tile",
+                   "first": "first-layer kernel",
+                   "proj": "projection kernel",
+                   "gather": "mma.sync gather"}
+K6_ROUTE_ENTRIES = {"tile": "sos_int8_conv_same_halo",
+                    "first": "sos_int8_conv_first",
+                    "proj": "sos_int8_conv_proj",
+                    "gather": "sos_int8_conv_same"}
+
+
+def int_mm_projection(x, wq, ws, b, ref_fn):
+    """K6's 1x1 float32 projection as PyTorch calls, its library
+    yardstick: `torch._int_mm` of the (positions, Cin) input by the
+    weights padded to 8 columns (cuBLASLt's least width), then the
+    dequant and ReLU as torch ops on the Cout columns. Returns its ms,
+    `_int_mm`'s alone and whether it equals `ref_fn(x)` (the plain
+    version) bit for bit."""
+    cin, cout = x.shape[-1], wq.shape[0]
+    a = x.reshape(-1, cin)
+    wt = torch.zeros(8, cin, dtype=torch.int8, device=x.device)
+    wt[:cout] = wq[:, :cin]
+    bt = wt.t()  # (Cin, 8), column-major, as cuBLASLt wants it
+
+    def call():
+        acc = torch._int_mm(a, bt)
+        return torch.clamp_min(acc[:, :cout].float() * ws + b, 0.0)
+
+    got = call().reshape(*x.shape[:-1], cout)
+    equal = bool(torch.equal(got, ref_fn(x)))
+    del got
+    return {"library_ms": time_ms(call),
+            "int_mm_ms": time_ms(lambda: torch._int_mm(a, bt)),
+            "equal": equal}
 
 
 def make_clips(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -1483,6 +1589,28 @@ MAIN_PATH_KERNELS = {
     "int8": ("stft", "mask_gate", "crm_istft", "bilstm", "int8_conv",
              "int8_inpaint"),
 }
+# K6's C entry points an int8 pipeline call launches, by phase 3's
+# record, and how often: the first layers and projections of the
+# detector trunk and both encoders; the other K6 blocks on the tile
+INT8_K6_ENTRIES = {"int8_conv_first": ("sos_int8_conv_first", 3),
+                   "int8_conv_proj": ("sos_int8_conv_proj", 3)}
+
+
+def k6_entry_launches(label: str) -> dict:
+    """The int8 pipeline call just run launched K6's first-layer and
+    projection kernels 3 times each and its `mma.sync` gather never
+    (else raise); their counts by phase 3's record."""
+    got = {name: ENTRY_LAUNCHES[entry]
+           for name, (entry, _) in INT8_K6_ENTRIES.items()}
+    want = {name: n for name, (_, n) in INT8_K6_ENTRIES.items()}
+    gather = ENTRY_LAUNCHES["sos_int8_conv_same"]
+    log(f"{label}: K6 launches first layer {got['int8_conv_first']}, "
+        f"projection {got['int8_conv_proj']}, tile "
+        f"{ENTRY_LAUNCHES['sos_int8_conv_same_halo']}, gather {gather}")
+    if got != want or gather:
+        raise RuntimeError(f"{label}: K6 launched {got} and the gather "
+                           f"{gather} times, not {want} and 0")
+    return got
 
 
 def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
@@ -1523,6 +1651,8 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     log(f"main path {profile} launches: {launches}")
+    if profile == "int8":
+        launches.update(k6_entry_launches(f"main path {profile}"))
     missing = [k for k in MAIN_PATH_KERNELS[profile] if launches[k] == 0]
     if missing:
         raise RuntimeError(f"main path {profile} never launched: {missing}")
@@ -1558,7 +1688,10 @@ CATEGORIES = (
     ("K5 int8_gemm", ("gemm_tma_s8",)),
     ("K7 int8_inpaint", ("inpaint_halo_s8", "InpaintPad>")),
     ("K7 int8_inpaint's gather (W reflect, phases)", ("inpaint_gather_s8",)),
-    ("K6 int8_conv", ("conv_halo_s8", "SamePad>")),
+    ("K6 int8_conv tile", ("conv_halo_s8",)),
+    ("K6 int8_conv first layer", ("conv_first_s8",)),
+    ("K6 int8_conv projection", ("conv_proj_s8",)),
+    ("K6 int8_conv igemm_s8 gather", ("SamePad>",)),
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K3 crm_istft", ("crm_synthesis_pfa",)),
     ("K2 mask_gate", ("mask_gate_kernel",)),
@@ -1638,7 +1771,10 @@ def phase_throughput(cfg: ExperimentConfig, det_state, den_state,
             f"per call (min {min(times) * 1e3:.1f}, max "
             f"{max(times) * 1e3:.1f}) -> {BATCH * CLIP / 14000.0 / med:.1f} "
             f"audio-s/s")
+        reset_launches()
         prof = profile_call(lambda: pipe(x))
+        if profile == "int8":
+            k6_entry_launches("throughput int8, the profiled call")
         if prof is not None:
             log(f"profile {profile}: wall {prof['wall_ms']:.1f} ms, device "
                 f"{prof['device_ms']:.1f} ms, idle share "
@@ -4406,8 +4542,8 @@ def main() -> int:
                                    workdir)
         int8_launches = phase_main_path(cfg, det_state, den_state, gen,
                                         "int8", workdir)
-        launches.update(int8_conv=int8_launches["int8_conv"],
-                        int8_inpaint=int8_launches["int8_inpaint"],
+        launches.update({k: int8_launches[k] for k in
+                         ("int8_conv", "int8_inpaint", *INT8_K6_ENTRIES)},
                         int8_gemm=k5_launches)
         phase_throughput(cfg, det_state, den_state, gen)
         phase_serving(cfg, det_state, den_state, gen, workdir)

@@ -10,11 +10,17 @@ script lies in is B. Each turn is a process of its own, which imports
 the package from its checkout and builds its kernels. A turn times, at
 128 clips with CUDA events (20 calls after 50 ms of warm-up calls), K7
 at seven full-width InpaintNet blocks and K6 at four trunk blocks, the
-shapes `chip_smoke.py` phase 3 times, then the median of 10 calls of
-`FusedDenoisePipeline(profile="int8")` on 128 seeded 2 s clips
-(self-calibrated on the card on its first call). It prints one line a
-turn and the card's name and power limit first. Compare two versions
-only within one run: two runs may land on two cards.
+shapes `chip_smoke.py` phase 3 times, and K6 at every first-layer and
+projection shape of the int8 main path (the Cin = 2 1x7 blocks and the
+1x1 float32 projections, the detector's at 60 frames), then the median
+of 10 calls of `FusedDenoisePipeline(profile="int8")` on 128 seeded 2 s
+clips (self-calibrated on the card on its first call) and one more call
+under `torch.profiler`, whose K6 device time it splits by route (the
+Hopper tile, the first-layer and projection kernels, the `mma.sync`
+gather's first layers, projections and other shapes), with the launches
+of each K6 entry point in that call. It prints two lines a turn and the
+card's name and power limit first. Compare two versions only within one
+run: two runs may land on two cards.
 """
 
 from __future__ import annotations
@@ -35,12 +41,29 @@ K7_CASES = (
     ("mid_dil2", "down", 3, 1, 2, 256, 256, 64, 45),
     ("up2_conv", "down", 3, 1, 1, 128, 64, 256, 178),
 )
-# (label, Cin, Cout, kernel, dilation, float32 out) at F 256 x T 178
+# (label, Cin, Cout, kernel, dilation, float32 out, T) at F 256: the
+# four of phase 3's K6 sum, then the other first-layer and projection
+# shapes of the int8 main path (det0 is also enc_n's block 0)
 K6_CASES = (
-    ("enc_x0", 2, 96, (1, 7), (1, 1), False),
-    ("enc_x7", 96, 96, (5, 5), (32, 1), False),
-    ("det10", 48, 48, (5, 5), (4, 4), False),
-    ("proj", 96, 8, (1, 1), (1, 1), True),
+    ("enc_x0", 2, 96, (1, 7), (1, 1), False, 178),
+    ("enc_x7", 96, 96, (5, 5), (32, 1), False, 178),
+    ("det10", 48, 48, (5, 5), (4, 4), False, 178),
+    ("proj", 96, 8, (1, 1), (1, 1), True, 178),
+    ("det0", 2, 48, (1, 7), (1, 1), False, 178),
+    ("enc_n_proj", 48, 4, (1, 1), (1, 1), True, 178),
+    ("det_proj_t60", 48, 8, (1, 1), (1, 1), True, 60),
+)
+# K6's device time by route: the first entry whose words all occur in a
+# kernel's name (the gather's instances name their loader and epilogue:
+# ConvA<false, ...SamePad> is the Cin = 2 byte gather, EpiFloat the
+# projection)
+K6_ROUTES = (
+    ("tile", ("conv_halo_s8",)),
+    ("first layer", ("conv_first_s8",)),
+    ("projection", ("conv_proj_s8",)),
+    ("gather first layer", ("ConvA<false", "SamePad")),
+    ("gather projection", ("EpiFloat", "SamePad")),
+    ("gather other", ("SamePad",)),
 )
 BATCH = 128
 
@@ -94,9 +117,9 @@ def turn(label: str) -> None:
         x = x_of((BATCH, h, w, cin))
         times.append((name, event_ms(lambda: inpaint_conv_int8(
             x, wq, ws, b, alpha, kind, k, s, d))))
-    for name, cin, cout, ks, dil, f32 in K6_CASES:
+    for name, cin, cout, ks, dil, f32, t in K6_CASES:
         wq, ws, b = weights(cout, ks[0] * ks[1] * cin)
-        x = x_of((BATCH, 256, 178, cin))
+        x = x_of((BATCH, 256, t, cin))
         times.append((name, event_ms(lambda: conv_same_int8(
             x, wq, ws, b, ks, dil, f32))))
     cfg = ExperimentConfig()
@@ -115,10 +138,45 @@ def turn(label: str) -> None:
             pipe(clips)
             torch.cuda.synchronize()
             calls.append((time.perf_counter() - t0) * 1e3)
+        routes, launches = k6_routes(lambda: pipe(clips))
     med = statistics.median(calls)
     print(f"{label}: " + " ".join(f"{n} {t:.4f} ms" for n, t in times)
           + f"; int8 call {med:.1f} ms ({BATCH * 2.0 / med * 1e3:.1f} "
           "audio-s/s)", flush=True)
+    print(f"{label} K6 in one profiled int8 call: " + ", ".join(
+        f"{n} {ms:.3f} ms ({k} kernels)" for n, (ms, k) in routes.items())
+        + "; launches " + ", ".join(f"{n} {c}" for n, c in launches.items()),
+        flush=True)
+
+
+def k6_routes(call):
+    """K6's device ms and kernel count by route in one `call`, from
+    torch.profiler, and the launches of each K6 entry point in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sos_tpu_torch.kernels import ENTRY_LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = {n: c for n, c in ENTRY_LAUNCHES.items()
+                if n.startswith("sos_int8_conv_") and "inpaint" not in n}
+    routes = {name: [0.0, 0] for name, _ in K6_ROUTES}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, keys in K6_ROUTES:
+            if all(k in evt.key for k in keys):
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = evt.self_cuda_time_total
+                routes[name][0] += us / 1e3
+                routes[name][1] += evt.count
+                break
+    return {n: tuple(v) for n, v in routes.items()}, launches
 
 
 def main() -> int:

@@ -20,9 +20,13 @@
 // K6's blocks with Cin % 16 == 0 and a spatial kernel run on the Hopper
 // tile (int8_wgmma.cuh), with the halo design below
 // (`sos_int8_conv_same_halo`); K7's on the same tile in int8_inpaint.cu.
-// K6's Cin = 2 first layers and 1x1 projections (`sos_int8_conv_same`),
-// and the K7 shapes ops/int8_conv.py `inpaint_plan` refuses
-// (`sos_int8_conv_inpaint`), are the implicit GEMM of int8_mma.cuh: row m is an output position (b, oh, ow) of the NHWC
+// K6's Cin = 2 first layers and 1x1 float projections have kernels of
+// their own in int8_conv_edge.cu (`sos_int8_conv_first`,
+// `sos_int8_conv_proj`). The K6 shapes none of those takes (the small
+// test configs' narrow widths, a 1x1 block with int8 output;
+// `sos_int8_conv_same`) and the K7 shapes ops/int8_conv.py
+// `inpaint_plan` refuses (`sos_int8_conv_inpaint`) are the implicit GEMM
+// of int8_mma.cuh: row m is an output position (b, oh, ow) of the NHWC
 // output, k = tap * Cin + ci runs over the receptive field (tap = i * kw
 // + j), and the loader below gathers A(m, k) from the NHWC int8 input:
 //
@@ -40,11 +44,11 @@
 // past the row's valid output width (`sos8::TimeMasked`; K6 too).
 //
 // The weights come from the host as (Cout, Kpad) int8, k in the same
-// order, zero-padded to a multiple of 64 (so the first layers, with
-// Cin = 2 and K = 14 or 50, take one stage, not a padded stage per tap;
-// up kernels arrive flipped). When Cin is a multiple of 16 a 16-byte
-// chunk of k lies inside one tap and is one vector load; otherwise (the
-// Cin = 2 first layers) the loader gathers bytes. The two address forms
+// order, zero-padded to a multiple of 64 (so a narrow first layer, K =
+// 14 or 50, takes one stage, not a padded stage per tap; up kernels
+// arrive flipped). When Cin is a multiple of 16 a 16-byte chunk of k
+// lies inside one tap and is one vector load; otherwise (Cin 2 or 6 in
+// the test configs) the loader gathers bytes. The two address forms
 // are the loader's `Pad` type (SamePad for K6, InpaintPad for K7), which
 // also names the two kernels apart in a profile.
 //
@@ -138,7 +142,8 @@ struct ConvA {
       return __ldg(reinterpret_cast<const int4*>(
           img + ((size_t)ih * w.n + iw) * Cin + ci));
     }
-    // Cin % 16 != 0 (the Cin = 2 first layers): byte by byte, walking
+    // Cin % 16 != 0 (narrow first layers, K7's a_in at a Cout the tile
+    // has no width for): byte by byte, walking
     // (i, j, ci) without divisions, each byte shifted in at the top of
     // the 128-bit value so that byte e ends at bits 8e..8e+7. The loop
     // stays rolled: unrolled, its 16 gathers cost seconds of ptxas time
@@ -184,7 +189,7 @@ cudaError_t conv(const int8_t* x, const int8_t* w, int B, Pad h, Pad wd,
 // ---- K6 on the Hopper tile: a halo of input rows, tap-shifted reads ------
 //
 // For Cin % 16 == 0 (every trunk block but the Cin = 2 first layers and
-// the 1x1 projections, which stay on the gather above), a block owns
+// the 1x1 projections, which run in int8_conv_edge.cu), a block owns
 // whole output rows (b, oh), cut into segments of up to 192 positions
 // (3 x m64, one consumer warpgroup each; 178 positions pad to 192). For
 // each kh tap i it TMA-loads the input row ih = oh + i*dh - pad_h once,
@@ -479,7 +484,9 @@ extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
   });
 }
 
-// K6: SAME conv, stride 1; int8 out (requantized) or float32 out (proj).
+// K6 on the gather, for the shapes ops/int8_conv.py `conv_same_route`
+// sends to no other kernel: SAME conv, stride 1; int8 out (requantized)
+// or float32 out (proj).
 // `vt` (device int32 (B,), or NULL): zeros at time positions >= vt[b].
 extern "C" int sos_int8_conv_same(const int8_t* x, const int8_t* w,
                                   const float* ws, const float* bias,

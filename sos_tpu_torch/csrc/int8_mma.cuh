@@ -1,7 +1,10 @@
-// The mma.sync int8 tile and the implicit GEMM built on it: K6's Cin = 2
-// first layers and 1x1 projections, and the K7 shapes that K7's Hopper
-// tile does not take. K5, K6's other blocks and K7 run on the Hopper tile
-// of int8_wgmma.cuh.
+// The mma.sync int8 tile and the implicit GEMM built on it: the K6 shapes
+// no other K6 kernel takes (the small test configs' narrow widths, a 1x1
+// block with int8 output) and the K7 shapes that K7's Hopper tile does
+// not take. K5, K6's spatial blocks with Cin % 16 == 0 and K7 run on the
+// Hopper tile of int8_wgmma.cuh; K6's Cin = 2 first layers and 1x1 float
+// projections on the kernels of int8_conv_edge.cu, which also take
+// m16n8k32 fragments and the epilogue arithmetic from here.
 //
 //   C (M, N) = A (M, K) * B^T,  A and B int8, C int32 (exact).
 //

@@ -22,9 +22,11 @@ plain PyTorch versions sit in the module of the op they replace:
 
 K4 keeps W_hh in shared memory for all steps, with tiles of batch rows
 a block (a thread block cluster of 4 shares H 200; `ops/lstm.py`
-`recurrence_plan`). K5, K6's blocks with Cin % 16 == 0 and K7 (`csrc/int8_inpaint.cu`) run
-on the Hopper int8 tile (`csrc/int8_wgmma.cuh`: wgmma fed by TMA); K6's
-other blocks, and the K7 shapes its plan refuses, on the `mma.sync` tile
+`recurrence_plan`). K5, K6's spatial blocks with Cin % 16 == 0 and K7
+(`csrc/int8_inpaint.cu`) run on the Hopper int8 tile
+(`csrc/int8_wgmma.cuh`: wgmma fed by TMA); K6's Cin = 2 first layers and
+1x1 float projections on kernels of their own (`csrc/int8_conv_edge.cu`);
+the K6 and K7 shapes none of those takes on the `mma.sync` tile
 (`csrc/int8_mma.cuh`).
 """
 

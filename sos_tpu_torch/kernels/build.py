@@ -94,6 +94,12 @@ SIGNATURES = {
     # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), plan (host
     # int32), B, H, W, Cin, Cout, kh, kw, dh, dw, kpad, stream
     "sos_int8_conv_same_halo": (_P,) * 7 + (_I,) * 10 + (_P,),
+    # K6's first layer: x, w, w_s, bias, out, valid_t (int32 (B,) or
+    # NULL), B, H, W, Cout, kpad, stream
+    "sos_int8_conv_first": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # K6's projection: x, w, w_s, bias, out (float32), valid_t (int32 (B,)
+    # or NULL), B, H, W, Cin, Cout, kpad, stream
+    "sos_int8_conv_proj": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, w, w_s, bias, alpha, out, valid_t in and out (int32 (B,) or
     # NULL), B, H, W, Cin, Ho, Wo, Cout, k, stride, dil, pad, up, kpad,
     # stream
@@ -128,7 +134,7 @@ LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
                             "bilstm_bwd": 0, "int8_gemm": 0,
                             "int8_conv": 0, "int8_conv_valid_t": 0,
                             "int8_inpaint": 0, "int8_inpaint_valid_t": 0}
-# The same launches by C entry point (K6 and K7 have two routes each)
+# The same launches by C entry point (K6 has four routes, K7 two)
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES
                                   if not name.endswith("_max_clusters")}
 

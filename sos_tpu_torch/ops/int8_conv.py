@@ -6,10 +6,16 @@ Port of the convolutions of `sos_tpu/models/quant.py`:
   epilogue of `_run_encoder_int8` (:136-197), a dilated SAME conv,
   stride 1, then `relu(acc * w_s + b)` rounded half to even and clipped
   to int8, or left float32 for the last (1x1 proj) block of a trunk.
-  Blocks with Cin % 16 == 0 and a spatial kernel run on the Hopper tile
+  `conv_same_route` picks one of four kernels by shape: blocks with
+  Cin % 16 == 0 and a spatial kernel run on the Hopper tile
   (`sos_int8_conv_same_halo`, wgmma on TMA-loaded input-row halos, its
-  launch plan from `halo_plan`); the Cin = 2 first layers and the 1x1
-  projections run on the `mma.sync` gather (`sos_int8_conv_same`).
+  launch plan from `halo_plan`); the Cin = 2 1x7 first layers (Cout 48
+  or 96) on the first-layer kernel and the 1x1 float32 projections (Cin
+  48 or 96, Cout 4 or 8) on the projection kernel
+  (`csrc/int8_conv_edge.cu`: `sos_int8_conv_first`,
+  `sos_int8_conv_proj`); every other shape, the test configs' narrow
+  widths and any 1x1 with int8 output, on the `mma.sync` gather
+  (`sos_int8_conv_same`).
 * K7 `inpaint_conv_int8` (`csrc/int8_inpaint.cu`): the conv of
   `QuantizedDenoiser._inpaint_block_int8` (:457-517), a conv over a
   reflect-padded input ("down", stride 1/2, dilation 1-16) or the k3 s2
@@ -236,11 +242,11 @@ class HaloPlan:
 def halo_plan(w: int, cin: int, cout: int, ksize: Tuple[int, int],
               dilation: Tuple[int, int]) -> Optional[HaloPlan]:
     """K6's Hopper-tile plan for an input `w` positions wide, or None for
-    the shapes that stay on the `mma.sync` gather (Cin not a multiple of
-    16, a 1x1 kernel, a width the kernel has no wgmma for, or a tap row
-    too large for its shared memory). Output rows of an item share each
-    tap row's weights: four at Cout <= 48, two at 96 (a thread's
-    accumulators, rows x Cout / 2, stay within 96)."""
+    the shapes it does not take (Cin not a multiple of 16, a 1x1 kernel,
+    a width the kernel has no wgmma for, or a tap row too large for its
+    shared memory; `conv_same_route` sends them elsewhere). Output rows
+    of an item share each tap row's weights: four at Cout <= 48, two at
+    96 (a thread's accumulators, rows x Cout / 2, stay within 96)."""
     (kh, kw), (_, dw) = ksize, dilation
     if cin % 16 or (kh, kw) == (1, 1) or cout not in HALO_COUTS:
         return None
@@ -282,6 +288,28 @@ def halo_plan(w: int, cin: int, cout: int, ksize: Tuple[int, int],
                     rows, tuple(steps), stage_bytes, stages, vector)
 
 
+FIRST_COUTS = (48, 96)  # the first-layer kernel: Cin 2, kernel (1, 7)
+PROJ_CINS = (48, 96)    # the projection kernel: 1x1, float32 out
+PROJ_COUTS = (4, 8)
+
+
+def conv_same_route(w: int, cin: int, cout: int, ksize: Tuple[int, int],
+                    dilation: Tuple[int, int], out_f32: bool) -> str:
+    """K6's kernel for a block of this shape on an input `w` positions
+    wide: "tile" (the Hopper tile, `halo_plan`), "first" (the Cin = 2
+    first layer), "proj" (the 1x1 float32 projection) or "gather" (the
+    `mma.sync` gather, for every other shape)."""
+    ksize, dilation = tuple(ksize), tuple(dilation)
+    if out_f32:
+        return ("proj" if ksize == (1, 1) and cin in PROJ_CINS
+                and cout in PROJ_COUTS else "gather")
+    if (cin, ksize, dilation) == (2, (1, 7), (1, 1)) and cout in FIRST_COUTS:
+        return "first"
+    if halo_plan(w, cin, cout, ksize, dilation) is not None:
+        return "tile"
+    return "gather"
+
+
 def conv_same_int8_plain(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                          b: torch.Tensor, ksize: Tuple[int, int],
                          dilation: Tuple[int, int], out_f32: bool = False,
@@ -304,7 +332,8 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
                    valid_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC int8 `(B, H, W, Cin)` -> `(B, H, W, Cout)`: int8, or float32
     with `out_f32`; with `valid_t` `(B,)`, zeros at time (W) positions
-    `>= valid_t[b]`. Kernel K6 on CUDA tensors, the plain version on CPU
+    `>= valid_t[b]`. Kernel K6 on CUDA tensors (the one `conv_same_route`
+    names; a failed build or launch raises), the plain version on CPU
     tensors."""
     if x.device.type == "cpu":
         return conv_same_int8_plain(x, w, w_s, b, ksize, dilation, out_f32,
@@ -312,7 +341,7 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     (kh, kw), (dh, dw) = ksize, dilation
     _check("conv_same_int8", x, w, w_s, b, kh * kw)
     vt = _valid_arg("conv_same_int8", valid_t, x)
-    # both routes read x as packed NHWC and w as rows kpad bytes apart:
+    # every route reads x as packed NHWC and w as rows kpad bytes apart:
     # `aligned16` copies a strided or misaligned view to contiguous rows
     x, w = aligned16(x), aligned16(w)
     bsz, h, wid, cin = x.shape
@@ -320,17 +349,23 @@ def conv_same_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     out = torch.empty((bsz, h, wid, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
                       device=x.device)
-    plan = None if out_f32 else halo_plan(wid, cin, cout, tuple(ksize),
-                                          tuple(dilation))
+    route = conv_same_route(wid, cin, cout, ksize, dilation, out_f32)
     ptrs = _ptrs(x, w, w_s.contiguous(), b.contiguous(), out)
     vt_ptr = None if vt is None else vt.data_ptr()
     # the valid_t case counts apart, as K1/K3/K4's bucketed cases do
     counter = "int8_conv" if vt is None else "int8_conv_valid_t"
     with on_device(x.device) as stream:
-        if plan is not None:
+        if route == "tile":
+            plan = halo_plan(wid, cin, cout, tuple(ksize), tuple(dilation))
             launch(counter, "sos_int8_conv_same_halo", *ptrs, vt_ptr,
                    plan.vector.ctypes.data, bsz, h, wid, cin, cout, kh, kw,
                    dh, dw, w.shape[1], stream)
+        elif route == "first":
+            launch(counter, "sos_int8_conv_first", *ptrs, vt_ptr, bsz, h,
+                   wid, cout, w.shape[1], stream)
+        elif route == "proj":
+            launch(counter, "sos_int8_conv_proj", *ptrs, vt_ptr, bsz, h,
+                   wid, cin, cout, w.shape[1], stream)
         else:
             launch(counter, "sos_int8_conv_same", *ptrs, vt_ptr, bsz, h,
                    wid, cin, cout, kh, kw, dh, dw, w.shape[1], int(out_f32),

@@ -166,6 +166,37 @@ def test_int8_wrappers_refuse_other_devices():
     assert LAUNCHES == before
 
 
+def test_k6_router_covers_the_reference_trunks():
+    """`ExperimentConfig()`'s detector trunk and both ContextAggNet
+    encoders: every K6 block goes to the first-layer kernel (block 0),
+    the Hopper tile (the blocks between) or the projection kernel (the
+    1x1 float32 block), never to the `mma.sync` gather, at the full
+    2 s width, the detector's proj at its 60 frames (`time_take`), and
+    the eval chain's bucket widths."""
+    from sos_tpu_torch.models.quant import _encoder_specs
+
+    cfg = ExperimentConfig()
+    d, n = cfg.detector, cfg.denoiser
+    trunks = (("detector", d, d.in_channels, d.nf, d.outf),
+              ("enc_x", n, 2, n.nf_mixed, n.outf_mixed),
+              ("enc_n", n, 2, n.nf_noise, n.outf_noise))
+    routed = []
+    for name, model, cin0, nf, outf in trunks:
+        specs = _encoder_specs(model)
+        for width in (178, 256, 1024):
+            for i, (ks, dil) in enumerate(specs):
+                last = i == len(specs) - 1
+                cin, cout = (cin0 if i == 0 else nf), (outf if last else nf)
+                w = 60 if last and name == "detector" and width == 178 \
+                    else width
+                route = int8_conv.conv_same_route(w, cin, cout, ks, dil,
+                                                  out_f32=last)
+                want = "first" if i == 0 else "proj" if last else "tile"
+                assert route == want, (name, i, w, route)
+                routed.append(route)
+    assert len(routed) == 3 * (12 + 15 + 15)
+
+
 def _int8(shape, gen, device):
     return torch.randint(-127, 128, shape, generator=gen,
                          dtype=torch.int8).to(device)
@@ -819,39 +850,81 @@ def test_int8_conv_same_halo_kernel_exact(cuda_device, batch, cin, cout, ks,
                                                            dil))
 
 
+# K6's C entry point of each route (`int8_conv.conv_same_route`)
+K6_ENTRIES = {"tile": "sos_int8_conv_same_halo",
+              "first": "sos_int8_conv_first", "proj": "sos_int8_conv_proj",
+              "gather": "sos_int8_conv_same"}
+
+
+def _k6_entry_rose(entries, route):
+    """Exactly one K6 entry point launched since `entries`: `route`'s."""
+    rose = {name: ENTRY_LAUNCHES[name] - entries[name]
+            for name in K6_ENTRIES.values()}
+    assert rose == {name: int(name == K6_ENTRIES[route])
+                    for name in K6_ENTRIES.values()}, rose
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw", [
-    (2, 48, (1, 7), (1, 1), False, (256, 178)),
-    (2, 96, (1, 7), (1, 1), False, (256, 178)),
-    (48, 48, (5, 5), (32, 1), False, (256, 178)),
-    (96, 96, (5, 5), (32, 32), False, (64, 80)),
-    (96, 96, (5, 5), (32, 32), False, (256, 178)),
-    (96, 8, (1, 1), (1, 1), True, (256, 60)),
-    (48, 4, (1, 1), (1, 1), True, (256, 178)),
-    (6, 4, (7, 1), (1, 1), False, (30, 20)),
-    (16, 16, (5, 5), (2, 2), False, (30, 20)),
-    (32, 32, (7, 1), (1, 1), False, (40, 300)),
+@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw,batch,route", [
+    # the int8 main path's first layers and projections (enc_n's block 0
+    # is the detector's shape; the detector's proj runs at 60 frames)
+    (2, 48, (1, 7), (1, 1), False, (256, 178), 2, "first"),
+    (2, 96, (1, 7), (1, 1), False, (256, 178), 2, "first"),
+    (96, 8, (1, 1), (1, 1), True, (256, 178), 2, "proj"),
+    (48, 4, (1, 1), (1, 1), True, (256, 178), 2, "proj"),
+    (48, 8, (1, 1), (1, 1), True, (256, 60), 2, "proj"),
+    # batch 1, an odd batch, and rows whose positions are no multiple of
+    # a block's span (the last block ragged)
+    (2, 96, (1, 7), (1, 1), False, (256, 178), 1, "first"),
+    (2, 48, (1, 7), (1, 1), False, (30, 37), 3, "first"),
+    (2, 96, (1, 7), (1, 1), False, (7, 5), 3, "first"),
+    (96, 8, (1, 1), (1, 1), True, (256, 178), 1, "proj"),
+    (48, 4, (1, 1), (1, 1), True, (30, 37), 3, "proj"),
+    (96, 8, (1, 1), (1, 1), True, (7, 5), 3, "proj"),
+    # the Hopper tile
+    (48, 48, (5, 5), (32, 1), False, (256, 178), 2, "tile"),
+    (96, 96, (5, 5), (32, 32), False, (64, 80), 2, "tile"),
+    (96, 96, (5, 5), (32, 32), False, (256, 178), 2, "tile"),
+    (16, 16, (5, 5), (2, 2), False, (30, 20), 2, "tile"),
+    (32, 32, (7, 1), (1, 1), False, (40, 300), 2, "tile"),
+    # the gather: narrow widths and a 1x1 with int8 output
+    (6, 4, (7, 1), (1, 1), False, (30, 20), 2, "gather"),
+    (2, 8, (1, 7), (1, 1), False, (30, 20), 2, "gather"),
+    (8, 2, (1, 1), (1, 1), True, (30, 20), 2, "gather"),
+    (48, 8, (1, 1), (1, 1), False, (30, 20), 2, "gather"),
 ])
 def test_int8_conv_same_kernel_exact(cuda_device, cin, cout, ks, dil,
-                                     out_f32, hw):
-    """Both K6 routes: the Hopper tile (Cin % 16 == 0, spatial kernels,
-    here also narrow widths and a row of two segments) and the gather
-    (Cin 2 and 6, the 1x1 float32 projections)."""
-    gen = torch.Generator().manual_seed(cin * cout)
-    x = _int8((2, *hw, cin), gen, cuda_device)
+                                     out_f32, hw, batch, route):
+    """Every K6 route, each on the kernel `conv_same_route` names for its
+    shape: the first-layer kernel (Cin 2, 1x7) and the projection kernel
+    (1x1, float32 out) at every shape of the int8 main path, the Hopper
+    tile (Cin % 16 == 0, spatial kernels, here also narrow widths and a
+    row of two segments) and the gather (every other shape), bit-equal
+    to the plain version."""
+    assert int8_conv.conv_same_route(hw[1], cin, cout, ks, dil,
+                                     out_f32) == route
+    gen = torch.Generator().manual_seed(cin * cout + batch + hw[1])
+    x = _int8((batch, *hw, cin), gen, cuda_device)
     w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    entries = dict(ENTRY_LAUNCHES)
     got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil, out_f32)
+    _k6_entry_rose(entries, route)
     ref = int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil, out_f32)
-    assert got.shape == ref.shape == (2, *hw, cout)
+    assert got.shape == ref.shape == (batch, *hw, cout)
     assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,ks,dil", [(96, 96, (5, 5), (32, 1)),
-                                             (2, 48, (1, 7), (1, 1))])
+@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,route", [
+    (96, 96, (5, 5), (32, 1), False, "tile"),
+    (2, 48, (1, 7), (1, 1), False, "first"),
+    (2, 96, (1, 7), (1, 1), False, "first"),
+    (96, 8, (1, 1), (1, 1), True, "proj"),
+    (48, 4, (1, 1), (1, 1), True, "proj"),
+])
 def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
-                                                   ks, dil):
-    """Both K6 routes on an input that is a channel slice of a wider
+                                                   ks, dil, out_f32, route):
+    """K6's kernels on an input that is a channel slice of a wider
     tensor and weights that are a column slice of a wider packing."""
     gen = torch.Generator().manual_seed(cin + cout)
     x = _int8((2, 64, 178, cin + 16), gen, cuda_device)[..., 16:]
@@ -861,8 +934,11 @@ def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
     wide[:, 64:] = w
     w_view = wide[:, 64:]
     assert not x.is_contiguous() and not w_view.is_contiguous()
-    assert torch.equal(int8_conv.conv_same_int8(x, w_view, w_s, b, ks, dil),
-                       int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil))
+    entries = dict(ENTRY_LAUNCHES)
+    got = int8_conv.conv_same_int8(x, w_view, w_s, b, ks, dil, out_f32)
+    _k6_entry_rose(entries, route)
+    assert torch.equal(got, int8_conv.conv_same_int8_plain(x, w, w_s, b, ks,
+                                                           dil, out_f32))
 
 
 def _row_widths(batch, width, pad, gen, device):
@@ -875,16 +951,22 @@ def _row_widths(batch, width, pad, gen, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw,batch", [
-    (96, 96, (5, 5), (32, 1), False, (256, 1024), 8),   # enc_x block 7
-    (48, 48, (5, 5), (32, 32), False, (64, 512), 4),
-    (2, 96, (1, 7), (1, 1), False, (256, 1024), 8),     # the Cin 2 gather
-    (96, 8, (1, 1), (1, 1), True, (256, 1024), 5),      # the float proj
-    (16, 16, (5, 5), (2, 2), False, (30, 20), 4),
+@pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw,batch,route", [
+    (96, 96, (5, 5), (32, 1), False, (256, 1024), 8, "tile"),  # enc_x 7
+    (48, 48, (5, 5), (32, 32), False, (64, 512), 4, "tile"),
+    (2, 96, (1, 7), (1, 1), False, (256, 1024), 8, "first"),   # enc_x 0
+    (2, 48, (1, 7), (1, 1), False, (256, 178), 5, "first"),
+    (2, 48, (1, 7), (1, 1), False, (30, 37), 3, "first"),
+    (96, 8, (1, 1), (1, 1), True, (256, 1024), 5, "proj"),     # enc_x proj
+    (48, 4, (1, 1), (1, 1), True, (256, 178), 5, "proj"),
+    (48, 8, (1, 1), (1, 1), True, (256, 60), 3, "proj"),
+    (16, 16, (5, 5), (2, 2), False, (30, 20), 4, "tile"),
+    (2, 8, (1, 7), (1, 1), False, (30, 20), 4, "gather"),
 ])
 def test_int8_conv_same_kernel_valid_t_exact(cuda_device, cin, cout, ks,
-                                             dil, out_f32, hw, batch):
-    """K6 with per-row valid widths, both routes, against the plain
+                                             dil, out_f32, hw, batch, route):
+    """K6 with per-row valid widths (1, the full width, one within the
+    pad of it, the rest spread), on every route, against the plain
     version exactly: zeros past each row's width (the input, garbage
     there too, is taken as it is); counted as the valid_t case."""
     gen = torch.Generator().manual_seed(cin + cout + hw[1])
@@ -892,11 +974,12 @@ def test_int8_conv_same_kernel_valid_t_exact(cuda_device, cin, cout, ks,
     w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
     vt = _row_widths(batch, hw[1], (ks[1] - 1) // 2 * dil[1], gen,
                      cuda_device)
-    before = dict(LAUNCHES)
+    before, entries = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
     got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil, out_f32,
                                    valid_t=vt)
     assert LAUNCHES["int8_conv_valid_t"] == before["int8_conv_valid_t"] + 1
     assert LAUNCHES["int8_conv"] == before["int8_conv"]
+    _k6_entry_rose(entries, route)
     ref = int8_conv.conv_same_int8_plain(x, w, w_s, b, ks, dil, out_f32,
                                          valid_t=vt)
     assert torch.equal(got, ref)
