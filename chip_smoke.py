@@ -33,8 +33,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    first-layer kernel) and K7 with per-row valid_t
    on rows in segments (a_in, a_d1, mid_dil16, mid_up), 8 rows of a
    1,024-frame bucket, valid widths over 2-1,024 with garbage past them,
-   exactly, and K7 without valid_t at the same widths (the exact mode's
-   long rows on the tile); the training path's instances (phase 8's
+   exactly, each beside the share of its items that the masked instance
+   computes (live items), that instance's time with every row full
+   (exact too) and the unmasked instance's at the same shape, and K7
+   without valid_t at the same widths (the exact mode's long rows on the
+   tile); the training path's instances (phase 8's
    shapes): K4's training instance (h bit-identical to the inference
    instance's, c and gates within 1e-6 of one step from the kernel's
    own state) and K4b (the BiLSTM backward, against its plain version
@@ -82,8 +85,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    sparsest, `valley_threshold`), each stage timed and the 11 metrics
    finite; then the predictors alone in f32, bf16 and int8 (int8 loading
    phase 4's scale file), bucketed and exact (audio-s/s for detect and
-   denoise), with bucketed against exact within 1e-4 with equal bits
-   (int8: 2e-5 confidences, 3e-5 waveforms, sos_tpu's bounds), bf16
+   denoise; bucketed, beside the chain's fill: the utterances' frames
+   over the frames of its tiles), with bucketed against exact within
+   1e-4 with equal bits (int8: 2e-5 confidences, 3e-5 waveforms,
+   sos_tpu's bounds), bf16
    bits agreeing with f32 on at least 98 % of frames, the int8 chain
    through K6's and K7's valid_t cases and never through K7's mma.sync
    gather, and the card against the CPU on the 2.0 s and 7.4 s
@@ -256,9 +261,9 @@ from sos_tpu_torch.models import JointDenoiser, SilenceDetector
 from sos_tpu_torch.models.layers import exact_fp32, init_state_dict
 from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
                                          conv_same_route, inpaint_conv_int8,
-                                         inpaint_conv_int8_plain, inpaint_plan,
-                                         inpaint_valid_out, needs_prepad,
-                                         up_pads)
+                                         halo_plan, inpaint_conv_int8_plain,
+                                         inpaint_plan, inpaint_valid_out,
+                                         needs_prepad, up_pads)
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
@@ -1408,10 +1413,10 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
             v_in = v_out = batch * w
         ops = 2.0 * ho * v_out * cout * kh * kw * cin
 
-        def run(x, fn=conv_same_int8):
-            return fn(x, wq, ws, b, ks, dil, out_f32, valid_t=vt)
+        def call(x, fn, widths):
+            return fn(x, wq, ws, b, ks, dil, out_f32, valid_t=widths)
 
-        plain = lambda x: run(x, conv_same_int8_plain)  # noqa: E731
+        fns = (conv_same_int8, conv_same_int8_plain)
         if k6_route == "proj" and not valid:
             library = int_mm_projection
         pads = ((kh - 1) // 2 * dil[0], (kw - 1) // 2 * dil[1])
@@ -1463,10 +1468,12 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
                 output_padding=1)
         alpha = torch.tensor([0.25], device=dev)
 
-        def run(x, fn=inpaint_conv_int8):
-            return fn(x, wq, ws, b, alpha, kind, k, st, d, valid_t=vt)
+        def call(x, fn, widths):
+            return fn(x, wq, ws, b, alpha, kind, k, st, d, valid_t=widths)
 
-        plain = lambda x: run(x, inpaint_conv_int8_plain)  # noqa: E731
+        fns = (inpaint_conv_int8, inpaint_conv_int8_plain)
+    run = lambda x: call(x, fns[0], vt)  # noqa: E731
+    plain = lambda x: call(x, fns[1], vt)  # noqa: E731
     taps_cin = kh * kw * cin
     kpad = -(-taps_cin // 64) * 64
     wq = torch.randint(-127, 128, (cout, kpad), generator=gen, device=dev,
@@ -1494,6 +1501,10 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
             for r, v in enumerate(v_rows.tolist()))
     del got, ref
     ms = time_ms(lambda: run(x))
+    masked = {}
+    if vt is not None:
+        masked = masked_costs(kernel, case, call, fns, x, vt)
+        exact = exact and masked["full_exact"]
     plain_ms = time_ms(lambda: plain(x), reps=1, warmup=0)
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
@@ -1508,6 +1519,15 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
     bound_ms, by = bound(ops, nbytes, PEAK_INT8_OPS)
     tag = (f", valid_t {v_in} of {batch * w} input columns"
            if valid else "")
+    if masked:
+        share = masked["live_share"]
+        tag += ("; masked instance: live items "
+                + ("n/a (no segments)" if share is None else
+                   f"{share:.4f} (aim {share * masked['unmasked_ms']:.4f} ms "
+                   f"+ 15 %)")
+                + f", every row full {masked['full_ms']:.4f} ms (exact "
+                f"{masked['full_exact']}), unmasked instance "
+                f"{masked['unmasked_ms']:.4f} ms")
     log(f"{kernel} {label} [{route}]: ({batch}, {h}, {w}, {cin}) -> "
         f"({batch}, {ho}, {wo}, {cout}){tag}; exact {exact} (max |err| "
         f"{err:.3e})  kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS)  plain "
@@ -1521,7 +1541,33 @@ def int8_conv_case(kernel: str, case, gen: torch.Generator,
         raise RuntimeError(f"{kernel} {label}: kernel disagrees with its "
                            "plain version")
     return {"ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
-            "err": err, "exact": exact, **lib}
+            "err": err, "exact": exact, **lib, **masked}
+
+
+def masked_costs(kernel: str, case, call, fns, x, vt):
+    """What a K6 or K7 valid-width case's masked instance skips and costs
+    (`call(x, fn, widths)` runs the case's block through `fn`, `fns` the
+    wrapper and its plain version): the share of its items that it
+    computes at the widths `vt` (`HaloPlan.live_share` /
+    `InpaintPlan.live_share`; None on a route without segments), its
+    time with every row full (checked exactly) and the unmasked
+    instance's time on the same input."""
+    w = x.shape[2]
+    if kernel == "int8_conv":
+        _, cin, cout, ks, dil, _, _, _ = case
+        plan = halo_plan(w, cin, cout, tuple(ks), tuple(dil))
+        share = None if plan is None else plan.live_share(vt.tolist(), w)
+    else:
+        _, kind, k, st, d, cin, cout, h, _ = case
+        plan = inpaint_plan(kind, k, st, d, h, w, cin, cout)
+        share = plan.live_share(
+            inpaint_valid_out(kind, k, st, d, vt).tolist())
+    full = torch.full_like(vt, w)
+    full_exact = bool(torch.equal(call(x, fns[0], full),
+                                  call(x, fns[1], full)))
+    return {"live_share": share, "full_exact": full_exact,
+            "full_ms": time_ms(lambda: call(x, fns[0], full)),
+            "unmasked_ms": time_ms(lambda: call(x, fns[0], None))}
 
 
 K6_ROUTE_LABELS = {"tile": "wgmma halo tile",
@@ -2192,6 +2238,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def bucket_fill(pred, wavs, frames=None) -> str:
+    """The bucketed chain's fill: the utterances' STFT frames over the
+    frames its tiles of EVAL_BATCH rows compute (each tile a bucket wide,
+    short tiles filled with repeated rows), grouped as `pred`'s
+    `predict_batch` (by bucket and frame bucket; `frames` given) or
+    `denoise_batch` (by bucket) groups them."""
+    hop = pred.cfg.stft.hop_length
+    groups = {}
+    for i, w in enumerate(wavs):
+        key = (pred._bucket_t(1 + len(w) // hop),
+               None if frames is None else pred._frames_bucket(frames[i]))
+        groups.setdefault(key, []).append(1 + len(w) // hop)
+    valid = sum(sum(v) for v in groups.values())
+    tiles = sum(-(-len(v) // EVAL_BATCH) * EVAL_BATCH * key[0]
+                for key, v in groups.items())
+    return f"{valid / tiles:.4f} ({valid} of {tiles} frames)"
+
+
 def run_detect(pred, wavs, frames, batched=True):
     """The exact mode item by item; the bucketed one in tiles of
     EVAL_BATCH rows, or (`batched=False`) item by item."""
@@ -2296,9 +2360,13 @@ def phase_eval(cfg: ExperimentConfig, det_state, den_state,
             dets, d_s = timed(lambda: run_detect(d, wavs, frames))
             dens, n_s = timed(lambda: run_denoise(n, wavs, bits))
             results[(profile, mode)] = (dets, dens)
+            fill = ("" if buckets is None else
+                    f"; fill: detect {bucket_fill(d, wavs, frames)}, "
+                    f"denoise {bucket_fill(n, wavs)}")
             log(f"eval throughput {profile} {mode}: detect "
                 f"{audio_s / d_s:.1f} audio-s/s ({d_s:.2f} s), denoise "
-                f"{audio_s / n_s:.1f} audio-s/s ({n_s:.2f} s) {card_note()}")
+                f"{audio_s / n_s:.1f} audio-s/s ({n_s:.2f} s){fill} "
+                f"{card_note()}")
             if profile == "int8":
                 check_int8_eval_launches(mode)
                 if mode == "bucketed":

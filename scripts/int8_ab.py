@@ -18,9 +18,17 @@ clips (self-calibrated on the card on its first call) and one more call
 under `torch.profiler`, whose K6 device time it splits by route (the
 Hopper tile, the first-layer and projection kernels, the `mma.sync`
 gather's first layers, projections and other shapes), with the launches
-of each K6 entry point in that call. It prints two lines a turn and the
-card's name and power limit first. Compare two versions only within one
-run: two runs may land on two cards.
+of each K6 entry point in that call. Then the length-bucketed (valid
+width) cases of `chip_smoke.py` phase 3 at 8 rows of a 1,024-frame
+bucket with fixed per-row widths (`VALID_WIDTHS`): K6 at its first layer
+and at enc_x block 7 on the tile, K7 at four InpaintNet blocks, each
+with those widths, with every row full and without widths (the unmasked
+instance), and `DenoiserPredictor(profile="int8", buckets=(256, 512,
+1024))`'s `denoise_batch` over 24 seeded utterances of 1.5-11 s in
+tiles of 8 (phase 7's int8 bucketed denoise; self-calibrated on the
+card, median of 3 passes after one), with the chain's fill. It prints
+three lines a turn and the card's name and power limit first. Compare
+two versions only within one run: two runs may land on two cards.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # (label, kind, k, stride, dilation, Cin, Cout, H, W)
@@ -66,6 +75,23 @@ K6_ROUTES = (
     ("gather other", ("SamePad",)),
 )
 BATCH = 128
+# phase 3's valid-width cases at a 1,024-frame bucket: (label, Cin, Cout,
+# kernel, dilation) of K6 at F 256; (label, kind, k, stride, dilation,
+# Cin, Cout, H, W) of K7
+K6_VALID = (("enc_x0", 2, 96, (1, 7), (1, 1)),
+            ("enc_x7", 96, 96, (5, 5), (32, 1)))
+K7_VALID = (
+    ("a_in", "down", 5, 1, 1, 2, 64, 256, 1024),
+    ("a_d1", "down", 5, 2, 1, 64, 128, 256, 1024),
+    ("mid_dil16", "down", 3, 1, 16, 256, 256, 64, 256),
+    ("mid_up", "up", 3, 2, 1, 256, 128, 64, 256),
+)
+# per-row widths (frames) of the 8 rows: 5,937 of 8,192, the valid
+# columns of phase 3's K6 case in earlier runs; K7's narrower blocks take
+# them scaled to their width
+VALID_WIDTHS = (1024, 918, 877, 640, 571, 764, 530, 613)
+EVAL_BUCKETS = (256, 512, 1024)
+EVAL_COUNT = 24
 
 
 def event_ms(fn, reps: int = 20) -> float:
@@ -147,6 +173,72 @@ def turn(label: str) -> None:
         f"{n} {ms:.3f} ms ({k} kernels)" for n, (ms, k) in routes.items())
         + "; launches " + ", ".join(f"{n} {c}" for n, c in launches.items()),
         flush=True)
+    valid_turn(label, cfg, den, weights, x_of)
+
+
+def valid_turn(label, cfg, den_state, weights, x_of) -> None:
+    """The valid-width cases and the int8 bucketed denoise of one turn."""
+    import numpy as np
+    import torch
+
+    from sos_tpu_torch.infer import DenoiserPredictor
+    from sos_tpu_torch.ops.int8_conv import conv_same_int8, inpaint_conv_int8
+
+    dev = torch.device("cuda")
+    rows = len(VALID_WIDTHS)
+    times = []
+    for name, cin, cout, ks, dil in K6_VALID:
+        wq, ws, b = weights(cout, ks[0] * ks[1] * cin)
+        x = x_of((rows, 256, 1024, cin))
+        for tag, vt in (("", VALID_WIDTHS), (" full", (1024,) * rows),
+                        (" unmasked", None)):
+            vt = None if vt is None else torch.tensor(vt, device=dev)
+            times.append((name + tag, event_ms(lambda: conv_same_int8(
+                x, wq, ws, b, ks, dil, valid_t=vt))))
+    alpha = torch.tensor([0.25], device=dev)
+    for name, kind, k, s, d, cin, cout, h, w in K7_VALID:
+        wq, ws, b = weights(cout, k * k * cin)
+        x = x_of((rows, h, w, cin))
+        scaled = tuple(-(-v * w // 1024) for v in VALID_WIDTHS)
+        for tag, vt in (("", scaled), (" full", (w,) * rows),
+                        (" unmasked", None)):
+            vt = None if vt is None else torch.tensor(vt, device=dev)
+            times.append((name + tag, event_ms(lambda: inpaint_conv_int8(
+                x, wq, ws, b, alpha, kind, k, s, d, valid_t=vt))))
+    print(f"{label} valid-width cases (8 rows, widths {VALID_WIDTHS} of "
+          "1024, K7 scaled to its width): " + " ".join(
+              f"{n} {t:.4f} ms" for n, t in times), flush=True)
+
+    rng = np.random.default_rng(0)
+    sr, hop = cfg.data.sample_rate, cfg.stft.hop_length
+    seconds = 1.5 + rng.random(EVAL_COUNT) * 9.5
+    wavs = [(rng.standard_normal(int(t * sr)) * 0.1).astype(np.float32)
+            for t in seconds]
+    bits = ["".join("1" if np.sin(2 * np.pi * 1.5 * (j + 0.5) / 30) > 0
+                    else "0" for j in range(int(t * 30))) for t in seconds]
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = DenoiserPredictor(
+            cfg, den_state, buckets=EVAL_BUCKETS, profile="int8",
+            calibration_path=os.path.join(tmp, "int8_calibration.json"))
+        passes = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.denoise_batch(wavs, bits, batch_size=8, keys=("denoised",))
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+    valid = [1 + len(wv) // hop for wv in wavs]
+    groups = {}
+    for v in valid:
+        bucket = next((b for b in EVAL_BUCKETS if v <= b), v)
+        groups.setdefault(bucket, []).append(v)
+    tiles = sum(-(-len(g) // 8) * 8 * bucket for bucket, g in groups.items())
+    med = statistics.median(passes[1:])
+    print(f"{label} int8 bucketed denoise: {sum(seconds) / med:.1f} "
+          f"audio-s/s (median {med:.3f} s of passes "
+          + ", ".join(f"{p:.3f}" for p in passes[1:])
+          + f"; fill {sum(valid) / tiles:.4f}, {sum(valid)} of {tiles} "
+          "frames)", flush=True)
 
 
 def k6_routes(call):

@@ -41,7 +41,9 @@
 // about the row's own end v (u >= v -> 2v-2-u, then |u|), zero from
 // v + pad on and wherever the reflection lands at or past v; an up
 // block's input is zero from v on. The epilogues then zero outputs at or
-// past the row's valid output width (`sos8::TimeMasked`; K6 too).
+// past the row's valid output width (`sos8::TimeMasked`; K6's gather too;
+// the Hopper tiles skip the work of those outputs, see below and
+// int8_inpaint.cu).
 //
 // The weights come from the host as (Cout, Kpad) int8, k in the same
 // order, zero-padded to a multiple of 64 (so a narrow first layer, K =
@@ -89,8 +91,8 @@ struct InpaintPad {  // K7: reflect-padded down conv or lhs-dilated up conv
   const int* vt;  // per-row valid lengths (W only), or NULL
   int v;          // the current row's valid length (n without vt)
 
-  __device__ __forceinline__ void set_row(int b) {
-    if (vt != nullptr) v = __ldg(vt + b);
+  __device__ __forceinline__ void set_row(int b) {  // a width past n acts as n
+    if (vt != nullptr) v = min(__ldg(vt + b), n);
   }
 
   __device__ __forceinline__ int src(int o, int i) const {
@@ -217,6 +219,20 @@ cudaError_t conv(const int8_t* x, const int8_t* w, int B, Pad h, Pad wd,
 // ahead, across items, while the consumers multiply and run the
 // requantize epilogue (sos8::EpiRequant, the exact arithmetic of the
 // gather path, on the wgmma fragment's rows and columns).
+//
+// With per-row valid widths (`vt`, the length-bucketed path) the masked
+// instance does the arithmetic and the loads only where a row keeps its
+// outputs. An item whose first position lies at or past its row's width
+// vt[b] (clamped into [0, W]) is never walked: no TMA load, no wgmma. The
+// blocks stride over the live items alone (sosw::LiveWalk), so that the
+// dead ones, which gather at the ends of rows, leave no block idle; the
+// consumers first store zeros, 16 bytes a thread, from each row's first
+// dead segment to W. In a live item a consumer warpgroup whose m64 tile
+// starts at or past vt[b] waits on and frees each stage without
+// multiplying, then stores zeros over its positions; the epilogue of the
+// others compares each position with vt[b]. The input past vt[b] is read
+// as it is (SAME padding: the taps of the last kept positions reach
+// (kw-1)/2*dw past them), so a live item loads its whole halo.
 
 constexpr int kMaxSteps = 24;
 constexpr int kConsumers = 3;
@@ -225,7 +241,8 @@ constexpr int kHaloThreads = 32 * (4 * kConsumers + 1);
 struct HaloPlan {
   int H, W, Cin, kh, dh, pad_h, pad_w, kchunks_row;
   int seg_len, nseg, mt, lbox, nbox, lp, row_bytes, hq;
-  int b_offset, stage_bytes, stages, steps, b_bytes, items;
+  int b_offset, stage_bytes, stages, steps, b_bytes, items, batch;
+  const int* vt;  // per-row valid widths (the masked instance), or NULL
   int a_off[kMaxSteps], a_lbo[kMaxSteps];  // 16-byte units
   int b_chunk[2 * kMaxSteps];  // weight chunk of each B plane, -1 = zeros
 };
@@ -243,13 +260,53 @@ __device__ __forceinline__ int tap_rows(const HaloPlan& p, int oh0, int i) {
   return bits;
 }
 
+// Row b's valid width, clamped into [0, W] (a width past W keeps the row).
+__device__ __forceinline__ int row_width(const HaloPlan& p, int b) {
+  return min(max(__ldg(p.vt + b), 0), p.W);
+}
+
+// Row b's live segments: those whose first position lies before its width.
+__device__ __forceinline__ int live_segs(const HaloPlan& p, int b) {
+  return sosw::live_segments(row_width(p, b), 0, p.seg_len, p.nseg);
+}
+
+struct HaloItem {
+  int b, oh0, seg;
+};
+
+// The items a block's roles walk, index i = blockIdx.x, + gridDim.x, ...:
+// every item (b, oh0, segment) of the launch, or in the masked instance
+// only the live ones (sosw::LiveWalk: row b holds hq x its live segments).
+// The producer and the consumers each walk their own copy; both get the
+// same items, so the stages they fill and drain stay in step.
+template <int R, bool kMasked>
+struct HaloWalk {
+  sosw::LiveWalk live;
+
+  __device__ __forceinline__ bool next(const HaloPlan& p, int i,
+                                       HaloItem& it) {
+    if constexpr (kMasked) {
+      if (!live.seek(i, p.batch,
+                     [&](int b) { return p.hq * live_segs(p, b); }))
+        return false;
+      const int segs = live.n / p.hq, rem = i - live.base;
+      it = {live.b, rem / segs * R, rem % segs};
+    } else {
+      if (i >= p.items) return false;
+      const int t = i / p.nseg;
+      it = {t / p.hq, t % p.hq * R, i % p.nseg};
+    }
+    return true;
+  }
+};
+
 // N = Cout; R output rows (b, oh0 .. oh0 + R - 1) per item share each tap
-// row's weights.
-template <int N, int R, class Epi>
+// row's weights. kMasked: per-row valid widths (p.vt), see below.
+template <int N, int R, bool kMasked>
 __global__ void __launch_bounds__(kHaloThreads, 1)
 conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
              const __grid_constant__ CUtensorMap wmap, const HaloPlan p,
-             const Epi epi) {
+             const sos8::EpiRequant epi) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
@@ -279,12 +336,12 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
     if (lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-        const int seg = item % p.nseg, t = item / p.nseg;
-        const int oh0 = t % p.hq * R, b = t / p.hq;
-        const int w0 = seg * p.seg_len - p.pad_w;  // halo origin
+      HaloWalk<R, kMasked> walk;
+      HaloItem it;
+      for (int item = blockIdx.x; walk.next(p, item, it); item += gridDim.x) {
+        const int w0 = it.seg * p.seg_len - p.pad_w;  // halo origin
         for (int i = 0; i < p.kh; ++i) {
-          const int rows = tap_rows<R>(p, oh0, i);
+          const int rows = tap_rows<R>(p, it.oh0, i);
           if (rows == 0) continue;
           sosw::mbar_wait(&empty[stage], phase ^ 1);
           sosw::mbar_expect_tx(&full[stage],
@@ -292,12 +349,12 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
           uint8_t* st = smem + stage * p.stage_bytes;
           for (int r = 0; r < R; ++r) {
             if (!(rows >> r & 1)) continue;
-            const int ih = oh0 + r + i * p.dh - p.pad_h;
+            const int ih = it.oh0 + r + i * p.dh - p.pad_h;
             for (int c = 0; c < p.Cin / 16; ++c)
               for (int h = 0; h < p.nbox; ++h)
                 sosw::tma_load_4d(
                     st + r * p.row_bytes + (c * p.lp + h * p.lbox) * 16, &xmap,
-                    &full[stage], 16 * c, w0 + h * p.lbox, ih, b);
+                    &full[stage], 16 * c, w0 + h * p.lbox, ih, it.b);
           }
           const int kc = i * p.kchunks_row;
           for (int pl = 0; pl < 2 * p.steps; ++pl)
@@ -316,6 +373,19 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
 
   const int wg = warp >> 2;  // consumer warpgroup = m64 tile of the segment
   if (wg >= p.mt) return;
+  const int threads = 128 * p.mt;  // the consumers
+  int8_t* const out = epi.out;
+  if constexpr (kMasked) {
+    // the segments no live item holds: zeros from each row's first dead
+    // segment to W, a row a block in turn, while the producer fills the
+    // first stages
+    for (int row = blockIdx.x; row < p.batch * p.H; row += gridDim.x) {
+      const int from = live_segs(p, row / p.H) * p.seg_len;
+      if (from < p.W)
+        sosw::zero_chunks(out + ((size_t)row * p.W + from) * N,
+                          (p.W - from) * N / 16, tid, threads);
+    }
+  }
   int acc[R][N / 2];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -324,36 +394,45 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
   int stage = 0;
   uint32_t phase = 0;
   const uint32_t sbase = sosw::smem_u32(smem);
-  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-    const int seg = item % p.nseg, t = item / p.nseg;
-    const int oh0 = t % p.hq * R, b = t / p.hq;
+  HaloWalk<R, kMasked> walk;
+  HaloItem it;
+  for (int item = blockIdx.x; walk.next(p, item, it); item += gridDim.x) {
+    const int oh0 = it.oh0;
+    // this warpgroup's first position; in the masked instance a
+    // warpgroup that starts at or past the row's width multiplies
+    // nothing (it still waits on each stage and frees it)
+    const int first = it.seg * p.seg_len + 64 * wg;
+    const int v = kMasked ? row_width(p, it.b) : p.W;
+    const bool live = !kMasked || first < v;
     int started = 0;  // rows whose sums have begun (the first wgmma overwrites)
     for (int i = 0; i < p.kh; ++i) {
       const int rows = tap_rows<R>(p, oh0, i);
       if (rows == 0) continue;
       sosw::mbar_wait(&full[stage], phase);
-      const uint32_t st = sbase + stage * p.stage_bytes;
-      const uint32_t bb = st + p.b_offset;
+      if (live) {
+        const uint32_t st = sbase + stage * p.stage_bytes;
+        const uint32_t bb = st + p.b_offset;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (!(rows >> r & 1)) continue;
-        const uint32_t a = st + r * p.row_bytes + wg * 64 * 16;
-        int scale = started >> r & 1;
-        sosw::fence_acc(acc[r]);
-        sosw::wgmma_fence();
-        for (int s = 0; s < p.steps; ++s) {
-          const uint64_t da =
-              sosw::make_desc(a + p.a_off[s] * 16, p.a_lbo[s], 8);
-          const uint64_t db = sosw::make_desc(bb + 2 * s * N * 16, N, 8);
-          sosw::Wgmma<N>::mma(acc[r], da, db, scale);
-          scale = 1;
+        for (int r = 0; r < R; ++r) {
+          if (!(rows >> r & 1)) continue;
+          const uint32_t a = st + r * p.row_bytes + wg * 64 * 16;
+          int scale = started >> r & 1;
+          sosw::fence_acc(acc[r]);
+          sosw::wgmma_fence();
+          for (int s = 0; s < p.steps; ++s) {
+            const uint64_t da =
+                sosw::make_desc(a + p.a_off[s] * 16, p.a_lbo[s], 8);
+            const uint64_t db = sosw::make_desc(bb + 2 * s * N * 16, N, 8);
+            sosw::Wgmma<N>::mma(acc[r], da, db, scale);
+            scale = 1;
+          }
+          sosw::wgmma_commit();
         }
-        sosw::wgmma_commit();
-      }
-      started |= rows;
-      sosw::wgmma_wait_all();
+        started |= rows;
+        sosw::wgmma_wait_all();
 #pragma unroll
-      for (int r = 0; r < R; ++r) sosw::fence_acc(acc[r]);
+        for (int r = 0; r < R; ++r) sosw::fence_acc(acc[r]);
+      }
       __syncwarp();
       if (lane == 0) sosw::mbar_arrive(&empty[stage]);
       if (++stage == p.stages) {
@@ -361,28 +440,49 @@ conv_halo_s8(const __grid_constant__ CUtensorMap xmap,
         phase ^= 1;
       }
     }
-    const int pos = seg * p.seg_len + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    if (!live) {  // zeros over the warpgroup's positions of each row
+      const int n = min(64, p.W - first);
+      for (int r = 0; r < R; ++r)
+        if (oh0 + r < p.H)
+          sosw::zero_chunks(
+              out + ((size_t)(it.b * p.H + oh0 + r) * p.W + first) * N,
+              n * N / 16, tid & 127, 128);
+      continue;
+    }
+    const int pos = first + 16 * (warp & 3) + (lane >> 2);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (oh0 + r >= p.H) continue;
-      const int m = ((b * p.H) + oh0 + r) * p.W + pos;
+      const int m = ((it.b * p.H) + oh0 + r) * p.W + pos;
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
         const int n = 8 * j + 2 * (lane & 3);
-        if (pos < p.W) epi(m, n, acc[r][4 * j], acc[r][4 * j + 1]);
-        if (pos + 8 < p.W) epi(m + 8, n, acc[r][4 * j + 2], acc[r][4 * j + 3]);
+        if constexpr (kMasked) {  // the row's own width, then W
+          if (pos < v)
+            epi(m, n, acc[r][4 * j], acc[r][4 * j + 1]);
+          else if (pos < p.W)
+            epi.zeros(m, n);
+          if (pos + 8 < v)
+            epi(m + 8, n, acc[r][4 * j + 2], acc[r][4 * j + 3]);
+          else if (pos + 8 < p.W)
+            epi.zeros(m + 8, n);
+        } else {
+          if (pos < p.W) epi(m, n, acc[r][4 * j], acc[r][4 * j + 1]);
+          if (pos + 8 < p.W)
+            epi(m + 8, n, acc[r][4 * j + 2], acc[r][4 * j + 3]);
+        }
       }
     }
   }
 }
 
-template <int N, int R, class Epi>
-cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
-                        int kpad, const HaloPlan& p, const Epi& epi,
+template <int N, int R, bool kMasked>
+cudaError_t launch_halo(const int8_t* x, const int8_t* w, int Cout, int kpad,
+                        const HaloPlan& p, const sos8::EpiRequant& epi,
                         cudaStream_t stream) {
   CUtensorMap xmap, wmap;
   const cuuint64_t C = p.Cin, W = p.W, H = p.H;
-  const cuuint64_t xdims[4] = {C, W, H, (cuuint64_t)B};
+  const cuuint64_t xdims[4] = {C, W, H, (cuuint64_t)p.batch};
   const cuuint64_t xstrides[3] = {C, W * C, H * W * C};
   const cuuint32_t xbox[4] = {16, (cuuint32_t)p.lbox, 1, 1};
   const cuuint64_t wdims[2] = {(cuuint64_t)kpad, (cuuint64_t)Cout};
@@ -393,30 +493,31 @@ cudaError_t launch_halo(const int8_t* x, const int8_t* w, int B, int Cout,
   const int smem = p.stages * p.stage_bytes + 2 * p.stages * 8 + 128;
   int blocks = 0;
   if (err == cudaSuccess)
-    err = sosw::resident_blocks(conv_halo_s8<N, R, Epi>, kHaloThreads, smem,
-                                &blocks);
+    err = sosw::resident_blocks(conv_halo_s8<N, R, kMasked>, kHaloThreads,
+                                smem, &blocks);
   if (err != cudaSuccess) return err;
   if (blocks == 0) return cudaErrorInvalidConfiguration;
-  conv_halo_s8<N, R, Epi><<<blocks < p.items ? blocks : p.items,
-                            kHaloThreads, smem, stream>>>(xmap, wmap, p, epi);
+  conv_halo_s8<N, R, kMasked><<<blocks < p.items ? blocks : p.items,
+                                kHaloThreads, smem, stream>>>(xmap, wmap, p,
+                                                              epi);
   return cudaGetLastError();
 }
 
-template <class Epi>
-cudaError_t launch_halo_n(const int8_t* x, const int8_t* w, int B, int Cout,
-                          int kpad, const HaloPlan& p, const Epi& epi,
-                          cudaStream_t st) {
+template <bool kMasked>
+cudaError_t launch_halo_n(const int8_t* x, const int8_t* w, int Cout,
+                          int kpad, const HaloPlan& p,
+                          const sos8::EpiRequant& epi, cudaStream_t st) {
   switch (Cout) {
-    case 16: return launch_halo<16, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 32: return launch_halo<32, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 48: return launch_halo<48, 4>(x, w, B, Cout, kpad, p, epi, st);
-    case 96: return launch_halo<96, 2>(x, w, B, Cout, kpad, p, epi, st);
+    case 16: return launch_halo<16, 4, kMasked>(x, w, Cout, kpad, p, epi, st);
+    case 32: return launch_halo<32, 4, kMasked>(x, w, Cout, kpad, p, epi, st);
+    case 48: return launch_halo<48, 4, kMasked>(x, w, Cout, kpad, p, epi, st);
+    case 96: return launch_halo<96, 2, kMasked>(x, w, Cout, kpad, p, epi, st);
   }
   return cudaErrorInvalidValue;
 }
 
 // An epilogue as it is, or (vt != NULL) masked past each row's valid
-// time width: the masked form is a kernel of its own.
+// time width, for the gather: the masked form is a kernel of its own.
 template <class Epi, class Launch>
 cudaError_t with_mask(const Epi& epi, const int* vt, int W, int HW,
                       Launch launch) {
@@ -430,7 +531,9 @@ cudaError_t with_mask(const Epi& epi, const int* vt, int W, int HW,
 // is ops/int8_conv.py `halo_plan`'s int32 vector: seg_len, nseg, lbox,
 // nbox, a_planes, steps, stage_bytes, stages, rows, then a_off[steps],
 // a_lbo[steps] and b_chunk[2 * steps]. `vt` (device int32 (B,), or NULL):
-// outputs at time (W) positions >= vt[b] are written as zeros.
+// outputs at time (W) positions >= vt[b] are written as zeros, by the
+// masked instance, which computes only the items and warpgroups that
+// start before vt[b].
 extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
                                        const float* ws, const float* bias,
                                        int8_t* out, const int* vt,
@@ -467,6 +570,8 @@ extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
   p.b_offset = rows * p.row_bytes;
   p.hq = (H + rows - 1) / rows;
   p.items = B * p.hq * p.nseg;
+  p.batch = B;
+  p.vt = vt;
   int b_loaded = 0;
   for (int s = 0; s < p.steps; ++s) {
     p.a_off[s] = steps[s];
@@ -479,9 +584,9 @@ extern "C" int sos_int8_conv_same_halo(const int8_t* x, const int8_t* w,
   p.b_bytes = b_loaded * Cout * 16;
   const sos8::EpiRequant epi{ws, bias, nullptr, out, Cout};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)with_mask(epi, vt, W, H * W, [&](const auto& e) {
-    return launch_halo_n(x, w, B, Cout, kpad, p, e, st);
-  });
+  return (int)(vt == nullptr
+                    ? launch_halo_n<false>(x, w, Cout, kpad, p, epi, st)
+                    : launch_halo_n<true>(x, w, Cout, kpad, p, epi, st));
 }
 
 // K6 on the gather, for the shapes ops/int8_conv.py `conv_same_route`

@@ -57,10 +57,19 @@
 //   only the columns [v, v + rpatch) of a row (and a down block's left
 //   pad): whatever lies past them in the boxes is never read by an output
 //   that is stored. The copy pass (`inpaint_gather_s8`) writes each row's
-//   padded columns under the same rule.
-// Segments and per-row widths are the kernel's `kGeneral` instances: a
-// launch with one segment and no per-row widths (the fused 2 s path) runs
-// the instance without them, whose per-item work is the same as before.
+//   padded columns under the same rule. Only the items whose first output
+//   column (in the launch's output phase) lies before the row's output
+//   width are walked, by every role (`ItemWalk`, sosw::LiveWalk): a dead
+//   item issues no TMA load, no patch write and no wgmma, and the
+//   consumers store zeros over the dead segments' columns first; the copy
+//   pass writes no column that only dead items' boxes hold. A live item
+//   runs whole: skipping the warpgroups of its last segment that start
+//   past the width cost more than it saved (scripts/k7_masked_sweep.py).
+// The kernel has three instances (`Mode`): a launch with one segment and
+// no per-row widths (the fused 2 s path) runs kPlain; rows in segments
+// without per-row widths (the exact mode's long rows) kSegments; per-row
+// widths kMasked. The last two are the `kGeneral` ones (segments, the
+// patch warp's mode 2).
 #include "int8_mma.cuh"
 #include "int8_wgmma.cuh"
 
@@ -129,6 +138,8 @@ struct Item {
   int b, oh0, nt, seg;
 };
 
+enum Mode { kPlain, kSegments, kMasked };
+
 template <bool kGeneral>
 __device__ __forceinline__ Item item_at(const Plan& p, int item) {
   Item it;
@@ -144,6 +155,48 @@ __device__ __forceinline__ Item item_at(const Plan& p, int item) {
   return it;
 }
 
+// Row b's valid output width (vt_out), clamped into [0, wout].
+__device__ __forceinline__ int out_width(const Plan& p, int b) {
+  return min(max(__ldg(p.vt_out + b), 0), p.wout);
+}
+
+// Row b's live segments in this launch's output phase: those whose first
+// output column (seg * seg_len) * os + pw lies before its valid width.
+__device__ __forceinline__ int live_segs(const Plan& p, int b) {
+  return sosw::live_segments(out_width(p, b), p.phase.pw, p.seg_len * p.os,
+                             p.nseg);
+}
+
+// The items a block's roles walk, index i = blockIdx.x, + gridDim.x, ...:
+// every item of the launch (`item_at`), or in the kMasked instance only
+// the live ones, in the same order (sosw::LiveWalk: row b holds
+// row_groups x n_tiles x its live segments). The producer, the patch warp
+// and the consumers each walk their own copy; all get the same items, so
+// the stages stay in step.
+template <int kMode>
+struct ItemWalk {
+  sosw::LiveWalk live;
+
+  __device__ __forceinline__ bool next(const Plan& p, int i, Item& it) {
+    if constexpr (kMode == kMasked) {
+      const int per = p.row_groups * p.n_tiles;
+      if (!live.seek(i, p.batch, [&](int b) { return per * live_segs(p, b); }))
+        return false;
+      const int segs = live.n / per;
+      int rem = i - live.base;
+      it.nt = rem % p.n_tiles;
+      rem /= p.n_tiles;
+      it.seg = rem % segs;
+      it.oh0 = rem / segs * p.rows;
+      it.b = live.b;
+    } else {
+      if (i >= p.items) return false;
+      it = item_at<kMode != kPlain>(p, i);
+    }
+    return true;
+  }
+};
+
 // Columns n, n + 1 of output row `row`: sos8::EpiRequant's arithmetic
 // (acc * w_s + b without contraction, PReLU, round half to even, clip)
 // with the scales, biases and slope already in registers; zeros past the
@@ -154,15 +207,14 @@ __device__ __forceinline__ void store2(const sos8::EpiRequant& epi, int row,
                                        float alpha, bool zero) {
   const float y0 = __fadd_rn(__fmul_rn(__int2float_rn(v0), w0), b0);
   const float y1 = __fadd_rn(__fmul_rn(__int2float_rn(v1), w1), b1);
-  char2 q = make_char2(0, 0);
-  if (!zero) {
-    q.x = sos8::requant(y0 >= 0.f ? y0 : __fmul_rn(alpha, y0));
-    q.y = sos8::requant(y1 >= 0.f ? y1 : __fmul_rn(alpha, y1));
-  }
+  char2 q;  // then a select, not a branch: ptxas made the branch slow
+  q.x = sos8::requant(y0 >= 0.f ? y0 : __fmul_rn(alpha, y0));
+  q.y = sos8::requant(y1 >= 0.f ? y1 : __fmul_rn(alpha, y1));
+  if (zero) q = make_char2(0, 0);
   *reinterpret_cast<char2*>(epi.out + (size_t)row * epi.ldo + n) = q;
 }
 
-template <int N, bool kGeneral>
+template <int N, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
                 const __grid_constant__ CUtensorMap xrow,
@@ -177,6 +229,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
   // a stage is ready for the consumers once TMA has filled it (full) or,
   // with patching, once the patch warp has patched it (ready)
   uint64_t* ready = p.patch ? empty + p.stages : full;
+  constexpr bool kGeneral = kMode != kPlain;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Phase& f = p.phase;
   // A rows past the planes (the partner of a chunk with no neighbour in k,
@@ -202,8 +255,9 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
     if (lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-        const Item it = item_at<kGeneral>(p, item);
+      ItemWalk<kMode> walk;
+      Item it;
+      for (int item = blockIdx.x; walk.next(p, item, it); item += gridDim.x) {
         for (int t = 0; t < f.ntaps; ++t)
           for (int g = 0; g < p.groups; ++g) {
             sosw::mbar_wait(&empty[stage], phase ^ 1);
@@ -264,14 +318,13 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
     const int copies = p.rows * p.cg * per_row;
     int stage = 0;
     uint32_t phase = 0;
-    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-      const Item it = item_at<kGeneral>(p, item);
+    ItemWalk<kMode> walk;
+    Item it;
+    for (int item = blockIdx.x; walk.next(p, item, it); item += gridDim.x) {
       int v = p.W, first = 0;  // the row's valid width, the boxes' first
                                // padded column
-      if constexpr (kGeneral) {
-        if (p.vt_in != nullptr) v = __ldg(p.vt_in + it.b);
-        first = it.seg * p.seg_len * p.nph;
-      }
+      if constexpr (kGeneral) first = it.seg * p.seg_len * p.nph;
+      if constexpr (kMode == kMasked) v = min(__ldg(p.vt_in + it.b), p.W);
       for (int t = 0; t < f.ntaps; ++t)
         for (int g = 0; g < p.groups; ++g) {
           sosw::mbar_wait(&full[stage], phase);
@@ -335,11 +388,36 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
       b_r[i] = __ldg(epi.bias + n);
     }
   }
+  if constexpr (kMode == kMasked) {
+    // the segments no live item holds: zeros over this phase's columns
+    // from each row's first dead segment on (Cout bytes a column, 16 a
+    // thread), an output row a block in turn, while the producer fills
+    // the first stages
+    const int c16 = epi.ldo / 16, threads = 128 * p.mt;
+    for (int row = blockIdx.x; row < p.batch * p.ho; row += gridDim.x) {
+      const int b = row / p.ho, oh = row - b * p.ho;
+      const int from = live_segs(p, b) * p.seg_len;
+      int8_t* dst = epi.out + ((size_t)(b * p.hout + oh * p.os + f.ph) *
+                                   p.wout + from * p.os + f.pw) * epi.ldo;
+      if (p.os == 1) {  // the columns lie side by side
+        if (from < p.wo)
+          sosw::zero_chunks(dst, (p.wo - from) * c16, tid, threads);
+      } else {
+        for (int k = tid; k < (p.wo - from) * c16; k += threads)
+          reinterpret_cast<int4*>(dst + (size_t)(k / c16) * p.os *
+                                            epi.ldo)[k % c16] =
+              sos8::zero16();
+      }
+    }
+  }
   int stage = 0;
   uint32_t phase = 0;
   const uint32_t sbase = sosw::smem_u32(smem);
-  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
-    const Item it = item_at<kGeneral>(p, item);
+  ItemWalk<kMode> walk;
+  Item it;
+  for (int item = blockIdx.x; walk.next(p, item, it); item += gridDim.x) {
+    // kMasked: the row's valid output width (zeros from it on)
+    const int vo = kMode == kMasked ? out_width(p, it.b) : p.wout;
     int scale = 0;  // the item's first wgmma overwrites the sums
     for (int t = 0; t < f.ntaps; ++t)
       for (int g = 0; g < p.groups; ++g) {
@@ -378,8 +456,7 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
       if constexpr (kGeneral) {
         ow += it.seg * p.seg_len;
         keep[h] = r < p.rows && oh < p.ho && owl < p.seg_len && ow < p.wo;
-        zero[h] = p.vt_out != nullptr &&
-                  ow * p.os + f.pw >= __ldg(p.vt_out + it.b);
+        zero[h] = kMode == kMasked && ow * p.os + f.pw >= vo;
       } else {
         keep[h] = r < p.rows && oh < p.ho && ow < p.wo;
       }
@@ -416,12 +493,16 @@ inpaint_halo_s8(const __grid_constant__ CUtensorMap xrows,
 // xg (B, H, nph * wh, cg16) from x (B, H, W, Cin): column q0 * wh + q of
 // xg holds column q * nph + q0 of x reflect-padded by `pad` in W (zeros
 // past the padded width; with `vt`, row b padded by `valid_col` about its
-// valid width vt[b]), channels past Cin zero. 16 bytes a thread.
+// valid width vt[b]), channels past Cin zero. 16 bytes a thread. With
+// `vt`, position q of a plane is written only where a live item's boxes
+// reach it (`p`: the tile's plan; segment g's boxes hold positions
+// g * seg_len .. + pitch - 1): below (live segments - 1) * seg_len + pitch.
 template <bool kValid>
 __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
                                   int8_t* __restrict__ xg, int rows, int H,
                                   int W, int Cin, int cg16, int wh, int nph,
-                                  int pad, const int* __restrict__ vt) {
+                                  int pad, const int* __restrict__ vt,
+                                  const __grid_constant__ Plan p) {
   const int vec = cg16 / 16, cols = nph * wh;
   const long long total = (long long)rows * cols * vec;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -430,6 +511,11 @@ __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
     const long long pix = idx / vec;
     const int col = (int)(pix % cols);
     const long long row = pix / cols;
+    if (kValid) {
+      const int live = live_segs(p, (int)(row / H));
+      if (col % wh >= (live > 0 ? (live - 1) * p.seg_len + p.pitch : 0))
+        continue;
+    }
     const int u = col % wh * nph + col / wh;  // column of the padded row
     union {
       int4 v;
@@ -438,7 +524,7 @@ __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
     val.v = sos8::zero16();
     int src_col = -1;
     if (u < W + 2 * pad)
-      src_col = kValid ? valid_col(u - pad, __ldg(vt + row / H), pad)
+      src_col = kValid ? valid_col(u - pad, min(__ldg(vt + row / H), W), pad)
                        : reflect(u - pad, W);
     if (src_col >= 0) {
       const int8_t* src = x + (row * W + src_col) * Cin;
@@ -453,7 +539,7 @@ __global__ void inpaint_gather_s8(const int8_t* __restrict__ x,
   }
 }
 
-template <int N, bool kGeneral>
+template <int N, int kMode>
 cudaError_t launch_tile(const int8_t* xs, int W_s, int wstep, int cg16,
                         const int8_t* w,
                         int Cout, int kpad, const Plan& p,
@@ -487,25 +573,25 @@ cudaError_t launch_tile(const int8_t* xs, int W_s, int wstep, int cg16,
   const int smem = p.stages * p.stage_bytes + 3 * p.stages * 8 + 1024;
   int blocks = 0;
   if (err == cudaSuccess)
-    err = sosw::resident_blocks(inpaint_halo_s8<N, kGeneral>, kThreads, smem,
+    err = sosw::resident_blocks(inpaint_halo_s8<N, kMode>, kThreads, smem,
                                 &blocks);
   if (err != cudaSuccess) return err;
   if (blocks == 0) return cudaErrorInvalidConfiguration;
-  inpaint_halo_s8<N, kGeneral><<<blocks < p.items ? blocks : p.items,
+  inpaint_halo_s8<N, kMode><<<blocks < p.items ? blocks : p.items,
                                  kThreads, smem, stream>>>(xrows, xrow, wmap,
                                                            p, epi);
   return cudaGetLastError();
 }
 
-template <bool kGeneral>
+template <int kMode>
 cudaError_t launch_n(int n, const int8_t* xs, int W_s, int wstep, int cg16,
                      const int8_t* w, int Cout, int kpad, const Plan& p,
                      const sos8::EpiRequant& epi, cudaStream_t st) {
   switch (n) {
-    case 16: return launch_tile<16, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
-    case 32: return launch_tile<32, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
-    case 64: return launch_tile<64, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
-    case 128: return launch_tile<128, kGeneral>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 16: return launch_tile<16, kMode>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 32: return launch_tile<32, kMode>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 64: return launch_tile<64, kMode>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
+    case 128: return launch_tile<128, kMode>(xs, W_s, wstep, cg16, w, Cout, kpad, p, epi, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -579,7 +665,9 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
   // the patch warp: a down block that reads x as it is patches its pads;
   // an up block patches only per-row widths; the copy pass leaves nothing
   // to patch
-  const bool general = p.nseg > 1 || vt_in != nullptr;
+  const int mode = vt_in != nullptr ? kMasked
+                   : p.nseg > 1     ? kSegments
+                                    : kPlain;
   p.patch = !gather && (p.lead > 0 || (vt_in != nullptr && p.rpatch > 0));
   Phase phases[kPhases];
   const int* v = plan + 26;
@@ -613,12 +701,13 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
     const int threads = 256;
     const long long want = (total + threads - 1) / threads;
     const int grid = (int)(want < 132 * 16 ? want : 132 * 16);
+    p.phase = phases[0];  // a down block: one phase
     if (vt_in != nullptr)
       inpaint_gather_s8<true><<<grid, threads, 0, st>>>(
-          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, vt_in);
+          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, vt_in, p);
     else
       inpaint_gather_s8<false><<<grid, threads, 0, st>>>(
-          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, nullptr);
+          x, xg, B * H, H, W, Cin, cin_pad, p.wh, p.nph, pad_w, nullptr, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     xs = xg;
@@ -632,10 +721,14 @@ extern "C" int sos_int8_inpaint_halo(const int8_t* x, int8_t* xg,
   for (int f = 0; f < nphases; ++f) {
     p.phase = phases[f];
     const cudaError_t err =
-        general ? launch_n<true>(n, xs, ws_cols, wstep, cin_pad, w, Cout,
-                                 kpad, p, epi, st)
-                : launch_n<false>(n, xs, ws_cols, wstep, cin_pad, w, Cout,
-                                  kpad, p, epi, st);
+        mode == kMasked
+            ? launch_n<kMasked>(n, xs, ws_cols, wstep, cin_pad, w, Cout, kpad,
+                                p, epi, st)
+        : mode == kSegments
+            ? launch_n<kSegments>(n, xs, ws_cols, wstep, cin_pad, w, Cout,
+                                  kpad, p, epi, st)
+            : launch_n<kPlain>(n, xs, ws_cols, wstep, cin_pad, w, Cout, kpad,
+                               p, epi, st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

@@ -111,8 +111,8 @@ struct EpiFloat {  // K6's last (1x1 proj) block: float32 out after ReLU
 
 // The length-bucketed path's per-row time mask around an epilogue: output
 // row m of the NHWC output (b, h, t) lies at time t = m % W of batch row
-// b = m / HW and is written as zeros where t >= vt[b]. Only launches with
-// per-row widths instantiate it.
+// b = m / HW and is written as zeros where t >= vt[b]. Only the gather's
+// launches with per-row widths instantiate it.
 template <class Epi>
 struct TimeMasked {
   Epi epi;

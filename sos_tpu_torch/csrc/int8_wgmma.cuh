@@ -109,6 +109,54 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// ---- the live items of a launch with per-row valid widths ---------------
+//
+// K6's and K7's masked instances walk only the items whose first output
+// column lies before their row's valid width: a list of them, in launch
+// order, that no kernel writes down. Row b of the batch holds `count(b)`
+// of them, from compact index `base` on; a block's roles walk indices
+// blockIdx.x, + gridDim.x, ... each through its own LiveWalk, which reads
+// each row's count once. So the producer, the consumers (and K7's patch
+// warp) meet the same items in the same order and the stages they fill
+// and drain stay in step; and the live items, not all items, are what the
+// grid's stride shares out (with all items, a grid that is a multiple of
+// the segments a row would give some blocks only dead items).
+struct LiveWalk {
+  int b = 0, base = 0, n = -1;  // the current row, its first index, its count
+
+  // Whether compact index i (not below the last one sought) is a live
+  // item; then row b holds it, as item i - base of its n.
+  template <class Count>
+  __device__ __forceinline__ bool seek(int i, int rows, const Count& count) {
+    for (;;) {
+      if (n < 0) {
+        if (b >= rows) return false;
+        n = count(b);
+      }
+      if (i < base + n) return true;
+      base += n;
+      ++b;
+      n = -1;
+    }
+  }
+};
+
+// Segments, the first starting at column `first` and each `step` columns
+// after the last, whose first column lies before a row's valid width v
+// (up to `nseg`): the live ones.
+__device__ __forceinline__ int live_segments(int v, int first, int step,
+                                             int nseg) {
+  return v <= first ? 0 : min(nseg, (v - first + step - 1) / step);
+}
+
+// Zeros over `n16` 16-byte chunks from `dst` (16-byte aligned), chunk t,
+// t + threads, ... from thread t.
+__device__ __forceinline__ void zero_chunks(void* dst, int n16, int t,
+                                            int threads) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  for (int k = t; k < n16; k += threads) d[k] = make_int4(0, 0, 0, 0);
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(

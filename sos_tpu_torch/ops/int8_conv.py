@@ -37,7 +37,12 @@ each row's valid time width (the length-bucketed path, `sos_tpu`'s
 `valid_t`): K6 writes zeros at output time positions `>= valid_t[b]`;
 K7 reads its input as `sos_tpu`'s valid path pads it (each row reflected
 at its own boundary, zero past it) and zeroes outputs past the row's
-`inpaint_valid_out`. Time is the W axis (dim 2) of the NHWC tensors.
+`inpaint_valid_out`. Time is the W axis (dim 2) of the NHWC tensors; a
+width past W acts as W. On the Hopper tiles the masked instances skip
+the work of every item (K6: and every warpgroup) that lies wholly past
+its row's width and store its zeros instead (`HaloPlan.live_segments`,
+`InpaintPlan.live_segments`); the widths are read on the card, so a
+call with `valid_t` needs no host sync and captures into a CUDA graph.
 
 Each wrapper runs its plain version (`*_plain`) on CPU tensors and
 launches its kernel on CUDA tensors. The plain versions accumulate in
@@ -228,6 +233,19 @@ class HaloPlan:
         """Input position at which each TMA box of a plane starts."""
         return [self.origin(seg) + h * self.lbox for h in range(self.nbox)]
 
+    def live_segments(self, v: int, w: int) -> int:
+        """Segments of a row whose valid width is `v` (clamped into [0,
+        w]) that the masked instance computes: those whose first
+        position lies before it (`csrc/int8_conv.cu` `live_segs`). The
+        rest are stored as zeros without a load or a wgmma."""
+        return live_segments(min(max(v, 0), w), 0, self.seg_len, self.nseg)
+
+    def live_share(self, valid_t, w: int) -> float:
+        """Share of the launch's items the masked instance computes."""
+        valid_t = [int(v) for v in valid_t]
+        return sum(self.live_segments(v, w) for v in valid_t) \
+            / (len(valid_t) * self.nseg)
+
     def tap_rows(self, oh0: int, i: int, h: int, kh: int,
                  dh: int) -> List[Tuple[int, int]]:
         """(r, input row) of the item's rows that kh tap i keeps: output
@@ -236,6 +254,13 @@ class HaloPlan:
         pad = (kh - 1) // 2 * dh
         return [(r, oh0 + r + i * dh - pad) for r in range(self.rows)
                 if oh0 + r < h and 0 <= oh0 + r + i * dh - pad < h]
+
+
+def live_segments(v: int, first: int, step: int, nseg: int) -> int:
+    """Of `nseg` segments, the first starting at column `first` and each
+    `step` columns after the last, those whose first column lies before
+    a row's valid width `v` (`csrc/int8_wgmma.cuh` `live_segments`)."""
+    return 0 if v <= first else min(nseg, -(-(v - first) // step))
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,11 +439,17 @@ def inpaint_valid_out(kind: str, k: int, s: int, d: int, valid_t):
     """Per-row valid width of a block's output from its input's (sos_tpu
     quant.py:490-508): `(v + 2 pad - (d (k-1) + 1)) // s + 1` for a down
     block, `(v - 1) s - 2 ((k-1)//2) + k + 1` for an up block (the
-    output_padding=1 quirk). Works on ints and integer tensors."""
+    output_padding=1 quirk). Works on ints and integer tensors, in as
+    few ops as the constants allow (`v` itself for a stride-1 down block
+    of odd k): on a tensor each is a launch on the card."""
     if kind == "down":
         pad = (k - 1) // 2 * d
-        return (valid_t + 2 * pad - (d * (k - 1) + 1)) // s + 1
-    return (valid_t - 1) * s - 2 * ((k - 1) // 2) + k + 1
+        c = 2 * pad - d * (k - 1) - 1 + s  # (v + c) // s
+        if s == 1:
+            return valid_t + c if c else valid_t
+        return (valid_t + c) // s
+    c = k + 1 - s - 2 * ((k - 1) // 2)
+    return valid_t * s + c if c else valid_t * s
 
 
 def valid_columns(valid_t: torch.Tensor, pad: int, width: int):
@@ -556,6 +587,28 @@ class InpaintPlan:
     def m_share(self) -> float:
         """Share of the item's m rows that hold an output."""
         return self.rows * self.wo / (64 * self.mt * self.nseg)
+
+    @property
+    def os(self) -> int:
+        """Output columns a phase steps over: 2 for up blocks, else 1."""
+        return 2 if self.kind == "up" else 1
+
+    def live_segments(self, v_out: int, pw: int) -> int:
+        """Segments of a row whose valid output width is `v_out`
+        (clamped into [0, wo * os]) that the masked instance computes in
+        the output phase of column offset `pw`: those whose first output
+        column (seg * seg_len) * os + pw lies before it
+        (`csrc/int8_inpaint.cu` `live_segs`)."""
+        v = min(max(v_out, 0), self.wo * self.os)
+        return live_segments(v, pw, self.seg_len * self.os, self.nseg)
+
+    def live_share(self, valid_out) -> float:
+        """Share of the launches' items the masked instance computes, over
+        all output phases, for rows of valid output widths `valid_out`."""
+        valid_out = [int(v) for v in valid_out]
+        return sum(self.live_segments(v, f.pw) for f in self.phases
+                   for v in valid_out) \
+            / (len(self.phases) * len(valid_out) * self.nseg)
 
     def tile_bytes(self, batch: int) -> int:
         """Bytes the tile's TMA loads bring from L2 into shared memory for
@@ -729,7 +782,10 @@ def inpaint_conv_int8_plain(x: torch.Tensor, w: torch.Tensor,
     """Plain version of K7. With `valid_t` `(B,)`, sos_tpu's valid path
     (quant.py:478-517): a down block pads H by reflection and W by
     `valid_columns`; an up block reads its input as zero from each row's
-    valid_t on; the output is zeroed past `inpaint_valid_out`."""
+    valid_t on; the output is zeroed past `inpaint_valid_out`. A width
+    past W acts as W."""
+    if valid_t is not None:
+        valid_t = valid_t.clamp(max=x.shape[2])
     xd = x.permute(0, 3, 1, 2).double()
     wd = unpack_weight(w, k, k, x.shape[-1])
     pad, _, _ = _inpaint_geometry(kind, k, stride, dilation, *x.shape[1:3])
@@ -764,7 +820,7 @@ def inpaint_conv_int8(x: torch.Tensor, w: torch.Tensor, w_s: torch.Tensor,
     the transposed conv (`w` packed flipped). `alpha`: the PReLU slope,
     a one-element float32 tensor. `valid_t` `(B,)`: each row's valid
     input width (the length-bucketed path; `inpaint_valid_out` gives the
-    output's). A down block whose pad reaches the input's width (a short
+    output's; the kernel clamps both to the row). A down block whose pad reaches the input's width (a short
     utterance) pads by `reflect_prepad` first and runs K7 with pad 0.
     Kernel K7 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":

@@ -53,7 +53,7 @@ def test_halo_route_covers_every_spatial_block():
 
 
 def emulate_halo_conv(x: np.ndarray, w: np.ndarray, ksize, dilation,
-                      plan) -> np.ndarray:
+                      plan, valid_t=None, rng=None) -> np.ndarray:
     """int64 NHWC sums of K6's Hopper tile, read as the kernel reads them.
 
     Per segment and item of `plan.rows` output rows, per tap row that
@@ -61,7 +61,10 @@ def emulate_halo_conv(x: np.ndarray, w: np.ndarray, ksize, dilation,
     as the TMA boxes fill them (zeros out of bounds), and for each kept
     row the k32 steps of `plan.steps` over A rows r * row_rows + a_off + p
     and + a_lbo + p of the stage, times the B planes of the step's
-    weight chunks."""
+    weight chunks. `valid_t` (the masked instance): the sums of an item
+    past its row's width (`plan.live_segments`) and of a warpgroup whose
+    m64 tile starts at or past it are never computed; they are garbage
+    from `rng` here, which the epilogue's zeros must cover."""
     bsz, h, wid, cin = x.shape
     (kh, kw), (dh, _) = ksize, dilation
     cout, cpt = w.shape[0], cin // 16
@@ -101,6 +104,15 @@ def emulate_halo_conv(x: np.ndarray, w: np.ndarray, ksize, dilation,
                         # exact: a step's sums stay below 2^24
                         part += a @ np.concatenate(planes, 1).T.astype(
                             np.float32)
+                    if valid_t is not None:
+                        for b, v in enumerate(valid_t):
+                            live = seg < plan.live_segments(v, wid)
+                            for wg in range(plan.seg_len // 64):
+                                if not live or \
+                                        seg * plan.seg_len + 64 * wg >= v:
+                                    part[b, 64 * wg:64 * wg + 64] = \
+                                        rng.integers(-2 ** 20, 2 ** 20,
+                                                     (64, cout))
                     acc[:, oh0 + r, pos[keep]] += part[:, keep].astype(np.int64)
     return acc
 
@@ -147,6 +159,71 @@ def test_halo_plan_reads_give_the_plain_conv(batch, cin, cout, ks, dil):
                               w_s, b, None, False)
     assert torch.equal(got, int8_conv.conv_same_int8_plain(xt, wt, w_s, b, ks,
                                                            dil))
+
+
+def _live_walk(counts, grid):
+    """(block, row, index in the row) of every compact index the blocks
+    of `grid` visit, as each role's `sosw::LiveWalk` seeks them (row b
+    holds counts[b] live items)."""
+    seen = []
+    for block in range(grid):
+        b, base, n, i = 0, 0, -1, block
+        while True:
+            if n < 0:
+                if b >= len(counts):
+                    break
+                n = counts[b]
+            if i < base + n:
+                seen.append((block, b, i - base))
+                i += grid
+                continue
+            base, b, n = base + n, b + 1, -1
+    return seen
+
+
+def _edge_widths(w, seg_len):
+    """Per-row widths at a segment's edges, at a multiple of 64, at 1 and
+    0, at W and past it."""
+    return [seg_len - 1, seg_len, seg_len + 1, min(w, seg_len + 64), 1, 0,
+            w, w + 5]
+
+
+@pytest.mark.parametrize("w,cin,ks,dil", [
+    (400, 16, (5, 5), (2, 2)),    # three segments, the last of 16
+    (300, 32, (7, 1), (1, 1)),    # two segments
+])
+def test_halo_masked_instance_skips_only_zeroed_outputs(w, cin, ks, dil):
+    """K6's masked instance: the items it walks (every block of a grid
+    through `sosw::LiveWalk`) are each row's live segments, each once;
+    the sums of the items and warpgroups it skips are garbage, and the
+    outputs past each row's width hold zeros, exactly as the plain
+    version's."""
+    plan = int8_conv.halo_plan(w, cin, cin, ks, dil)
+    vt = _edge_widths(w, plan.seg_len)
+    h = 6
+    hq = -(-h // plan.rows)
+    counts = [hq * plan.live_segments(v, w) for v in vt]
+    for grid in (1, 7, 132):
+        seen = _live_walk(counts, grid)
+        assert sorted((b, j) for _, b, j in seen) == [
+            (b, j) for b, n in enumerate(counts) for j in range(n)]
+    rng = np.random.default_rng(w + cin)
+    x = rng.integers(-127, 128, (len(vt), h, w, cin), dtype=np.int8)
+    taps = ks[0] * ks[1] * cin
+    wq = np.zeros((cin, -(-taps // 64) * 64), np.int8)
+    wq[:, :taps] = rng.integers(-127, 128, (cin, taps), dtype=np.int8)
+    w_s = torch.from_numpy((rng.random(cin, np.float32) + 0.5) * 0.01
+                           / np.float32(taps ** 0.5))
+    b = torch.from_numpy(rng.standard_normal(cin, np.float32) * 20)
+    acc = emulate_halo_conv(x, wq, ks, dil, plan, vt, rng)
+    got = int8_conv._epilogue(torch.from_numpy(acc).permute(0, 3, 1, 2)
+                              .double(), w_s, b, None, False)
+    past = torch.arange(w)[None, :] >= torch.tensor(vt)[:, None]
+    got[past[:, None, :, None].expand_as(got)] = 0
+    ref = int8_conv.conv_same_int8_plain(
+        torch.from_numpy(x), torch.from_numpy(wq), w_s, b, ks, dil,
+        valid_t=torch.tensor(vt))
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("w,cin,ks,dil,nseg,nbox,rows", [
@@ -307,15 +384,25 @@ def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
     rows a_off + m and a_off + a_lbo + m for the item's m rows, times
     chunks slot and slot + 1 of their box. Output row r of the item is m
     rows r * pitch .. r * pitch + seg_len - 1. `valid_t`: each row's
-    valid input width (the per-row reflection, zeroing and epilogue)."""
+    valid input width (the per-row reflection, zeroing and epilogue);
+    the sums of an item whose first output column lies at or past its
+    row's output width (`plan.live_segments`) are never computed, and the
+    copy pass writes no position that only such items' boxes hold:
+    garbage here."""
     bsz, h, wid, cin = x.shape
     cout = w.shape[0]
-    vts = [wid] * bsz if valid_t is None else [int(v) for v in valid_t]
+    vts = [wid] * bsz if valid_t is None else [min(int(v), wid)
+                                                for v in valid_t]
     if plan.cin_pad != cin:
         w = int8_conv.pad_weight_channels(torch.from_numpy(w), k, cin,
                                           plan.cin_pad).numpy()
     w = np.concatenate([w, np.zeros((cout, 256), np.int8)], 1)  # past Kpad
     kpad = w.shape[1] - 256
+    os_ = 2 if len(plan.phases) > 1 else 1
+    vout = [int8_conv.inpaint_valid_out(plan.kind, k, plan.nph if
+                                        plan.kind == "down" else 2,
+                                        1, v) for v in vts] \
+        if valid_t is not None else [plan.wo * os_] * bsz
     if plan.gather:
         cols = plan.nph * plan.wh
         xs = np.zeros((bsz, h, cols, plan.cin_pad), np.int8)
@@ -326,15 +413,18 @@ def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
                       if u < wid + 2 * plan.pad_w else -1)
                 if iw >= 0:
                     xs[b, :, col, :cin] = x[b, :, iw]
+        if valid_t is not None:  # positions no live item's boxes reach
+            for b, v in enumerate(vout):  # are never written: garbage
+                live = plan.live_segments(v, 0)
+                reach = (live - 1) * plan.seg_len + plan.pitch if live else 0
+                for q0 in range(plan.nph):
+                    plane = xs[b, :, q0 * plan.wh:(q0 + 1) * plan.wh]
+                    plane[:, reach:] = rng.integers(
+                        -128, 128, plane[:, reach:].shape)
     else:
         xs = x
     mode = _patch_mode(plan, valid_t)
-    os_ = 2 if len(plan.phases) > 1 else 1
     out = np.zeros((bsz, plan.ho * os_, plan.wo * os_, cout), np.int64)
-    vout = [int8_conv.inpaint_valid_out(plan.kind, k, plan.nph if
-                                        plan.kind == "down" else 2,
-                                        1, v) for v in vts] \
-        if valid_t is not None else [plan.wo * os_] * bsz
     m = np.arange(64 * plan.mt)
     r_of, owl_of = m // plan.pitch, m % plan.pitch
     cpt = plan.cin_pad // 16
@@ -391,11 +481,22 @@ def emulate_inpaint_conv(x: np.ndarray, w: np.ndarray, k: int, plan,
                                 bmat = wn[:, k0:k0 + 32].astype(np.float32)
                                 # exact: a step's sums stay below 2^24
                                 acc += (a @ bmat.T).astype(np.int64)
+                    if valid_t is not None:
+                        _skip_dead(acc, plan, vout, f.pw, seg, rng)
                     oh = oh0 + r_of[keep]
                     out[:, oh * os_ + f.ph, ow_of[keep] * os_ + f.pw,
                         nt * plan.n:(nt + 1) * plan.n] = acc[:, keep]
     zero = np.arange(plan.wo * os_)[None, :] >= np.asarray(vout)[:, None]
     return out, zero
+
+
+def _skip_dead(acc, plan, vout, pw, seg, rng):
+    """Garbage over the sums of `acc` (batch, m rows, n) that the masked
+    instance does not compute for segment `seg` of the output phase of
+    column offset `pw`: a dead item's."""
+    for b, v in enumerate(vout):
+        if seg >= plan.live_segments(v, pw):
+            acc[b] = rng.integers(-2 ** 20, 2 ** 20, acc.shape[1:])
 
 
 def _patch_reflect(box, pad, wid, s, q):
@@ -553,6 +654,41 @@ def test_inpaint_plan_segmented_rows_give_the_plain_conv(t, name, kind, k, s,
         _inpaint_case(kind, k, s, d, cin, cout, rows, w, 1, seed)
     _inpaint_case(kind, k, s, d, cin, cout, rows, w, 3, seed + 1,
                   [w, w - 1 - (k - 1) // 2 * d, 1 + w // 3])
+
+
+@pytest.mark.parametrize("kind,k,s,d,h,w", [
+    ("down", 3, 1, 1, 5, 400),    # three segments
+    ("down", 5, 2, 1, 7, 800),    # two segments, on the copy pass
+    ("up", 3, 2, 1, 4, 300),      # two segments, four output phases
+])
+def test_inpaint_masked_instance_skips_only_zeroed_outputs(kind, k, s, d, h,
+                                                           w):
+    """K7's masked instance at per-row widths on both sides of a
+    segment's first output column (in the output phase's own columns),
+    at a warpgroup's, at 1, at W and past it: the items it walks are each
+    row's live segments, each once; the sums of the items it skips, and
+    the copied columns only their boxes hold, are garbage, and the
+    outputs hold the plain version's, exactly."""
+    plan = int8_conv.inpaint_plan(kind, k, s, d, h, w, 16, 16)
+    assert plan.nseg > 1
+    edge = plan.seg_len * plan.os
+
+    def width_in(target):  # the least input width of that output width
+        return next(v for v in range(1, w + 2) if v > w or
+                    int8_conv.inpaint_valid_out(kind, k, s, d, v) >= target)
+
+    vt = [width_in(edge - 1), width_in(edge), width_in(edge + 1),
+          width_in(edge + 64 * plan.os), 1, w, w + 3]
+    vout = [int8_conv.inpaint_valid_out(kind, k, s, d, v) for v in vt]
+    rg = -(-plan.ho // plan.rows)
+    for f in plan.phases:
+        counts = [rg * plan.n_tiles * plan.live_segments(v, f.pw)
+                  for v in vout]
+        for grid in (1, 5, 132):
+            seen = _live_walk(counts, grid)
+            assert sorted((b, j) for _, b, j in seen) == [
+                (b, j) for b, n in enumerate(counts) for j in range(n)]
+    _inpaint_case(kind, k, s, d, 16, 16, h, w, len(vt), w + k, vt)
 
 
 @pytest.mark.parametrize("name,kind,k,s,d,cin,cout,h,w", INPAINT_SMALL,

@@ -941,16 +941,32 @@ def test_int8_conv_same_kernel_takes_strided_views(cuda_device, cin, cout,
                                                            dil, out_f32))
 
 
-def _row_widths(batch, width, pad, gen, device):
-    """Per-row valid widths: 1, the full width, one within `pad` of it,
-    the rest spread over [2, width)."""
-    fixed = [1, width, max(1, width - max(pad, 1))]
-    rest = torch.randint(2, width, (max(0, batch - 3),), generator=gen)
-    return torch.tensor(fixed[:batch] + rest.tolist(),
-                        dtype=torch.int64).to(device)
+def _row_widths(batch, width, pad, gen, device, widths="spread",
+                edges=()):
+    """Per-row valid widths. "spread": 1, the full width, one within
+    `pad` of it, the rest spread over [2, width); "edges": `edges` (the
+    widths about a segment's first column and a warpgroup's, each
+    clipped to W + 1 at most), then 1, the full width and one past it,
+    cycled over the batch; "full": every row at the full width; "one":
+    every row at 1."""
+    if widths == "spread":
+        fixed = [1, width, max(1, width - max(pad, 1))]
+        rest = torch.randint(2, width, (max(0, batch - 3),), generator=gen)
+        vals = fixed[:batch] + rest.tolist()
+    elif widths == "edges":
+        cycle = [min(e, width + 1) for e in edges] + [1, width, width + 7]
+        vals = [cycle[i % len(cycle)] for i in range(batch)]
+    else:
+        vals = [width if widths == "full" else 1] * batch
+    return torch.tensor(vals, dtype=torch.int64).to(device)
+
+
+# per-row widths of the valid_t card tests (`_row_widths`)
+WIDTHS = ("spread", "edges", "full", "one")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("widths", WIDTHS)
 @pytest.mark.parametrize("cin,cout,ks,dil,out_f32,hw,batch,route", [
     (96, 96, (5, 5), (32, 1), False, (256, 1024), 8, "tile"),  # enc_x 7
     (48, 48, (5, 5), (32, 32), False, (64, 512), 4, "tile"),
@@ -964,16 +980,20 @@ def _row_widths(batch, width, pad, gen, device):
     (2, 8, (1, 7), (1, 1), False, (30, 20), 4, "gather"),
 ])
 def test_int8_conv_same_kernel_valid_t_exact(cuda_device, cin, cout, ks,
-                                             dil, out_f32, hw, batch, route):
-    """K6 with per-row valid widths (1, the full width, one within the
-    pad of it, the rest spread), on every route, against the plain
-    version exactly: zeros past each row's width (the input, garbage
-    there too, is taken as it is); counted as the valid_t case."""
+                                             dil, out_f32, hw, batch, route,
+                                             widths):
+    """K6 with per-row valid widths (`_row_widths`: spread; about the
+    tile's segments and warpgroups, at 1, the full width and past it;
+    all full; all 1), on every route, against the plain version exactly:
+    zeros past each row's width (the input, garbage there too, is taken
+    as it is); counted as the valid_t case."""
     gen = torch.Generator().manual_seed(cin + cout + hw[1])
     x = _int8((batch, *hw, cin), gen, cuda_device)
     w, w_s, b = _epilogue_params(cout, ks[0] * ks[1] * cin, gen, cuda_device)
+    plan = int8_conv.halo_plan(hw[1], cin, cout, ks, dil)
+    seg = int8_conv.HALO_SEG if plan is None else plan.seg_len
     vt = _row_widths(batch, hw[1], (ks[1] - 1) // 2 * dil[1], gen,
-                     cuda_device)
+                     cuda_device, widths, (seg - 1, seg, seg + 1, seg + 64))
     before, entries = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
     got = int8_conv.conv_same_int8(x, w, w_s, b, ks, dil, out_f32,
                                    valid_t=vt)
@@ -1004,7 +1024,7 @@ INPAINT_BUCKET = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("valid", [True, False])
+@pytest.mark.parametrize("widths", (None,) + WIDTHS)
 @pytest.mark.parametrize("kind,k,s,d,cin,cout,hw", [
     *INPAINT_BUCKET,
     ("down", 3, 1, 16, 256, 256, (64, 45)),   # one segment, the patch warp
@@ -1012,23 +1032,32 @@ INPAINT_BUCKET = [
     ("down", 5, 2, 1, 2, 8, (30, 50)),        # gather: Cout 8
     ("down", 3, 1, 4, 32, 32, (16, 200)),     # pad within a segment's end
 ])
-def test_inpaint_conv_kernel_valid_t_exact(cuda_device, valid, kind, k, s, d,
-                                           cin, cout, hw):
+def test_inpaint_conv_kernel_valid_t_exact(cuda_device, widths, kind, k, s,
+                                           d, cin, cout, hw):
     """K7 at every full-width InpaintNet block at bucket 1,024 (rows in
     segments on the Hopper tile), and on the gather for the Couts the
-    tile has no width for: with per-row valid widths (1, the full width,
-    one within the pad of it; garbage past them) and without (the exact
-    mode's long rows), against the plain version exactly. Neither route
-    falls back: the tile's shapes never launch the gather."""
+    tile has no width for: with per-row valid widths (`_row_widths`:
+    spread; about the first output column of a segment and of a
+    warpgroup, at 1, the full width and past it; all full; all 1;
+    garbage past them) and without (None: the exact mode's long rows),
+    against the plain version exactly. Neither route falls back: the
+    tile's shapes never launch the gather."""
     gen = torch.Generator().manual_seed(cin + cout + d + hw[1])
     batch = 8 if hw[1] >= 256 else 4
     x = _int8((batch, *hw, cin), gen, cuda_device)
     w, w_s, b = _epilogue_params(cout, k * k * cin, gen, cuda_device)
     alpha = torch.tensor([0.2], device=cuda_device)
-    vt = (_row_widths(batch, hw[1], (k - 1) // 2 * d, gen, cuda_device)
-          if valid else None)
     plan = int8_conv.inpaint_plan(kind, k, s, d, *hw, cin, cout)
     assert (plan is None) == (cout % 16 != 0)
+    valid = widths is not None
+    vt = None
+    if valid:
+        edge = (int8_conv.INPAINT_M if plan is None
+                else plan.seg_len * plan.os)
+        vt = _row_widths(batch, hw[1], (k - 1) // 2 * d, gen, cuda_device,
+                         widths, [_input_width(kind, k, s, d, hw[1], t)
+                                  for t in (edge - 1, edge, edge + 1,
+                                            edge + 64)])
     counter = "int8_inpaint_valid_t" if valid else "int8_inpaint"
     before, entries = dict(LAUNCHES), dict(ENTRY_LAUNCHES)
     got = int8_conv.inpaint_conv_int8(x, w, w_s, b, alpha, kind, k, s, d,
@@ -1041,6 +1070,56 @@ def test_inpaint_conv_kernel_valid_t_exact(cuda_device, valid, kind, k, s, d,
                                             d, vt)
     assert got.shape == ref.shape
     assert torch.equal(got, ref)
+
+
+def _input_width(kind, k, s, d, width, target):
+    """The least input width whose output width reaches `target` (one
+    past `width` where none does)."""
+    return next((v for v in range(1, width + 1)
+                 if int8_conv.inpaint_valid_out(kind, k, s, d, v) >= target),
+                width + 1)
+
+
+@pytest.mark.cuda
+def test_valid_t_kernels_replay_in_a_cuda_graph(cuda_device):
+    """K6's and K7's masked instances captured with per-row widths into a
+    CUDA graph, replayed after new widths are written into the same
+    tensor: each replay matches the plain version at the new widths. So
+    the kernels read the widths on the card at run time, and neither
+    wrapper syncs (a sync inside a capture raises)."""
+    gen = torch.Generator().manual_seed(18)
+    x6 = _int8((4, 64, 512, 96), gen, cuda_device)
+    w6, ws6, b6 = _epilogue_params(96, 25 * 96, gen, cuda_device)
+    x7 = _int8((4, 64, 512, 64), gen, cuda_device)
+    w7, ws7, b7 = _epilogue_params(128, 25 * 64, gen, cuda_device)
+    alpha = torch.tensor([0.2], device=cuda_device)
+    vt = torch.tensor([512, 300, 191, 1], dtype=torch.int32,
+                      device=cuda_device)
+
+    def k6(fn=int8_conv.conv_same_int8):
+        return fn(x6, w6, ws6, b6, (5, 5), (32, 1), valid_t=vt)
+
+    def k7(fn=int8_conv.inpaint_conv_int8):
+        return fn(x7, w7, ws7, b7, alpha, "down", 5, 2, 1, valid_t=vt)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds, plans, allocator pools
+        k6(), k7()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(LAUNCHES)
+    with torch.cuda.graph(graph):
+        y6, y7 = k6(), k7()
+    assert LAUNCHES["int8_conv_valid_t"] == before["int8_conv_valid_t"] + 1
+    assert LAUNCHES["int8_inpaint_valid_t"] \
+        == before["int8_inpaint_valid_t"] + 1
+    for widths in ([512, 300, 191, 1], [1, 193, 512, 64], [0, 512, 600, 256]):
+        vt.copy_(torch.tensor(widths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y6, k6(int8_conv.conv_same_int8_plain)), widths
+        assert torch.equal(y7, k7(int8_conv.inpaint_conv_int8_plain)), widths
 
 
 # every distinct full-width InpaintNet block (sos_tpu/models/quant.py SPEC
