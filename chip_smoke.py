@@ -11,8 +11,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
 2. build: the kernels from `sos_tpu_torch/csrc/` with nvcc, timed;
 3. kernels: K1-K4 and K6-K7 at the main path's shapes (128 clips),
    K1-K3 also in CUDA graphs (device time without the host's dispatch),
-   K4 per case with its plan (rows a block, cluster, blocks) and the
-   card's answer to cudaOccupancyMaxActiveClusters, beside cuDNN's
+   K4 per case with its plan (rows a block, cluster, lanes a unit,
+   blocks), the card's answer to cudaOccupancyMaxActiveClusters
+   at its cluster size and its instances' registers and spills from
+   ptxas, beside cuDNN's
    `nn.LSTM` in fp32 less its identity input projections (its library
    time) and with TF32 allowed,
    each against its plain PyTorch version on the card (K6 and K7
@@ -28,7 +30,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    bucket (beside `torch.stft(center=False)`), K3 with per-row valid_t
    over 2-1,024 frames at 16 rows, K4 with per-row lengths at T 1,024 /
    H 200 and T 384 / H 100, 16 rows (beside cuDNN over a packed
-   sequence); those of phase 7's int8 path: K6 with per-row valid_t
+   sequence), and at the eval chain's 8 rows with the longest row at
+   0.6 T (checked and logged: µs a step of the longest row, the plan);
+   those of phase 7's int8 path: K6 with per-row valid_t
    (enc_x block 7 on the tile and the Cin 2 first block on the
    first-layer kernel) and K7 with per-row valid_t
    on rows in segments (a_in, a_d1, mid_dil16, mid_up), 8 rows of a
@@ -232,6 +236,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -340,6 +345,51 @@ def graph_ms(fn, reps: int = 20) -> float:
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+_K4_PTXAS = None
+
+
+def k4_plan_note(plan) -> str:
+    """A K4 plan as phase 3 logs it: rows a block, cluster, lanes a unit,
+    float4 columns of W_hh a lane holds, blocks, threads and shared bytes,
+    the card's `cudaOccupancyMaxActiveClusters` at its cluster size
+    (against the clusters it launches), and the registers and spills
+    ptxas reported for its inference and training instances (the
+    build's log)."""
+    global _K4_PTXAS
+    if _K4_PTXAS is None:
+        _K4_PTXAS, key = {}, None
+        text = build().with_suffix(".log").read_text()
+        pat = re.compile(r"(bilstm(?:_train)?_kernel)I((?:Li\d+E)+)")
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                m = pat.search(line)
+                key = ((m.group(1),) + tuple(
+                    int(n) for n in re.findall(r"Li(\d+)E", m.group(2)))
+                    if m else None)
+            elif key and "spill stores" in line:
+                nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+                spills = sum(nums[1:3])
+            elif key and "Used" in line and "registers" in line:
+                _K4_PTXAS[key] = (int(re.search(r"Used (\d+) registers",
+                                                line).group(1)), spills)
+                key = None
+    head = (plan.bt, plan.cluster, plan.split, plan.kv)
+    regs = "; ".join(
+        f"{k} {_K4_PTXAS[v][0]} registers, {_K4_PTXAS[v][1]} B spilled"
+        if v in _K4_PTXAS else f"{k}: no ptxas line"
+        for k, v in (("inference", ("bilstm_kernel",) + head + (0,)),
+                     ("training", ("bilstm_train_kernel",) + head)))
+    clusters = plan.blocks // plan.cluster
+    held = max_active_clusters(plan)
+    return (f"{plan.bt} rows a block, cluster {plan.cluster}, {plan.split} "
+            f"lanes a unit, {plan.kv} float4 columns a lane, {plan.blocks} "
+            f"blocks of {plan.threads} threads, {plan.smem_bytes} B shared; "
+            f"cudaOccupancyMaxActiveClusters {held} at cluster "
+            f"{plan.cluster} for {clusters} clusters "
+            f"({'one wave' if clusters <= held else 'waves of clusters'}); "
+            f"{regs}")
 
 
 def pfa_flops_per_frame(inverse: bool) -> float:
@@ -522,14 +572,8 @@ def phase_kernels(gen: torch.Generator):
         w_f = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
         w_b = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
         plan = recurrence_plan(BATCH, hidden)
-        held = max_active_clusters(plan)
-        clusters = plan.blocks // plan.cluster
-        log(f"bilstm T{steps}/H{hidden} plan: {plan.bt} rows a block, "
-            f"cluster {plan.cluster}, {plan.blocks} blocks ({clusters} "
-            f"clusters) of {plan.threads} threads, units "
-            f"{[n for _, n in plan.units]}, {plan.smem_bytes} B shared; "
-            f"cudaOccupancyMaxActiveClusters {held} -> "
-            f"{'one wave' if clusters <= held else 'MORE THAN ONE WAVE'}")
+        log(f"bilstm T{steps}/H{hidden} plan: {k4_plan_note(plan)}; units "
+            f"{[n for _, n in plan.units]}")
         got = bilstm_recurrence(xp_f, xp_b, w_f, w_b)
         ref = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
         torch.cuda.synchronize()
@@ -1014,8 +1058,8 @@ def training_cases(gen, dev, record):
             b_plain_ms = time_ms(lambda: bilstm_recurrence_backward_plain(
                 dout, gates, c, w_f, w_b), reps=3, warmup=1)
         lib_f, lib_b = cudnn_training_ms(xp_f, w_f, w_b, dev)
-        log(f"bilstm_train B{batch} T{steps}/H{hidden} (plan: {plan.bt} rows, "
-            f"cluster {plan.cluster}): h bit-identical to the inference "
+        log(f"bilstm_train B{batch} T{steps}/H{hidden} (plan: "
+            f"{k4_plan_note(plan)}): h bit-identical to the inference "
             f"instance {same_h}, max err against the plain training forward "
             f"{err:.3e} (tolerance 5e-5), one-step gates {step_err_g:.3e} "
             f"c {step_err_c:.3e} (tolerance 1e-6)  kernel {ms:.4f} ms "
@@ -1191,6 +1235,13 @@ def lstm_library_ms(xp_f, w_f, w_b, lengths, dev) -> float:
         return time_ms(cudnn) - time_ms(projections)
 
 
+# K4 with per-row lengths in phase 3: (batch, T, H, longest row as a share
+# of T). The B 16 cases are summed in the kernels line; the B 8 ones (the
+# eval chain's batch, longest row at 0.6 T) are checked and logged
+K4_LENGTHS_CASES = ((16, 1024, 200, 1.0), (16, 384, 100, 1.0),
+                    (8, 1024, 200, 0.6), (8, 384, 100, 0.6))
+
+
 def bucketed_cases(gen, dev, record, window, table_bytes):
     """The length-bucketed cases of K1, K3 and K4 (phase 7's path) at
     full width: K1 center=False on 128 rows of a 1,024-frame bucket, K3
@@ -1251,15 +1302,20 @@ def bucketed_cases(gen, dev, record, window, table_bytes):
 
     k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
           "bytes": 0.0, "err": 0.0, "ok": True}
-    for steps, hidden in ((1024, 200), (384, 100)):
+    # the B 8 cases draw from a generator of their own: the later phases
+    # keep the weights and data they were validated on (drawn from `gen`)
+    gen8 = torch.Generator().manual_seed(SEED + 5)
+    for batch, steps, hidden, top in K4_LENGTHS_CASES:
+        g = gen if batch == rows else gen8
         g4 = 4 * hidden
-        xp_f = torch.randn(rows, steps, g4, generator=gen).to(dev)
-        xp_b = torch.randn(rows, steps, g4, generator=gen).to(dev)
+        xp_f = torch.randn(batch, steps, g4, generator=g).to(dev)
+        xp_b = torch.randn(batch, steps, g4, generator=g).to(dev)
         bnd = 1.0 / hidden ** 0.5
-        w_f = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
-        w_b = ((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd).to(dev)
-        lengths = torch.randint(1, steps + 1, (rows,), generator=gen)
-        lengths[0] = steps
+        w_f = ((torch.rand(g4, hidden, generator=g) * 2 - 1) * bnd).to(dev)
+        w_b = ((torch.rand(g4, hidden, generator=g) * 2 - 1) * bnd).to(dev)
+        longest = int(top * steps)
+        lengths = torch.randint(1, longest + 1, (batch,), generator=g)
+        lengths[0] = longest
         valid = int(lengths.sum())
         lengths = lengths.to(dev)
         got = bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
@@ -1269,17 +1325,28 @@ def bucketed_cases(gen, dev, record, window, table_bytes):
         zeros = all(not bool(got[b, n:].any())
                     for b, n in enumerate(lengths.tolist()))
         ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths))
+        plan = recurrence_plan(batch, hidden)
+        note = (f"bilstm_lengths T{steps}/H{hidden}, {batch} rows, longest "
+                f"{longest}, {valid} valid steps of {batch * steps}: "
+                f"max_abs_err {err:.3e} (tolerance atol 5e-5) "
+                f"{'ok' if ok else 'FAILED'}, padding steps zero {zeros}; "
+                f"kernel {ms:.4f} ms ({ms / longest * 1e3:.2f} us a step of "
+                f"the longest row); plan {k4_plan_note(plan)}")
+        if batch != rows:
+            log(note)
+            if not (ok and zeros):
+                raise RuntimeError(f"bilstm_lengths B{batch} T{steps}/"
+                                   f"H{hidden} disagrees with its plain "
+                                   "version")
+            continue
         plain_ms = time_ms(lambda: bilstm_recurrence_plain(
             xp_f, xp_b, w_f, w_b, lengths), reps=2, warmup=1)
         lib_ms = lstm_library_ms(xp_f, w_f, w_b, lengths, dev)
         flops = 2.0 * valid * (2 * hidden * g4 + 10 * hidden)
         nbytes = 4.0 * (2 * valid * g4 + 2 * g4 * hidden
                         + rows * steps * 2 * hidden + rows)
-        log(f"bilstm_lengths T{steps}/H{hidden}, 16 rows, {valid} valid "
-            f"steps of {rows * steps}: max_abs_err {err:.3e} (tolerance atol "
-            f"5e-5) {'ok' if ok else 'FAILED'}, padding steps zero {zeros}; "
-            f"kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us/step)  plain "
-            f"{plain_ms:.4f} ms  cuDNN packed fp32 recurrence {lib_ms:.4f} ms")
+        log(f"{note}  plain {plain_ms:.4f} ms  cuDNN packed fp32 recurrence "
+            f"{lib_ms:.4f} ms")
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("flops", flops),
                          ("bytes", nbytes)):
@@ -1741,7 +1808,7 @@ CATEGORIES = (
     ("K1 stft", ("stft_analysis_pfa",)),
     ("K3 crm_istft", ("crm_synthesis_pfa",)),
     ("K2 mask_gate", ("mask_gate_kernel",)),
-    ("K4 bilstm", ("bilstm_cluster_kernel",)),
+    ("K4 bilstm", ("bilstm_kernel",)),
     ("elementwise (BN, activations, casts, copies)",
      ("elementwise_kernel", "copy_kernel", "CatArrayBatchedCopy")),
     ("convolutions", ("conv", "cudnn", "fprop", "dgrad", "winograd",

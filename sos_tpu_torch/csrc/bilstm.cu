@@ -8,49 +8,74 @@
 // The mask is per row here: `lengths` (B,) zeroes row b's h and c at
 // steps >= lengths[b], so its backward direction starts fresh at
 // lengths[b] - 1 (sos_tpu's `BiLSTM(valid_len=)`, vmapped over the
-// length-bucketed predictors' rows, ops/lstm.py:89-120). A lane reads
-// its rows' lengths once, before the steps.
+// length-bucketed predictors' rows, ops/lstm.py:89-120). The lengths are
+// int32 or int64, with a stride (0: one length for every row), read on
+// the card: no cast, no host sync.
 //
 // Bound on an H100: the T steps are strictly sequential, so a step's
 // latency sets the time. A step is 2*B*H*4H multiply-adds (82 MFLOP at
-// B 128, H 200), about 1.2 us over the card's fp32 rate. The first
-// design read all of W_hh from L2 in every block every step (164 MB a
-// step at H 200), and its step time tracked those bytes.
+// B 128, H 200), about 1.2 us over the card's fp32 rate; at the eval
+// chain's batches (8-16 rows) the operations bound is far below what a
+// step's exchange between SMs costs (PERF.md §6: the exchange-only floor).
 //
 // Design (the plan is `ops/lstm.py` `recurrence_plan`, which the CPU
 // test `tests/test_torch_lstm_plan.py` emulates block by block):
-// * A block takes a tile of BT batch rows of one direction, so every
-//   weight it reads serves BT rows: lanes 4j .. 4j+3 of a block share
-//   hidden unit j, each keeping a 4 x BT register tile (all four gates
-//   of the unit for the tile's rows) over its quarter of k; a two-step
-//   shuffle butterfly then leaves each lane all four gates of its own
-//   rows, so the cell update needs no shared-memory round trip and a
-//   step has one barrier.
-// * W_hh stays in shared memory for all T steps. A cluster of C blocks
-//   shares a tile: rank r owns a run of hidden units (multiples of 4)
-//   and holds W_hh's 4 gate columns of each, as rows of `kp` floats
-//   (kp = 16 mod 32, so that the float4 reads of a quarter warp, two
-//   units' four k splits, hit 32 distinct banks). H 100 fits one block
-//   (C 1); H 200 takes C 4, about 186 KB of W_hh a block.
-// * Every step each block computes its units' h for its rows and writes
-//   them into every peer's h buffer through distributed shared memory.
-//   h is double-buffered by step parity (read s & 1, write (s+1) & 1),
-//   so one cluster barrier a step (arrive.release, wait.acquire) orders
-//   the exchange: a block arrives only after it has read the step's h,
-//   and no peer writes that buffer again before the next barrier. The
-//   last step's barrier is the final one, so no block exits while a
-//   peer still writes into its shared memory.
+// * A block takes a tile of BT batch rows of one direction; a cluster of
+//   C blocks shares the tile, rank r owning a run of hidden units
+//   (multiples of 4, the H % 4 left over to the last rank).
+// * S lanes share a unit (S = 4 or 8); lane q of unit u holds, in
+//   registers for all steps, W_hh's four gate columns of u over the
+//   float4 columns k4 = q, q + S, ... (KV of them, zeros past H), so a
+//   step reads no W_hh. It sums its 4 x BT partial gates over its k
+//   columns from the step's h rows (float4 reads; the S lanes of a unit
+//   read S neighbouring float4s, so a warp's read is one wavefront),
+//   then a butterfly over lanes ^ S/2 .. ^ 1 halves the rows a lane
+//   keeps while they are even and all-reduces them when odd, which
+//   leaves each owner lane all four gates of its rows.
+// * h is double-buffered by step parity in every block's shared memory
+//   (step s reads s & 1 and writes (s + 1) & 1 of every peer). Each
+//   owner sends its h into every rank's buffer by `st.async ...
+//   mbarrier::complete_tx::bytes`, which counts the 4 bytes on that
+//   rank's mbarrier of the parity. Thread 0 of each rank arms its own
+//   mbarrier once a step (`arrive.expect_tx` of BT * H * 4 bytes: every
+//   unit of every rank, every row of the tile); the step's readers wait
+//   only on that mbarrier (`try_wait.parity`). There is one
+//   `barrier.cluster` before the first step (every mbarrier initialised,
+//   both h buffers zeroed) and one after the last (no block exits while
+//   a peer may still address it); none between steps. A cluster of one
+//   block exchanges through its own shared memory with one
+//   __syncthreads a step.
+// * Write after read: rank A writes parity p of peer B at step s only
+//   after A's own wait of step s, which needed B's h of step s - 1; B
+//   sends that h only after it has read parity p (step s - 1 read parity
+//   (s - 1) & 1 = p), because every warp that reads h also sends (its
+//   owner lanes send after the butterfly's shuffles, which every lane of
+//   the warp joins after its reads; a warp with no unit of the rank
+//   neither reads nor waits). So no peer writes a buffer that a warp may
+//   still read, and no bytes of a step reach a mbarrier before the phase
+//   of the step before has completed there. The CPU emulation checks
+//   this order, and that a single buffer would race.
+// * The tile's walk stops at its longest row: each block reduces its
+//   rows' lengths on the card to Lmax; the forward direction runs steps
+//   0 .. Lmax - 1, the backward Lmax - 1 .. 0 from a zero state (exact:
+//   past every row's length h and c are reset to zero anyway). The
+//   tile's blocks write the outputs at t >= Lmax as zeros in 16-byte
+//   stores before the steps. Rows shorter than Lmax keep the per-row
+//   mask.
 // * xp[t+1] for the lane's own cells is copied by cp.async (4 bytes a
-//   copy: a rank's gate columns are runs of its unit count, which need
-//   not start on 16 bytes) while step t computes; a lane reads only the
-//   slots it copied, so `wait_group 1` is its only wait. W_hh arrives
-//   by 16-byte cp.async once.
+//   copy) while step t computes; a lane reads only the slots it copied,
+//   so `wait_group 1` is its only wait.
+// W_hh kept in shared memory and read every step, with a cluster barrier
+// a step, measured slower at every shape the port runs, B 128 at H 200
+// included, where this layout takes three waves of clusters
+// (`scripts/k4_sweep.py` builds the variants that measure each part of
+// this design: W_hh in shared memory, a barrier a step, the exchange
+// alone; PERF.md §6).
 // Products and sums stay fp32; expf and tanhf are the accurate ones.
-// Most of a step is the k loop (PERF.md §6). Each lane reads every h
-// row it multiplies, so at BT rows h takes BT/4 times the shared-memory
-// reads W_hh does.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "per_device.cuh"
 
@@ -58,7 +83,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 512;  // the plan keeps 4 x units below
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -72,13 +96,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -87,14 +104,30 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 template <int C>
 __device__ __forceinline__ void step_barrier() {
   if constexpr (C == 1) {
     __syncthreads();
   } else {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    cluster_sync();
   }
+}
+
+// Row b's length (int32 or int64 lengths, `stride` elements apart),
+// clamped to [0, T].
+__device__ __forceinline__ int row_length(const void* lengths, int bytes,
+                                          int stride, int b, int T) {
+  const long long n =
+      bytes == 8 ? __ldg(static_cast<const long long*>(lengths) +
+                         (size_t)b * stride)
+                 : (long long)__ldg(static_cast<const int*>(lengths) +
+                                    (size_t)b * stride);
+  return (int)(n < 0 ? 0 : (n > T ? T : n));
 }
 
 // One butterfly step over lanes `lane ^ MASK` of a unit: with an even
@@ -120,336 +153,516 @@ __device__ __forceinline__ void butterfly(const float (&in)[R][4],
     }
 }
 
-// grid (C * tiles, 2 directions), clusters of C along x, 4*U threads (U
-// units a rank lays out, a multiple of 8). Lane 4j + q sums unit j's
-// gates over the float4 columns k4 = q, q+4, ... of W_hh; the butterfly
-// (lanes ^ 2, then ^ 1) halves a lane's rows while they are even and
-// all-reduces them when odd, leaving it all four gates of RB rows (a
-// lane whose bit picked an all-reduce partner's copy updates nothing).
-// Shared memory: W slice (4*U rows of kp: gate g, unit u at row g*U + u)
-// | h (2 parities, BT rows of kp) | xp prefetch (2 parities, RB, 4, one
-// slot per owner lane).
+// Modes of the kernel: the shipped instances are 0 (inference) and
+// kTrainMode; scripts/k4_sweep.py builds the others to measure what each
+// part of the design costs.
+constexpr int kTrainMode = 1;     // also store c and the activated gates
+constexpr int kWShared = 2;       // re-read W_hh from shared memory each step
+constexpr int kBarrierMode = 4;   // plain DSMEM stores, a barrier.cluster a step
+constexpr int kExchangeOnly = 8;  // no k loop, no activations: the exchange alone
+
+// A wait that has not seen its step's bytes after this many polls (far
+// longer than any step) traps: a fault in the exchange becomes a launch
+// error, not a hung card.
+constexpr long long kMaxPolls = 1ll << 28;
+
+// Rows a lane keeps after the butterfly over lanes ^ S/2 .. ^ 1.
+__host__ __device__ constexpr int rows_after(int rows, int s) {
+  return s <= 1 ? rows : rows_after(rows % 2 == 0 ? rows / 2 : rows, s / 2);
+}
+
+// The most threads a block of the (C, S, KV) instances takes: units a
+// rank owns at H <= 4 S KV (quads split evenly, H % 4 to the last rank,
+// which then holds one quad fewer in all), rounded up to whole warps of
+// 32 / S units (ops/lstm.py `RecurrencePlan.max_threads`). ptxas gives a
+// thread at most 16384 / (32 x the warps an SM sub-partition may hold)
+// registers under it.
+__host__ __device__ constexpr int reg_max_threads(int C, int S, int KV) {
+  const int q = S * KV;
+  const int even = 4 * ((q + C - 1) / C), last = 4 * ((q - 1) / C) + 3;
+  const int units = C == 1 ? 4 * q : (even > last ? even : last);
+  const int per_warp = 32 / S;
+  return S * ((units + per_warp - 1) / per_warp * per_warp);
+}
+
+// The butterfly over lanes ^ MASK .. ^ 1 of a unit.
+template <int R, int MASK>
+__device__ __forceinline__ void reduce_lanes(
+    const float (&in)[R][4], float (&out)[rows_after(R, 2 * MASK)][4],
+    int lane) {
+  constexpr int N = R % 2 == 0 ? R / 2 : R;
+  if constexpr (MASK == 1) {
+    butterfly<R, 1>(in, out, lane);
+  } else {
+    float mid[N][4];
+    butterfly<R, MASK>(in, mid, lane);
+    reduce_lanes<N, MASK / 2>(mid, out, lane);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The shared::cluster address of `addr` (this block's shared memory) in
+// the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, int rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` more of the phase's transactions
+__device__ __forceinline__ void mbar_arm(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > kMaxPolls) __trap();
+  }
+}
+
+// 4 bytes into a peer's shared memory, counted on that peer's mbarrier
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// grid (C * tiles, 2 directions), clusters of C along x, S*U threads (U
+// units a rank lays out, whole warps of 32 / S units). Lane S*u + q holds
+// W_hh's gates of unit u over the float4 columns k4 = q + S*m, m < KV.
+// Shared memory: 2 mbarriers (one a parity, 16 bytes) | h (2 parities,
+// BT rows of KP = 4*S*KV floats, zeros past H) | xp prefetch (2
+// parities, RB x 4 slots a lane) | with kWShared only, W_hh (4*U rows of
+// KP + 4 floats).
 //
-// kTrain adds the training instance's stores: the cell state c and the
-// four activated gates of every step, (2, B, T, H) and (2, B, T, 4H)
+// kTrainMode adds the training instance's stores: the cell state c and
+// the four activated gates of every step, (2, B, T, H) and (2, B, T, 4H)
 // with the direction first, which the backward (K4b, csrc/bilstm_bwd.cu)
-// reads. It is a compile-time instance of its own, so the inference
-// kernel compiles to the code it had without it.
-template <int BT, int C, bool kTrain>
+// reads. Its h is bit-identical to the inference instance's.
+template <int BT, int C, int S, int KV, int kMode>
 __device__ __forceinline__ void bilstm_steps(
     const float* __restrict__ xp_f, const float* __restrict__ xp_b,
     const float* __restrict__ whh_f, const float* __restrict__ whh_b,
-    const int* __restrict__ lengths, float* __restrict__ out,
-    float* __restrict__ c_out, float* __restrict__ gates_out, int B, int T,
-    int H, int U, int kp) {
-  static_assert(BT % 2 == 0, "rows a block: even");
-  constexpr int RA = BT / 2;                    // rows after lanes ^ 2
-  constexpr bool kScatterB = RA % 2 == 0;
-  constexpr int RB = kScatterB ? RA / 2 : RA;   // rows after lanes ^ 1
-  extern __shared__ __align__(16) float smem[];
-  float* wsm = smem;
-  float* hbuf = wsm + 4 * U * kp;
-  float* xs = hbuf + 2 * BT * kp;
+    const void* __restrict__ lengths, int len_stride, int len_bytes,
+    float* __restrict__ out, float* __restrict__ c_out,
+    float* __restrict__ gates_out, int B, int T, int H, int U) {
+  constexpr bool kTrain = kMode & kTrainMode;
+  constexpr bool kWSmem = kMode & kWShared;
+  constexpr bool kBar = (kMode & kBarrierMode) || C == 1;
+  constexpr bool kXOnly = kMode & kExchangeOnly;
+  constexpr int RB = rows_after(BT, S);
+  constexpr int KP = 4 * S * KV;  // h row pitch, floats
+  constexpr int WP = KP + 4;      // W row pitch (kWShared), floats
+  static_assert(S == 4 || S == 8 || S == 16, "lanes a unit: 4, 8 or 16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* hbuf = reinterpret_cast<float*>(smem_raw + 16);
   const int nthreads = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  float* xs = hbuf + 2 * BT * KP;
+  float* wsm = xs + 2 * RB * 4 * nthreads;
+  const uint32_t mbar = smem_u32(smem_raw);  // parity p at mbar + 8 p
+  const uint32_t hb = smem_u32(hbuf);
+  const int tid = threadIdx.x, lane = tid & 31;
   int rank = 0;
   if constexpr (C > 1) rank = (int)cg::this_cluster().block_rank();
-  const int tile = blockIdx.x / C;
-  const int dir = blockIdx.y;
-  // this rank's hidden units [u0, u0 + un): quads of 4 split evenly, the
-  // H % 4 left over to the last rank (ops/lstm.py `_unit_runs`)
+  const int tile = blockIdx.x / C, dir = blockIdx.y;
   const int quads = H >> 2, base = quads / C, extra = quads % C;
   const int u0 = 4 * (rank * base + min(rank, extra));
   const int un = 4 * (base + (rank < extra ? 1 : 0)) + (rank == C - 1 ? (H & 3) : 0);
   const float* xp = dir ? xp_b : xp_f;
   const float* w = dir ? whh_b : whh_f;
-  const int G = 4 * H;
-  const int b0 = tile * BT;
+  const int G = 4 * H, b0 = tile * BT, rows = min(BT, B - b0);
 
-  // W_hh's gate columns of this rank's units, rows of kp floats, zeros
-  // past H and past the units; 16-byte copies where rows allow them
-  {
-    const int warp = tid >> 5, nwarps = nthreads >> 5, kq = kp >> 2;
-    const bool vec = (H & 3) == 0;
-    for (int row = warp; row < 4 * U; row += nwarps) {
-      const int g = row / U, u = row - g * U;
-      float* dst = wsm + row * kp;
-      const float* src = w + (size_t)(g * H + u0 + u) * H;
-      for (int k4 = lane; k4 < kq; k4 += 32) {
-        const int k = 4 * k4;
-        if (u < un && vec && k < H) {
-          cp_async16(dst + k, src + k);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (u < un && k + e < H) {
-              cp_async4(dst + k + e, src + k + e);
-            } else {
-              dst[k + e] = 0.f;
-            }
-          }
-        }
+  // the tile's walk: to its longest row (the same in every rank)
+  int steps = T;
+  if (lengths != nullptr) {
+    steps = 0;
+    for (int r = 0; r < rows; ++r)
+      steps = max(steps, row_length(lengths, len_bytes, len_stride, b0 + r, T));
+  }
+  // the outputs past it are zeros, shared out over the tile's blocks
+  if (steps < T) {
+    const int span = T - steps;
+    const int vec = (H & 3) == 0 ? 4 : 1, nv = H / vec;
+    const int n = rows * span * nv;
+    for (int i = rank * nthreads + tid; i < n; i += C * nthreads) {
+      const int k = (i % nv) * vec, rt = i / nv;
+      float* dst = out + ((size_t)(b0 + rt / span) * T + steps + rt % span) * 2 * H +
+                   dir * H + k;
+      if (vec == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        *dst = 0.f;
       }
     }
-    cp_async_commit();
   }
-  for (int i = tid; i < 2 * BT * kp; i += nthreads) hbuf[i] = 0.f;
 
-  float* peer_h[C];
+  // this lane: unit u, k split q; W_hh's four gate columns of u over the
+  // lane's float4 columns, zeros past H and past the rank's units
+  const int u = tid / S, q = tid % S;
+  const bool warp_live = (tid - lane) / S < un;  // the warp owns a unit
+  float4 wr[kWSmem ? 1 : KV][4];
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
-    if constexpr (C == 1) {
-      peer_h[q] = hbuf;
-    } else {
-      peer_h[q] = cg::this_cluster().map_shared_rank(hbuf, q);
+  for (int m = 0; m < KV; ++m)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 4 * (q + S * m) + i;
+        e[i] = (u < un && k < H) ? __ldg(w + (size_t)(g * H + u0 + u) * H + k) : 0.f;
+      }
+      const float4 v = make_float4(e[0], e[1], e[2], e[3]);
+      if constexpr (kWSmem) {
+        *reinterpret_cast<float4*>(wsm + (g * U + u) * WP + 4 * (q + S * m)) = v;
+      } else {
+        wr[m][g] = v;
+      }
+    }
+  for (int i = tid; i < 2 * BT * KP; i += nthreads) hbuf[i] = 0.f;
+  if (tid == 0 && !kBar) {
+    mbar_init(mbar, 1);
+    mbar_init(mbar + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // this lane's cells after the butterfly: rows [row0, row0 + RB) of unit
+  // u, or none (`owner` false: a partner keeps the all-reduced copy)
+  int row0 = 0;
+  bool owner = u < un;
+  {
+    int r = BT;
+#pragma unroll
+    for (int mask = S / 2; mask >= 1; mask >>= 1) {
+      if (r % 2 == 0) {
+        r /= 2;
+        if (lane & mask) row0 += r;
+      } else if (lane & mask) {
+        owner = false;
+      }
     }
   }
-
-  // this lane: unit u, k split ks, rows [row0, row0 + RB)
-  const int u = tid >> 2, ks = lane & 3;
-  const int row0 = ((lane & 2) ? RA : 0) + (kScatterB && (lane & 1) ? RB : 0);
-  const bool owner = u < un && (kScatterB || !(lane & 1));
-  // xp slots: one per owner lane (every lane, or the even ones)
-  const int nslots = kScatterB ? nthreads : nthreads >> 1;
-  const int slot_id = kScatterB ? tid : tid >> 1;
   const float* xrow[RB];
   bool live[RB];
-  int len[RB];  // steps of the row (T without lengths)
+  int len[RB];
 #pragma unroll
   for (int j = 0; j < RB; ++j) {
     const int b = b0 + row0 + j;
     live[j] = owner && b < B;
     xrow[j] = xp + (size_t)(live[j] ? b : 0) * T * G + u0 + u;
-    len[j] = (lengths != nullptr && live[j]) ? __ldg(lengths + b) : T;
+    len[j] = (lengths != nullptr && live[j])
+                 ? row_length(lengths, len_bytes, len_stride, b, T)
+                 : T;
   }
   auto prefetch = [&](int s) {
-    const int t = dir ? T - 1 - s : s;
-    float* slot = xs + (size_t)(s & 1) * RB * 4 * nslots + slot_id;
+    const int t = dir ? steps - 1 - s : s;
+    float* slot = xs + (size_t)(s & 1) * RB * 4 * nthreads + tid;
 #pragma unroll
     for (int j = 0; j < RB; ++j)
       if (live[j])
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          cp_async4(slot + (j * 4 + g) * nslots, xrow[j] + (size_t)t * G + g * H);
+          cp_async4(slot + (j * 4 + g) * nthreads, xrow[j] + (size_t)t * G + g * H);
     cp_async_commit();
   };
 
   float c[RB];
 #pragma unroll
   for (int j = 0; j < RB; ++j) c[j] = 0.f;
-
-  prefetch(0);
-  cp_async_wait1();  // W_hh has landed
-  // every block's W slice and zeroed h buffers are in place before any
-  // peer writes into them
+  if (steps > 0) prefetch(0);
+  // every block's mbarriers and zeroed h buffers are in place before any
+  // peer sends
   step_barrier<C>();
 
-  const float* wl = wsm + u * kp + 4 * ks;
-  const int passes = kp >> 4;  // float4 columns per lane
-  for (int s = 0; s < T; ++s) {
-    const int t = dir ? T - 1 - s : s;
-    if (s + 1 < T) {
+  for (int s = 0; s < steps; ++s) {
+    const int t = dir ? steps - 1 - s : s;
+    const int rd = s & 1, wt = rd ^ 1;
+    const bool send = s + 1 < steps;  // the last step's h is read by none
+    if (send) {
       prefetch(s + 1);
     } else {
       cp_async_commit();  // an empty group keeps `wait_group 1` exact
     }
-    const float* hl = hbuf + (s & 1) * BT * kp + 4 * ks;
-    float acc[BT][4];
+    if (warp_live) {
+      if constexpr (!kBar) {
+        if (tid == 0 && send) mbar_arm(mbar + 8 * wt, BT * H * 4);
+        if (s > 0) mbar_wait(mbar + 8 * rd, ((s - 1) >> 1) & 1);
+      }
+      float acc[BT][4];
 #pragma unroll
-    for (int r = 0; r < BT; ++r)
+      for (int r = 0; r < BT; ++r)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-    for (int m = 0; m < passes; ++m) {
-      float4 wv[4];
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+      if constexpr (!kXOnly) {
+        const float* hl = hbuf + rd * BT * KP + 4 * q;
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        wv[g] = *reinterpret_cast<const float4*>(wl + g * U * kp + 16 * m);
+        for (int m = 0; m < KV; ++m) {
+          float4 wv[4];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float4 hv = *reinterpret_cast<const float4*>(hl + r * kp + 16 * m);
+          for (int g = 0; g < 4; ++g) {
+            if constexpr (kWSmem) {
+              wv[g] = *reinterpret_cast<const float4*>(wsm + (g * U + u) * WP +
+                                                       4 * (q + S * m));
+            } else {
+              wv[g] = wr[m][g];
+            }
+          }
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          acc[r][g] = fmaf(hv.x, wv[g].x, acc[r][g]);
-          acc[r][g] = fmaf(hv.y, wv[g].y, acc[r][g]);
-          acc[r][g] = fmaf(hv.z, wv[g].z, acc[r][g]);
-          acc[r][g] = fmaf(hv.w, wv[g].w, acc[r][g]);
+          for (int r = 0; r < BT; ++r) {
+            const float4 hv = *reinterpret_cast<const float4*>(hl + r * KP + 4 * S * m);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              acc[r][g] = fmaf(hv.x, wv[g].x, acc[r][g]);
+              acc[r][g] = fmaf(hv.y, wv[g].y, acc[r][g]);
+              acc[r][g] = fmaf(hv.z, wv[g].z, acc[r][g]);
+              acc[r][g] = fmaf(hv.w, wv[g].w, acc[r][g]);
+            }
+          }
         }
       }
-    }
-    float sa[RA][4], sum[RB][4];
-    butterfly<BT, 2>(acc, sa, lane);
-    butterfly<RA, 1>(sa, sum, lane);
-    cp_async_wait1();
-    const float* slot = xs + (size_t)(s & 1) * RB * 4 * nslots + slot_id;
-    const int nxt = ((s + 1) & 1) * BT * kp + u0 + u;
-    if (owner) {
+      float sum[RB][4];
+      reduce_lanes<BT, S / 2>(acc, sum, lane);
+      cp_async_wait1();
+      const float* slot = xs + (size_t)rd * RB * 4 * nthreads + tid;
+      if (owner) {
 #pragma unroll
-      for (int j = 0; j < RB; ++j) {
-        float gate[4];
+        for (int j = 0; j < RB; ++j) {
+          float gate[4];
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          gate[g] = (live[j] ? slot[(j * 4 + g) * nslots] : 0.f) + sum[j][g];
-        const float ig = sigmoidf(gate[0]);
-        const float fg = sigmoidf(gate[1]);
-        const float gg = tanhf(gate[2]);
-        const float og = sigmoidf(gate[3]);
-        c[j] = fg * c[j] + ig * gg;
-        float hn = og * tanhf(c[j]);
-        if (t >= len[j]) {  // padding step of this row: h and c restart at 0
-          hn *= 0.f;
-          c[j] *= 0.f;
-        }
-        const int r = row0 + j;
+          for (int g = 0; g < 4; ++g)
+            gate[g] = (live[j] ? slot[(j * 4 + g) * nthreads] : 0.f) + sum[j][g];
+          float hn, ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f;
+          if constexpr (kXOnly) {
+            hn = gate[0];
+          } else {
+            ig = sigmoidf(gate[0]);
+            fg = sigmoidf(gate[1]);
+            gg = tanhf(gate[2]);
+            og = sigmoidf(gate[3]);
+            c[j] = fg * c[j] + ig * gg;
+            hn = og * tanhf(c[j]);
+          }
+          if (t >= len[j]) {  // padding step of this row: h and c restart at 0
+            hn *= 0.f;
+            c[j] *= 0.f;
+          }
+          const int r = row0 + j;
+          const uint32_t dst = hb + 4 * ((wt * BT + r) * KP + u0 + u);
+          if (send) {
+            if constexpr (C == 1) {
+              hbuf[(wt * BT + r) * KP + u0 + u] = hn;
+            } else if constexpr (kBar) {
 #pragma unroll
-        for (int q = 0; q < C; ++q) peer_h[q][nxt + r * kp] = hn;
-        if (live[j]) out[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + u0 + u] = hn;
-        if constexpr (kTrain) {
-          if (live[j]) {
-            const size_t row = ((size_t)dir * B + b0 + r) * T + t;
-            c_out[row * H + u0 + u] = c[j];
-            float* gp = gates_out + row * G + u0 + u;
-            gp[0] = ig;
-            gp[H] = fg;
-            gp[2 * H] = gg;
-            gp[3 * H] = og;
+              for (int p = 0; p < C; ++p) st_cluster(peer_u32(dst, p), hn);
+            } else {
+#pragma unroll
+              for (int p = 0; p < C; ++p)
+                st_async(peer_u32(dst, p), hn, peer_u32(mbar + 8 * wt, p));
+            }
+          }
+          if (live[j]) out[((size_t)(b0 + r) * T + t) * 2 * H + dir * H + u0 + u] = hn;
+          if constexpr (kTrain) {
+            if (live[j]) {
+              const size_t row = ((size_t)dir * B + b0 + r) * T + t;
+              c_out[row * H + u0 + u] = c[j];
+              float* gp = gates_out + row * G + u0 + u;
+              gp[0] = ig;
+              gp[H] = fg;
+              gp[2 * H] = gg;
+              gp[3 * H] = og;
+            }
           }
         }
       }
     }
-    step_barrier<C>();
+    if constexpr (kBar) step_barrier<C>();
   }
+  // no block exits while a peer may still address its shared memory
+  if constexpr (C > 1 && !kBar) cluster_sync();
 }
 
-template <int BT, int C>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    bilstm_cluster_kernel(const float* __restrict__ xp_f,
-                          const float* __restrict__ xp_b,
-                          const float* __restrict__ whh_f,
-                          const float* __restrict__ whh_b,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ out, int B, int T, int H,
-                          int U, int kp) {
-  bilstm_steps<BT, C, false>(xp_f, xp_b, whh_f, whh_b, lengths, out, nullptr,
-                             nullptr, B, T, H, U, kp);
+// The inference instance (kMode 0), and the sweep's modes.
+template <int BT, int C, int S, int KV, int kMode>
+__global__ void __launch_bounds__(reg_max_threads(C, S, KV), 1)
+    bilstm_kernel(const float* __restrict__ xp_f,
+                  const float* __restrict__ xp_b,
+                  const float* __restrict__ whh_f,
+                  const float* __restrict__ whh_b,
+                  const void* __restrict__ lengths, int len_stride,
+                  int len_bytes, float* __restrict__ out, int B, int T,
+                  int H, int U) {
+  bilstm_steps<BT, C, S, KV, kMode>(xp_f, xp_b, whh_f, whh_b, lengths,
+                                    len_stride, len_bytes, out, nullptr,
+                                    nullptr, B, T, H, U);
 }
 
 // The training instance: h as above, plus c and the activated gates.
-template <int BT, int C>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+template <int BT, int C, int S, int KV>
+__global__ void __launch_bounds__(reg_max_threads(C, S, KV), 1)
     bilstm_train_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ xp_b,
                         const float* __restrict__ whh_f,
                         const float* __restrict__ whh_b,
                         float* __restrict__ out, float* __restrict__ c_out,
                         float* __restrict__ gates_out, int B, int T, int H,
-                        int U, int kp) {
-  bilstm_steps<BT, C, true>(xp_f, xp_b, whh_f, whh_b, nullptr, out, c_out,
-                            gates_out, B, T, H, U, kp);
+                        int U) {
+  bilstm_steps<BT, C, S, KV, kTrainMode>(xp_f, xp_b, whh_f, whh_b, nullptr,
+                                         0, 4, out, c_out, gates_out, B, T,
+                                         H, U);
 }
 
-template <int BT, int C, bool kTrain>
-cudaError_t set_smem(int smem) {
-  // per instantiation and device: set once, raise as needed
+// ---- launches -----------------------------------------------------------------
+
+// Instance tags: each keeps its own shared-memory grants.
+template <int BT, int C, int S, int KV, int kMode>
+struct Instance {};
+
+template <typename Tag>
+cudaError_t grant(const void* kernel, int smem, int cluster) {
+  // per instance and device: set once, raise as needed
   static int granted[sosdev::kMaxDevices] = {};
   const int dev = sosdev::current_device();
   if (smem <= granted[dev]) return cudaSuccess;
-  cudaError_t err;
-  if constexpr (kTrain) {
-    err = cudaFuncSetAttribute(bilstm_train_kernel<BT, C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  } else {
-    err = cudaFuncSetAttribute(bilstm_cluster_kernel<BT, C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) granted[dev] = smem;
   return err;
 }
 
-template <int C>
 cudaLaunchConfig_t launch_config(dim3 grid, int threads, int smem,
                                  cudaStream_t stream,
-                                 cudaLaunchAttribute* attr, bool cluster) {
+                                 cudaLaunchAttribute* attr, int cluster) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.x = cluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = cluster ? 1 : 0;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
   return cfg;
 }
 
-template <int BT, int C>
-cudaError_t launch(const float* xp_f, const float* xp_b, const float* whh_f,
-                   const float* whh_b, const int* lengths, float* out,
-                   int B, int T, int H, int U, int kp, int threads,
-                   int smem, cudaStream_t stream) {
-  cudaError_t err = set_smem<BT, C, false>(smem);
+// Everything a launch takes; `lengths` is NULL for the training instance
+// and for rows of T steps.
+struct Args {
+  const float *xp_f, *xp_b, *whh_f, *whh_b;
+  const void* lengths;
+  int len_stride, len_bytes;
+  float *out, *c_out, *gates_out;
+  int B, T, H, U, threads, smem;
+  cudaStream_t stream;
+};
+
+template <int BT, int C, int S, int KV, int kMode>
+cudaError_t launch(const Args& a) {
+  const void* kernel;
+  if constexpr (kMode == kTrainMode) {
+    kernel = (const void*)bilstm_train_kernel<BT, C, S, KV>;
+  } else {
+    kernel = (const void*)bilstm_kernel<BT, C, S, KV, kMode>;
+  }
+  cudaError_t err = grant<Instance<BT, C, S, KV, kMode>>(kernel, a.smem, C);
   if (err != cudaSuccess) return err;
-  const int tiles = (B + BT - 1) / BT;
+  const int tiles = (a.B + BT - 1) / BT;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config<C>(dim3(C * tiles, 2), threads, smem, stream, &attr,
-                       C > 1);
-  return cudaLaunchKernelEx(&cfg, bilstm_cluster_kernel<BT, C>, xp_f, xp_b,
-                            whh_f, whh_b, lengths, out, B, T, H, U, kp);
+  const cudaLaunchConfig_t cfg = launch_config(
+      dim3(C * tiles, 2), a.threads, a.smem, a.stream, &attr, C);
+  if constexpr (kMode == kTrainMode) {
+    return cudaLaunchKernelEx(&cfg, bilstm_train_kernel<BT, C, S, KV>, a.xp_f,
+                              a.xp_b, a.whh_f, a.whh_b, a.out, a.c_out,
+                              a.gates_out, a.B, a.T, a.H, a.U);
+  } else {
+    return cudaLaunchKernelEx(&cfg, bilstm_kernel<BT, C, S, KV, kMode>,
+                              a.xp_f, a.xp_b, a.whh_f, a.whh_b, a.lengths,
+                              a.len_stride, a.len_bytes, a.out, a.B, a.T,
+                              a.H, a.U);
+  }
 }
 
-template <int BT, int C>
-cudaError_t launch_train(const float* xp_f, const float* xp_b,
-                         const float* whh_f, const float* whh_b, float* out,
-                         float* c_out, float* gates_out, int B, int T, int H,
-                         int U, int kp, int threads, int smem,
-                         cudaStream_t stream) {
-  cudaError_t err = set_smem<BT, C, true>(smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (B + BT - 1) / BT;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config<C>(dim3(C * tiles, 2), threads, smem, stream, &attr,
-                       C > 1);
-  return cudaLaunchKernelEx(&cfg, bilstm_train_kernel<BT, C>, xp_f, xp_b,
-                            whh_f, whh_b, out, c_out, gates_out, B, T, H, U,
-                            kp);
-}
-
-template <int BT, int C>
+// cudaOccupancyMaxActiveClusters for an instance's inference kernel.
+template <int BT, int C, int S, int KV, int kMode>
 cudaError_t max_clusters(int threads, int smem, int* count) {
-  cudaError_t err = set_smem<BT, C, false>(smem);
+  const void* kernel = (const void*)bilstm_kernel<BT, C, S, KV, kMode>;
+  cudaError_t err = grant<Instance<BT, C, S, KV, kMode>>(kernel, smem, C);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config<C>(dim3(C, 2), threads, smem, nullptr, &attr, true);
-  return cudaOccupancyMaxActiveClusters(
-      count, (void*)bilstm_cluster_kernel<BT, C>, &cfg);
+  cudaLaunchConfig_t cfg =
+      launch_config(dim3(C, 2), threads, smem, nullptr, &attr, C);
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
 }  // namespace
 
-// The (rows, cluster) pairs `ops/lstm.py` `recurrence_plan` chooses;
-// any other is refused.
-#define SOS_BILSTM_PLANS(X) X(4, 1) X(2, 1) X(8, 4) X(10, 4) X(12, 4)
+// The plans `ops/lstm.py` `recurrence_plan` chooses, (rows, cluster,
+// lanes a unit, float4 columns a lane); any other is refused.
+#ifndef SOS_BILSTM_PLANS
+#define SOS_BILSTM_PLANS(X)                                               \
+  X(1, 1, 4, 2) X(2, 1, 4, 2) X(4, 1, 4, 2) X(8, 1, 4, 2)                 \
+  X(1, 4, 8, 4) X(2, 4, 8, 4) X(4, 4, 8, 4) X(4, 2, 8, 4)                 \
+  X(1, 8, 8, 7) X(2, 8, 8, 7) X(4, 8, 8, 7) X(8, 8, 8, 7)
+#endif
+
+namespace {
+
+cudaError_t dispatch(const Args& a, int bt, int cluster, int split, int kv,
+                     bool train) {
+  cudaError_t err = cudaErrorInvalidValue;
+#define SOS_LAUNCH(BT, C, S, KV)                                           \
+  if (bt == BT && cluster == C && split == S && kv == KV)                  \
+    err = train ? launch<BT, C, S, KV, kTrainMode>(a)                      \
+                : launch<BT, C, S, KV, 0>(a);
+  SOS_BILSTM_PLANS(SOS_LAUNCH)
+#undef SOS_LAUNCH
+  return err;
+}
+
+}  // namespace
 
 extern "C" int sos_bilstm(const float* xp_f, const float* xp_b,
                           const float* whh_f, const float* whh_b,
-                          const int* lengths, float* out, int B, int T,
-                          int H, int bt, int cluster, int U, int kp,
+                          const void* lengths, int len_stride, int len_bytes,
+                          float* out, int B, int T, int H, int bt,
+                          int cluster, int split, int kv, int U,
                           int threads, int smem, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaErrorInvalidValue;
-#define SOS_LAUNCH(BT, C)                                                   \
-  if (bt == BT && cluster == C)                                             \
-    err = launch<BT, C>(xp_f, xp_b, whh_f, whh_b, lengths, out, B, T, H,   \
-                        U, kp, threads, smem, s);
-  SOS_BILSTM_PLANS(SOS_LAUNCH)
-#undef SOS_LAUNCH
+  const Args a{xp_f, xp_b, whh_f, whh_b, lengths, len_stride, len_bytes,
+               out, nullptr, nullptr, B, T, H, U, threads, smem,
+               (cudaStream_t)stream};
+  const cudaError_t err = dispatch(a, bt, cluster, split, kv, false);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -460,27 +673,24 @@ extern "C" int sos_bilstm_train(const float* xp_f, const float* xp_b,
                                 const float* whh_f, const float* whh_b,
                                 float* out, float* c_out, float* gates_out,
                                 int B, int T, int H, int bt, int cluster,
-                                int U, int kp, int threads, int smem,
-                                void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaErrorInvalidValue;
-#define SOS_LAUNCH(BT, C)                                                  \
-  if (bt == BT && cluster == C)                                            \
-    err = launch_train<BT, C>(xp_f, xp_b, whh_f, whh_b, out, c_out,       \
-                              gates_out, B, T, H, U, kp, threads, smem, s);
-  SOS_BILSTM_PLANS(SOS_LAUNCH)
-#undef SOS_LAUNCH
+                                int split, int kv, int U, int threads,
+                                int smem, void* stream) {
+  const Args a{xp_f, xp_b, whh_f, whh_b, nullptr, 0, 4, out, c_out,
+               gates_out, B, T, H, U, threads, smem, (cudaStream_t)stream};
+  const cudaError_t err = dispatch(a, bt, cluster, split, kv, true);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// cudaOccupancyMaxActiveClusters for a plan's kernel, block size and
-// shared memory: how many of its clusters the card holds at once.
-extern "C" int sos_bilstm_max_clusters(int bt, int cluster, int threads,
-                                       int smem, int* count) {
+// cudaOccupancyMaxActiveClusters for a plan's inference kernel, block
+// size and shared memory: how many of its clusters the card holds at once.
+extern "C" int sos_bilstm_max_clusters(int bt, int cluster, int split,
+                                       int kv, int threads, int smem,
+                                       int* count) {
   cudaError_t err = cudaErrorInvalidValue;
-#define SOS_QUERY(BT, C) \
-  if (bt == BT && cluster == C) err = max_clusters<BT, C>(threads, smem, count);
+#define SOS_QUERY(BT, C, S, KV)                                    \
+  if (bt == BT && cluster == C && split == S && kv == KV)          \
+    err = max_clusters<BT, C, S, KV, 0>(threads, smem, count);
   SOS_BILSTM_PLANS(SOS_QUERY)
 #undef SOS_QUERY
   return (int)err;

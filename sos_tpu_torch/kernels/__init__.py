@@ -20,9 +20,10 @@ plain PyTorch versions sit in the module of the op they replace:
   K7 `ops/int8_conv.py` `inpaint_conv_int8`  int8 InpaintNet conv + PReLU
      requantize
 
-K4 keeps W_hh in shared memory for all steps, with tiles of batch rows
-a block (a thread block cluster of 4 shares H 200; `ops/lstm.py`
-`recurrence_plan`). K5, K6's spatial blocks with Cin % 16 == 0 and K7
+K4 takes tiles of batch rows a block, a thread block cluster sharing a
+tile's hidden units (`ops/lstm.py` `recurrence_plan`): each lane holds
+its slice of W_hh in registers and h reaches the peers by stores counted
+on their mbarriers, each tile walking to its longest row. K5, K6's spatial blocks with Cin % 16 == 0 and K7
 (`csrc/int8_inpaint.cu`) run on the Hopper int8 tile
 (`csrc/int8_wgmma.cuh`: wgmma fed by TMA); K6's Cin = 2 first layers and
 1x1 float projections on kernels of their own (`csrc/int8_conv_edge.cu`);

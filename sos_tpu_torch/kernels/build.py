@@ -72,20 +72,23 @@ SIGNATURES = {
     # hops a block, transforms a block, shared bytes (`fft_launch_shape`),
     # out_len, stream
     "sos_crm_istft_fft": (_P,) * 6 + (_I,) * 8 + (_P,),
-    # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths (int32 (B,) or NULL), out,
-    # B, T, H, then the plan: rows a block, cluster, units a block, kp,
-    # threads, shared bytes; stream
-    "sos_bilstm": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths ((B,) int32 or int64,
+    # or NULL), their stride in elements and their width in bytes, out,
+    # B, T, H, then the plan: rows a block, cluster, lanes a unit, float4
+    # columns of W_hh a lane holds, units a block, threads, shared bytes;
+    # stream
+    "sos_bilstm": (_P,) * 5 + (_I, _I, _P) + (_I,) * 10 + (_P,),
     # the training instance: xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, out, c
     # (2, B, T, H), activated gates (2, B, T, 4H), B, T, H, the plan as
     # above; stream
-    "sos_bilstm_train": (_P,) * 7 + (_I,) * 9 + (_P,),
+    "sos_bilstm_train": (_P,) * 7 + (_I,) * 10 + (_P,),
     # K4b: dout (B, T, 2H), gates, c, w_hh_fwd, w_hh_bwd, dxp (2, B, T,
     # 4H), B, T, H, then `backward_plan`: rows a block, cluster, units a
     # block, jp, threads, shared bytes; stream
     "sos_bilstm_bwd": (_P,) * 6 + (_I,) * 9 + (_P,),
-    # rows a block, cluster, threads, shared bytes, int* count
-    "sos_bilstm_max_clusters": (_I,) * 4 + (_P,),
+    # rows a block, cluster, lanes a unit, float4 columns a lane,
+    # threads, shared bytes, int* count
+    "sos_bilstm_max_clusters": (_I,) * 6 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
     "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
     # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), B, H, W, Cin,

@@ -6,12 +6,15 @@
   `preferred_element_type=f32`).
 * The recurrence is kernel K4 (`bilstm_recurrence`, `csrc/bilstm.cu`),
   both directions in one launch, laid out by `recurrence_plan`: batch
-  rows tiled per block, W_hh held in shared memory (split over a
-  thread block cluster at H 200); its plain version runs `lstm_scan`
-  once per direction. With per-row `lengths` `(B,)` (the
-  length-bucketed predictors' `valid_len`), row b's steps >= lengths[b]
-  are padding: h and c are zeroed there, so its backward direction
-  starts fresh at lengths[b] - 1.
+  rows tiled per block, a thread block cluster sharing a tile's hidden
+  units, W_hh held in registers and h exchanged by mbarrier-counted
+  stores into the peers' shared memory; its plain version runs
+  `lstm_scan` once per direction. With per-row `lengths` `(B,)` (the
+  length-bucketed predictors' `valid_len`, int32 or int64, read by the
+  kernel as they are), row b's steps >= lengths[b] are padding: h and c
+  are zeroed there, so its backward direction starts fresh at
+  lengths[b] - 1; the kernel walks each tile only to its longest row
+  and writes zeros past it.
 * Training (`BiLSTMRecurrence`, a `torch.autograd.Function`): the
   forward is K4's training instance (`bilstm_recurrence_train`), which
   also writes the cell state c and the activated gates of every step;
@@ -36,7 +39,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from sos_tpu_torch.kernels import aligned16, launch, library, on_device
+from sos_tpu_torch.kernels import launch, library, on_device
 
 
 def _scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
@@ -100,19 +103,29 @@ def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
 
 
 # Shared memory a block may use on an H100, the blocks of one wave, and
-# the clusters of 4 it holds at once at one block an SM
-# (`cudaOccupancyMaxActiveClusters` on an H100 80GB HBM3, logged by
-# chip_smoke.py)
+# the clusters of each size it holds at once at one block an SM
+# (`cudaOccupancyMaxActiveClusters` on an H100 80GB HBM3 for kernels that
+# take an SM's registers or shared memory: 2 from K4 at H 100, 4 from
+# K4b, 8 and 16 from K4 at H 200; `scripts/k4_sweep.py`, chip_smoke.py
+# phase 3 logs each K4 plan's)
 SMEM_LIMIT = 232448
 BLOCK_SLOTS = 132
 CLUSTER4_SLOTS = 30
-# K4's plan classes, tried in order: (largest hidden, batch rows a block
-# (the fewest whose clusters fit one wave), blocks a cluster); the first
-# whose shared memory fits takes the shape. Each (rows, cluster) pair is
-# one instantiation in csrc/bilstm.cu (`SOS_BILSTM_PLANS`).
-PLAN_CLASSES = ((32, (4,), 1), (None, (2,), 1), (None, (8, 10, 12), 4))
-K_SPLIT = 4         # lanes 4j .. 4j+3 share unit j
-_MAX_THREADS = 512  # csrc/bilstm.cu kMaxThreads
+CLUSTER_SLOTS = {1: BLOCK_SLOTS, 2: 66, 4: CLUSTER4_SLOTS, 8: 15, 16: 7}
+REGISTERS_PER_SM = 65536
+# K4's plan classes (`csrc/bilstm.cu`): (largest hidden, lanes a unit,
+# float4 columns of W_hh a lane holds, (blocks a cluster, batch rows a
+# block) in the order tried); the first pair whose blocks and clusters fit
+# one wave takes the shape, else the last (the most rows a block) runs in
+# waves of clusters. Each (rows, cluster, lanes, columns) is one
+# instantiation in csrc/bilstm.cu (`SOS_BILSTM_PLANS`).
+PLAN_CLASSES = (
+    (32, 4, 2, ((1, 1), (1, 2), (1, 4), (1, 8))),
+    (128, 8, 4, ((4, 1), (4, 2), (4, 4), (2, 4))),
+    (224, 8, 7, ((8, 1), (8, 2), (8, 4), (8, 8))),
+)
+K_SPLIT = 4         # K4b: lanes 4j .. 4j+3 share unit j
+_MAX_THREADS = 512  # csrc/bilstm_bwd.cu kMaxThreads
 
 
 def _unit_runs(hidden: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
@@ -201,48 +214,112 @@ class RecurrencePlan(_ClusterPlan):
 
     A block takes `bt` batch rows of one direction; a cluster of
     `cluster` blocks shares those rows, rank r owning hidden units
-    `units[r]` and W_hh's four gate columns of each, kept in shared
-    memory as rows of `kp` floats (`ustride` rows a gate) for all T
-    steps. Lanes 4j .. 4j+3 sum unit j's gates over the float4 columns
-    `q, q + 4, ...` of their k split q, then a butterfly over the four
-    lanes leaves each with all four gates of `rows_per_lane` rows
+    `units[r]`. Lanes `split * j .. split * j + split - 1` share unit j:
+    lane q holds, in registers, the unit's four gate rows of W_hh over
+    the float4 columns `q, q + split, ...` (`kv` of them, `k_columns`)
+    and sums its partial gates over them; a butterfly over the unit's
+    lanes leaves each owner lane all four gates of `rows_per_lane` rows
     (`lane_rows`), whose cells it updates. Step s reads h buffer
-    `parity(s)[0]` and writes its h into every rank's buffer
-    `parity(s)[1]`.
+    `parity(s)[0]` (rows of `kp` floats) and writes its h into every
+    rank's buffer `parity(s)[1]`, each store counted on that rank's
+    mbarrier, which expects `step_bytes` a step; a tile walks only to
+    its longest row.
     """
-    kp: int
+    split: int
+    kv: int
+
+    @property
+    def kp(self) -> int:
+        """h row pitch in floats: every lane's float4 columns."""
+        return 4 * self.split * self.kv
+
+    @property
+    def ustride(self) -> int:
+        """Units a block lays out: `umax` rounded up to a warp's
+        `32 // split`."""
+        per_warp = 32 // self.split
+        return -(-self.umax // per_warp) * per_warp
+
+    @property
+    def threads(self) -> int:
+        return self.split * self.ustride
+
+    def _butterfly(self):
+        """The butterfly's steps: (lane bit, rows before the step)."""
+        rows, mask = self.bt, self.split // 2
+        while mask:
+            yield mask, rows
+            rows = rows // 2 if rows % 2 == 0 else rows
+            mask //= 2
 
     @property
     def rows_per_lane(self) -> int:
         """Cell rows a lane updates: each butterfly step halves a lane's
         rows while they are even and all-reduces them when odd."""
         rows = self.bt
-        for _ in range(2):
-            rows = rows // 2 if rows % 2 == 0 else rows
+        for _, r in self._butterfly():
+            rows = r // 2 if r % 2 == 0 else r
         return rows
 
     @property
-    def owners(self) -> int:
-        """Lanes that update cells: all, or every other one when the
-        butterfly's last step all-reduces (an odd count of rows left)."""
-        return self.threads if (self.bt // 2) % 2 == 0 else self.threads // 2
+    def smem_bytes(self) -> int:
+        """2 mbarriers (16 bytes) | h (2 parities) | xp prefetch (2
+        parities, a slot set per lane)."""
+        return 16 + 4 * (2 * self.bt * self.kp
+                         + 2 * self.rows_per_lane * 4 * self.threads)
 
     @property
-    def smem_bytes(self) -> int:
-        """W_hh slice | h (2 parities) | xp prefetch (2 parities, a slot
-        set per owner lane)."""
-        return 4 * (4 * self.ustride * self.kp + 2 * self.bt * self.kp
-                    + 2 * self.rows_per_lane * 4 * self.owners)
+    def max_threads(self) -> int:
+        """The register kernel's launch bound for its (cluster, split,
+        kv) (csrc/bilstm.cu `reg_max_threads`): the units a rank owns at
+        the largest hidden size the instance covers, in whole warps."""
+        q = self.split * self.kv
+        units = (4 * q if self.cluster == 1
+                 else max(4 * -(-q // self.cluster),
+                          4 * ((q - 1) // self.cluster) + 3))
+        per_warp = 32 // self.split
+        return self.split * -(-units // per_warp) * per_warp
+
+    @property
+    def register_limit(self) -> int:
+        """Registers a thread may take under that launch bound: an SM's
+        four sub-partitions hold 16384 each, shared by their warps, in
+        eights a thread."""
+        warps = -(-self.max_threads // 32)
+        per_quarter = -(-warps // 4)
+        return min(255, REGISTERS_PER_SM // 4 // (32 * per_quarter) // 8 * 8)
+
+    @property
+    def w_registers(self) -> int:
+        """Registers of W_hh a lane holds: four gates of `kv` float4s."""
+        return 16 * self.kv
+
+    @property
+    def step_bytes(self) -> int:
+        """Bytes a rank's mbarrier expects a step: the h of every unit of
+        every rank, every row of the tile."""
+        return 4 * self.bt * self.hidden
+
+    def sent_bytes(self, rank: int) -> int:
+        """Bytes rank `rank` sends each peer a step: its units' h, every
+        row of the tile."""
+        return 4 * self.bt * self.units[rank][1]
+
+    def k_columns(self, q: int) -> List[int]:
+        """The k indices (of the padded `kp`) that lane q of a unit sums:
+        float4 columns q, q + split, ..."""
+        return [4 * k4 + e for k4 in range(q, self.kp // 4, self.split)
+                for e in range(4)]
 
     def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
         """(unit, tile rows) whose cells thread `tid` of rank `rank`
         updates, as the kernel assigns them after the butterfly; an empty
         range for a lane that updates none."""
-        lane, unit = tid & 31, tid >> 2
+        lane, unit = tid & 31, tid // self.split
         row0, rows, owner = 0, self.bt, True
-        for bit in (2, 1):  # the butterfly's steps: lanes ^ 2, then ^ 1
-            if rows % 2 == 0:
-                rows //= 2
+        for bit, r in self._butterfly():
+            if r % 2 == 0:
+                rows = r // 2
                 row0 += rows if lane & bit else 0
             else:
                 owner = owner and not lane & bit
@@ -258,7 +335,6 @@ class RecurrencePlan(_ClusterPlan):
                 for u in range(u0, u0 + n)]
 
 
-
 def _row_pitch(width: int) -> int:
     """A shared-memory row of `width` floats padded to 16 (mod 32): the
     float4 reads of two units' four splits (a quarter warp) land on 32
@@ -268,13 +344,20 @@ def _row_pitch(width: int) -> int:
 
 def recurrence_plan(batch: int, hidden: int) -> RecurrencePlan:
     """K4's plan for a shape, from (batch, hidden) alone. Raises
-    `ValueError` for a hidden size no class fits."""
-    kp = _row_pitch(hidden)
-    return _choose_plan(
-        batch, hidden, PLAN_CLASSES,
-        lambda bt, cluster, units: RecurrencePlan(batch, hidden, bt, cluster,
-                                                  units, kp),
-        "bilstm_recurrence", "K4")
+    `ValueError` for a hidden size no class takes."""
+    for largest, split, kv, pairs in PLAN_CLASSES:
+        if hidden > largest:
+            continue
+        for cluster, bt in pairs:  # each class gives every rank a quad
+            tiles = -(-batch // bt)
+            if (2 * tiles * cluster <= BLOCK_SLOTS
+                    and 2 * tiles <= CLUSTER_SLOTS[cluster]):
+                break  # one wave; else the last pair, in waves of clusters
+        return RecurrencePlan(batch, hidden, bt, cluster,
+                              _unit_runs(hidden, cluster), split, kv)
+    raise ValueError(f"bilstm_recurrence: hidden {hidden} fits no K4 plan "
+                     f"(W_hh must fit the registers of a cluster of 8: "
+                     f"hidden <= {PLAN_CLASSES[-1][0]})")
 
 
 def max_active_clusters(plan: RecurrencePlan) -> int:
@@ -282,6 +365,7 @@ def max_active_clusters(plan: RecurrencePlan) -> int:
     and shared memory on the current card (one wave holds this many)."""
     count = ctypes.c_int(0)
     rc = library().sos_bilstm_max_clusters(plan.bt, plan.cluster,
+                                           plan.split, plan.kv,
                                            plan.threads, plan.smem_bytes,
                                            ctypes.addressof(count))
     if rc != 0:
@@ -302,33 +386,37 @@ def _recurrence_on_card(name: str, xp_f: torch.Tensor, xp_b: torch.Tensor,
     _check_shapes(name, xp_f, xp_b, w_hh_f, w_hh_b)
     plan = recurrence_plan(batch, hidden)
     dev = xp_f.device
-    # torch's (4H, H) layout is the kernel's: a gate column's k contiguous,
-    # copied 16 bytes at a time
-    tensors = [xp_f.float().contiguous(), xp_b.float().contiguous(),
-               aligned16(w_hh_f.float()), aligned16(w_hh_b.float())]
+    # torch's (4H, H) layout is the kernel's: a gate column's k
+    # contiguous, each lane loading its register slice once
+    tensors = [t.float().contiguous() for t in (xp_f, xp_b, w_hh_f, w_hh_b)]
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on different devices")
     args = [t.data_ptr() for t in tensors]
     if lengths is not None:
-        if lengths.device != dev or tuple(lengths.shape) != (batch,):
-            raise ValueError(f"{name}: lengths must be ({batch},) on {dev}, "
-                             f"got {tuple(lengths.shape)} on {lengths.device}")
-        lengths = lengths.to(torch.int32).contiguous()
+        if (lengths.device != dev or tuple(lengths.shape) != (batch,)
+                or lengths.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(f"{name}: lengths must be int32 or int64 "
+                             f"({batch},) on {dev}, got {lengths.dtype} "
+                             f"{tuple(lengths.shape)} on {lengths.device}")
     outs = [torch.empty((batch, num_steps, 2 * hidden), dtype=torch.float32,
                         device=dev)]
     if train:  # c and the activated gates, after out
         outs += [torch.empty((2, batch, num_steps, n), dtype=torch.float32,
                              device=dev) for n in (hidden, gates)]
         counter, entry = "bilstm_train", "sos_bilstm_train"
-    else:  # the lengths (or NULL), before out
-        args.append(None if lengths is None else lengths.data_ptr())
+    else:  # the lengths (or NULL), their stride and width, before out
+        if lengths is None:
+            args += [None, 0, 4]
+        else:  # read as they are: an expanded scalar has stride 0
+            args += [lengths.data_ptr(), lengths.stride(0),
+                     lengths.element_size()]
         counter = "bilstm" if lengths is None else "bilstm_lengths"
         entry = "sos_bilstm"
     args += [t.data_ptr() for t in outs]
     with on_device(dev) as stream:
         launch(counter, entry, *args, batch, num_steps, hidden, plan.bt,
-               plan.cluster, plan.ustride, plan.kp, plan.threads,
-               plan.smem_bytes, stream)
+               plan.cluster, plan.split, plan.kv, plan.ustride,
+               plan.threads, plan.smem_bytes, stream)
     return tuple(outs)
 
 
@@ -336,8 +424,8 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
                       w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Both LSTM directions over hoisted projections -> `(B, T, 2H)`;
-    `lengths` `(B,)` integers on the projections' device (or None: every
-    row has T steps).
+    `lengths` `(B,)` int32 or int64 on the projections' device, any
+    stride (or None: every row has T steps).
 
     Kernel K4 on CUDA tensors, `bilstm_recurrence_plain` on CPU tensors.
     The launch follows `recurrence_plan`; a shape it refuses raises. The
@@ -636,9 +724,11 @@ class BiLSTM(nn.Module):
         no `valid_len`."""
         x = x.float()
         lengths = None
-        if valid_len is not None:
+        if valid_len is not None:  # as given: K4 reads int32 or int64
             lengths = torch.as_tensor(valid_len, device=x.device)
-            lengths = lengths.to(torch.int64).expand(x.shape[0])
+            if lengths.dtype not in (torch.int32, torch.int64):
+                lengths = lengths.to(torch.int64)
+            lengths = lengths.expand(x.shape[0])
         xp_f = _project(x, self.w_ih_fwd, self.b_ih_fwd + self.b_hh_fwd,
                         self.bf16_proj)
         xp_b = _project(x, self.w_ih_bwd, self.b_ih_bwd + self.b_hh_bwd,

@@ -544,14 +544,16 @@ def test_crm_istft_kernel_takes_misaligned_views(cuda_device):
     (4, 60, 100, False), (4, 178, 200, False), (4, 20, 8, True),
     (128, 60, 100, False), (128, 178, 200, False), (128, 178, 200, True),
     (9, 178, 200, False), (9, 60, 100, True), (3, 12, 16, True),
-    (160, 12, 200, True), (16, 1024, 200, True), (16, 384, 100, True)])
+    (160, 12, 200, True), (16, 1024, 200, True), (16, 384, 100, True),
+    (40, 60, 100, True)])
 def test_bilstm_kernel_matches_plain(cuda_device, batch, steps, hidden,
                                      masked):
-    """K4 at both main-path cases (B 128: H 100 in one block a tile, H
-    200 over a cluster of 4), with per-row lengths (`masked`: the full T,
-    1 step and lengths between, as the bucketed predictors give them),
-    with a ragged last tile, and with each tile height of the cluster
-    class (8, 10 and 12 rows)."""
+    """K4 at both main-path cases (B 128: H 100 over clusters of 2, H
+    200 over clusters of 8 in waves of clusters), with per-row lengths
+    (`masked`: the full T, 1 step and lengths between, as the bucketed
+    predictors give them), with a ragged last tile, and at each rows a
+    block of the H 100 and H 200 classes (B 40 at H 100: 4 rows over
+    clusters of 4)."""
     gen = torch.Generator(device=cuda_device).manual_seed(batch + hidden)
     xp_f, xp_b = (torch.randn(batch, steps, 4 * hidden, device=cuda_device,
                               generator=gen) for _ in range(2))
@@ -575,6 +577,113 @@ def test_bilstm_kernel_matches_plain(cuda_device, batch, steps, hidden,
             assert not got[b, n:].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden,longest", [
+    *[(b, t, h, top) for b in (8, 16) for t, h in ((1024, 200), (384, 100))
+      for top in ("T", "0.6 T", "1")],
+    (15, 384, 200, "0.6 T"), (9, 1024, 100, "T")])
+def test_bilstm_lengths_kernel_matches_plain(cuda_device, batch, steps,
+                                             hidden, longest):
+    """K4 with per-row lengths at the eval chain's batches (8, 16) and
+    phase 3's shapes, the longest row at T, at 0.6 T and every row one
+    step (each tile walks to its longest row and writes zeros past it),
+    and ragged last tiles (B 15 and 9): within atol 5e-5 of the plain
+    version, padding steps exactly 0. int64 lengths, as `BiLSTM` passes
+    them, and int32."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, batch + steps)
+    top = {"T": steps, "0.6 T": int(0.6 * steps), "1": 1}[longest]
+    gen = torch.Generator().manual_seed(steps)
+    lengths = torch.randint(1, top + 1, (batch,), generator=gen)
+    lengths[batch // 2] = top
+    with exact_fp32():
+        ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+    for dtype in (torch.int64, torch.int32):
+        before = LAUNCHES["bilstm_lengths"]
+        got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b,
+                                     lengths.to(cuda_device, dtype))
+        assert LAUNCHES["bilstm_lengths"] == before + 1
+        torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+        for b, n in enumerate(lengths.tolist()):
+            assert not got[b, n:].any()
+
+
+@pytest.mark.cuda
+def test_bilstm_lengths_kernel_replays_in_a_cuda_graph(cuda_device):
+    """K4 with per-row lengths captured into a CUDA graph, replayed after
+    new lengths are written into the same tensor: each replay matches the
+    plain version at the new lengths (its longest row moves too). So the
+    kernel reads the lengths on the card at run time, and the wrapper
+    syncs nowhere (a sync inside a capture raises). An expanded scalar
+    length (stride 0, `BiLSTM(valid_len=int)`) reads the same."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, 8, 384, 200, 3)
+    lengths = torch.tensor([384, 200, 17, 1, 384, 90, 300, 5],
+                           device=cuda_device)
+
+    def k4():
+        return lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds, allocator pools
+        k4()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["bilstm_lengths"]
+    with torch.cuda.graph(graph):
+        out = k4()
+    assert LAUNCHES["bilstm_lengths"] == before + 1
+    for new in ([384, 200, 17, 1, 384, 90, 300, 5], [3, 1, 2, 230, 1, 7, 0, 9],
+                [1] * 8, [384] * 8):
+        lengths.copy_(torch.tensor(new))
+        graph.replay()
+        torch.cuda.synchronize()
+        with exact_fp32():
+            ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+        torch.testing.assert_close(out, ref, atol=5e-5, rtol=0)
+        for b, n in enumerate(new):
+            assert not out[b, n:].any(), new
+    one = torch.tensor(100, device=cuda_device).expand(8)
+    assert one.stride(0) == 0
+    with exact_fp32():
+        torch.testing.assert_close(
+            lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, one),
+            lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, one),
+            atol=5e-5, rtol=0)
+
+
+class _OverSizedPlan(lstm.RecurrencePlan):
+    """A register plan asking for more shared memory than a block of the
+    card may take."""
+
+    @property
+    def smem_bytes(self) -> int:
+        return lstm.SMEM_LIMIT + 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["no instance", "over the card"])
+def test_bilstm_kernel_refuses_plans_the_card_cannot_run(cuda_device,
+                                                         monkeypatch, kind):
+    """A plan csrc/bilstm.cu has no instance for (a cluster of 16 at 4
+    rows) and one whose blocks the card cannot hold raise, launch
+    nothing, and never fall back to another layout."""
+    import dataclasses
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, 16, 20, 200, 1)
+    plan = lstm.recurrence_plan(16, 200)
+    if kind == "no instance":
+        bad = dataclasses.replace(plan, cluster=16,
+                                  units=lstm._unit_runs(200, 16))
+    else:
+        bad = _OverSizedPlan(**{f.name: getattr(plan, f.name)
+                                for f in dataclasses.fields(plan)})
+    monkeypatch.setattr(lstm, "recurrence_plan", lambda b, h: bad)
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match="sos_bilstm: CUDA error"):
+        lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b)
+    assert LAUNCHES == before
+
+
 def _recurrence_inputs(device, batch, steps, hidden, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     xp_f, xp_b = (torch.randn(batch, steps, 4 * hidden, device=device,
@@ -586,7 +695,7 @@ def _recurrence_inputs(device, batch, steps, hidden, seed):
 
 
 TRAIN_SHAPES = [(15, 60, 100), (40, 178, 200), (2, 60, 100), (2, 178, 200),
-                (9, 12, 8), (3, 20, 4), (5, 30, 200)]
+                (9, 12, 8), (3, 20, 4), (5, 30, 200), (15, 178, 200)]
 
 
 @pytest.mark.cuda

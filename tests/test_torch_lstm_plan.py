@@ -2,27 +2,82 @@
 block by block on the CPU against `bilstm_recurrence_plain`.
 
 The emulation does, from the plan alone, what each block of each
-cluster of `csrc/bilstm.cu` does every step: read its own h buffer of
-the step's read parity, sum its units' gates over the plan's k splits
-from its W_hh slice (rows padded to `kp`), update its cells, and write
-its h into every rank's buffer of the write parity. The ranks of a
-cluster are visited in a shuffled order each step, so a block that read
-a buffer a peer had already written this step would show. With per-row
-lengths, each block reads its rows' lengths and zeroes a row's h and c
-at its steps past them. Tolerance: atol 1e-6 (fp32 sums in another
+cluster of `csrc/bilstm.cu` does every step: each lane q of a unit sums
+its k columns (`k_columns(q)`: its register slice of W_hh) from its own h
+buffer of the step's read parity; a butterfly over the unit's lanes, pair
+by pair as the kernel's shuffles, leaves each owner lane its rows' four
+gates (every cell exactly once); the owners update their cells and send
+their h into every rank's buffer of the write parity, counting the bytes
+each rank receives a step (they must sum to the plan's `step_bytes`, what
+each rank's mbarrier expects). The ranks of a cluster run as the
+exchange lets them: a random rank whose previous step's bytes have all
+arrived runs its next step, so ranks drift up to a step apart, and a
+rank that wrote a buffer a peer had not finished reading would show
+(double-buffered, the emulation also asserts it never happens; single-
+buffered, it races). With per-row lengths each block reads its rows'
+lengths and zeroes a row's h and c past them; a tile walks only to its
+longest row, and the outputs past it are the
+kernel's zero fill (the emulation's output starts as NaN, so an output
+nobody writes would show). Tolerance: atol 1e-6 (fp32 sums in another
 order).
 """
 
 import random
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.ops import lstm
 from sos_tpu_torch.ops.lstm import RecurrencePlan, recurrence_plan
 
 T = 12
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The emulations run thousands of tiny tensor ops: one intra-op
+    thread a test (restored after it) keeps them from contending with
+    the threads of the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _butterfly_plan(plan: RecurrencePlan):
+    """The kernel's shuffle reduction over a unit's lanes, as a function
+    of each lane's partial gates (split, bt, 4, units) -> the owners' sums
+    (bt, 4, units). Asserts that the owners cover every row once."""
+    lanes = torch.arange(plan.split)
+    row0 = torch.zeros(plan.split, dtype=torch.long)
+    owner = torch.ones(plan.split, dtype=torch.bool)
+    steps = []
+    for bit, rows in plan._butterfly():
+        hi = (lanes & bit) != 0
+        steps.append((lanes ^ bit, hi[:, None, None, None], rows))
+        if rows % 2 == 0:
+            row0 += hi.long() * (rows // 2)
+        else:
+            owner &= ~hi
+    keep = plan.rows_per_lane
+    owners = [(q, int(row0[q])) for q in lanes[owner].tolist()]
+    seen = sorted(r for _, r0 in owners for r in range(r0, r0 + keep))
+    assert seen == list(range(plan.bt))
+
+    def reduce(part):
+        for partner, hi, rows in steps:
+            if rows % 2 == 0:  # keep a half, add the partner's copy of it
+                n = rows // 2
+                part = torch.where(hi, part[:, n:] + part[partner, n:],
+                                   part[:, :n] + part[partner, :n])
+            else:  # all-reduce; the lanes with the bit set drop out
+                part = part + part[partner]
+        return torch.cat([part[q] for q, _ in sorted(owners,
+                                                      key=lambda o: o[1])])
+    return reduce
 
 
 def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, lengths=None,
@@ -30,11 +85,11 @@ def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, lengths=None,
     """`(B, T, 2H)` as the plan's blocks compute and exchange it."""
     batch, steps, gates = xp_f.shape
     hidden = plan.hidden
-    order = list(range(plan.cluster))
-    shuffle = random.Random(seed).shuffle
-    out = torch.zeros(batch, steps, 2 * hidden)
-    splits = [[4 * k4 + j for k4 in range(q, plan.kp // 4, plan.ks)
-               for j in range(4)] for q in range(plan.ks)]
+    pick = random.Random(seed).choice
+    out = torch.full((batch, steps, 2 * hidden), float("nan"))
+    # lane q's k columns: its register slice of W_hh, its reads of h
+    ks = torch.tensor([plan.k_columns(q) for q in range(plan.split)])
+    reduce = _butterfly_plan(plan)
     for d, (xp, w) in enumerate(((xp_f, w_f), (xp_b, w_b))):
         for tile in range(plan.tiles):
             rows = list(plan.rows(tile))
@@ -43,36 +98,60 @@ def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, lengths=None,
             # the tile's rows' lengths, read once (rows past B: all steps)
             row_len = torch.full((plan.bt,), steps)
             if lengths is not None:
-                row_len[:len(rows)] = lengths[rows]
+                row_len[:len(rows)] = lengths[rows].clamp(0, steps)
+            walk = steps  # the tile's walk stops at its longest row
+            if lengths is not None:
+                walk = int(row_len[:len(rows)].max())
+                out[rows, walk:, d * hidden:(d + 1) * hidden] = 0.0
             blocks = []
             for rank, (u0, n) in enumerate(plan.units):
                 cols = plan.gate_columns(rank)
-                w_slice = torch.zeros(len(cols), plan.kp)
-                w_slice[:, :hidden] = w[cols]
-                blocks.append({"u0": u0, "n": n, "cols": cols, "w": w_slice,
-                               "h": torch.zeros(2, plan.bt, plan.kp),
-                               "c": torch.zeros(plan.bt, n)})
-            for s in range(steps):
-                t = steps - 1 - s if d else s
+                w_pad = torch.zeros(len(cols), plan.kp)
+                w_pad[:, :hidden] = w[cols]
+                blocks.append({
+                    "u0": u0, "n": n, "cols": cols, "step": 0,
+                    # each lane's W_hh: the unit's gate rows at its columns
+                    "w": w_pad[:, ks].permute(1, 0, 2),
+                    "h": torch.zeros(2, plan.bt, plan.kp),
+                    "c": torch.zeros(plan.bt, n), "got": [0] * walk,
+                    "sent": plan.sent_bytes(rank)})
+            while True:
+                ready = [b for b in blocks if b["step"] < walk and (
+                    b["step"] == 0 or b["got"][b["step"] - 1]
+                    == plan.step_bytes)]
+                if not ready:
+                    assert all(b["step"] == walk for b in blocks), \
+                        "the exchange deadlocks"
+                    break
+                blk = pick(ready)
+                s = blk["step"]
+                t = walk - 1 - s if d else s
                 read, write = plan.parity(s)
                 if single_buffer:
                     write = read
-                shuffle(order)
-                for rank in order:
-                    blk = blocks[rank]
-                    h = blk["h"][read]
-                    part = sum(h[:, k] @ blk["w"][:, k].t() for k in splits)
-                    i, f, g, o = (x[:, t, blk["cols"]] + part).split(blk["n"], 1)
-                    c = torch.sigmoid(f) * blk["c"] + torch.sigmoid(i) * torch.tanh(g)
-                    h_new = torch.sigmoid(o) * torch.tanh(c)
-                    m = (t < row_len).float()[:, None]
-                    h_new, c = h_new * m, c * m
-                    blk["c"] = c
-                    u0, n = blk["u0"], blk["n"]
+                u0, n = blk["u0"], blk["n"]
+                # each lane's partial gates from its h columns, then the
+                # butterfly over the unit's lanes
+                part = torch.einsum("bqk,qgk->qbg", blk["h"][read][:, ks],
+                                    blk["w"]).view(plan.split, plan.bt, 4, n)
+                pre = x[:, t, blk["cols"]].view(plan.bt, 4, n)
+                i, f, g, o = (pre + reduce(part)).unbind(1)
+                c = torch.sigmoid(f) * blk["c"] + torch.sigmoid(i) * torch.tanh(g)
+                h_new = torch.sigmoid(o) * torch.tanh(c)
+                m = (t < row_len).float()[:, None]
+                h_new, c = h_new * m, c * m
+                blk["c"] = c
+                if s + 1 < walk:  # the last step's h is read by none
                     for peer in blocks:
+                        # write after read: the peer has finished step s - 1,
+                        # the last to read this buffer
+                        assert single_buffer or peer["step"] >= s
                         peer["h"][write][:, u0:u0 + n] = h_new
-                    out[rows, t, d * hidden + u0:d * hidden + u0 + n] = \
-                        h_new[:len(rows)]
+                        peer["got"][s] += blk["sent"]
+                        assert peer["got"][s] <= plan.step_bytes
+                out[rows, t, d * hidden + u0:d * hidden + u0 + n] = \
+                    h_new[:len(rows)]
+                blk["step"] += 1
     return out
 
 
@@ -87,16 +166,23 @@ def _inputs(batch, hidden, seed):
 
 
 CASES = ([(b, h) for h in (4, 8, 16) for b in (1, 3, 9)]
-         + [(b, h) for h in (100, 200) for b in (3, 9)])
+         + [(b, h) for h in (100, 200) for b in (3, 8, 9, 16)] + [(17, 100)])
+# per-row lengths: the full T, 1 step and shorter ones between; rows 8-11
+# (a tile at 4 rows), 2-3 (at 2) and each single row but 0, 5 and 16 are
+# tiles whose every row is shorter than T; the second set has no row at T
+LENGTHS = [T, 1, T - 3, T - 5, 7, T, 2, T - 1, 4, 5, 9, 3, 6, 2, T - 2, 1, T]
+LENGTHS_ALL_SHORT = [7, 5, 2, 4, 9, 3, 6, 2, 8, 5, 1, 3, 6, 2, 5, 1, 4]
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("batch,hidden", CASES)
+@pytest.mark.parametrize("batch,hidden,masked", [
+    *[(b, h, m) for b, h in CASES for m in (None, "some at T")],
+    (9, 8, "all short"), (8, 100, "all short"), (16, 200, "all short")])
 def test_plan_emulation_matches_plain(batch, hidden, masked):
     (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, batch * 1000 + hidden)
-    # per-row lengths: the full T, 1 step, and shorter ones between
-    lengths = (torch.tensor([T, 1, T - 3, T - 5, 7, T, 2, T - 1, 4])[:batch]
-               if masked else None)
+    lengths = None
+    if masked:
+        lengths = torch.tensor(LENGTHS if masked == "some at T"
+                               else LENGTHS_ALL_SHORT)[:batch]
     plan = recurrence_plan(batch, hidden)
     got = emulate(plan, xp_f, xp_b, w_f, w_b, lengths, seed=hidden + batch)
     ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
@@ -106,39 +192,117 @@ def test_plan_emulation_matches_plain(batch, hidden, masked):
             assert not got[b, n:].any()
 
 
-def test_single_buffered_h_would_race():
-    """The check has teeth: with one h buffer, a rank visited after a
-    peer reads that peer's new h, and the result leaves the plain one."""
-    (xp_f, xp_b), (w_f, w_b) = _inputs(3, 200, 5)
-    plan = recurrence_plan(3, 200)
+def test_eight_row_tiles_emulation_matches_plain():
+    """The training denoiser's plan (B 40, H 200: 8 rows a tile over
+    clusters of 8), the instance the main path's B 128 runs in waves of
+    clusters."""
+    (xp_f, xp_b), (w_f, w_b) = _inputs(40, 200, 40)
+    lengths = torch.from_numpy(np.random.default_rng(3).integers(1, T + 1, 40))
+    plan, main = recurrence_plan(40, 200), recurrence_plan(128, 200)
+    assert (plan.cluster, plan.bt) == (main.cluster, main.bt) == (8, 8)
+    got = emulate(plan, xp_f, xp_b, w_f, w_b, lengths, seed=4)
+    ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("batch,hidden", [(3, 200), (16, 100)])
+def test_single_buffered_h_would_race(batch, hidden):
+    """The check has teeth: with one h buffer, a rank that runs ahead
+    writes its next h into the buffer a peer has not read yet, and the
+    result leaves the plain one."""
+    (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, 5)
+    plan = recurrence_plan(batch, hidden)
+    assert plan.cluster > 1
     got = emulate(plan, xp_f, xp_b, w_f, w_b, seed=1, single_buffer=True)
     ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
     assert (got - ref).abs().max() > 1e-3
 
 
 def test_ragged_tiles_are_covered():
-    """B 3 and 9 leave a ragged last tile at every hidden size tested."""
+    """The emulated cases cover every row of every batch, and a ragged
+    last tile at every hidden size whose plans take several rows a tile."""
+    ragged = set()
     for batch, hidden in CASES:
         plan = recurrence_plan(batch, hidden)
         rows = [r for tile in range(plan.tiles) for r in plan.rows(tile)]
         assert rows == list(range(batch))
-        if batch > 1:
-            assert batch % plan.bt, (batch, hidden)
+        if batch % plan.bt:
+            ragged.add(hidden)
+    assert ragged >= {h for b, h in CASES if recurrence_plan(b, h).bt > 1}
 
 
-@pytest.mark.parametrize("steps,hidden,cluster", [(60, 100, 1), (178, 200, 4)])
-def test_main_path_plans_fit_one_wave(steps, hidden, cluster):
-    """At B 128 each main-path case takes at most one block an SM and
-    keeps its W_hh slice and buffers in a block's shared memory."""
-    plan = recurrence_plan(128, hidden)
-    assert plan.cluster == cluster
+def _source_plans():
+    """The instances csrc/bilstm.cu compiles: {(rows, cluster, split,
+    kv)}."""
+    text = (kbuild.CSRC / "bilstm.cu").read_text()
+    m = re.search(r"#define SOS_BILSTM_PLANS\(X\)((?:.*\\\n)*.*)", text)
+    return {tuple(int(a) for a in args.split(","))
+            for args in re.findall(r"X\(([\d, ]+)\)", m.group(1))}
+
+
+def test_every_plan_has_an_instance_within_the_card():
+    """Every plan `recurrence_plan` can choose, read from the plan alone:
+    an instance csrc/bilstm.cu compiles; threads and shared memory a
+    block may take on an H100; the W_hh slice and accumulators within the
+    launch bound's registers; blocks and clusters in one wave wherever a
+    pair of the class fits it (else the most rows a block); each rank's
+    mbarrier expecting exactly what the ranks send it."""
+    instances = _source_plans()
+    batches = list(range(1, 65)) + [96, 128, 160, 200, 600]
+    for hidden in range(1, 225):
+        for batch in batches:
+            plan = recurrence_plan(batch, hidden)
+            key = (plan.bt, plan.cluster, plan.split, plan.kv)
+            assert key in instances, (batch, hidden, key)
+            assert plan.smem_bytes <= lstm.SMEM_LIMIT, (batch, hidden)
+            assert plan.threads <= plan.max_threads, (batch, hidden)
+            assert plan.kp == 4 * plan.split * plan.kv >= hidden
+            # W_hh, the 4 x rows accumulators, a float4 of h and 32 more
+            assert (plan.w_registers + 4 * plan.bt + 4 + 32
+                    <= plan.register_limit), (batch, hidden)
+            one_wave = (plan.blocks <= lstm.BLOCK_SLOTS
+                        and plan.blocks // plan.cluster
+                        <= lstm.CLUSTER_SLOTS[plan.cluster])
+            pairs = next(c[3] for c in lstm.PLAN_CLASSES if hidden <= c[0])
+            assert one_wave or (plan.cluster, plan.bt) == pairs[-1]
+            assert sum(plan.sent_bytes(r) for r in range(plan.cluster)) \
+                == plan.step_bytes == 4 * plan.bt * hidden
+            assert plan.cluster == 1 or all(n >= 4 for _, n in plan.units)
+    with pytest.raises(ValueError, match="fits no K4 plan"):
+        recurrence_plan(1, 225)
+
+
+@pytest.mark.parametrize("batch,steps,hidden,cluster,bt", [
+    (128, 60, 100, 2, 4), (8, 384, 100, 4, 1), (16, 384, 100, 4, 2),
+    (8, 1024, 200, 8, 2), (16, 1024, 200, 8, 4), (15, 60, 100, 4, 1),
+    (40, 178, 200, 8, 8)])
+def test_main_path_plans_fit_one_wave(batch, steps, hidden, cluster, bt):
+    """The main path's B 128 at H 100, the eval chain's batches (8 and 16)
+    and the training path's (15, 40): at most one block an SM, the
+    clusters one wave holds, all of W_hh in the ranks' registers; the
+    chain's batches spread over 64 blocks or more."""
+    plan = recurrence_plan(batch, hidden)
+    assert (plan.cluster, plan.bt) == (cluster, bt)
     assert plan.blocks <= lstm.BLOCK_SLOTS
-    assert plan.blocks // cluster <= (lstm.CLUSTER4_SLOTS if cluster > 1
-                                      else lstm.BLOCK_SLOTS)
-    assert plan.smem_bytes <= 232448
-    w_slice = 4 * 4 * plan.umax * plan.kp
-    assert w_slice >= 4 * 4 * hidden * hidden // cluster  # all of W_hh on chip
-    assert plan.bt > 1  # one W_hh read serves several rows
+    assert plan.blocks // cluster <= lstm.CLUSTER_SLOTS[cluster]
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT
+    assert plan.w_registers <= plan.register_limit - 4 * plan.bt - 36
+    w_slice = plan.w_registers * plan.threads * 4
+    assert w_slice * cluster >= 4 * 4 * hidden * hidden
+    if batch in (8, 16):
+        assert plan.blocks >= 64
+
+
+def test_main_path_h200_plan_runs_in_waves_of_clusters():
+    """The main path's B 128 at H 200: no pair of the class fits one wave
+    (2-row tiles need 64 clusters of 8, 8-row ones 32, and the H100 holds
+    15), so its tiles take the class's most rows, 8, and run in waves of
+    clusters of 8, as the training denoiser's B 40 does in one."""
+    plan = recurrence_plan(128, 200)
+    assert (plan.cluster, plan.bt, plan.tiles) == (8, 8, 16)
+    assert plan.blocks // plan.cluster == 32 > lstm.CLUSTER_SLOTS[8]
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT
+    assert plan.threads <= plan.max_threads
 
 
 @pytest.mark.parametrize("hidden", [1, 3, 4, 8, 16, 33, 100, 110, 199, 200])
@@ -149,12 +313,15 @@ def test_plan_units_and_columns_partition(hidden):
     assert all(u0 % 4 == 0 for u0, _ in plan.units)
     cols = sorted(c for r in range(plan.cluster) for c in plan.gate_columns(r))
     assert cols == list(range(4 * hidden))
-    assert plan.kp >= hidden and plan.kp % 32 == 16
-    assert plan.threads <= 512 and plan.ustride % 8 == 0
+    ks = sorted(k for q in range(plan.split) for k in plan.k_columns(q))
+    assert ks == list(range(plan.kp)) and plan.kp >= hidden
+    assert plan.ustride % (32 // plan.split) == 0 and plan.threads % 32 == 0
+    assert plan.threads <= plan.max_threads <= 1024
 
 
 @pytest.mark.parametrize("batch,hidden", [(128, 100), (128, 200), (9, 200),
-                                          (160, 200), (9, 8), (3, 4), (1, 16)])
+                                          (160, 200), (9, 8), (3, 4), (1, 16),
+                                          (16, 200), (8, 200), (40, 200)])
 def test_lanes_update_every_cell_once(batch, hidden):
     """After the butterfly, the lanes of each rank own every (unit, row)
     cell of the tile exactly once."""
@@ -315,12 +482,11 @@ def test_backward_plan_refuses_hidden_past_a_cluster():
 
 def test_recurrence_plan_of_the_joint_denoiser():
     """K4's training instance at the joint step's denoiser shape (B 15,
-    H 200): a cluster of 4, 8 rows a block (two tiles, the last ragged,
-    as B 9's emulated above), W_hh's columns of a rank's units in shared
-    memory, one wave."""
+    H 200): clusters of 8, 4 rows a block (four tiles, the last ragged),
+    one wave."""
     plan = recurrence_plan(15, 200)
-    assert (plan.cluster, plan.bt) == (4, 8)
+    assert (plan.cluster, plan.bt) == (8, 4)
     assert plan.smem_bytes <= lstm.SMEM_LIMIT
     assert sum(n for _, n in plan.units) == 200
-    assert plan.blocks == 2 * 2 * 4  # directions x tiles x ranks
-    assert plan.blocks // plan.cluster <= lstm.CLUSTER4_SLOTS
+    assert plan.blocks == 2 * 4 * 8  # directions x tiles x ranks
+    assert plan.blocks // plan.cluster <= lstm.CLUSTER_SLOTS[8]
