@@ -45,7 +45,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    shapes): K4's training instance (h bit-identical to the inference
    instance's, c and gates within 1e-6 of one step from the kernel's
    own state) and K4b (the BiLSTM backward, against its plain version
-   on the same saved state) at B 15 T 60 / H 100 and B 40 T 178 / H 200
+   on the same saved state; its plan logged with the card's
+   cudaOccupancyMaxActiveClusters and ptxas' registers and spills, and
+   its exchange-only floor: `scripts/k4b_sweep.py`'s exchange alone of
+   the same plan, built into `build/k4b_floor/`, beside its bound) at
+   B 15 T 60 / H 100 and B 40 T 178 / H 200
    (and, logged with its bound, the joint step's B 15 T 178 / H 200)
    beside cuDNN's fp32 `nn.LSTM` in training (forward, and backward of
    the data gradient, each less its identity projections), and K2's
@@ -242,6 +246,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -272,7 +277,8 @@ from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
-from sos_tpu_torch.ops.lstm import (backward_plan, bilstm_recurrence,
+from sos_tpu_torch.ops.lstm import (BackwardPlan, backward_plan,
+                                    bilstm_recurrence,
                                     bilstm_recurrence_backward,
                                     bilstm_recurrence_backward_plain,
                                     bilstm_recurrence_plain,
@@ -351,17 +357,17 @@ _K4_PTXAS = None
 
 
 def k4_plan_note(plan) -> str:
-    """A K4 plan as phase 3 logs it: rows a block, cluster, lanes a unit,
-    float4 columns of W_hh a lane holds, blocks, threads and shared bytes,
-    the card's `cudaOccupancyMaxActiveClusters` at its cluster size
-    (against the clusters it launches), and the registers and spills
-    ptxas reported for its inference and training instances (the
-    build's log)."""
+    """A K4 or K4b plan as phase 3 logs it: rows a block, cluster, lanes
+    a unit, float4 columns of W_hh a lane holds, blocks, threads and
+    shared bytes, the card's `cudaOccupancyMaxActiveClusters` at its
+    cluster size (against the clusters it launches), and the registers
+    and spills ptxas reported for its instances (K4: inference and
+    training; the build's log)."""
     global _K4_PTXAS
     if _K4_PTXAS is None:
         _K4_PTXAS, key = {}, None
         text = build().with_suffix(".log").read_text()
-        pat = re.compile(r"(bilstm(?:_train)?_kernel)I((?:Li\d+E)+)")
+        pat = re.compile(r"(bilstm(?:_train|_bwd)?_kernel)I((?:Li\d+E)+)")
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 m = pat.search(line)
@@ -376,20 +382,48 @@ def k4_plan_note(plan) -> str:
                                                 line).group(1)), spills)
                 key = None
     head = (plan.bt, plan.cluster, plan.split, plan.kv)
+    kernels = ((("K4b", ("bilstm_bwd_kernel",) + head + (0,)),)
+               if isinstance(plan, BackwardPlan) else
+               (("inference", ("bilstm_kernel",) + head + (0,)),
+                ("training", ("bilstm_train_kernel",) + head)))
     regs = "; ".join(
         f"{k} {_K4_PTXAS[v][0]} registers, {_K4_PTXAS[v][1]} B spilled"
-        if v in _K4_PTXAS else f"{k}: no ptxas line"
-        for k, v in (("inference", ("bilstm_kernel",) + head + (0,)),
-                     ("training", ("bilstm_train_kernel",) + head)))
+        if v in _K4_PTXAS else f"{k}: no ptxas line" for k, v in kernels)
     clusters = plan.blocks // plan.cluster
     held = max_active_clusters(plan)
+    group = "quad of units" if isinstance(plan, BackwardPlan) else "unit"
     return (f"{plan.bt} rows a block, cluster {plan.cluster}, {plan.split} "
-            f"lanes a unit, {plan.kv} float4 columns a lane, {plan.blocks} "
+            f"lanes a {group}, {plan.kv} float4 columns a lane, {plan.blocks} "
             f"blocks of {plan.threads} threads, {plan.smem_bytes} B shared; "
             f"cudaOccupancyMaxActiveClusters {held} at cluster "
             f"{plan.cluster} for {clusters} clusters "
             f"({'one wave' if clusters <= held else 'waves of clusters'}); "
             f"{regs}")
+
+
+def k4b_floor_calls():
+    """The exchange alone of each training shape's K4b plan (the
+    sweep's mode 8: no sum over W_hh, no cell arithmetic), built by
+    `scripts/k4b_sweep.py` into `build/k4b_floor/`: a function of
+    (plan, dout, gates, c, w_f, w_b, dxp) giving a closure that launches
+    it. Its time is K4b's exchange-only floor."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "k4b_sweep", os.path.join(here, "scripts", "k4b_sweep.py"))
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    keys = [sweep.shipped(b, h)[1][1:]
+            for b, _, h in TRAIN_LSTM_SHAPES + TRAIN_LSTM_LOGGED]
+    t0 = time.perf_counter()
+    lib, _ = sweep.build_variants(
+        keys, Path(here) / "build" / "k4b_floor")
+    log(f"K4b exchange-only instances built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def call(plan, *tensors):
+        return sweep.variant_call(lib, 8, plan, plan.smem_bytes, *tensors)
+    return call
 
 
 def pfa_flops_per_frame(inverse: bool) -> float:
@@ -1019,6 +1053,7 @@ def training_cases(gen, dev, record):
     acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
                "bytes": 0.0, "err": 0.0, "ok": True}
            for k in ("train", "bwd")}
+    floor_call, floor_sum = k4b_floor_calls(), 0.0
     for batch, steps, hidden in TRAIN_LSTM_SHAPES + TRAIN_LSTM_LOGGED:
         g4 = 4 * hidden
         xp_f, xp_b = (torch.randn(batch, steps, g4, generator=gen).to(dev)
@@ -1052,6 +1087,8 @@ def training_cases(gen, dev, record):
         ms = time_ms(lambda: bilstm_recurrence_train(xp_f, xp_b, w_f, w_b))
         b_ms = time_ms(lambda: bilstm_recurrence_backward(dout, gates, c,
                                                           w_f, w_b))
+        floor_ms = time_ms(floor_call(bplan, dout, gates, c, w_f, w_b,
+                                      torch.empty_like(gates)))
         with exact_fp32():
             plain_ms = time_ms(lambda: bilstm_recurrence_train_plain(
                 xp_f, xp_b, w_f, w_b), reps=3, warmup=1)
@@ -1065,12 +1102,6 @@ def training_cases(gen, dev, record):
             f"c {step_err_c:.3e} (tolerance 1e-6)  kernel {ms:.4f} ms "
             f"({ms / steps * 1e3:.2f} us/step)  plain {plain_ms:.4f} ms  "
             f"cuDNN training forward less projections {lib_f:.4f} ms")
-        log(f"bilstm_bwd B{batch} T{steps}/H{hidden} (plan: {bplan.bt} rows, "
-            f"cluster {bplan.cluster}, {bplan.blocks} blocks of "
-            f"{bplan.threads} threads, {bplan.smem_bytes} B shared): max "
-            f"err {err_b:.3e} (tolerance 5e-5)  kernel {b_ms:.4f} ms "
-            f"({b_ms / steps * 1e3:.2f} us/step)  plain {b_plain_ms:.4f} ms  "
-            f"cuDNN backward (data) less projections {lib_b:.4f} ms")
         rec_flops = 2.0 * batch * steps * 2 * hidden * g4
         cases = (("train", (ms, plain_ms, lib_f, rec_flops
                             + 2.0 * batch * steps * 10 * hidden,
@@ -1084,6 +1115,14 @@ def training_cases(gen, dev, record):
                                  + 2 * batch * steps * (g4 + hidden)
                                  + 2 * g4 * hidden + 2 * batch * steps * g4),
                           err_b, err_b <= 5e-5)))
+        b_bound, b_by = bound(*cases[1][1][3:5])
+        log(f"bilstm_bwd B{batch} T{steps}/H{hidden} (plan: "
+            f"{k4_plan_note(bplan)}): max err {err_b:.3e} (tolerance 5e-5)  "
+            f"kernel {b_ms:.4f} ms ({b_ms / steps * 1e3:.2f} us/step)  "
+            f"exchange-only floor {floor_ms:.4f} ms ("
+            f"{floor_ms / steps * 1e3:.2f} us/step)  bound {b_bound:.4f} ms "
+            f"({b_by})  plain {b_plain_ms:.4f} ms  cuDNN backward (data) "
+            f"less projections {lib_b:.4f} ms")
         if (batch, steps, hidden) in TRAIN_LSTM_LOGGED:
             for key, vals in cases:
                 bound_ms, bound_by = bound(vals[3], vals[4])
@@ -1097,6 +1136,7 @@ def training_cases(gen, dev, record):
                                        f"H{hidden} disagrees with its plain "
                                        f"version")
             continue
+        floor_sum += floor_ms
         for key, vals in cases:
             a = acc[key]
             for name, v in zip(("ms", "plain_ms", "library_ms", "flops",
@@ -1112,6 +1152,7 @@ def training_cases(gen, dev, record):
            a["plain_ms"], a["library_ms"], a["flops"], a["bytes"],
            shape=shape + " (sum)")
     a = acc["bwd"]
+    log(f"bilstm_bwd {shape} (sum): exchange-only floor {floor_sum:.4f} ms")
     record("bilstm_bwd", "sos_tpu_torch/csrc/bilstm_bwd.cu",
            "sos_tpu/ops/lstm.py:28", a["err"], a["ok"], "atol 5e-5",
            a["ms"], a["plain_ms"], a["library_ms"], a["flops"], a["bytes"],

@@ -77,45 +77,15 @@
 
 #include <cstdint>
 
+#include "cluster_exchange.cuh"
 #include "per_device.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-template <int C>
-__device__ __forceinline__ void step_barrier() {
-  if constexpr (C == 1) {
-    __syncthreads();
-  } else {
-    cluster_sync();
-  }
 }
 
 // Row b's length (int32 or int64 lengths, `stride` elements apart),
@@ -130,129 +100,15 @@ __device__ __forceinline__ int row_length(const void* lengths, int bytes,
   return (int)(n < 0 ? 0 : (n > T ? T : n));
 }
 
-// One butterfly step over lanes `lane ^ MASK` of a unit: with an even
-// row count keep half the rows (the upper half where `lane & MASK`) and
-// send the other half; with an odd count all-reduce.
-template <int R, int MASK>
-__device__ __forceinline__ void butterfly(const float (&in)[R][4],
-                                          float (&out)[R % 2 == 0 ? R / 2 : R][4],
-                                          int lane) {
-  constexpr int N = R % 2 == 0 ? R / 2 : R;
-  const bool hi = lane & MASK;
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      if constexpr (R % 2 == 0) {
-        const float keep = hi ? in[N + j][g] : in[j][g];
-        const float send = hi ? in[j][g] : in[N + j][g];
-        out[j][g] = keep + __shfl_xor_sync(kFull, send, MASK);
-      } else {
-        out[j][g] = in[j][g] + __shfl_xor_sync(kFull, in[j][g], MASK);
-      }
-    }
-}
+// The training instance's mode; csrc/cluster_exchange.cuh has the modes
+// scripts/k4_sweep.py builds to measure what each part of the design costs.
+constexpr int kTrainMode = 1;  // also store c and the activated gates
 
-// Modes of the kernel: the shipped instances are 0 (inference) and
-// kTrainMode; scripts/k4_sweep.py builds the others to measure what each
-// part of the design costs.
-constexpr int kTrainMode = 1;     // also store c and the activated gates
-constexpr int kWShared = 2;       // re-read W_hh from shared memory each step
-constexpr int kBarrierMode = 4;   // plain DSMEM stores, a barrier.cluster a step
-constexpr int kExchangeOnly = 8;  // no k loop, no activations: the exchange alone
-
-// A wait that has not seen its step's bytes after this many polls (far
-// longer than any step) traps: a fault in the exchange becomes a launch
-// error, not a hung card.
-constexpr long long kMaxPolls = 1ll << 28;
-
-// Rows a lane keeps after the butterfly over lanes ^ S/2 .. ^ 1.
-__host__ __device__ constexpr int rows_after(int rows, int s) {
-  return s <= 1 ? rows : rows_after(rows % 2 == 0 ? rows / 2 : rows, s / 2);
-}
-
-// The most threads a block of the (C, S, KV) instances takes: units a
-// rank owns at H <= 4 S KV (quads split evenly, H % 4 to the last rank,
-// which then holds one quad fewer in all), rounded up to whole warps of
-// 32 / S units (ops/lstm.py `RecurrencePlan.max_threads`). ptxas gives a
-// thread at most 16384 / (32 x the warps an SM sub-partition may hold)
-// registers under it.
+// The most threads a block of the (C, S, KV) instances takes: float4
+// columns of W_hh a lane holds cover H <= 4 S KV (ops/lstm.py
+// `RecurrencePlan.max_threads`).
 __host__ __device__ constexpr int reg_max_threads(int C, int S, int KV) {
-  const int q = S * KV;
-  const int even = 4 * ((q + C - 1) / C), last = 4 * ((q - 1) / C) + 3;
-  const int units = C == 1 ? 4 * q : (even > last ? even : last);
-  const int per_warp = 32 / S;
-  return S * ((units + per_warp - 1) / per_warp * per_warp);
-}
-
-// The butterfly over lanes ^ MASK .. ^ 1 of a unit.
-template <int R, int MASK>
-__device__ __forceinline__ void reduce_lanes(
-    const float (&in)[R][4], float (&out)[rows_after(R, 2 * MASK)][4],
-    int lane) {
-  constexpr int N = R % 2 == 0 ? R / 2 : R;
-  if constexpr (MASK == 1) {
-    butterfly<R, 1>(in, out, lane);
-  } else {
-    float mid[N][4];
-    butterfly<R, MASK>(in, mid, lane);
-    reduce_lanes<N, MASK / 2>(mid, out, lane);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The shared::cluster address of `addr` (this block's shared memory) in
-// the block of cluster rank `rank`.
-__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, int rank) {
-  uint32_t r;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` more of the phase's transactions
-__device__ __forceinline__ void mbar_arm(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (long long polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > kMaxPolls) __trap();
-  }
-}
-
-// 4 bytes into a peer's shared memory, counted on that peer's mbarrier
-__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
+  return max_threads_for(C, S, S * KV);
 }
 
 // grid (C * tiles, 2 directions), clusters of C along x, S*U threads (U
@@ -544,38 +400,6 @@ __global__ void __launch_bounds__(reg_max_threads(C, S, KV), 1)
 template <int BT, int C, int S, int KV, int kMode>
 struct Instance {};
 
-template <typename Tag>
-cudaError_t grant(const void* kernel, int smem, int cluster) {
-  // per instance and device: set once, raise as needed
-  static int granted[sosdev::kMaxDevices] = {};
-  const int dev = sosdev::current_device();
-  if (smem <= granted[dev]) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) granted[dev] = smem;
-  return err;
-}
-
-cudaLaunchConfig_t launch_config(dim3 grid, int threads, int smem,
-                                 cudaStream_t stream,
-                                 cudaLaunchAttribute* attr, int cluster) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  return cfg;
-}
-
 // Everything a launch takes; `lengths` is NULL for the training instance
 // and for rows of T steps.
 struct Args {
@@ -617,13 +441,9 @@ cudaError_t launch(const Args& a) {
 template <int BT, int C, int S, int KV, int kMode>
 cudaError_t max_clusters(int threads, int smem, int* count) {
   const void* kernel = (const void*)bilstm_kernel<BT, C, S, KV, kMode>;
-  cudaError_t err = grant<Instance<BT, C, S, KV, kMode>>(kernel, smem, C);
+  const cudaError_t err = grant<Instance<BT, C, S, KV, kMode>>(kernel, smem, C);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(dim3(C, 2), threads, smem, nullptr, &attr, C);
-  cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  return query_clusters(kernel, C, threads, smem, count);
 }
 
 }  // namespace

@@ -23,7 +23,10 @@ plain PyTorch versions sit in the module of the op they replace:
 K4 takes tiles of batch rows a block, a thread block cluster sharing a
 tile's hidden units (`ops/lstm.py` `recurrence_plan`): each lane holds
 its slice of W_hh in registers and h reaches the peers by stores counted
-on their mbarriers, each tile walking to its longest row. K5, K6's spatial blocks with Cin % 16 == 0 and K7
+on their mbarriers, each tile walking to its longest row; K4b
+(`backward_plan`) lays its BPTT out the same way, the dgates in h's
+place (`csrc/cluster_exchange.cuh` holds what the two share). K5, K6's
+spatial blocks with Cin % 16 == 0 and K7
 (`csrc/int8_inpaint.cu`) run on the Hopper int8 tile
 (`csrc/int8_wgmma.cuh`: wgmma fed by TMA); K6's Cin = 2 first layers and
 1x1 float projections on kernels of their own (`csrc/int8_conv_edge.cu`);

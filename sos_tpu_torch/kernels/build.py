@@ -83,12 +83,13 @@ SIGNATURES = {
     # above; stream
     "sos_bilstm_train": (_P,) * 7 + (_I,) * 10 + (_P,),
     # K4b: dout (B, T, 2H), gates, c, w_hh_fwd, w_hh_bwd, dxp (2, B, T,
-    # 4H), B, T, H, then `backward_plan`: rows a block, cluster, units a
-    # block, jp, threads, shared bytes; stream
+    # 4H), B, T, H, then `backward_plan`: rows a block, cluster, lanes a
+    # quad of units, float4 columns a lane, threads, shared bytes; stream
     "sos_bilstm_bwd": (_P,) * 6 + (_I,) * 9 + (_P,),
-    # rows a block, cluster, lanes a unit, float4 columns a lane,
-    # threads, shared bytes, int* count
+    # K4's inference instance and K4b: rows a block, cluster, lanes a
+    # unit, float4 columns a lane, threads, shared bytes, int* count
     "sos_bilstm_max_clusters": (_I,) * 6 + (_P,),
+    "sos_bilstm_bwd_max_clusters": (_I,) * 6 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
     "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
     # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), B, H, W, Cin,

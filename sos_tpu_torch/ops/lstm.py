@@ -21,9 +21,12 @@
   the backward is kernel K4b (`bilstm_recurrence_backward`,
   `csrc/bilstm_bwd.cu`, laid out by `backward_plan`), BPTT of both
   directions in one launch, giving the pre-activation gate gradients
-  d xp. `dW_hh = sum_t dgates^T h_prev` is one `torch.matmul` over
-  B*T; W_ih, the bias and x get theirs from autograd through
-  `_project`. `BiLSTM` takes this route whenever a gradient is needed.
+  d xp: K4's layout with the sum over the 4H gates, W_hh's columns in
+  registers, gate-interleaved dgates rows sent to every rank as 16-byte
+  mbarrier-counted stores, the next step's saved state copied ahead.
+  `dW_hh = sum_t dgates^T h_prev` is one `torch.matmul` over B*T; W_ih,
+  the bias and x get theirs from autograd through `_project`. `BiLSTM`
+  takes this route whenever a gradient is needed.
 
 Gate order is torch's (i, f, g, o); carries are fp32. Parameters keep
 torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
@@ -106,12 +109,12 @@ def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
 # the clusters of each size it holds at once at one block an SM
 # (`cudaOccupancyMaxActiveClusters` on an H100 80GB HBM3 for kernels that
 # take an SM's registers or shared memory: 2 from K4 at H 100, 4 from
-# K4b, 8 and 16 from K4 at H 200; `scripts/k4_sweep.py`, chip_smoke.py
-# phase 3 logs each K4 plan's)
+# K4b's first layout (W_hh in shared memory), 8 and 16 from
+# K4 at H 200; `scripts/k4_sweep.py`, `scripts/k4b_sweep.py` and
+# chip_smoke.py phase 3 log each plan's)
 SMEM_LIMIT = 232448
 BLOCK_SLOTS = 132
-CLUSTER4_SLOTS = 30
-CLUSTER_SLOTS = {1: BLOCK_SLOTS, 2: 66, 4: CLUSTER4_SLOTS, 8: 15, 16: 7}
+CLUSTER_SLOTS = {1: BLOCK_SLOTS, 2: 66, 4: 30, 8: 15, 16: 7}
 REGISTERS_PER_SM = 65536
 # K4's plan classes (`csrc/bilstm.cu`): (largest hidden, lanes a unit,
 # float4 columns of W_hh a lane holds, (blocks a cluster, batch rows a
@@ -124,8 +127,6 @@ PLAN_CLASSES = (
     (128, 8, 4, ((4, 1), (4, 2), (4, 4), (2, 4))),
     (224, 8, 7, ((8, 1), (8, 2), (8, 4), (8, 8))),
 )
-K_SPLIT = 4         # K4b: lanes 4j .. 4j+3 share unit j
-_MAX_THREADS = 512  # csrc/bilstm_bwd.cu kMaxThreads
 
 
 def _unit_runs(hidden: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
@@ -141,19 +142,48 @@ def _unit_runs(hidden: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(runs)
 
 
+def _one_wave(batch: int, pairs) -> Tuple[int, int]:
+    """The first (blocks a cluster, rows a block) of `pairs` whose blocks
+    and clusters fit one wave, else the last."""
+    for cluster, bt in pairs:
+        tiles = -(-batch // bt)
+        if (2 * tiles * cluster <= BLOCK_SLOTS
+                and 2 * tiles <= CLUSTER_SLOTS[cluster]):
+            break
+    return cluster, bt
+
+
 @dataclass(frozen=True)
 class _ClusterPlan:
-    """What K4's and K4b's plans share: tiles of `bt` batch rows of one
-    direction a block; a cluster of `cluster` blocks shares a tile, rank
-    r owning hidden units `units[r]`, laid out in `ustride` rows; lanes
-    4u .. 4u+3 share unit u; buffers double-buffered by step parity."""
+    """What K4's and K4b's plans share (`csrc/cluster_exchange.cuh`): a
+    block takes `bt` batch rows of one direction; a cluster of `cluster`
+    blocks shares those rows, rank r owning hidden units `units[r]`.
+    Lanes `split * j .. split * j + split - 1` share group j (K4: a unit,
+    K4b: a quad of units): lane q holds, in registers, the group's slice
+    of W_hh over the float4 columns `q, q + split, ...` (`kv` of them)
+    and sums its `lane_values` partials over them; a butterfly over the
+    group's lanes leaves each owner lane the sums of `rows_per_lane`
+    values, whose cells it updates. Each step's results go into every
+    rank's buffer of the write parity (`parity`), each store counted on
+    that rank's mbarrier, which expects `step_bytes` a step."""
     batch: int
     hidden: int
     bt: int
     cluster: int
     units: Tuple[Tuple[int, int], ...]
+    split: int
+    kv: int
 
-    ks = K_SPLIT
+    @property
+    def unit_lanes(self) -> int:
+        """Lanes a unit: `split`, or a quarter of it where `split` lanes
+        share a quad."""
+        return self.split
+
+    @property
+    def lane_values(self) -> int:
+        """Partial sums a lane takes into the butterfly: one a row."""
+        return self.bt
 
     @property
     def umax(self) -> int:
@@ -161,12 +191,14 @@ class _ClusterPlan:
 
     @property
     def ustride(self) -> int:
-        """Units a block lays out: `umax` rounded up to a warp's 8."""
-        return -(-self.umax // 8) * 8
+        """Units a block lays out: `umax` rounded up to a warp's
+        `32 // unit_lanes`."""
+        per_warp = 32 // self.unit_lanes
+        return -(-self.umax // per_warp) * per_warp
 
     @property
     def threads(self) -> int:
-        return K_SPLIT * self.ustride
+        return self.unit_lanes * self.ustride
 
     @property
     def tiles(self) -> int:
@@ -185,68 +217,9 @@ class _ClusterPlan:
         """(buffer read, buffer written) at `step`."""
         return step & 1, (step + 1) & 1
 
-
-def _choose_plan(batch: int, hidden: int, classes, make, what: str,
-                 kernel: str):
-    """The first of `classes` ((largest hidden, batch rows a block, blocks
-    a cluster), tried in order) whose plan `make(bt, cluster, units)`
-    fits a block's shared memory and threads; a cluster takes the fewest
-    rows whose clusters fit one wave."""
-    for largest, rows, cluster in classes:
-        if largest is not None and hidden > largest:
-            continue
-        if cluster > 1 and hidden < 4 * cluster:
-            continue  # every rank owns a quad of units
-        bt = rows[-1]
-        if cluster > 1:
-            bt = next((r for r in rows
-                       if 2 * -(-batch // r) <= CLUSTER4_SLOTS), rows[-1])
-        plan = make(bt, cluster, _unit_runs(hidden, cluster))
-        if plan.smem_bytes <= SMEM_LIMIT and plan.threads <= _MAX_THREADS:
-            return plan
-    raise ValueError(f"{what}: hidden {hidden} fits no {kernel} plan (W_hh "
-                     "must fit the shared memory of a cluster of 4)")
-
-
-@dataclass(frozen=True)
-class RecurrencePlan(_ClusterPlan):
-    """How K4 lays a `(batch, hidden)` recurrence out on the card.
-
-    A block takes `bt` batch rows of one direction; a cluster of
-    `cluster` blocks shares those rows, rank r owning hidden units
-    `units[r]`. Lanes `split * j .. split * j + split - 1` share unit j:
-    lane q holds, in registers, the unit's four gate rows of W_hh over
-    the float4 columns `q, q + split, ...` (`kv` of them, `k_columns`)
-    and sums its partial gates over them; a butterfly over the unit's
-    lanes leaves each owner lane all four gates of `rows_per_lane` rows
-    (`lane_rows`), whose cells it updates. Step s reads h buffer
-    `parity(s)[0]` (rows of `kp` floats) and writes its h into every
-    rank's buffer `parity(s)[1]`, each store counted on that rank's
-    mbarrier, which expects `step_bytes` a step; a tile walks only to
-    its longest row.
-    """
-    split: int
-    kv: int
-
-    @property
-    def kp(self) -> int:
-        """h row pitch in floats: every lane's float4 columns."""
-        return 4 * self.split * self.kv
-
-    @property
-    def ustride(self) -> int:
-        """Units a block lays out: `umax` rounded up to a warp's
-        `32 // split`."""
-        per_warp = 32 // self.split
-        return -(-self.umax // per_warp) * per_warp
-
-    @property
-    def threads(self) -> int:
-        return self.split * self.ustride
-
     def _butterfly(self):
-        """The butterfly's steps: (lane bit, rows before the step)."""
-        rows, mask = self.bt, self.split // 2
+        """The butterfly's steps: (lane bit, values before the step)."""
+        rows, mask = self.lane_values, self.split // 2
         while mask:
             yield mask, rows
             rows = rows // 2 if rows % 2 == 0 else rows
@@ -254,31 +227,42 @@ class RecurrencePlan(_ClusterPlan):
 
     @property
     def rows_per_lane(self) -> int:
-        """Cell rows a lane updates: each butterfly step halves a lane's
-        rows while they are even and all-reduces them when odd."""
-        rows = self.bt
+        """Values a lane updates: each butterfly step halves a lane's
+        values while they are even and all-reduces them when odd."""
+        rows = self.lane_values
         for _, r in self._butterfly():
             rows = r // 2 if r % 2 == 0 else r
         return rows
 
+    def _lane_values(self, tid: int) -> Tuple[int, range]:
+        """(group, values) thread `tid` keeps after the butterfly; an
+        empty range for a lane that keeps none."""
+        lane, group = tid & 31, tid // self.split
+        row0, rows, owner = 0, self.lane_values, True
+        for bit, r in self._butterfly():
+            if r % 2 == 0:
+                rows = r // 2
+                row0 += rows if lane & bit else 0
+            else:
+                owner = owner and not lane & bit
+        return group, range(row0, row0 + rows) if owner else range(0)
+
     @property
-    def smem_bytes(self) -> int:
-        """2 mbarriers (16 bytes) | h (2 parities) | xp prefetch (2
-        parities, a slot set per lane)."""
-        return 16 + 4 * (2 * self.bt * self.kp
-                         + 2 * self.rows_per_lane * 4 * self.threads)
+    def quads(self) -> int:
+        """Quads of hidden units the instance's float4 columns cover."""
+        raise NotImplementedError
 
     @property
     def max_threads(self) -> int:
-        """The register kernel's launch bound for its (cluster, split,
-        kv) (csrc/bilstm.cu `reg_max_threads`): the units a rank owns at
-        the largest hidden size the instance covers, in whole warps."""
-        q = self.split * self.kv
+        """The kernel's launch bound for its (cluster, split, kv)
+        (`cluster_exchange.cuh` `max_threads_for`): the units a rank owns
+        at the largest hidden size the instance covers, in whole warps."""
+        q = self.quads
         units = (4 * q if self.cluster == 1
                  else max(4 * -(-q // self.cluster),
                           4 * ((q - 1) // self.cluster) + 3))
-        per_warp = 32 // self.split
-        return self.split * -(-units // per_warp) * per_warp
+        per_warp = 32 // self.unit_lanes
+        return self.unit_lanes * -(-units // per_warp) * per_warp
 
     @property
     def register_limit(self) -> int:
@@ -288,6 +272,31 @@ class RecurrencePlan(_ClusterPlan):
         warps = -(-self.max_threads // 32)
         per_quarter = -(-warps // 4)
         return min(255, REGISTERS_PER_SM // 4 // (32 * per_quarter) // 8 * 8)
+
+
+@dataclass(frozen=True)
+class RecurrencePlan(_ClusterPlan):
+    """How K4 lays a `(batch, hidden)` recurrence out on the card: lane q
+    of a unit holds the unit's four gate rows of W_hh over its float4
+    columns of h (`k_columns`); step s reads h buffer `parity(s)[0]`
+    (rows of `kp` floats) and writes its h into every rank's buffer
+    `parity(s)[1]`; a tile walks only to its longest row."""
+
+    @property
+    def kp(self) -> int:
+        """h row pitch in floats: every lane's float4 columns."""
+        return 4 * self.split * self.kv
+
+    @property
+    def quads(self) -> int:
+        return self.split * self.kv
+
+    @property
+    def smem_bytes(self) -> int:
+        """2 mbarriers (16 bytes) | h (2 parities) | xp prefetch (2
+        parities, a slot set per lane)."""
+        return 16 + 4 * (2 * self.bt * self.kp
+                         + 2 * self.rows_per_lane * 4 * self.threads)
 
     @property
     def w_registers(self) -> int:
@@ -305,27 +314,18 @@ class RecurrencePlan(_ClusterPlan):
         row of the tile."""
         return 4 * self.bt * self.units[rank][1]
 
+    def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
+        """(unit, tile rows) whose cells thread `tid` of rank `rank`
+        updates, as the kernel assigns them after the butterfly; an empty
+        range for a lane that updates none."""
+        unit, rows = self._lane_values(tid)
+        return unit, rows if unit < self.units[rank][1] else range(0)
+
     def k_columns(self, q: int) -> List[int]:
         """The k indices (of the padded `kp`) that lane q of a unit sums:
         float4 columns q, q + split, ..."""
         return [4 * k4 + e for k4 in range(q, self.kp // 4, self.split)
                 for e in range(4)]
-
-    def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
-        """(unit, tile rows) whose cells thread `tid` of rank `rank`
-        updates, as the kernel assigns them after the butterfly; an empty
-        range for a lane that updates none."""
-        lane, unit = tid & 31, tid // self.split
-        row0, rows, owner = 0, self.bt, True
-        for bit, r in self._butterfly():
-            if r % 2 == 0:
-                rows = r // 2
-                row0 += rows if lane & bit else 0
-            else:
-                owner = owner and not lane & bit
-        if unit >= self.units[rank][1] or not owner:
-            return unit, range(0)
-        return unit, range(row0, row0 + rows)
 
     def gate_columns(self, rank: int) -> List[int]:
         """Columns of the `(.., 4H)` gates (and of xp, which the block
@@ -335,41 +335,31 @@ class RecurrencePlan(_ClusterPlan):
                 for u in range(u0, u0 + n)]
 
 
-def _row_pitch(width: int) -> int:
-    """A shared-memory row of `width` floats padded to 16 (mod 32): the
-    float4 reads of two units' four splits (a quarter warp) land on 32
-    distinct banks."""
-    return 16 + -(-max(width - 16, 0) // 32) * 32
-
-
 def recurrence_plan(batch: int, hidden: int) -> RecurrencePlan:
     """K4's plan for a shape, from (batch, hidden) alone. Raises
     `ValueError` for a hidden size no class takes."""
     for largest, split, kv, pairs in PLAN_CLASSES:
-        if hidden > largest:
-            continue
-        for cluster, bt in pairs:  # each class gives every rank a quad
-            tiles = -(-batch // bt)
-            if (2 * tiles * cluster <= BLOCK_SLOTS
-                    and 2 * tiles <= CLUSTER_SLOTS[cluster]):
-                break  # one wave; else the last pair, in waves of clusters
-        return RecurrencePlan(batch, hidden, bt, cluster,
-                              _unit_runs(hidden, cluster), split, kv)
+        if hidden <= largest:  # each class gives every rank a quad
+            cluster, bt = _one_wave(batch, pairs)
+            return RecurrencePlan(batch, hidden, bt, cluster,
+                                  _unit_runs(hidden, cluster), split, kv)
     raise ValueError(f"bilstm_recurrence: hidden {hidden} fits no K4 plan "
                      f"(W_hh must fit the registers of a cluster of 8: "
                      f"hidden <= {PLAN_CLASSES[-1][0]})")
 
 
-def max_active_clusters(plan: RecurrencePlan) -> int:
-    """`cudaOccupancyMaxActiveClusters` for the plan's kernel, block size
-    and shared memory on the current card (one wave holds this many)."""
+def max_active_clusters(plan: _ClusterPlan) -> int:
+    """`cudaOccupancyMaxActiveClusters` for the plan's kernel (K4's
+    inference instance or K4b), block size and shared memory on the
+    current card (one wave holds this many)."""
+    entry = ("sos_bilstm_bwd_max_clusters" if isinstance(plan, BackwardPlan)
+             else "sos_bilstm_max_clusters")
     count = ctypes.c_int(0)
-    rc = library().sos_bilstm_max_clusters(plan.bt, plan.cluster,
-                                           plan.split, plan.kv,
-                                           plan.threads, plan.smem_bytes,
-                                           ctypes.addressof(count))
+    rc = getattr(library(), entry)(plan.bt, plan.cluster, plan.split,
+                                   plan.kv, plan.threads, plan.smem_bytes,
+                                   ctypes.addressof(count))
     if rc != 0:
-        raise RuntimeError(f"sos_bilstm_max_clusters: CUDA error {rc}")
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
     return count.value
 
 
@@ -531,57 +521,113 @@ def bilstm_recurrence_backward_plain(dout: torch.Tensor, gates: torch.Tensor,
     return out[0], out[1]
 
 
-# K4b's plan classes, as K4's: (largest hidden, batch rows a block,
-# blocks a cluster). Each (rows, cluster) pair is one instantiation in
-# csrc/bilstm_bwd.cu (`SOS_BILSTM_BWD_PLANS`). A row of the dgates
-# exchange is 4H wide (the forward's h row is H), so the cluster class
-# takes fewer rows a block.
-BACKWARD_PLAN_CLASSES = ((32, (4,), 1), (None, (2,), 1), (None, (4, 6), 4))
+# K4b's plan classes (`csrc/bilstm_bwd.cu`), as K4's: (largest hidden,
+# lanes a quad of units, float4 columns of the gates a lane holds for
+# each unit, (blocks a cluster, batch rows a block) in the order tried).
+# A float4 column is one unit's four gates, so `lanes x columns` covers
+# the largest hidden. Each (rows, cluster, lanes, columns) is one
+# instantiation in csrc/bilstm_bwd.cu (`SOS_BILSTM_BWD_PLANS`).
+BACKWARD_PLAN_CLASSES = (
+    (32, 8, 4, ((1, 1), (1, 2), (1, 4), (1, 8))),
+    (128, 32, 4, ((4, 1), (4, 2), (4, 4))),
+    (224, 32, 7, ((8, 1), (8, 2), (8, 4), (8, 8))),
+)
+# Values a K4b lane copies for each of its cells a step: the gates i, f,
+# g, o, dout and c of the step before
+_SAVED = 6
 
 
 @dataclass(frozen=True)
 class BackwardPlan(_ClusterPlan):
     """How K4b lays a `(batch, hidden)` BPTT out on the card.
 
-    Rank r holds W_hh's columns of its units `units[r]` (all 4H rows),
-    kept in shared memory as one row of `jp` floats a unit for all T
-    steps. Lanes 4u .. 4u+3 sum unit u's `dh_rec` over the float4
-    columns `q, q + 4, ...` of their j split q (`j_columns`), two
-    shuffles all-reduce it, and lane q updates the cells of rows q,
-    q + 4, ... (`lane_rows`). Step s reads dgates buffer `parity(s)[0]`
-    and writes its units' dgates into every rank's buffer
-    `parity(s)[1]`.
+    A dgates row is gate-interleaved by unit: column `4 u' + g` holds
+    gate g of unit u' (`gate_row` maps it to torch's `g H + u'`), padded
+    to `jp`. `split` lanes share a quad of the rank's units: lane q holds,
+    in registers, W_hh's four columns of the quad over the float4 columns
+    u' = q, q + split, ... (`j_columns`: four gates of a unit each) and
+    sums the quad's 4 x `bt` partial dh_rec over them from dgates buffer
+    `parity(s)[0]`; the butterfly runs over the cells in the order (row,
+    unit), and each owner lane updates `rows_per_lane` cells
+    (`lane_cells`), sending each cell's four dgates into every rank's
+    buffer `parity(s)[1]` as one 16-byte store. The saved state of the
+    next step (gates, dout, c of the step before) is copied while a step
+    computes, double-buffered by parity, `_SAVED` slots a cell.
     """
-    jp: int
+
+    @property
+    def unit_lanes(self) -> int:
+        return self.split // 4
+
+    @property
+    def lane_values(self) -> int:
+        """The quad's cells of the tile: 4 a row."""
+        return 4 * self.bt
+
+    @property
+    def jp(self) -> int:
+        """dgates row pitch in floats: every lane's float4 columns."""
+        return 4 * self.split * self.kv
+
+    @property
+    def quads(self) -> int:
+        return self.split * self.kv // 4
 
     @property
     def smem_bytes(self) -> int:
-        """W_hh^T slice | dgates (2 parities)."""
-        return 4 * (self.ustride * self.jp + 2 * self.bt * self.jp)
+        """2 mbarriers (16 bytes) | dgates (2 parities) | saved state (2
+        parities, a slot set per lane)."""
+        return 16 + 4 * (2 * self.bt * self.jp
+                         + 2 * self.rows_per_lane * _SAVED * self.threads)
 
-    def lane_rows(self, tid: int, rank: int = 0) -> Tuple[int, range]:
-        """(unit, tile rows) whose cells thread `tid` of rank `rank`
-        updates: rows q, q + 4, ... of its unit, none past the units."""
-        unit, q = tid >> 2, tid & 3
-        if unit >= self.units[rank][1]:
-            return unit, range(0)
-        return unit, range(q, self.bt, K_SPLIT)
+    @property
+    def w_registers(self) -> int:
+        """Registers of W_hh a lane holds: four units of `kv` float4s."""
+        return 16 * self.kv
+
+    @property
+    def step_bytes(self) -> int:
+        """Bytes a rank's mbarrier expects a step: the four dgates of
+        every unit of every rank, every row of the tile."""
+        return 16 * self.bt * self.hidden
+
+    def sent_bytes(self, rank: int) -> int:
+        """Bytes rank `rank` sends each peer a step: its units' dgates,
+        every row of the tile."""
+        return 16 * self.bt * self.units[rank][1]
+
+    def lane_cells(self, tid: int, rank: int = 0) -> List[Tuple[int, int]]:
+        """(unit of the rank, tile row) of each cell thread `tid` of rank
+        `rank` updates after the butterfly: value n of its quad is row
+        n // 4, unit 4 quad + n % 4 (none past the rank's units)."""
+        quad, values = self._lane_values(tid)
+        return [(4 * quad + n % 4, n // 4) for n in values
+                if 4 * quad + n % 4 < self.units[rank][1]]
 
     def j_columns(self, q: int) -> List[int]:
-        """The gate columns j (of the padded jp) that split q sums."""
-        return [4 * k4 + e for k4 in range(q, self.jp // 4, K_SPLIT)
-                for e in range(4)]
+        """The columns (of the padded, gate-interleaved `jp`) that lane q
+        of a quad sums: float4 columns q, q + split, ..."""
+        return [4 * u + g for u in range(q, self.jp // 4, self.split)
+                for g in range(4)]
+
+    def gate_row(self, column: int) -> int:
+        """The row of torch's `(4H, H)` W_hh (and column of the `(.., 4H)`
+        gates) at interleaved column `column`, or -1 past 4H."""
+        unit, g = divmod(column, 4)
+        return g * self.hidden + unit if unit < self.hidden else -1
 
 
 def backward_plan(batch: int, hidden: int) -> BackwardPlan:
     """K4b's plan for a shape, from (batch, hidden) alone. Raises
-    `ValueError` for a hidden size no class fits."""
-    jp = _row_pitch(4 * hidden)
-    return _choose_plan(
-        batch, hidden, BACKWARD_PLAN_CLASSES,
-        lambda bt, cluster, units: BackwardPlan(batch, hidden, bt, cluster,
-                                                units, jp),
-        "bilstm_recurrence_backward", "K4b")
+    `ValueError` for a hidden size no class takes."""
+    for largest, split, kv, pairs in BACKWARD_PLAN_CLASSES:
+        if hidden <= largest:  # each class gives every rank a quad
+            cluster, bt = _one_wave(batch, pairs)
+            return BackwardPlan(batch, hidden, bt, cluster,
+                                _unit_runs(hidden, cluster), split, kv)
+    raise ValueError(f"bilstm_recurrence_backward: hidden {hidden} fits no "
+                     f"K4b plan (W_hh must fit the registers of a cluster "
+                     f"of 8: hidden <= {BACKWARD_PLAN_CLASSES[-1][0]})")
 
 
 def _check_shapes(name, xp_f, xp_b, w_hh_f, w_hh_b) -> None:
@@ -630,8 +676,8 @@ def bilstm_recurrence_backward(dout: torch.Tensor, gates: torch.Tensor,
     with on_device(dev) as stream:
         launch("bilstm_bwd", "sos_bilstm_bwd",
                *(t.data_ptr() for t in tensors), dxp.data_ptr(), batch,
-               num_steps, hidden, plan.bt, plan.cluster, plan.ustride,
-               plan.jp, plan.threads, plan.smem_bytes, stream)
+               num_steps, hidden, plan.bt, plan.cluster, plan.split,
+               plan.kv, plan.threads, plan.smem_bytes, stream)
     return dxp[0], dxp[1]
 
 

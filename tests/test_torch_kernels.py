@@ -696,6 +696,10 @@ def _recurrence_inputs(device, batch, steps, hidden, seed):
 
 TRAIN_SHAPES = [(15, 60, 100), (40, 178, 200), (2, 60, 100), (2, 178, 200),
                 (9, 12, 8), (3, 20, 4), (5, 30, 200), (15, 178, 200)]
+# K4b's (cluster, rows) at the training shapes: the detector, the
+# denoiser, the joint step's denoiser
+BACKWARD_PLANS = {(15, 60, 100): (4, 1), (40, 178, 200): (8, 8),
+                  (15, 178, 200): (8, 4)}
 
 
 @pytest.mark.cuda
@@ -728,7 +732,11 @@ def test_bilstm_train_kernel_matches_plain(cuda_device, batch, steps, hidden):
 def test_bilstm_backward_kernel_matches_plain(cuda_device, batch, steps,
                                               hidden):
     """K4b against its plain version on the same saved state (the
-    training instance's), both directions: d xp within 5e-5."""
+    training instance's), both directions: d xp within 5e-5; at the
+    three training shapes, the launch plan's (cluster, rows)."""
+    plan = lstm.backward_plan(batch, hidden)
+    assert (plan.cluster, plan.bt) == BACKWARD_PLANS.get(
+        (batch, steps, hidden), (plan.cluster, plan.bt))
     xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
                                               hidden, 7 * batch + hidden)
     _, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
@@ -1372,7 +1380,9 @@ def test_every_launch_is_made_on_the_device_of_its_input():
     assert all(ok for _, ok in sites), sites
     text = "\n".join(p.read_text() for p in kbuild.CSRC.glob("*.cu*"))
     assert not re.findall(r"static\s+(?:int|bool)\s+\w+\s*=", text)
-    assert len(re.findall(r"\[sosdev::kMaxDevices\]", text)) == 3
+    # the per-device grants: K5's, and K4's and K4b's shared `grant`
+    # (csrc/cluster_exchange.cuh)
+    assert len(re.findall(r"\[sosdev::kMaxDevices\]", text)) == 2
 
 
 @pytest.mark.cuda

@@ -20,6 +20,12 @@ longest row, and the outputs past it are the
 kernel's zero fill (the emulation's output starts as NaN, so an output
 nobody writes would show). Tolerance: atol 1e-6 (fp32 sums in another
 order).
+
+K4b's plan (`backward_plan`, `csrc/bilstm_bwd.cu`) is emulated the same
+way against `bilstm_recurrence_backward_plain` (`emulate_backward`):
+the sum runs over the gate-interleaved dgates columns, each cell's four
+dgates go to every rank as one 16-byte store, and c_t is carried from
+the step before's c_prev.
 """
 
 import random
@@ -47,36 +53,41 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _butterfly_plan(plan: RecurrencePlan):
-    """The kernel's shuffle reduction over a unit's lanes, as a function
-    of each lane's partial gates (split, bt, 4, units) -> the owners' sums
-    (bt, 4, units). Asserts that the owners cover every row once."""
+def _butterfly_plan(plan):
+    """The kernel's shuffle reduction over a group's lanes, as a function
+    of each lane's partials (split, values, ...) -> the owners' sums
+    (values, ...); K4: a value a row, then gates and units; K4b: a value a
+    cell (row, unit of the quad), then tiles and quads. Asserts that the
+    owners cover every value once."""
     lanes = torch.arange(plan.split)
     row0 = torch.zeros(plan.split, dtype=torch.long)
     owner = torch.ones(plan.split, dtype=torch.bool)
     steps = []
     for bit, rows in plan._butterfly():
         hi = (lanes & bit) != 0
-        steps.append((lanes ^ bit, hi[:, None, None, None], rows))
+        partner = (lanes ^ bit)[:, None]
         if rows % 2 == 0:
-            row0 += hi.long() * (rows // 2)
+            # the half each lane keeps: the upper one where the bit is set
+            n = rows // 2
+            steps.append((partner, torch.arange(n) + n * hi.long()[:, None]))
+            row0 += hi.long() * n
         else:
+            steps.append((partner, None))
             owner &= ~hi
     keep = plan.rows_per_lane
     owners = [(q, int(row0[q])) for q in lanes[owner].tolist()]
     seen = sorted(r for _, r0 in owners for r in range(r0, r0 + keep))
-    assert seen == list(range(plan.bt))
+    assert seen == list(range(plan.lane_values))
+    order = torch.tensor([q for q, _ in sorted(owners, key=lambda o: o[1])])
+    own = lanes[:, None]
 
     def reduce(part):
-        for partner, hi, rows in steps:
-            if rows % 2 == 0:  # keep a half, add the partner's copy of it
-                n = rows // 2
-                part = torch.where(hi, part[:, n:] + part[partner, n:],
-                                   part[:, :n] + part[partner, :n])
+        for partner, half in steps:
+            if half is not None:  # keep a half, add the partner's copy of it
+                part = part[own, half] + part[partner, half]
             else:  # all-reduce; the lanes with the bit set drop out
-                part = part + part[partner]
-        return torch.cat([part[q] for q, _ in sorted(owners,
-                                                      key=lambda o: o[1])])
+                part = part + part[partner[:, 0]]
+        return part[order].flatten(0, 1)
     return reduce
 
 
@@ -349,67 +360,105 @@ def test_parity_alternates():
 def emulate_backward(plan: lstm.BackwardPlan, dout, gates, c, w_f, w_b,
                      seed=0, single_buffer=False):
     """`(dxp_f, dxp_b)` as K4b's blocks compute and exchange them: each
-    rank holds W_hh's columns of its units (all 4H rows) as rows of `jp`,
-    sums its units' dh_rec over the j splits from its dgates buffer of
-    the step's read parity, updates its cells (lane q: rows q, q+4, ...)
-    and writes its units' dgates into every rank's buffer of the write
-    parity; ranks in a shuffled order each step."""
+    lane q of a quad of units sums its interleaved columns
+    (`j_columns(q)`: its register slice of the quad's columns of W_hh,
+    four gates of a unit a float4) from its own dgates buffer of the
+    step's read parity; the butterfly over the quad's lanes, on the
+    cells in the order (row, unit), leaves each owner its cells' dh_rec;
+    the owners update their cells (c_t carried from the step before's
+    c_prev, the saved gates, dout and c_prev read as the step's copies)
+    and send each cell's four dgates, as one 16-byte store, into every
+    rank's buffer of the write parity at columns 4 u .. 4 u + 3, counting
+    the bytes each rank receives a step. Ranks run as the exchange lets
+    them, as in `emulate`: a random rank whose previous step's bytes have
+    all arrived runs its next step. The tiles' clusters are independent,
+    so each rank's step runs on every tile at once."""
     batch, steps, _ = dout.shape
-    hidden = plan.hidden
-    gates_n = 4 * hidden
-    order = list(range(plan.cluster))
-    shuffle = random.Random(seed).shuffle
-    splits = [plan.j_columns(q) for q in range(plan.ks)]
-    out = [torch.zeros(batch, steps, gates_n) for _ in range(2)]
+    hidden, jp, bt, tiles = plan.hidden, plan.jp, plan.bt, plan.tiles
+    pick = random.Random(seed).choice
+    rows_of = torch.tensor([plan.gate_row(j) for j in range(jp)])
+    real = rows_of >= 0
+    js = torch.tensor([plan.j_columns(q) for q in range(plan.split)])
+    reduce = _butterfly_plan(plan)
+    pad = tiles * bt - batch  # rows past B load nothing: zeros
+
+    def tiled(x):
+        """(B, steps, ...) -> (tiles, bt, steps, ...), zeros past B."""
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        return x.view((tiles, bt) + x.shape[1:])
+
+    out = [torch.full((tiles, bt, steps, 4, hidden), float("nan"))
+           for _ in range(2)]
     for d, w in enumerate((w_f, w_b)):
-        for tile in range(plan.tiles):
-            rows = list(plan.rows(tile))
-            blocks = []
-            for rank, (u0, n) in enumerate(plan.units):
-                w_slice = torch.zeros(n, plan.jp)
-                w_slice[:, :gates_n] = w[:, u0:u0 + n].t()
-                blocks.append({"u0": u0, "n": n, "w": w_slice,
-                               "dg": torch.zeros(2, plan.bt, plan.jp),
-                               "dc": torch.zeros(plan.bt, n)})
-            for s in range(steps):
-                t = s if d else steps - 1 - s
-                tp = t + 1 if d else t - 1
-                read, write = plan.parity(s)
-                if single_buffer:
-                    write = read
-                shuffle(order)
-                for rank in order:
-                    blk = blocks[rank]
-                    u0, n = blk["u0"], blk["n"]
-                    dgp = blk["dg"][read]
-                    rec = sum(dgp[:, j] @ blk["w"][:, j].t() for j in splits)
-                    new = torch.zeros(plan.bt, 4, n)
-                    for q in range(plan.ks):  # lane q's rows of every unit
-                        for r in range(q, plan.bt, plan.ks):
-                            if r >= len(rows):
-                                continue
-                            b = rows[r]
-                            sg = gates[d, b, t].view(4, hidden)[:, u0:u0 + n]
-                            i, f, g, o = sg
-                            ct = c[d, b, t, u0:u0 + n]
-                            cp = (c[d, b, tp, u0:u0 + n] if 0 <= tp < steps
-                                  else torch.zeros(n))
-                            dh = dout[b, t, d * hidden + u0:
-                                      d * hidden + u0 + n] + rec[r]
-                            tc = torch.tanh(ct)
-                            dcv = blk["dc"][r] + dh * o * (1 - tc * tc)
-                            blk["dc"][r] = dcv * f
-                            new[r] = torch.stack([
-                                dcv * g * i * (1 - i), dcv * cp * f * (1 - f),
-                                dcv * i * (1 - g * g), dh * tc * o * (1 - o)])
-                    for peer in blocks:
-                        for gi in range(4):
-                            peer["dg"][write][:, gi * hidden + u0:
-                                              gi * hidden + u0 + n] = new[:, gi]
-                    for gi in range(4):
-                        out[d][rows, t, gi * hidden + u0:gi * hidden + u0 + n] = \
-                            new[:len(rows), gi]
-    return out[0], out[1]
+        # W_hh's rows at the interleaved columns, zeros past 4H
+        w_int = torch.zeros(jp, hidden)
+        w_int[real] = w[rows_of[real]]
+        sg = tiled(gates[d].view(batch, steps, 4, hidden))
+        sc = tiled(c[d])
+        sd = tiled(dout[..., d * hidden:(d + 1) * hidden])
+        t0 = 0 if d else steps - 1
+        # every rank's two dgates buffers
+        dg = torch.zeros(plan.cluster, 2, tiles, bt, jp)
+        blocks = []
+        for rank, (u0, n) in enumerate(plan.units):
+            nq = -(-n // 4)  # the rank's quads, the last zero-padded
+            w_q = torch.zeros(jp, 4 * nq)
+            w_q[:, :n] = w_int[:, u0:u0 + n]
+            blocks.append({
+                "rank": rank, "u0": u0, "n": n, "nq": nq, "step": 0,
+                # each lane's registers: its columns of the quad's W
+                "w": w_q[js].view(plan.split, -1, nq, 4),
+                "sg": sg[..., u0:u0 + n], "sc": sc[..., u0:u0 + n],
+                "sd": sd[..., u0:u0 + n],
+                "dc": torch.zeros(tiles, bt, n), "ct": sc[:, :, t0, u0:u0 + n],
+                "got": [0] * steps, "sent": plan.sent_bytes(rank)})
+        while True:
+            ready = [b for b in blocks if b["step"] < steps and (
+                b["step"] == 0 or b["got"][b["step"] - 1] == plan.step_bytes)]
+            if not ready:
+                assert all(b["step"] == steps for b in blocks), \
+                    "the exchange deadlocks"
+                break
+            blk = pick(ready)
+            s = blk["step"]
+            t = s if d else steps - 1 - s
+            tp = t + 1 if d else t - 1
+            read, write = plan.parity(s)
+            if single_buffer:
+                write = read
+            u0, n, nq = blk["u0"], blk["n"], blk["nq"]
+            part = torch.einsum("tbqk,qkwi->qbitw",
+                                dg[blk["rank"], read][..., js], blk["w"])
+            # the cells in the order (row, unit of the quad)
+            rec = reduce(part.reshape(plan.split, 4 * bt, tiles, nq))
+            rec = rec.view(bt, 4, tiles, nq).permute(2, 0, 3, 1).reshape(
+                tiles, bt, 4 * nq)[..., :n]
+            i, f, g, o = blk["sg"][:, :, t].unbind(2)
+            send = s + 1 < steps
+            c_prev = (blk["sc"][:, :, tp] if send
+                      else torch.zeros(tiles, bt, n))
+            dh = blk["sd"][:, :, t] + rec
+            tc = torch.tanh(blk["ct"])
+            d_o = dh * tc
+            dcv = blk["dc"] + dh * o * (1 - tc * tc)
+            blk["dc"], blk["ct"] = dcv * f, c_prev
+            new = torch.stack([dcv * g * i * (1 - i),
+                               dcv * c_prev * f * (1 - f),
+                               dcv * i * (1 - g * g),
+                               d_o * o * (1 - o)], -2)  # (tiles, bt, 4, n)
+            if send:  # the last step's dgates are read by none
+                # into every rank's buffer, at columns 4 u0 ..
+                dg[:, write, ..., 4 * u0:4 * (u0 + n)] = \
+                    new.transpose(-1, -2).reshape(tiles, bt, 4 * n)
+                for peer in blocks:
+                    # write after read: the peer has finished step s - 1,
+                    # the last to read this buffer
+                    assert single_buffer or peer["step"] >= s
+                    peer["got"][s] += blk["sent"]
+                    assert peer["got"][s] <= plan.step_bytes
+            out[d][:, :, t, :, u0:u0 + n] = new
+            blk["step"] += 1
+    return tuple(o.view(tiles * bt, steps, 4 * hidden)[:batch] for o in out)
 
 
 def _backward_inputs(batch, hidden, seed):
@@ -420,8 +469,10 @@ def _backward_inputs(batch, hidden, seed):
     return dout, gates, c, w_f, w_b
 
 
-BACKWARD_CASES = ([(b, h) for h in (4, 8) for b in (1, 3, 9)]
-                  + [(3, 100), (9, 100), (5, 200), (9, 200)])
+# every class (H <= 32 in blocks of one, clusters of 4 and of 8), tiles of
+# 1, 2, 4 and 8 rows, ragged last tiles, H % 4 left to the last rank
+BACKWARD_CASES = ([(b, h) for h in (4, 6) for b in (1, 3, 9)]
+                  + [(17, 102), (3, 100), (15, 200), (29, 203)])
 
 
 @pytest.mark.parametrize("batch,hidden", BACKWARD_CASES)
@@ -435,49 +486,93 @@ def test_backward_plan_emulation_matches_plain(batch, hidden):
 
 
 def test_backward_single_buffered_dgates_would_race():
-    """With one dgates buffer, a rank visited after a peer reads that
-    peer's new dgates, and the result leaves the plain one."""
-    args = _backward_inputs(5, 200, 7)
-    plan = lstm.backward_plan(5, 200)
+    """With one dgates buffer, a rank that runs ahead writes its next
+    dgates into the buffer a peer has not read yet, and the result
+    leaves the plain one."""
+    args = _backward_inputs(2, 200, 7)
+    plan = lstm.backward_plan(2, 200)
+    assert plan.cluster > 1
     got = emulate_backward(plan, *args, seed=2, single_buffer=True)
     ref = lstm.bilstm_recurrence_backward_plain(*args)
     assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) > 1e-3
 
 
+def _backward_fits(plan: lstm.BackwardPlan) -> None:
+    """A K4b plan's block on an H100: threads within the launch bound,
+    shared memory, W_hh's column slice, the 4 x rows accumulators, a
+    float4 of dgates and 32 more registers within the bound's registers;
+    every unit's 4H gates among its lanes' columns; each rank's mbarrier
+    expecting exactly what the ranks send it."""
+    assert plan.threads <= plan.max_threads
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT
+    assert (plan.w_registers + 4 * plan.bt + 4 + 32
+            <= plan.register_limit), plan
+    assert plan.jp == 4 * plan.split * plan.kv >= 4 * plan.hidden
+    assert sum(plan.sent_bytes(r) for r in range(plan.cluster)) \
+        == plan.step_bytes == 16 * plan.bt * plan.hidden
+    assert plan.cluster == 1 or all(n >= 4 for _, n in plan.units)
+
+
 @pytest.mark.parametrize("batch,hidden,cluster,bt",
-                         [(15, 100, 1, 2), (40, 200, 4, 4), (2, 200, 4, 4),
-                          (2, 100, 1, 2), (128, 200, 4, 6), (15, 200, 4, 4)])
+                         [(15, 100, 4, 1), (40, 200, 8, 8), (2, 200, 8, 1),
+                          (2, 100, 4, 1), (128, 200, 8, 8), (15, 200, 8, 4)])
 def test_backward_plans_of_the_training_path(batch, hidden, cluster, bt):
     """The detector (B 15, H 100), the denoiser (B 40, H 200), the joint
-    step's denoiser (B 15, H 200) and the agreement step (B 2): W_hh's
-    columns of a rank's units and both dgates buffers fit a block's
-    shared memory; B 40 fits one wave."""
+    step's denoiser (B 15, H 200) and the agreement step (B 2): the block
+    fits the card's registers and shared memory; B <= 40 fits one wave."""
     plan = lstm.backward_plan(batch, hidden)
     assert (plan.cluster, plan.bt) == (cluster, bt)
-    assert plan.smem_bytes <= lstm.SMEM_LIMIT
-    assert plan.jp >= 4 * hidden and plan.jp % 32 == 16
-    assert plan.ustride * plan.jp * 4 * cluster >= 4 * 4 * hidden * hidden
+    _backward_fits(plan)
     if batch <= 40:
-        assert plan.blocks // cluster <= (lstm.CLUSTER4_SLOTS if cluster > 1
-                                          else lstm.BLOCK_SLOTS)
+        assert plan.blocks <= lstm.BLOCK_SLOTS
+        assert plan.blocks // cluster <= lstm.CLUSTER_SLOTS[cluster]
+
+
+def _source_backward_plans():
+    """The instances csrc/bilstm_bwd.cu compiles: {(rows, cluster, split,
+    kv)}."""
+    text = (kbuild.CSRC / "bilstm_bwd.cu").read_text()
+    m = re.search(r"#define SOS_BILSTM_BWD_PLANS\(X\)((?:.*\\\n)*.*)", text)
+    return {tuple(int(a) for a in args.split(","))
+            for args in re.findall(r"X\(([\d, ]+)\)", m.group(1))}
+
+
+def test_backward_plan_for_every_forward_plan():
+    """Every shape the training forward (`recurrence_plan`) takes has a
+    K4b plan, compiled in csrc/bilstm_bwd.cu and fitting the card."""
+    instances, fitted = _source_backward_plans(), set()
+    for hidden in range(1, 225):
+        for batch in list(range(1, 65)) + [96, 128, 160, 200, 600]:
+            recurrence_plan(batch, hidden)
+            plan = lstm.backward_plan(batch, hidden)
+            key = (plan.bt, plan.cluster, plan.split, plan.kv)
+            assert key in instances, (batch, hidden)
+            if (hidden,) + key not in fitted:  # the batch changes no block
+                _backward_fits(plan)
+                fitted.add((hidden,) + key)
 
 
 @pytest.mark.parametrize("batch,hidden", [(40, 200), (15, 100), (9, 8),
                                           (3, 4)])
 def test_backward_lanes_update_every_cell_once(batch, hidden):
+    """After the butterfly the lanes of each rank own every (unit, row)
+    cell once; a quad's lanes sum every interleaved column once, and the
+    columns hold each of torch's 4H gate rows once."""
     plan = lstm.backward_plan(batch, hidden)
     for rank, (_, n) in enumerate(plan.units):
-        cells = [(u, r) for tid in range(plan.threads)
-                 for u, rows in [plan.lane_rows(tid, rank)] for r in rows]
+        cells = [c for tid in range(plan.threads)
+                 for c in plan.lane_cells(tid, rank)]
         assert sorted(cells) == [(u, r) for u in range(n)
                                  for r in range(plan.bt)]
-    cols = sorted(j for q in range(plan.ks) for j in plan.j_columns(q))
+    cols = sorted(j for q in range(plan.split) for j in plan.j_columns(q))
     assert cols == list(range(plan.jp))
+    gate_rows = sorted(plan.gate_row(j) for j in cols if plan.gate_row(j) >= 0)
+    assert gate_rows == list(range(4 * hidden))
 
 
 def test_backward_plan_refuses_hidden_past_a_cluster():
     with pytest.raises(ValueError, match="fits no K4b plan"):
-        lstm.backward_plan(40, 300)
+        lstm.backward_plan(40, 225)
 
 
 def test_recurrence_plan_of_the_joint_denoiser():
