@@ -53,7 +53,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    (and, logged with its bound, the joint step's B 15 T 178 / H 200)
    beside cuDNN's fp32 `nn.LSTM` in training (forward, and backward of
    the data gradient, each less its identity projections), and K2's
-   complement instance at (15, 28000) and (40, 28000), exactly; K5 at
+   complement instance at (15, 28000) and (40, 28000), exactly; the
+   BiLSTM's wide route past the register plans (`csrc/bilstm_wide.cu`):
+   K4 without and with per-row lengths, its training instance and K4b at
+   B 16, T 178, H 256 and H 512 against their plain versions (K4's and
+   K4b's tolerances), each plan logged with the blocks the card holds at
+   once, beside cuDNN's fp32 `nn.LSTM` less its projections; K5 at
    every shape of the int8 GEMM sweep (the
    port of experiments/mosaic_narrow_n.py), exact, with its TOPS beside
    `torch._int_mm`'s, called eagerly and replayed from a CUDA graph
@@ -211,7 +216,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
    L2) and int8 (K6 and K7 at F = 512; the card calibrates, the
    CPU loads its scale file; 1 row against the CPU); at both, the
    length-bucketed denoiser (K1 center=False and K3 with valid_t on the
-   geometry's instances; the card against the CPU on a 1.5 s utterance).
+   geometry's instances; the card against the CPU on a 1.5 s utterance);
+13. the BiLSTM past H 224 and the fast profile: `ExperimentConfig()` with
+   both stages' `lstm_hidden` at 256, seeded weights: one f32 call at
+   batch 2 and one denoiser train step at batch 2 on the card against
+   the CPU (phase 4's and phase 8's bounds; K4's wide route, its training
+   instance and K4b must launch); then `fast_denoiser_config()`: one f32
+   and one int8 call at batch 1 against the CPU path.
+
+K3's valid_t cases (phase 3, at every geometry) must also be exactly 0
+from each row's live reach on, where their dead blocks store zeros.
 
 Phase 3 also holds K1's and K3's instances at other geometries against
 their plain versions, eager and in a CUDA graph beside torch.stft /
@@ -252,7 +266,9 @@ import numpy as np
 import torch
 
 from sos_tpu_torch.cli.serve import ServeLoop
-from sos_tpu_torch.config import ExperimentConfig, StftConfig
+from sos_tpu_torch.config import (DenoiserModelConfig, DetectorModelConfig,
+                                  ExperimentConfig, StftConfig,
+                                  fast_denoiser_config)
 from sos_tpu_torch.dsp import audio_io
 from sos_tpu_torch.dsp.mixing import mask_gate, mask_gate_plain
 from sos_tpu_torch.dsp.stft import (FFT_DENSE, FFT_PASS_INTS,
@@ -277,15 +293,15 @@ from sos_tpu_torch.ops.int8_conv import (conv_same_int8, conv_same_int8_plain,
 from sos_tpu_torch.ops.int8_gemm import (gemm_plan, int8_matmul_nt,
                                          int8_matmul_plain, narrow_n_sweep,
                                          sweep_operands)
-from sos_tpu_torch.ops.lstm import (BackwardPlan, backward_plan,
+from sos_tpu_torch.ops.lstm import (BackwardPlan, WidePlan, backward_plan,
                                     bilstm_recurrence,
                                     bilstm_recurrence_backward,
                                     bilstm_recurrence_backward_plain,
                                     bilstm_recurrence_plain,
                                     bilstm_recurrence_train,
                                     bilstm_recurrence_train_plain,
-                                    bilstm_step_states, max_active_clusters,
-                                    recurrence_plan)
+                                    bilstm_step_states, coresident_blocks,
+                                    max_active_clusters, recurrence_plan)
 from sos_tpu_torch.ops.resize import nearest_index_tensor
 from sos_tpu_torch.train import joint
 from sos_tpu_torch.train import loop as train_loop
@@ -426,6 +442,37 @@ def k4b_floor_calls():
     return call
 
 
+def cudnn_inference_ms(xp_f, w_f, w_b, dev):
+    """cuDNN's `nn.LSTM` on K4's function: identity input weights, zero
+    biases. (fp32 ms, its two identity input projections' fp32 ms, ms
+    with TF32 allowed); the recurrence alone is the first less the
+    second."""
+    g4, hidden = w_f.shape
+    lstm = torch.nn.LSTM(g4, hidden, batch_first=True,
+                         bidirectional=True).to(dev)
+    with torch.no_grad():
+        eye = torch.eye(g4, device=dev)
+        lstm.weight_ih_l0.copy_(eye)
+        lstm.weight_ih_l0_reverse.copy_(eye)
+        lstm.weight_hh_l0.copy_(w_f)
+        lstm.weight_hh_l0_reverse.copy_(w_b)
+        for b in (lstm.bias_ih_l0, lstm.bias_hh_l0, lstm.bias_ih_l0_reverse,
+                  lstm.bias_hh_l0_reverse):
+            b.zero_()
+
+    def cudnn():
+        with torch.no_grad():
+            return lstm(xp_f)
+
+    def projections():
+        return torch.matmul(xp_f, eye), torch.matmul(xp_f, eye)
+    with exact_fp32():
+        fp32_ms, proj_ms = time_ms(cudnn), time_ms(projections)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32_ms = time_ms(cudnn)
+    return fp32_ms, proj_ms, tf32_ms
+
+
 def pfa_flops_per_frame(inverse: bool) -> float:
     """fp32 operations of one frame of K1 (forward) or K3 (inverse) as
     csrc/pfa.cuh factorizes the 510-point real DFT: an N-point pass in the
@@ -450,6 +497,18 @@ def within(kernel: torch.Tensor, plain: torch.Tensor, atol: float,
     return float(err.max()), bool((err <= atol + rtol * plain.abs()).all())
 
 
+def zeros_past_reach(kernel, valid_t, n_fft, hop):
+    """K3 with per-row valid_t: every sample from a row's live reach on
+    (past the last sample its last live frame reaches, where the valid_t
+    instances' dead blocks store zeros) is exactly 0. Returns (ok, the
+    samples checked)."""
+    reach = torch.clamp((valid_t - 1) * hop + n_fft - n_fft // 2, min=0)
+    reach = torch.where(valid_t > 0, reach, torch.zeros_like(reach))
+    past = (torch.arange(kernel.shape[1], device=kernel.device)[None]
+            >= reach[:, None])
+    return bool((kernel[past] == 0).all()), int(past.sum())
+
+
 def within_valid(kernel, plain, valid_t, n_fft, hop, win, atol, rtol):
     """K3 with per-row valid_t against its plain version: within atol +
     rtol on the samples a caller keeps, j < (valid_t - 1) hop (the
@@ -459,8 +518,9 @@ def within_valid(kernel, plain, valid_t, n_fft, hop, win, atol, rtol):
     tail of the last valid frame reaches a sample, the divide by its
     squared window value (down to ~1e-10 at win = n_fft) amplifies fp32
     rounding, and the plain version's own error there exceeds the
-    tolerance. Returns (max error on the kept samples, ok, a note with
-    the samples outside atol + rtol in a plain comparison)."""
+    tolerance. Past the live reach the kernel's output must be exactly 0
+    (`zeros_past_reach`). Returns (max error on the kept samples, ok, a
+    note with the samples outside atol + rtol in a plain comparison)."""
     rows, out_len = plain.shape
     frames = (out_len - n_fft % 2) // hop + 1
     mask = (torch.arange(frames, device=plain.device)[None]
@@ -478,13 +538,15 @@ def within_valid(kernel, plain, valid_t, n_fft, hop, win, atol, rtol):
     num_err = (kernel.double() - plain.double()).abs() * env
     num_ok = bool((num_err <= atol + rtol * (plain.double() * env).abs()).all())
     past = bad & ~keep
-    note = (f"plain comparison: {int(bad.sum())} samples outside, "
+    zero_ok, zero_n = zeros_past_reach(kernel, valid_t, n_fft, hop)
+    note = (f"exactly 0 on the {zero_n} samples past the rows' live reach "
+            f"{zero_ok}; plain comparison: {int(bad.sum())} samples outside, "
             f"{int(past.sum())} of them past (valid_t - 1) hop"
             + (f" (envelope there {float(env[past].min()):.3e}-"
                f"{float(env[past].max()):.3e})" if past.any() else "")
             + f"; summed frames max |error| {float(num_err.max()):.3e}")
-    return (float(err[keep].max()), bool(not (bad & keep).any()) and num_ok,
-            note)
+    return (float(err[keep].max()),
+            bool(not (bad & keep).any()) and num_ok and zero_ok, note)
 
 
 CARD = "card not queried"
@@ -612,33 +674,10 @@ def phase_kernels(gen: torch.Generator):
         ref = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
         torch.cuda.synchronize()
         err, ok = within(got, ref, 5e-5, 0.0)
-        # cuDNN on the same function: identity input weights, zero biases;
-        # it also runs the two identity input projections, timed apart
-        lstm = torch.nn.LSTM(g4, hidden, batch_first=True,
-                             bidirectional=True).to(dev)
-        with torch.no_grad():
-            eye = torch.eye(g4, device=dev)
-            lstm.weight_ih_l0.copy_(eye)
-            lstm.weight_ih_l0_reverse.copy_(eye)
-            lstm.weight_hh_l0.copy_(w_f)
-            lstm.weight_hh_l0_reverse.copy_(w_b)
-            for b in (lstm.bias_ih_l0, lstm.bias_hh_l0, lstm.bias_ih_l0_reverse,
-                      lstm.bias_hh_l0_reverse):
-                b.zero_()
-
-        def cudnn():
-            with torch.no_grad():
-                return lstm(xp_f)
-
-        def projections():
-            return torch.matmul(xp_f, eye), torch.matmul(xp_f, eye)
         ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b))
         plain_ms = time_ms(lambda: bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b),
                            reps=3, warmup=1)
-        with exact_fp32():
-            fp32_ms, proj_ms = time_ms(cudnn), time_ms(projections)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-            tf32_ms = time_ms(cudnn)
+        fp32_ms, proj_ms, tf32_ms = cudnn_inference_ms(xp_f, w_f, w_b, dev)
         lib_ms = fp32_ms - proj_ms
         flops = 2.0 * BATCH * steps * (2 * hidden * g4 + 10 * hidden)
         nbytes = 4.0 * (2 * BATCH * steps * g4 + 2 * g4 * hidden
@@ -666,6 +705,7 @@ def phase_kernels(gen: torch.Generator):
     # they were validated on (drawn from `gen`). Phase 7's corpus holds
     # no resize tie (see `resize_ties`)
     training_cases(torch.Generator().manual_seed(SEED + 1), dev, record)
+    wide_lstm_cases(torch.Generator().manual_seed(SEED + 6), dev, record)
 
     stft_instance_cases(torch.Generator().manual_seed(SEED + 3), dev, record)
 
@@ -1180,6 +1220,151 @@ def training_cases(gen, dev, record):
            shape="x (15, 28000) + (40, 28000), bits (B, 60) -> x * (1 - mask)")
 
 
+# K4's and K4b's wide route (past the register plans' H 224): (batch,
+# steps, hidden), summed in the wide rows
+WIDE_LSTM_SHAPES = ((16, 178, 256), (16, 178, 512))
+
+
+def wide_plan_note(plan: WidePlan, train: bool = False) -> str:
+    """A wide plan as phase 3 logs it: blocks, rows a task, rows and
+    columns staged, shared bytes, and the blocks the card holds at once
+    (a cooperative launch needs 2 x blocks of them)."""
+    return (f"{plan.blocks} blocks a direction of {plan.threads} threads, "
+            f"{plan.bt} rows a task, {plan.nr} rows x {plan.kc} columns "
+            f"staged ({len(plan.chunks())} x {len(plan.column_chunks())} "
+            f"stagings a step), {plan.smem_bytes} B shared; co-resident "
+            f"blocks {coresident_blocks(plan, train)} for "
+            f"{2 * plan.blocks}")
+
+
+def wide_lstm_cases(gen, dev, record):
+    """K4 (without and with per-row lengths), its training instance and
+    K4b on the wide route at B 16, T 178, H 256 and H 512, against their
+    plain versions at K4's and K4b's tolerances (5e-5; the training
+    instance's h bit-identical to the inference instance's, c and gates
+    within 1e-6 of one step from its own state), each beside cuDNN's fp32
+    `nn.LSTM` at the same shape less its identity projections. Rows
+    "bilstm_wide", "bilstm_train_wide", "bilstm_bwd_wide": the sums of
+    the two shapes; the lengths case is checked and logged."""
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+               "bytes": 0.0, "err": 0.0, "ok": True}
+           for k in ("inf", "train", "bwd")}
+    for batch, steps, hidden in WIDE_LSTM_SHAPES:
+        g4 = 4 * hidden
+        xp_f, xp_b = (torch.randn(batch, steps, g4, generator=gen).to(dev)
+                      for _ in range(2))
+        bnd = 1.0 / hidden ** 0.5
+        w_f, w_b = (((torch.rand(g4, hidden, generator=gen) * 2 - 1) * bnd)
+                    .to(dev) for _ in range(2))
+        lengths = torch.randint(1, steps + 1, (batch,), generator=gen)
+        lengths[0], lengths[1] = int(0.6 * steps), 1
+        valid = int(lengths.sum())
+        lengths = lengths.to(dev)
+        plan, bplan = recurrence_plan(batch, hidden), backward_plan(batch,
+                                                                     hidden)
+        shape = f"B{batch} T{steps}/H{hidden}"
+        # K4 wide, without and with lengths
+        got = bilstm_recurrence(xp_f, xp_b, w_f, w_b)
+        got_len = bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
+        with exact_fp32():
+            ref = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
+            ref_len = bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+        torch.cuda.synchronize()
+        err, ok = within(got, ref, 5e-5, 0.0)
+        err_len, ok_len = within(got_len, ref_len, 5e-5, 0.0)
+        zeros = all(not bool(got_len[b, n:].any())
+                    for b, n in enumerate(lengths.tolist()))
+        ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b))
+        len_ms = time_ms(lambda: bilstm_recurrence(xp_f, xp_b, w_f, w_b,
+                                                   lengths))
+        plain_ms = time_ms(lambda: bilstm_recurrence_plain(
+            xp_f, xp_b, w_f, w_b), reps=3, warmup=1)
+        fp32_ms, proj_ms, _ = cudnn_inference_ms(xp_f, w_f, w_b, dev)
+        log(f"bilstm_wide {shape} (plan: {wide_plan_note(plan)}): max_abs_err "
+            f"{err:.3e} (tolerance atol 5e-5) {'ok' if ok else 'FAILED'}  "
+            f"kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us/step)  plain "
+            f"{plain_ms:.4f} ms  cuDNN nn.LSTM fp32 less its projections "
+            f"{fp32_ms - proj_ms:.4f} ms; with lengths (longest "
+            f"{int(lengths.max())}, {valid} valid steps of "
+            f"{batch * steps}): max_abs_err {err_len:.3e} "
+            f"{'ok' if ok_len else 'FAILED'}, padding steps zero {zeros}, "
+            f"kernel {len_ms:.4f} ms")
+        if not (ok_len and zeros):
+            raise RuntimeError(f"bilstm_lengths_wide {shape} disagrees with "
+                               "its plain version")
+        # the training instance and K4b
+        out, c, gates = bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+        same_h = bool(torch.equal(out, got))
+        with exact_fp32():
+            plain = bilstm_recurrence_train_plain(xp_f, xp_b, w_f, w_b)
+            step_c, step_g = bilstm_step_states(xp_f, xp_b, w_f, w_b, out, c)
+        torch.cuda.synchronize()
+        err_t = max(float((a - b).abs().max()) for a, b in
+                    zip((out, c, gates), plain))
+        step_err = max(float((gates - step_g).abs().max()),
+                       float(((c - step_c).abs() / (1.0 + step_c.abs())).max()))
+        ok_t = same_h and err_t <= 5e-5 and step_err <= 1e-6
+        dout = torch.randn(batch, steps, 2 * hidden, generator=gen).to(dev)
+        dxp = bilstm_recurrence_backward(dout, gates, c, w_f, w_b)
+        with exact_fp32():
+            ref_b = bilstm_recurrence_backward_plain(dout, gates, c, w_f, w_b)
+        torch.cuda.synchronize()
+        err_b = max(float((a - b).abs().max()) for a, b in zip(dxp, ref_b))
+        t_ms = time_ms(lambda: bilstm_recurrence_train(xp_f, xp_b, w_f, w_b))
+        b_ms = time_ms(lambda: bilstm_recurrence_backward(dout, gates, c,
+                                                          w_f, w_b))
+        with exact_fp32():
+            t_plain = time_ms(lambda: bilstm_recurrence_train_plain(
+                xp_f, xp_b, w_f, w_b), reps=3, warmup=1)
+            b_plain = time_ms(lambda: bilstm_recurrence_backward_plain(
+                dout, gates, c, w_f, w_b), reps=3, warmup=1)
+        lib_f, lib_b = cudnn_training_ms(xp_f, w_f, w_b, dev)
+        log(f"bilstm_train_wide {shape}: h bit-identical to the inference "
+            f"instance {same_h}, max err against the plain training forward "
+            f"{err_t:.3e} (tolerance 5e-5), one step {step_err:.3e} "
+            f"(tolerance 1e-6)  kernel {t_ms:.4f} ms  plain {t_plain:.4f} "
+            f"ms  cuDNN training forward less projections {lib_f:.4f} ms")
+        log(f"bilstm_bwd_wide {shape} (plan: {wide_plan_note(bplan)}): max "
+            f"err {err_b:.3e} (tolerance 5e-5)  kernel {b_ms:.4f} ms "
+            f"({b_ms / steps * 1e3:.2f} us/step)  plain {b_plain:.4f} ms  "
+            f"cuDNN backward (data) less projections {lib_b:.4f} ms")
+        rec_flops = 2.0 * batch * steps * 2 * hidden * g4
+        io = 2 * batch * steps * g4 + 2 * g4 * hidden
+        for key, vals in (
+                ("inf", (ms, plain_ms, fp32_ms - proj_ms,
+                         rec_flops + 2.0 * batch * steps * 10 * hidden,
+                         4.0 * (io + batch * steps * 2 * hidden), err, ok)),
+                ("train", (t_ms, t_plain, lib_f,
+                           rec_flops + 2.0 * batch * steps * 10 * hidden,
+                           4.0 * (io + batch * steps * 2 * hidden
+                                  + 2 * batch * steps * (hidden + g4)),
+                           err_t, ok_t)),
+                ("bwd", (b_ms, b_plain, lib_b,
+                         rec_flops + 2.0 * batch * steps * 20 * hidden,
+                         4.0 * (batch * steps * 2 * hidden
+                                + 2 * batch * steps * (g4 + hidden)
+                                + 2 * g4 * hidden + 2 * batch * steps * g4),
+                         err_b, err_b <= 5e-5))):
+            a = acc[key]
+            for name, v in zip(("ms", "plain_ms", "library_ms", "flops",
+                                "bytes"), vals[:5]):
+                a[name] += v
+            a["err"] = max(a["err"], vals[5])
+            a["ok"] = a["ok"] and vals[6]
+    shape = " + ".join(f"B{b} T{t}/H{h}" for b, t, h in WIDE_LSTM_SHAPES)
+    for key, name, source, tol in (
+            ("inf", "bilstm_wide", "sos_tpu_torch/csrc/bilstm_wide.cu",
+             "atol 5e-5"),
+            ("train", "bilstm_train_wide", "sos_tpu_torch/csrc/bilstm_wide.cu",
+             "h exact, c and gates 1e-6 a step, 5e-5 whole"),
+            ("bwd", "bilstm_bwd_wide", "sos_tpu_torch/csrc/bilstm_wide.cu",
+             "atol 5e-5")):
+        a = acc[key]
+        record(name, source, "sos_tpu/ops/lstm.py:28", a["err"], a["ok"],
+               tol, a["ms"], a["plain_ms"], a["library_ms"], a["flops"],
+               a["bytes"], shape=shape + " (sum)")
+
+
 # K2's windows past the dense matrices' 2^24 elements (the gather maps'
 # table; 600 s is 18,000 frames, past the former shared-memory limit of
 # 7,264) and its generic despeckle (`despeckle_min_run` 600 > the frame
@@ -1327,8 +1512,11 @@ def bucketed_cases(gen, dev, record, window, table_bytes):
     kept = max(float((got[b, :(v - 1) * hop] - ref[b, :(v - 1) * hop])
                      .abs().max())
                for b, v in enumerate(valid_t.tolist()))
+    zero_ok, zero_n = zeros_past_reach(got, valid_t, nf, hop)
+    ok = ok and zero_ok
     log(f"crm_istft_valid_t: max_abs_err over the kept samples "
-        f"{kept:.3e}; valid frames {frames_in} of {rows * bucket}; "
+        f"{kept:.3e}; exactly 0 on the {zero_n} samples past the rows' live "
+        f"reach {zero_ok}; valid frames {frames_in} of {rows * bucket}; "
         f"device {graph_ms(lambda: crm_istft(crm, spec, valid_t=valid_t)):.4f}"
         " ms (in a CUDA graph); no single PyTorch call takes per-row frame "
         "counts (library n/a)")
@@ -1768,13 +1956,19 @@ def k6_entry_launches(label: str) -> dict:
 
 
 def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
-                    gen: torch.Generator, profile: str, workdir: str):
+                    gen: torch.Generator, profile: str, workdir: str,
+                    clips: int = 2, kernels=None, label: str = "",
+                    scale_file: str = "int8_calibration.json"):
     """Full-width pipeline on 2 clips: card vs CPU, launch counts. The
     int8 profile calibrates on the CPU, which writes the scale file
     `workdir/int8_calibration.json` that the card pipeline (and the
-    serving phase) then loads, so all run the same scales."""
-    x = make_clips(2, gen)
-    path = os.path.join(workdir, "int8_calibration.json")
+    serving phase) then loads, so all run the same scales. Phase 13 runs
+    it at other widths: `clips`, the `kernels` that must launch (else
+    MAIN_PATH_KERNELS, with K6's main-path routes checked), a `label`
+    and a scale file of their own."""
+    x = make_clips(clips, gen)
+    path = os.path.join(workdir, scale_file)
+    name = f"{profile}{label}"
     kwargs = {"calibration_path": path} if profile == "int8" else {}
     host = FusedDenoisePipeline(cfg, det_state, den_state,
                                 profile=profile, device="cpu", **kwargs)
@@ -1804,19 +1998,20 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
     y_card, bits_card = card(x)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    log(f"main path {profile} launches: {launches}")
-    if profile == "int8":
+    log(f"main path {name} launches: {launches}")
+    if profile == "int8" and kernels is None:
         launches.update(k6_entry_launches(f"main path {profile}"))
-    missing = [k for k in MAIN_PATH_KERNELS[profile] if launches[k] == 0]
+    missing = [k for k in kernels or MAIN_PATH_KERNELS[profile]
+               if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"main path {profile} never launched: {missing}")
+        raise RuntimeError(f"main path {name} never launched: {missing}")
 
     y_host, bits_host = host(x)
     margin = (prob - threshold).abs()
     clear = margin > 1e-3
     bits_card = bits_card.cpu()
     if not torch.equal(bits_card[clear], bits_host[clear]):
-        raise RuntimeError(f"main path {profile}: card and CPU bits differ "
+        raise RuntimeError(f"main path {name}: card and CPU bits differ "
                            "off the threshold")
     if torch.equal(bits_card, bits_host):
         y_cmp = y_card.cpu()
@@ -1825,13 +2020,15 @@ def phase_main_path(cfg: ExperimentConfig, det_state, den_state,
     diff = float((y_cmp - y_host).abs().max())
     finite = bool(torch.isfinite(y_card).all())
     voiced = int(bits_host.sum())
-    log(f"main path {profile} (2 clips): waveform {tuple(y_card.shape)} "
-        f"finite {finite}, max |card - cpu| {diff:.3e} (tolerance 1e-3), "
-        f"threshold {threshold:.6f}, bits voiced {voiced}/{bits_host.numel()}, "
-        f"min margin {float(margin.min()):.3e}, bits equal "
+    log(f"main path {name} ({clips} clips): waveform "
+        f"{tuple(y_card.shape)} finite {finite}, max |card - cpu| "
+        f"{diff:.3e} (tolerance 1e-3), threshold {threshold:.6f}, bits "
+        f"voiced {voiced}/{bits_host.numel()}, min margin "
+        f"{float(margin.min()):.3e}, bits equal "
         f"{bool(torch.equal(bits_card, bits_host))}")
-    if not finite or tuple(y_card.shape) != (2, 27966) or not diff <= 1e-3:
-        raise RuntimeError(f"main path {profile}: card output disagrees "
+    if (not finite or tuple(y_card.shape) != (clips, 27966)
+            or not diff <= 1e-3):
+        raise RuntimeError(f"main path {name}: card output disagrees "
                            "with the CPU")
     return launches
 
@@ -2656,6 +2853,16 @@ TRAIN_KERNELS = {
                  "bilstm_bwd"),
 }
 TRAIN_BATCH = {"detector": 15, "denoiser": 40}  # TrainConfig, m2 common.py:52
+
+
+def lstm_route(names, cfg: ExperimentConfig, stage: str):
+    """The launch counters `names` as the stage's BiLSTM counts them: K4's
+    and K4b's with "_wide" after them where its hidden size takes the
+    wide route."""
+    hidden = (cfg.detector if stage == "detector" else cfg.denoiser).lstm_hidden
+    wide = isinstance(recurrence_plan(1, hidden), WidePlan)
+    return tuple(f"{n}_wide" if wide and n.startswith("bilstm") else n
+                 for n in names)
 TRAIN_TIMED_STEPS = 5
 # median step ms of each timed training: (stage, dtype, remat, batch) -> ms
 STEP_MS = {}
@@ -2809,7 +3016,8 @@ def head_agreement(stage, cfg, state_dict, x, g):
     largest |z| of those) and `nearest` (the smallest |z| of all)."""
     reset_launches()
     card, z_card = head_gradients(stage, cfg, state_dict, "cuda", x, g)
-    launches = {k: LAUNCHES[k] for k in ("bilstm_train", "bilstm_bwd")}
+    launches = {k: LAUNCHES[k] for k in lstm_route(
+        ("bilstm_train", "bilstm_bwd"), cfg, stage)}
     cpu, z_cpu = head_gradients(stage, cfg, state_dict, "cpu", x, g,
                                 masks=[z > 0 for z in z_card])
     errs, l2 = _gradient_spread(card, cpu)
@@ -2885,8 +3093,8 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
     and the card against itself with cuDNN's deterministic algorithms
     (`runs` may leave those two out). The training path's launch
     counters must rise on the card. `batch`: a new seeded one of 2 clips
-    unless given. Returns the card step's loss and the CPU's fixed-input
-    step's seconds."""
+    unless given. Returns the card step's loss, the CPU's fixed-input
+    step's seconds and the card step's launch counts."""
     batch = train_batch(2, gen) if batch is None else batch
     make_inputs = make_inputs or STAGE_INPUTS[stage]
     name = f"{stage}{label}"
@@ -2928,7 +3136,8 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
                  / h_cpu["x"].abs().max())
     heads = head_agreement(stage, cfg, state_dict, h_gpu["x"], h_gpu["g"])
     head_errs, head_worst = heads["errs"], heads["worst"]
-    missing = [k for k in TRAIN_KERNELS[stage] if launches[k] == 0]
+    kernels = lstm_route(TRAIN_KERNELS[stage], cfg, stage)
+    missing = [k for k in kernels if launches[k] == 0]
     missing += [k for k, v in heads["launches"].items() if v == 0]
     log(f"train agreement {name} (batch 2, full width): loss card "
         f"{l_gpu:.6f} " + " ".join(f"{r} {out[r][0]:.6f}" for r in runs
@@ -2938,7 +3147,7 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
         f"{[out[r][3] for r in runs]}; CPU steps "
         f"{' + '.join(f'{o[4]:.1f}' for o in cpu_runs)} s, card step "
         f"{t_gpu:.2f} s; launches "
-        f"{ {k: launches[k] for k in TRAIN_KERNELS[stage]} }")
+        f"{ {k: launches[k] for k in kernels} }")
     if "cpu own input" in out:
         in_diff = max(float((own_in[k] - v).abs().max())
                       for k, v in fixed.items())
@@ -2984,7 +3193,7 @@ def train_agreement(stage, cfg, state_dict, gen, make_inputs=None,
     if failed:
         raise RuntimeError(f"train step {name}: card disagrees with the CPU: "
                            + "; ".join(failed))
-    return l_gpu, t_cpu
+    return l_gpu, t_cpu, launches
 
 
 def stage_step(stage, cfg, state_dicts, n, gen):
@@ -3211,7 +3420,7 @@ def joint_agreement(cfg, state_dicts, gen):
                            f"{JOINT_LAUNCHES}), finite {metrics['finite']}")
     cpu_s = {}
     for stage in ("detector", "denoiser"):
-        loss, cpu_s[stage] = train_agreement(
+        loss, cpu_s[stage], _ = train_agreement(
             stage, cfg, state_dicts[stage], gen, joint_stage_inputs(stage),
             runs=("card", "cpu"), label=" (joint step)", batch=batch)
         ref = metrics[f"{stage}_loss"]
@@ -4694,6 +4903,54 @@ def phase_tools_and_geometries(cfg: ExperimentConfig, det_state, den_state,
     return counts
 
 
+# -- phase 13: the BiLSTM past H 224 and the fast profile ------------------
+
+WIDE_HIDDEN = 256  # both stages' lstm_hidden: the wide route of K4 and K4b
+# what a full-width f32 call at that hidden size must launch
+WIDE_MAIN_KERNELS = ("stft", "mask_gate", "crm_istft", "bilstm_wide")
+
+
+def phase_wide_and_fast(gen: torch.Generator, workdir: str) -> dict:
+    """13. `ExperimentConfig()` with both stages' `lstm_hidden` at 256 and
+    every other width at its default, fresh seeded weights: one f32
+    `FusedDenoisePipeline` call at batch 2, card against CPU (phase 4's
+    1e-3, equal bits off the threshold; K4's wide route must launch), and
+    one denoiser train step at batch 2, card against CPU as phases 8-9
+    hold a step (loss 1e-4 relative, gradients 5e-2 relative L2; the wide
+    route's training instance and K4b must launch). Then
+    `fast_denoiser_config()` (the noise encoder at 64 channels): one f32
+    and one int8 call at batch 1 against the CPU path (the int8 one
+    calibrating on the CPU into a scale file of its own). Returns the
+    wide route's launches on its main path."""
+    t_phase = time.perf_counter()
+    cfg = ExperimentConfig(
+        detector=dataclasses.replace(DetectorModelConfig(),
+                                     lstm_hidden=WIDE_HIDDEN),
+        denoiser=dataclasses.replace(DenoiserModelConfig(),
+                                     lstm_hidden=WIDE_HIDDEN))
+    det_state = init_state_dict(SilenceDetector(cfg.detector), gen)
+    den_state = init_state_dict(JointDenoiser(cfg.denoiser), gen)
+    label = f" at lstm_hidden {WIDE_HIDDEN}"
+    launches = phase_main_path(cfg, det_state, den_state, gen, "f32",
+                               workdir, kernels=WIDE_MAIN_KERNELS,
+                               label=label)
+    state_dicts = fresh_state_dicts(cfg)
+    _, _, train = train_agreement("denoiser", cfg, state_dicts["denoiser"],
+                                  gen, runs=("card", "cpu"), label=label)
+    fast = ExperimentConfig(denoiser=fast_denoiser_config())
+    det_fast = init_state_dict(SilenceDetector(fast.detector), gen)
+    den_fast = init_state_dict(JointDenoiser(fast.denoiser), gen)
+    for profile in ("f32", "int8"):
+        phase_main_path(fast, det_fast, den_fast, gen, profile, workdir,
+                        clips=1, kernels=MAIN_PATH_KERNELS[profile],
+                        label=" at fast_denoiser_config()",
+                        scale_file="int8_calibration_fast.json")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s {card_note()}")
+    return {"bilstm_wide": launches["bilstm_wide"],
+            "bilstm_train_wide": train["bilstm_train_wide"],
+            "bilstm_bwd_wide": train["bilstm_bwd_wide"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4736,6 +4993,7 @@ def main() -> int:
                                          workdir))
         launches.update(phase_tools_and_geometries(cfg, det_state, den_state,
                                                    workdir))
+        launches.update(phase_wide_and_fast(gen, workdir))
         for row in rows:
             row["launches"] = launches[row["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -14,16 +14,22 @@ with `--ckpt {N}` or `--ckpt latest`, and `train_* --continue --ckpt N`
 fine-tunes it. The import moves weights between files and runs nothing
 on a device.
 
-`--fast_profile` (`sos_tpu`'s lossless widening of the 48-channel
-encoders to 64, a TPU layout profile) is a usage error: the port runs
-the reference widths only.
+`--fast_profile` widens the stage's 48-channel encoder to 64 (the
+detector's trunk, or the denoiser's noise encoder) losslessly, as
+`sos_tpu`'s does: zero-padded weights, identity BatchNorm statistics on
+the new channels (`models/torch_import.py` `pad_conv_stack`), the
+stage's config replaced by `fast_detector_config()` /
+`fast_denoiser_config()`. The other CLIs then read the checkpoint with a
+config JSON of those widths.
 """
 
 import argparse
+import dataclasses
 import os
 import re
 
 from sos_tpu_torch.cli.common import config_from_args, experiment_dirs
+from sos_tpu_torch.config import fast_denoiser_config, fast_detector_config
 from sos_tpu_torch.models.torch_import import (import_denoiser_checkpoint,
                                                import_detector_checkpoint)
 from sos_tpu_torch.train.checkpoints import CheckpointManager
@@ -40,21 +46,24 @@ def main(argv=None) -> None:
     parser.add_argument("--output_root", type=str, default="model_output")
     parser.add_argument("--config_json", type=str, default=None)
     parser.add_argument("--fast_profile", action="store_true",
-                        help="sos_tpu's TPU width padding: not carried by "
-                             "the port (a usage error)")
+                        help="widen 48-ch encoders to 64 (lossless zero-pad)")
     args = parser.parse_args(argv)
-    if args.fast_profile:
-        parser.error("--fast_profile widens sos_tpu's 48-channel encoders "
-                     "to 64 for the TPU's layout; sos_tpu_torch runs the "
-                     "reference widths only and does not carry it")
     cfg = config_from_args(args)
+    if args.fast_profile:
+        if args.stage == "detector":
+            cfg = dataclasses.replace(cfg, detector=fast_detector_config())
+        else:
+            cfg = dataclasses.replace(cfg, denoiser=fast_denoiser_config())
     _, _, model_dir = experiment_dirs(cfg, args.stage)
 
     if args.stage == "detector":
-        state_dict = import_detector_checkpoint(args.pth)
+        state_dict = import_detector_checkpoint(
+            args.pth, nf=cfg.detector.nf if args.fast_profile else None)
         init = init_detector_state
     else:
-        state_dict = import_denoiser_checkpoint(args.pth)
+        state_dict = import_denoiser_checkpoint(
+            args.pth,
+            nf_noise=cfg.denoiser.nf_noise if args.fast_profile else None)
         init = init_denoiser_state
     _, state = init(cfg, device="cpu", state_dict=state_dict)
     match = re.search(r"epoch(\d+)", os.path.basename(args.pth))

@@ -1,9 +1,11 @@
 """Typed configuration tree with the reference implementation's defaults.
 
 The port's own copy of `sos_tpu/config.py`: the same dataclasses, field
-names and defaults, so one config JSON drives both packages. The TPU-only
-width-padding profiles (`fast_detector_config`, `fast_denoiser_config`)
-are not carried over; the port runs the reference widths.
+names and defaults, so one config JSON drives both packages, and the
+same width-padding profiles (`fast_detector_config`,
+`fast_denoiser_config`: sos_tpu's 48 -> 64 channel widening, which
+`cli/import_checkpoint.py --fast_profile` imports reference checkpoints
+into losslessly).
 
 The reference scatters configuration across class-based `Config` objects
 (model_1 common.py:30-88, model_2 common.py:25-83) and module-level
@@ -120,6 +122,21 @@ class DenoiserModelConfig:
     fc_hidden: int = 600
     # InpaintNet channel plan (m2 networks.py:155-157)
     inpaint_ch: Tuple[int, int, int] = (64, 128, 256)
+
+
+def fast_detector_config(**kw) -> "DetectorModelConfig":
+    """sos_tpu's throughput profile for the TPU: the detector's conv width
+    padded 48 -> 64 (`sos_tpu/config.py:118-127`). Reference checkpoints
+    import into it losslessly (zero-padded weights,
+    `models/torch_import.py` `pad_conv_stack`)."""
+    return DetectorModelConfig(nf=64, **kw)
+
+
+def fast_denoiser_config(**kw) -> "DenoiserModelConfig":
+    """sos_tpu's throughput profile for the TPU: the noise encoder's width
+    padded 48 -> 64 (`sos_tpu/config.py:130-133`; see
+    `fast_detector_config`)."""
+    return DenoiserModelConfig(nf_noise=64, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,14 @@
 // 203-228): row b's frames >= valid_t[b] count as absent, for the sum and
 // for the envelope alike (they are not even copied in), so the row's
 // samples below (valid_t - 1) * 158 are those of an unpadded iSTFT. Of
-// those, only the last 42 see an envelope other than the full one.
+// those, only the last 42 see an envelope other than the full one. The
+// valid_t instance skips the work of absent frames: a block none of whose
+// frames is live stores its samples' zeros (sum and envelope 0) in 16-byte
+// stores and returns before any copy or pass; in a block that straddles
+// valid_t the groups of 4 frames that are wholly absent skip the recover
+// and the inverse split (pfa255 skips each absent frame's passes). Only
+// absent frames' results are skipped, and no live sample reads them, so
+// the output is the one computed without the skips, bit for bit.
 //
 // Bound on an H100: bytes. At 128 clips cRM and spectrum (93.3 MB) in and
 // the waveform (14.3 MB) out take 0.032 ms at 3.35 TB/s; the factorized
@@ -53,11 +60,14 @@ constexpr int kHops = 13;            // output hops per block
 constexpr int kFrames = kHops + 3;   // frames that touch them
 constexpr int kRow = 2 * kBins;      // packed [re | im] row, 512 floats
 constexpr int kThreads = 256;
+constexpr int kGroup = 4;            // frames a thread's loads take at once
 static_assert(kThreads == kBins, "one thread a bin");
 // per frame: the cRM row (later the masked spectrum) and the spectrum row
 // (later the frame's 255 complex points)
 constexpr size_t kSmem = (size_t)kFrames * 2 * kRow * sizeof(float);
 
+// kValid: the per-row valid_t instance (valid_t not NULL)
+template <bool kValid>
 __global__ void __launch_bounds__(kThreads, 3)
 crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
                   const float* __restrict__ tab, const int* __restrict__ slots,
@@ -67,10 +77,24 @@ crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
   const int tid = threadIdx.x, b = blockIdx.y, h0 = blockIdx.x * kHops;
   const int t_lo = h0 - 3;  // frame of local index 0
   // frames of this row: all T, or those below its valid_t
-  const int tv = valid_t != nullptr ? max(0, min(T, __ldg(valid_t + b))) : T;
+  const int tv = kValid ? max(0, min(T, __ldg(valid_t + b))) : T;
   const auto live = [=](int f) { return t_lo + f >= 0 && t_lo + f < tv; };
   float2* frames = reinterpret_cast<float2*>(smem + kRow);  // stride kRow float2
   constexpr int kOut = kHops * kHop, kPerThread = (kOut + kThreads - 1) / kThreads;
+  // the block's live frames, f_lo <= f < f_hi
+  const int f_lo = max(0, -t_lo), f_hi = min(kFrames, tv - t_lo);
+  if constexpr (kValid) {
+    if (f_hi <= f_lo) {  // no live frame reaches the block's samples
+      const long long j0 = (long long)h0 * kHop - kPad;
+      sos::zero_span(out + (size_t)b * out_len, max(0ll, j0),
+                     min((long long)out_len, j0 + kOut));
+      return;
+    }
+  }
+  // a group of kGroup frames from f0 with no live frame
+  const auto dead_group = [=](int f0) {
+    return kValid && (f0 + kGroup <= f_lo || f0 >= f_hi);
+  };
 
   // the wrapper hands over 16-byte aligned crm and spec, so every row is
   constexpr int kChunks = kRow / 4;  // 16-byte chunks a row
@@ -88,12 +112,12 @@ crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
   // at a time (loads first, for the latency). Frames outside the clip run
   // on stale shared memory, and nothing reads their results.
   const int k = tid;
-  constexpr int kGroup = 4;
   static_assert(kFrames % kGroup == 0, "whole groups of frames");
 
   // masked spectrum recover(crm) * spec, over the cRM row
 #pragma unroll
   for (int f0 = 0; f0 < kFrames; f0 += kGroup) {
+    if (dead_group(f0)) continue;
     float cr[kGroup], ci[kGroup], mr[kGroup], mi[kGroup];
 #pragma unroll
     for (int u = 0; u < kGroup; ++u) {
@@ -122,6 +146,7 @@ crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
     const int slot = __ldg(slots + kSlotIn + k);
 #pragma unroll
     for (int f0 = 0; f0 < kFrames; f0 += kGroup) {
+      if (dead_group(f0)) continue;
       float ax[kGroup], ay[kGroup], bx[kGroup], by[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
@@ -180,12 +205,13 @@ crm_synthesis_pfa(const float* __restrict__ crm, const float* __restrict__ spec,
 extern "C" int sos_crm_istft(const float* crm, const float* spec, const float* tab,
                              const int* slots, const int* valid_t, float* out, int B,
                              int T, int out_len, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      crm_synthesis_pfa, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  const auto kernel = valid_t != nullptr ? crm_synthesis_pfa<true> : crm_synthesis_pfa<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
   const int hops = (out_len + kPad - 1) / kHop + 1;  // hops holding output samples
   const dim3 grid((hops + kHops - 1) / kHops, B);
-  crm_synthesis_pfa<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      crm, spec, tab, slots, valid_t, out, T, out_len);
+  kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(crm, spec, tab, slots, valid_t, out,
+                                                          T, out_len);
   return (int)cudaGetLastError();
 }

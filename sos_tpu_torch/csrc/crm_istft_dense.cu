@@ -34,7 +34,14 @@
 // Per-row `valid_t` (sos_tpu/dsp/stft.py:170-210 `istft(valid_t=)`,
 // vmapped over rows by the length-bucketed denoiser, infer/denoise.py:
 // 203-228): row b's frames >= valid_t[b] count as absent, for the sum and
-// for the envelope alike.
+// for the envelope alike. The valid_t instance skips their work: a tile of
+// hop rows that no live frame reaches stores its samples' zeros (the
+// block of column 0 for every column of its hop rows, in 16-byte stores)
+// and returns; in a tile that straddles valid_t the absent frames' Z rows
+// are zeroed once instead of recovered every slice, and a chunk whose rows
+// of Z are all absent is skipped by the block. A skipped product adds +-0
+// to a sum that is never -0, so the output is the one computed without
+// the skips, bit for bit.
 //
 // Bound on an H100: bytes (cRM and spectrum in, waveform out), as for the
 // prime-factor instance. The dense product is 4 F n_fft flops a frame,
@@ -62,6 +69,8 @@ constexpr int kZStride = kTileK + 1;
 constexpr int kThreads = 256;
 constexpr int kMaxChunks = 1024;  // ceil(n_fft / hop): Z rows in shared memory
 
+// kValid: the per-row valid_t instance (valid_t not NULL)
+template <bool kValid>
 __global__ void __launch_bounds__(kThreads)
 crm_istft_dense_kernel(const float* __restrict__ crm, const float* __restrict__ spec,
                        const float* __restrict__ syn, const float* __restrict__ wsq,
@@ -72,15 +81,32 @@ crm_istft_dense_kernel(const float* __restrict__ crm, const float* __restrict__ 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int c0 = blockIdx.x * kTileN, h0 = blockIdx.y * kTileM, b = blockIdx.z;
   const int pad = n_fft / 2, row2 = 2 * F;
-  const int tv = valid_t != nullptr ? max(0, min(T, __ldg(valid_t + b))) : T;
+  const int tv = kValid ? max(0, min(T, __ldg(valid_t + b))) : T;
   const int rows = kTileM + chunks - 1, f_lo = h0 - (chunks - 1);  // Z row 0's frame
   const float* crm_b = crm + (size_t)b * T * row2;
   const float* spec_b = spec + (size_t)b * T * row2;
   float acc[4][4] = {};
+  // Z rows below `live_rows` may hold live frames; the rest are absent
+  int live_rows = rows;
+  if constexpr (kValid) {
+    live_rows = max(0, min(rows, tv - f_lo));
+    if (live_rows <= max(0, -f_lo)) {  // no live frame reaches the tile
+      if (blockIdx.x == 0) {  // every column of the tile's hop rows
+        const long long j0 = (long long)h0 * hop - pad;
+        sos::zero_span(out + (size_t)b * out_len, max(0ll, j0),
+                       min((long long)out_len, j0 + (long long)kTileM * hop));
+      }
+      return;
+    }
+    for (int e = live_rows * kBinsK + tid; e < rows * kBinsK; e += kThreads) {
+      zs[(e / kBinsK) * kZStride + e % kBinsK] = 0.f;
+      zs[(e / kBinsK) * kZStride + kBinsK + e % kBinsK] = 0.f;
+    }
+  }
 
   for (int k0 = 0; k0 < F; k0 += kBinsK) {
     // Z of the span's frames, bins k0 .. k0 + 15: [re | im]
-    for (int e = tid; e < rows * kBinsK; e += kThreads) {
+    for (int e = tid; e < live_rows * kBinsK; e += kThreads) {
       const int r = e / kBinsK, i = e % kBinsK, f = f_lo + r, bin = k0 + i;
       float zr = 0.f, zi = 0.f;
       if (f >= 0 && f < tv && bin < F) {
@@ -96,6 +122,8 @@ crm_istft_dense_kernel(const float* __restrict__ crm, const float* __restrict__ 
     }
     for (int j = 0; j < chunks; ++j) {
       if (j * hop + c0 >= n_fft) break;  // the chunk's columns lie past the frame
+      // the chunk reads Z rows chunks - 1 - j .. + kTileM - 1: all absent
+      if (kValid && chunks - 1 - j >= live_rows) continue;
       __syncthreads();  // Z is written; the last B tile is consumed
       // B tile: table rows bin (real) and F + bin (imaginary), columns
       // n = j * hop + c0 + c
@@ -164,14 +192,16 @@ extern "C" int sos_crm_istft_dense(const float* crm, const float* spec, const fl
   const int smem = z_smem_bytes(n_fft, hop);
   if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || smem == 0 || out_len <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      crm_istft_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel =
+      valid_t != nullptr ? crm_istft_dense_kernel<true> : crm_istft_dense_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int chunks = (n_fft + hop - 1) / hop;
   const int pad = n_fft / 2;
   const long long rows_h = ((long long)pad + out_len + hop - 1) / hop;  // hop rows with output
   const dim3 grid((hop + kTileN - 1) / kTileN, (unsigned)((rows_h + kTileM - 1) / kTileM), B);
-  crm_istft_dense_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      crm, spec, syn, wsq, valid_t, out, T, F, n_fft, hop, chunks, out_len);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(crm, spec, syn, wsq, valid_t, out, T,
+                                                         F, n_fft, hop, chunks, out_len);
   return (int)cudaGetLastError();
 }

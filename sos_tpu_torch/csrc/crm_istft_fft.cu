@@ -30,7 +30,14 @@
 // Per-row `valid_t` (sos_tpu/dsp/stft.py:170-210 `istft(valid_t=)`,
 // vmapped over rows by the length-bucketed denoiser, infer/denoise.py:
 // 203-228): row b's frames >= valid_t[b] count as absent, for the sum and
-// for the envelope alike.
+// for the envelope alike. The valid_t instance skips their work: a block
+// none of whose frames is live stores its samples' zeros in 16-byte
+// stores and returns before it stages a table or computes; a block that
+// straddles valid_t runs (1)-(3) over the transforms up to its last live
+// frame only (at odd n_fft that transform's absent partner frame is zero,
+// as before). Each transform's arithmetic does not depend on how many run,
+// and no live sample reads a skipped one, so the output is the one
+// computed without the skips, bit for bit.
 //
 // Bound on an H100: bytes (cRM and spectrum in, waveform out; at 128 clips
 // at n_fft 1022, hop 256, 129 MB, 0.039 ms). The frames a block shares
@@ -48,7 +55,8 @@ namespace {
 using namespace sosfft;
 using sos::crm_recover;
 
-template <bool kPad>
+// kValid: the per-row valid_t instance (valid_t not NULL)
+template <bool kPad, bool kValid>
 __global__ void __launch_bounds__(kThreads)
 crm_istft_fft_kernel(const float* __restrict__ crm, const float* __restrict__ spec,
                      const float* __restrict__ tab, const int* __restrict__ itab,
@@ -63,13 +71,24 @@ crm_istft_fft_kernel(const float* __restrict__ crm, const float* __restrict__ sp
   const int bins = n_fft / 2 + 1, row2 = 2 * bins;
   const int chunks = (n_fft + hop - 1) / hop;
   const int b = blockIdx.y, h0 = blockIdx.x * hops, f_lo = h0 - (chunks - 1);
-  const int nt = (hops + chunks - 1 + fpt - 1) / fpt;
+  int nt = (hops + chunks - 1 + fpt - 1) / fpt;
   float2* coefs = smem;
   float2* A = smem + plan.ncoef;
   float2* B = A + padded<kPad>(nt * S) + kPad;
-  stage_coefs(coefs, f, plan);
-  const int tv = valid_t != nullptr ? max(0, min(T, __ldg(valid_t + b))) : T;
+  const int tv = kValid ? max(0, min(T, __ldg(valid_t + b))) : T;
   const auto live = [=](int fl) { return f_lo + fl >= 0 && f_lo + fl < tv; };
+  if constexpr (kValid) {
+    // the block's live frames end at fl_hi: the transforms up to it run
+    const int fl_hi = min(nt * fpt, tv - f_lo);
+    if (fl_hi <= max(0, -f_lo)) {  // no live frame reaches the block's samples
+      const long long j0 = (long long)h0 * hop - n_fft / 2;
+      sos::zero_span(out + (size_t)b * out_len, max(0ll, j0),
+                     min((long long)out_len, j0 + (long long)hops * hop));
+      return;
+    }
+    nt = (fl_hi + fpt - 1) / fpt;
+  }
+  stage_coefs(coefs, f, plan);
 
   // (1) masked spectra: frame fl's bin k at point (fl / fpt) S + (fl % fpt)
   // bins + k of B; a thread takes a bin of the frames (`for_points`)
@@ -164,7 +183,11 @@ extern "C" int sos_crm_istft_fft(const float* crm, const float* spec, const floa
   // the padded buffers where M is divisible by 16 (dsp/stft.py
   // `fft_shared_bytes` counts them)
   const int M = (n_fft & 1) ? n_fft : n_fft / 2;
-  const auto kernel = M % 16 ? crm_istft_fft_kernel<false> : crm_istft_fft_kernel<true>;
+  const bool valid = valid_t != nullptr;
+  const auto kernel = M % 16 ? (valid ? crm_istft_fft_kernel<false, true>
+                                      : crm_istft_fft_kernel<false, false>)
+                             : (valid ? crm_istft_fft_kernel<true, true>
+                                      : crm_istft_fft_kernel<true, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

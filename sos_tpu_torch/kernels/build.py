@@ -86,10 +86,22 @@ SIGNATURES = {
     # 4H), B, T, H, then `backward_plan`: rows a block, cluster, lanes a
     # quad of units, float4 columns a lane, threads, shared bytes; stream
     "sos_bilstm_bwd": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # K4's wide route: xp_fwd, xp_bwd, w_hh_fwd, w_hh_bwd, lengths (or
+    # NULL), their stride and width, out, c and activated gates (the
+    # training instance; else NULL), the zeroed scratch, B, T, H, then
+    # `wide_plan`: blocks a direction, rows a task, rows staged, columns
+    # staged, threads, shared bytes; stream
+    "sos_bilstm_wide": (_P,) * 5 + (_I, _I) + (_P,) * 4 + (_I,) * 9 + (_P,),
+    # K4b's wide route: dout, gates, c, W_hh^T fwd and bwd (H, 4H), dxp,
+    # the zeroed scratch, B, T, H, the plan as above; stream
+    "sos_bilstm_wide_bwd": (_P,) * 7 + (_I,) * 9 + (_P,),
     # K4's inference instance and K4b: rows a block, cluster, lanes a
     # unit, float4 columns a lane, threads, shared bytes, int* count
     "sos_bilstm_max_clusters": (_I,) * 6 + (_P,),
     "sos_bilstm_bwd_max_clusters": (_I,) * 6 + (_P,),
+    # the wide route: rows a task, mode (0 K4, 1 its training instance, 2
+    # K4b), W_hh's rows float4-aligned, threads, shared bytes, int* count
+    "sos_bilstm_wide_coresident": (_I,) * 5 + (_P,),
     # a (M, K), b^T (N, K), out, M, N, K, tile width, stream
     "sos_int8_gemm": (_P, _P, _P) + (_I,) * 4 + (_P,),
     # x, w, w_s, bias, out, valid_t (int32 (B,) or NULL), B, H, W, Cin,
@@ -122,7 +134,8 @@ SIGNATURES = {
 # K2 gating by 1 - mask, K4's training forward and its backward K4b; and
 # K2's windows past 2^24 mask elements and its generic despeckle; and
 # K1's and K3's "fft" and generic instances (every STFT geometry but the
-# default).
+# default); and K4's and K4b's wide route past the register plans'
+# hidden sizes.
 LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
                             "stft_fft": 0, "stft_fft_center_false": 0,
                             "stft_generic": 0,
@@ -135,12 +148,16 @@ LAUNCHES: Dict[str, int] = {"stft": 0, "stft_center_false": 0,
                             "crm_istft_generic": 0,
                             "crm_istft_generic_valid_t": 0, "bilstm": 0,
                             "bilstm_lengths": 0, "bilstm_train": 0,
-                            "bilstm_bwd": 0, "int8_gemm": 0,
+                            "bilstm_bwd": 0, "bilstm_wide": 0,
+                            "bilstm_lengths_wide": 0,
+                            "bilstm_train_wide": 0, "bilstm_bwd_wide": 0,
+                            "int8_gemm": 0,
                             "int8_conv": 0, "int8_conv_valid_t": 0,
                             "int8_inpaint": 0, "int8_inpaint_valid_t": 0}
 # The same launches by C entry point (K6 has four routes, K7 two)
 ENTRY_LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES
-                                  if not name.endswith("_max_clusters")}
+                                  if not name.endswith(("_max_clusters",
+                                                        "_coresident"))}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -10,10 +10,10 @@ modules (`conv0`, `proj`, `inpaint.a_in`, ...).
 
 So a checkpoint takes the path `sos_tpu` weights take into the port:
 the numpy layout rules of `sos_tpu/models/torch_import.py` (copied
-here, :40-87 and :132-253 there, without the channel widening of
-`sos_tpu`'s fast profiles) turn it into a flax-layout tree of numpy arrays,
-and `models/convert.py` turns that tree into a state_dict. Nothing of
-JAX or flax is needed for either step.
+here, :40-253 there, the channel widening of `sos_tpu`'s fast profiles
+included) turn it into a flax-layout tree of numpy arrays, and
+`models/convert.py` turns that tree into a state_dict. Nothing of JAX or
+flax is needed for either step.
 
 * Conv2d  (O,I,kF,kT) -> HWIO (kF,kT,I,O)
 * ConvTranspose2d (I,O,kH,kW) -> (kH,kW,I,O)
@@ -22,11 +22,13 @@ JAX or flax is needed for either step.
 * Linear (O,I) -> (I,O)
 * PReLU single-slope weight -> scalar alpha
 * `module.`-prefix stripping for DataParallel-saved checkpoints
+* the fast profiles' widening (`nf`, `nf_noise`): a conv trunk
+  zero-padded to the profile's width, losslessly (`pad_conv_stack`)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,8 +98,48 @@ def _convert_linear(state, tkey, params, fpath):
     _set(params, fpath + ("bias",), _np(state[f"{tkey}.bias"]))
 
 
-def detector_torch_to_flax(state: Mapping[str, np.ndarray]) -> Dict:
-    """Reference `AudioVisualNet` state_dict -> {'params':..., 'batch_stats':...}."""
+def _pad_axis(a: np.ndarray, axis: int, new: int, fill: float = 0.0) -> np.ndarray:
+    """Zero-pad one axis to `new` entries (channel widening)."""
+    if a.shape[axis] >= new:
+        return a
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, new - a.shape[axis])
+    return np.pad(a, pad, constant_values=fill)
+
+
+def pad_conv_stack(params: Dict, stats: Dict, names, width: int) -> None:
+    """Widen a trunk of ConvBlocks to `width` channels, losslessly (the
+    fast profiles, `sos_tpu/models/torch_import.py` :98-129).
+
+    Extra output channels get zero kernels; extra input channels (which
+    only ever see zeros) get zero kernels too; BN pads use identity stats
+    (scale 1, bias 0, mean 0, var 1), so the widened network computes
+    exactly the same values on the original channels. `names` lists the
+    trunk block names in order, then the projection block (whose output
+    width is not padded)."""
+    for idx, name in enumerate(names):
+        block = params[name]
+        kernel = block["Conv_0"]["kernel"]  # HWIO
+        if idx > 0:
+            kernel = _pad_axis(kernel, 2, width)
+        if idx < len(names) - 1:
+            kernel = _pad_axis(kernel, 3, width)
+        block["Conv_0"]["kernel"] = kernel
+        if idx < len(names) - 1 and "TorchBatchNorm_0" in block:
+            bn = block["TorchBatchNorm_0"]["BatchNorm_0"]
+            bn["scale"] = _pad_axis(bn["scale"], 0, width, fill=1.0)
+            bn["bias"] = _pad_axis(bn["bias"], 0, width, fill=0.0)
+            sn = stats[name]["TorchBatchNorm_0"]["BatchNorm_0"]
+            sn["mean"] = _pad_axis(sn["mean"], 0, width, fill=0.0)
+            sn["var"] = _pad_axis(sn["var"], 0, width, fill=1.0)
+
+
+def detector_torch_to_flax(state: Mapping[str, np.ndarray],
+                           nf: Optional[int] = None) -> Dict:
+    """Reference `AudioVisualNet` state_dict -> {'params':..., 'batch_stats':...}.
+
+    `nf` widens the conv trunk (zero-pad, lossless) to a fast-profile
+    `SilenceDetector` config's width (`fast_detector_config`: 64)."""
     state = strip_data_parallel(state)
     params: Dict = {}
     stats: Dict = {}
@@ -119,14 +161,21 @@ def detector_torch_to_flax(state: Mapping[str, np.ndarray]) -> Dict:
     for i in range(n_blocks - 1):
         conv_block(f"encoder_audio.{i}", f"conv{i}")
     conv_block(f"encoder_audio.{n_blocks - 1}", "proj")
+    if nf is not None:
+        names = [f"conv{i}" for i in range(n_blocks - 1)] + ["proj"]
+        pad_conv_stack(params, stats, names, nf)
     _convert_lstm(state, "lstm", params, ("lstm",))
     _convert_linear(state, "fc1.0", params, ("fc1",))
     _convert_linear(state, "fc1.2", params, ("fc2",))
     return {"params": params, "batch_stats": stats}
 
 
-def denoiser_torch_to_flax(state: Mapping[str, np.ndarray]) -> Dict:
-    """Reference `JointModel` state_dict -> {'params':..., 'batch_stats':...}."""
+def denoiser_torch_to_flax(state: Mapping[str, np.ndarray],
+                           nf_noise: Optional[int] = None) -> Dict:
+    """Reference `JointModel` state_dict -> {'params':..., 'batch_stats':...}.
+
+    `nf_noise` widens the ContextAggNet noise encoder (zero-pad, lossless)
+    to `fast_denoiser_config`'s width (64)."""
     state = strip_data_parallel(state)
     params: Dict = {}
     stats: Dict = {}
@@ -197,6 +246,9 @@ def denoiser_torch_to_flax(state: Mapping[str, np.ndarray]) -> Dict:
         enc_block(f"stage2.encoder_n.{i}", f"enc_n{i}")
     enc_block(f"stage2.encoder_x.{n_enc - 1}", "enc_xproj")
     enc_block(f"stage2.encoder_n.{n_enc - 1}", "enc_nproj")
+    if nf_noise is not None:
+        names = [f"enc_n{i}" for i in range(n_enc - 1)] + ["enc_nproj"]
+        pad_conv_stack(params["context"], stats["context"], names, nf_noise)
     _convert_lstm(state, "stage2.lstm", params, s2 + ("lstm",))
     _convert_linear(state, "stage2.fc.0", params, s2 + ("fc0",))
     _convert_linear(state, "stage2.fc.2", params, s2 + ("fc1",))
@@ -211,11 +263,14 @@ def load_pth(path: str) -> Dict[str, np.ndarray]:
     return {k: _np(v) for k, v in state.items()}
 
 
-def import_detector_checkpoint(path: str) -> Dict:
-    """Reference detector `.pth` -> port `SilenceDetector` state_dict."""
-    return detector_from_jax(detector_torch_to_flax(load_pth(path)))
+def import_detector_checkpoint(path: str, nf: Optional[int] = None) -> Dict:
+    """Reference detector `.pth` -> port `SilenceDetector` state_dict
+    (`nf`: widened to that trunk width)."""
+    return detector_from_jax(detector_torch_to_flax(load_pth(path), nf=nf))
 
 
-def import_denoiser_checkpoint(path: str) -> Dict:
-    """Reference denoiser `.pth` -> port `JointDenoiser` state_dict."""
-    return denoiser_from_jax(denoiser_torch_to_flax(load_pth(path)))
+def import_denoiser_checkpoint(path: str, nf_noise: Optional[int] = None) -> Dict:
+    """Reference denoiser `.pth` -> port `JointDenoiser` state_dict
+    (`nf_noise`: the noise encoder widened to that width)."""
+    return denoiser_from_jax(denoiser_torch_to_flax(load_pth(path),
+                                                    nf_noise=nf_noise))

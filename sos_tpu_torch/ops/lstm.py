@@ -27,6 +27,12 @@
   `dW_hh = sum_t dgates^T h_prev` is one `torch.matmul` over B*T; W_ih,
   the bias and x get theirs from autograd through `_project`. `BiLSTM`
   takes this route whenever a gradient is needed.
+* Past the register plans' largest hidden size (224), K4, its training
+  instance and K4b take the wide route (`csrc/bilstm_wide.cu`, laid out
+  by `wide_plan`): one cooperative launch, each block a run of hidden
+  units, W_hh streamed from global memory (L2-resident) every step, h
+  (K4b: the dgates) double-buffered in global memory behind a barrier of
+  each direction's blocks a step. It takes any hidden size.
 
 Gate order is torch's (i, f, g, o); carries are fp32. Parameters keep
 torch's layout: `w_ih_*` (4H, C), `w_hh_*` (4H, H).
@@ -37,12 +43,12 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import ClassVar, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from sos_tpu_torch.kernels import launch, library, on_device
+from sos_tpu_torch.kernels import aligned16, launch, library, on_device
 
 
 def _scan(x_proj: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
@@ -153,8 +159,58 @@ def _one_wave(batch: int, pairs) -> Tuple[int, int]:
     return cluster, bt
 
 
+class _StepPlan:
+    """What the plans of K4, K4b and their wide route share: the double
+    buffer's parity a step, and the shuffle reduction
+    (`csrc/cluster_exchange.cuh` `reduce_lanes`): `split` lanes hold
+    partial sums of `lane_values` values (4 floats each); a butterfly over
+    lanes ^ split/2 .. ^ 1 halves the values a lane keeps while they are
+    even and all-reduces them when odd."""
+
+    split: int
+
+    @staticmethod
+    def parity(step: int) -> Tuple[int, int]:
+        """(buffer read, buffer written) at `step`."""
+        return step & 1, (step + 1) & 1
+
+    @property
+    def lane_values(self) -> int:
+        raise NotImplementedError
+
+    def _butterfly(self):
+        """The butterfly's steps: (lane bit, values before the step)."""
+        rows, mask = self.lane_values, self.split // 2
+        while mask:
+            yield mask, rows
+            rows = rows // 2 if rows % 2 == 0 else rows
+            mask //= 2
+
+    @property
+    def rows_per_lane(self) -> int:
+        """Values a lane updates: each butterfly step halves a lane's
+        values while they are even and all-reduces them when odd."""
+        rows = self.lane_values
+        for _, r in self._butterfly():
+            rows = r // 2 if r % 2 == 0 else r
+        return rows
+
+    def _lane_values(self, tid: int) -> Tuple[int, range]:
+        """(group, values) thread `tid` keeps after the butterfly; an
+        empty range for a lane that keeps none."""
+        lane, group = tid & 31, tid // self.split
+        row0, rows, owner = 0, self.lane_values, True
+        for bit, r in self._butterfly():
+            if r % 2 == 0:
+                rows = r // 2
+                row0 += rows if lane & bit else 0
+            else:
+                owner = owner and not lane & bit
+        return group, range(row0, row0 + rows) if owner else range(0)
+
+
 @dataclass(frozen=True)
-class _ClusterPlan:
+class _ClusterPlan(_StepPlan):
     """What K4's and K4b's plans share (`csrc/cluster_exchange.cuh`): a
     block takes `bt` batch rows of one direction; a cluster of `cluster`
     blocks shares those rows, rank r owning hidden units `units[r]`.
@@ -211,41 +267,6 @@ class _ClusterPlan:
     def rows(self, tile: int) -> range:
         """Batch rows of `tile`; the last tile may be ragged."""
         return range(tile * self.bt, min(self.batch, (tile + 1) * self.bt))
-
-    @staticmethod
-    def parity(step: int) -> Tuple[int, int]:
-        """(buffer read, buffer written) at `step`."""
-        return step & 1, (step + 1) & 1
-
-    def _butterfly(self):
-        """The butterfly's steps: (lane bit, values before the step)."""
-        rows, mask = self.lane_values, self.split // 2
-        while mask:
-            yield mask, rows
-            rows = rows // 2 if rows % 2 == 0 else rows
-            mask //= 2
-
-    @property
-    def rows_per_lane(self) -> int:
-        """Values a lane updates: each butterfly step halves a lane's
-        values while they are even and all-reduces them when odd."""
-        rows = self.lane_values
-        for _, r in self._butterfly():
-            rows = r // 2 if r % 2 == 0 else r
-        return rows
-
-    def _lane_values(self, tid: int) -> Tuple[int, range]:
-        """(group, values) thread `tid` keeps after the butterfly; an
-        empty range for a lane that keeps none."""
-        lane, group = tid & 31, tid // self.split
-        row0, rows, owner = 0, self.lane_values, True
-        for bit, r in self._butterfly():
-            if r % 2 == 0:
-                rows = r // 2
-                row0 += rows if lane & bit else 0
-            else:
-                owner = owner and not lane & bit
-        return group, range(row0, row0 + rows) if owner else range(0)
 
     @property
     def quads(self) -> int:
@@ -335,17 +356,148 @@ class RecurrencePlan(_ClusterPlan):
                 for u in range(u0, u0 + n)]
 
 
-def recurrence_plan(batch: int, hidden: int) -> RecurrencePlan:
-    """K4's plan for a shape, from (batch, hidden) alone. Raises
-    `ValueError` for a hidden size no class takes."""
+# The wide route (`csrc/bilstm_wide.cu`), past the classes' largest hidden
+# size: threads a block, blocks a direction (one block an SM over both
+# directions), shared bytes for the rows a block stages each step
+WIDE_THREADS = 256
+WIDE_BLOCKS = BLOCK_SLOTS // 2
+WIDE_STAGE_BYTES = 128 * 1024
+
+
+@dataclass(frozen=True)
+class WidePlan(_StepPlan):
+    """How the wide route lays a `(batch, hidden)` recurrence (K4 and its
+    training instance) or, with `backward`, its BPTT (K4b) out.
+
+    One cooperative launch of `blocks` blocks a direction; block k owns
+    hidden units `units[k]` (whole quads, `hidden % 4` to the last). Each
+    step a block stages the read parity's rows of h (K4b: of the dgates)
+    from global memory, `nr` rows at a time in column chunks of `kc`
+    floats of the `width` a row holds; a warp takes tasks (`tasks`) of
+    `bt` rows and one unit (K4b: a quad of units) in rounds of
+    `WIDE_THREADS // 32`; lane q sums float4 columns q, q + 32, ... of the
+    staged rows (`k_columns`) against the task's four matrix rows (K4:
+    the unit's gate rows of W_hh; K4b: W_hh^T's rows of the quad's
+    units); the butterfly over the 32 lanes leaves each owner lane one
+    row's four sums. Owners write the write parity (`parity`); then every
+    block of the direction meets at a barrier."""
+    batch: int
+    hidden: int
+    backward: bool
+    blocks: int
+    bt: int
+    units: Tuple[Tuple[int, int], ...]
+    split: ClassVar[int] = 32
+
+    @property
+    def lane_values(self) -> int:
+        """A task's rows, four sums each."""
+        return self.bt
+
+    @property
+    def width(self) -> int:
+        """Floats a staged row holds: h padded to a float4 (K4), the 4H
+        dgates (K4b)."""
+        return 4 * self.hidden if self.backward else -(-self.hidden // 4) * 4
+
+    @property
+    def threads(self) -> int:
+        return WIDE_THREADS
+
+    @property
+    def padded_rows(self) -> int:
+        """Batch rows in whole tasks of `bt`."""
+        return -(-self.batch // self.bt) * self.bt
+
+    @property
+    def nr(self) -> int:
+        """Rows staged at once: as many whole tasks as whole rows fit
+        `WIDE_STAGE_BYTES`, at least one task."""
+        fit = WIDE_STAGE_BYTES // (4 * self.width) // self.bt * self.bt
+        return min(self.padded_rows, max(self.bt, fit))
+
+    @property
+    def kc(self) -> int:
+        """Columns staged at once: the whole row, or as many whole warps'
+        float4 columns (128 floats) as `nr` rows fit the budget."""
+        return min(self.width, WIDE_STAGE_BYTES // (4 * self.nr) // 128 * 128)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.nr * self.kc
+
+    @property
+    def scratch_floats(self) -> int:
+        """The zeroed scratch a launch takes: the row buffers (2 parities x
+        2 directions x B x `width`), the carried state (c, or K4b's dc: 2 x
+        B x H) and the directions' two barrier counters."""
+        return 4 * self.batch * self.width + 2 * self.batch * self.hidden + 2
+
+    def chunks(self) -> List[Tuple[int, int]]:
+        """(first row, rows) of each staging of a step."""
+        return [(r0, min(self.nr, self.padded_rows - r0))
+                for r0 in range(0, self.padded_rows, self.nr)]
+
+    def column_chunks(self) -> List[Tuple[int, int]]:
+        """(first column, columns) of each staged column chunk."""
+        return [(k0, min(self.kc, self.width - k0))
+                for k0 in range(0, self.width, self.kc)]
+
+    def groups(self, block: int) -> int:
+        """A block's task groups in a row tile: its units (K4) or quads of
+        units (K4b)."""
+        n = self.units[block][1]
+        return -(-n // 4) if self.backward else n
+
+    def tasks(self, block: int, rows: int) -> List[Tuple[int, int, int]]:
+        """(warp, tile, group) of each task of a staging of `rows` rows, in
+        the order the block's warps take them: task i goes to warp i % 8 in
+        round i // 8; tile-major."""
+        n, warps = self.groups(block), WIDE_THREADS // 32
+        return [(i % warps, i // n, i % n) for i in range(rows // self.bt * n)]
+
+    @staticmethod
+    def k_columns(lane: int, columns: int) -> List[int]:
+        """The columns (of a chunk of `columns`) that `lane` sums: float4
+        columns lane, lane + 32, ..."""
+        return [4 * c4 + e for c4 in range(lane, columns // 4, 32)
+                for e in range(4)]
+
+
+def wide_plan(batch: int, hidden: int, backward: bool = False) -> WidePlan:
+    """The wide route's plan for a shape (K4b's with `backward`), from
+    (batch, hidden) alone; it takes any size: rows and column chunks are
+    staged within `WIDE_STAGE_BYTES`."""
+    blocks = max(1, min(hidden // 4, WIDE_BLOCKS))
+    bt = next(b for b in (1, 2, 4, 8) if b >= min(batch, 8))
+    return WidePlan(batch, hidden, backward, blocks, bt,
+                    _unit_runs(hidden, blocks))
+
+
+def recurrence_plan(batch: int, hidden: int) -> Union[RecurrencePlan,
+                                                      WidePlan]:
+    """K4's plan for a shape, from (batch, hidden) alone: a register plan
+    of the first class that takes the hidden size, else the wide route's."""
     for largest, split, kv, pairs in PLAN_CLASSES:
         if hidden <= largest:  # each class gives every rank a quad
             cluster, bt = _one_wave(batch, pairs)
             return RecurrencePlan(batch, hidden, bt, cluster,
                                   _unit_runs(hidden, cluster), split, kv)
-    raise ValueError(f"bilstm_recurrence: hidden {hidden} fits no K4 plan "
-                     f"(W_hh must fit the registers of a cluster of 8: "
-                     f"hidden <= {PLAN_CLASSES[-1][0]})")
+    return wide_plan(batch, hidden)
+
+
+def coresident_blocks(plan: WidePlan, train: bool = False) -> int:
+    """Blocks of the plan's wide kernel (K4, with `train` its training
+    instance, or K4b) the current card holds at once; a launch needs
+    2 x `blocks` of them."""
+    count = ctypes.c_int(0)
+    mode = 2 if plan.backward else int(train)
+    rc = library().sos_bilstm_wide_coresident(
+        plan.bt, mode, int(plan.hidden % 4 == 0), plan.threads,
+        plan.smem_bytes, ctypes.addressof(count))
+    if rc != 0:
+        raise RuntimeError(f"sos_bilstm_wide_coresident: CUDA error {rc}")
+    return count.value
 
 
 def max_active_clusters(plan: _ClusterPlan) -> int:
@@ -368,7 +520,9 @@ def _recurrence_on_card(name: str, xp_f: torch.Tensor, xp_b: torch.Tensor,
                         lengths: Optional[torch.Tensor], train: bool):
     """K4's launch on CUDA tensors, shared by its two instances:
     `(out,)`, or with `train` `(out, c, gates)`. The launch follows
-    `recurrence_plan`; a shape it refuses raises."""
+    `recurrence_plan`: a register plan, or the wide route's (launches
+    counted under "bilstm_wide", "bilstm_lengths_wide" and
+    "bilstm_train_wide"); a launch the card refuses raises."""
     if xp_f.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp_f.device}")
     batch, num_steps, gates = xp_f.shape
@@ -402,6 +556,21 @@ def _recurrence_on_card(name: str, xp_f: torch.Tensor, xp_b: torch.Tensor,
                      lengths.element_size()]
         counter = "bilstm" if lengths is None else "bilstm_lengths"
         entry = "sos_bilstm"
+    if isinstance(plan, WidePlan):
+        # W_hh's rows are read a float4 at a time: 16-byte aligned
+        w_f, w_b = (aligned16(t) for t in tensors[2:])
+        args[2:4] = [w_f.data_ptr(), w_b.data_ptr()]
+        if train:  # no lengths; c and the gates after out
+            args += [None, 0, 4]
+        states = [t.data_ptr() for t in outs[1:]] if train else [None, None]
+        scratch = torch.zeros(plan.scratch_floats, dtype=torch.float32,
+                              device=dev)
+        with on_device(dev) as stream:
+            launch(counter + "_wide", "sos_bilstm_wide", *args,
+                   outs[0].data_ptr(), *states, scratch.data_ptr(), batch,
+                   num_steps, hidden, plan.blocks, plan.bt, plan.nr, plan.kc,
+                   plan.threads, plan.smem_bytes, stream)
+        return tuple(outs)
     args += [t.data_ptr() for t in outs]
     with on_device(dev) as stream:
         launch(counter, entry, *args, batch, num_steps, hidden, plan.bt,
@@ -418,8 +587,9 @@ def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
     stride (or None: every row has T steps).
 
     Kernel K4 on CUDA tensors, `bilstm_recurrence_plain` on CPU tensors.
-    The launch follows `recurrence_plan`; a shape it refuses raises. The
-    launches count under "bilstm", or "bilstm_lengths" with `lengths`.
+    The launch follows `recurrence_plan`; a launch the card refuses
+    raises. The launches count under "bilstm", or "bilstm_lengths" with
+    `lengths` (with "_wide" after either on the wide route).
     """
     if xp_f.device.type == "cpu":
         return bilstm_recurrence_plain(xp_f, xp_b, w_hh_f, w_hh_b, lengths)
@@ -451,8 +621,8 @@ def bilstm_recurrence_train(xp_f: torch.Tensor, xp_b: torch.Tensor,
 
     K4's training instance on CUDA tensors (the inference plan and
     arithmetic, plus the stores of c and the activated gates; launches
-    count under "bilstm_train"), `bilstm_recurrence_train_plain` on CPU
-    tensors."""
+    count under "bilstm_train", or "bilstm_train_wide" on the wide
+    route), `bilstm_recurrence_train_plain` on CPU tensors."""
     if xp_f.device.type == "cpu":
         return bilstm_recurrence_train_plain(xp_f, xp_b, w_hh_f, w_hh_b)
     return _recurrence_on_card("bilstm_recurrence_train", xp_f, xp_b, w_hh_f,
@@ -617,17 +787,15 @@ class BackwardPlan(_ClusterPlan):
         return g * self.hidden + unit if unit < self.hidden else -1
 
 
-def backward_plan(batch: int, hidden: int) -> BackwardPlan:
-    """K4b's plan for a shape, from (batch, hidden) alone. Raises
-    `ValueError` for a hidden size no class takes."""
+def backward_plan(batch: int, hidden: int) -> Union[BackwardPlan, WidePlan]:
+    """K4b's plan for a shape, from (batch, hidden) alone: a register plan
+    of the first class that takes the hidden size, else the wide route's."""
     for largest, split, kv, pairs in BACKWARD_PLAN_CLASSES:
         if hidden <= largest:  # each class gives every rank a quad
             cluster, bt = _one_wave(batch, pairs)
             return BackwardPlan(batch, hidden, bt, cluster,
                                 _unit_runs(hidden, cluster), split, kv)
-    raise ValueError(f"bilstm_recurrence_backward: hidden {hidden} fits no "
-                     f"K4b plan (W_hh must fit the registers of a cluster "
-                     f"of 8: hidden <= {BACKWARD_PLAN_CLASSES[-1][0]})")
+    return wide_plan(batch, hidden, backward=True)
 
 
 def _check_shapes(name, xp_f, xp_b, w_hh_f, w_hh_b) -> None:
@@ -646,8 +814,8 @@ def bilstm_recurrence_backward(dout: torch.Tensor, gates: torch.Tensor,
     """BPTT of both directions -> `(dxp_f, dxp_b)`, each `(B, T, 4H)`.
 
     Kernel K4b on CUDA tensors (laid out by `backward_plan`; launches
-    count under "bilstm_bwd"), `bilstm_recurrence_backward_plain` on
-    CPU tensors."""
+    count under "bilstm_bwd", or "bilstm_bwd_wide" on the wide route),
+    `bilstm_recurrence_backward_plain` on CPU tensors."""
     if dout.device.type == "cpu":
         return bilstm_recurrence_backward_plain(dout, gates, c, w_hh_f,
                                                 w_hh_b)
@@ -673,6 +841,18 @@ def bilstm_recurrence_backward(dout: torch.Tensor, gates: torch.Tensor,
                          "devices")
     dxp = torch.empty((2, batch, num_steps, 4 * hidden), dtype=torch.float32,
                       device=dev)
+    if isinstance(plan, WidePlan):
+        # W_hh^T (H, 4H): a unit's sums over the 4H gates read contiguously
+        w_t = [w.t().contiguous() for w in tensors[3:]]
+        scratch = torch.zeros(plan.scratch_floats, dtype=torch.float32,
+                              device=dev)
+        with on_device(dev) as stream:
+            launch("bilstm_bwd_wide", "sos_bilstm_wide_bwd",
+                   *(t.data_ptr() for t in tensors[:3] + w_t), dxp.data_ptr(),
+                   scratch.data_ptr(), batch, num_steps, hidden, plan.blocks,
+                   plan.bt, plan.nr, plan.kc, plan.threads, plan.smem_bytes,
+                   stream)
+        return dxp[0], dxp[1]
     with on_device(dev) as stream:
         launch("bilstm_bwd", "sos_bilstm_bwd",
                *(t.data_ptr() for t in tensors), dxp.data_ptr(), batch,

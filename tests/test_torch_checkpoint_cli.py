@@ -13,8 +13,9 @@ CPU at the tiny widths of tests/torch_port_fixtures.py.
   epoch 3; `train_detector --continue --ckpt 3 --epochs 4` then ends at
   epoch 4 in strict JSON;
 * `--pth` wins over `--ckpt`; an orbax directory and a missing file are
-  usage errors naming the path; `train_joint --continue` and
-  `import_checkpoint --fast_profile` are refused.
+  usage errors naming the path; `train_joint --continue` is refused, and
+  `import_checkpoint --fast_profile` is not ignored: it writes the
+  widened import.
 """
 
 import argparse
@@ -32,6 +33,7 @@ import torch
 from sos_tpu_torch.cli import (bridge, common, denoise, import_checkpoint,
                                predict_denoiser, predict_detector, serve,
                                train_detector, train_joint)
+from sos_tpu_torch.config import DetectorModelConfig
 from sos_tpu_torch.dsp import audio_io
 from sos_tpu_torch.models.torch_import import import_detector_checkpoint
 from sos_tpu_torch.train.checkpoints import load_model_state
@@ -225,12 +227,34 @@ def test_unreadable_checkpoints_are_usage_errors(trained, tmp_path,
 
 @pytest.mark.parametrize("module,flags,match", [
     (train_joint, ["--continue"], "never reads"),
-    (import_checkpoint, ["--stage", "detector", "--pth", "x.pth",
-                         "--fast_profile"], "reference widths"),
+    (import_checkpoint, ["--stage", "detector", "--fast_profile"], None),
 ], ids=["train_joint --continue", "import_checkpoint --fast_profile"])
 def test_cli_refuses_flags_it_would_ignore(trained, tmp_path, monkeypatch,
                                            capsys, module, flags, match):
+    """A flag the CLI would ignore is a usage error; `--fast_profile` is
+    not ignored: a reference-width detector checkpoint is imported at
+    `fast_detector_config`'s widths (as sos_tpu's CLI, the stage's config
+    is the fast profile's), its trunk widened to 64 channels as
+    `import_detector_checkpoint(nf=64)` widens it."""
     argv = list(flags)
+    if module is import_checkpoint:
+        d = DetectorModelConfig()
+        torch.manual_seed(3)
+        det = DetectorOracle(tuple(zip(d.kernel_sizes, d.dilations)),
+                             freq_bins=d.freq_bins, nf=d.nf, outf=d.outf,
+                             hidden=d.lstm_hidden, fc_hidden=d.fc_hidden)
+        pth = tmp_path / "ckpt_epoch5.pth"
+        torch.save({"model_state_dict": det.state_dict()}, pth)
+        _main(monkeypatch, module, argv + [
+            "--pth", str(pth), "--output_root", str(tmp_path / "out"),
+            "--name", "wide"])
+        got = load_model_state(
+            str(tmp_path / "out" / "wide_detector" / "model"), "latest")
+        want = import_detector_checkpoint(str(pth), nf=64)
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert got["conv0.weight"].shape[0] == 64
+        return
     if module is train_joint:
         argv += ["--dataset_json", trained["ds_json"], "--noise_root",
                  trained["noise"], "--device", "cpu"]

@@ -218,19 +218,48 @@ def test_stft_center_false_emulation_matches_plain_and_sos_tpu():
                                atol=1e-5, rtol=1e-5)
 
 
+def _live_reach(valid_t: int, n_fft: int, hop: int) -> int:
+    """Output samples a row of `valid_t` frames can reach: the last live
+    frame's last sample, trimmed; every sample from there on is exactly 0
+    (no frame, envelope 0)."""
+    return max(0, (valid_t - 1) * hop + n_fft - n_fft // 2) if valid_t else 0
+
+
+def _assert_dead_blocks_past_reach(valid_t, n_fft, hop, block_hops, out_len):
+    """The valid_t kernels' rule (csrc/crm_istft*.cu): a block whose first
+    output hop is h0 reads frames from h0 - (ceil(n_fft / hop) - 1), and
+    is dead, storing zeros without computing, when valid_t <= max(0, that
+    frame). Every sample of a dead block lies at or past the row's live
+    reach, so the zeros it stores are the output's."""
+    chunks = -(-n_fft // hop)
+    rows = (out_len + n_fft // 2 - 1) // hop + 1  # hops holding output
+    for v in valid_t:
+        for h0 in range(0, rows, block_hops):
+            if v <= max(0, h0 - (chunks - 1)):
+                assert max(0, h0 * hop - n_fft // 2) >= _live_reach(
+                    v, n_fft, hop)
+
+
 def test_crm_istft_valid_t_emulation_matches_plain_and_sos_tpu():
-    """K3 with per-row valid_t, from the full bucket down to 1 frame:
-    against the plain version, against sos_tpu's istft(valid_t=) per row,
-    and (below (valid_t - 1) * 158) against an unpadded row."""
+    """K3 with per-row valid_t, from the full bucket down to 1 frame and
+    none: against the plain version, against sos_tpu's istft(valid_t=)
+    per row, (below (valid_t - 1) * 158) against an unpadded row, and
+    exactly 0 from each row's live reach on, where the kernel's dead
+    blocks (13 hops a block) store zeros."""
     y = _clips(28000)
     spec = tstft.stft_cat_plain(torch.from_numpy(y))
     frames = spec.shape[1]
-    spec = spec.repeat(3, 1, 1)
-    crm = torch.from_numpy(np.concatenate([_crm(frames, 28000)] * 3))
-    valid_t = torch.tensor([frames, 1, 2, 120, 57, frames - 1])
+    spec = spec.repeat(4, 1, 1)
+    crm = torch.from_numpy(np.concatenate([_crm(frames, 28000)] * 4))
+    valid_t = torch.tensor([frames, 1, 2, 120, 57, frames - 1, 0, 3])
     got = emulate_crm_istft(crm, spec, valid_t)
     plain = tstft.crm_istft_plain(crm, spec, valid_t=valid_t)
     torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    for row, v in enumerate(valid_t.tolist()):
+        reach = _live_reach(v, N_FFT, HOP)
+        assert not got[row, reach:].any() and not plain[row, reach:].any()
+    _assert_dead_blocks_past_reach(valid_t.tolist(), N_FFT, HOP, 13,
+                                   got.shape[1])
     for row, v in enumerate(valid_t.tolist()):
         s = jnp.asarray(spec[row:row + 1].numpy())
         c = crm[row:row + 1].numpy()
@@ -478,11 +507,25 @@ def test_fft_crm_istft_emulation_matches_plain_and_sos_tpu(n_fft, hop, win, vali
     o = np.random.default_rng(n_fft).uniform(0.01, 0.99, spec.shape)
     o.reshape(-1)[::7], o.reshape(-1)[3::7] = 0.01, 0.99
     crm = torch.from_numpy(o.astype(np.float32))
-    valid_t = torch.tensor([frames, 2]) if valid else None
+    valid_t = None
+    if valid:  # the whole bucket, 2, 1 and no frame
+        crm, spec = crm.repeat(2, 1, 1), spec.repeat(2, 1, 1)
+        valid_t = torch.tensor([frames, 2, 1, 0])
     got = emulate_fft_crm_istft(crm, spec, n_fft, hop, win, valid_t)
     plain = tstft.crm_istft_plain(crm, spec, n_fft, hop, win, valid_t)
-    assert got.shape == plain.shape == (2, (frames - 1) * hop + n_fft % 2)
+    assert got.shape == plain.shape == (crm.shape[0],
+                                        (frames - 1) * hop + n_fft % 2)
     torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
     ref = _jax_crm_istft(crm.numpy(), spec.numpy(), n_fft, hop, win,
                          None if valid_t is None else valid_t.tolist())
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+    if valid:  # exactly 0 from the live reach on, where dead blocks store
+        for row, v in enumerate(valid_t.tolist()):
+            reach = _live_reach(v, n_fft, hop)
+            assert not got[row, reach:].any()
+            assert not plain[row, reach:].any()
+        # the "fft" instance's output hops a block, and the generic
+        # instance's 64 hop rows a tile
+        for block_hops in (tstft.fft_launch_shape(n_fft, hop)[2], 64):
+            _assert_dead_blocks_past_reach(valid_t.tolist(), n_fft, hop,
+                                           block_hops, got.shape[1])

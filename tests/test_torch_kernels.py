@@ -356,6 +356,40 @@ def test_crm_istft_fft_kernel_matches_plain(cuda_device, n_fft, hop, win,
     _crm_istft_case(cuda_device, n_fft, hop, win, valid, "fft")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,win,instance", [
+    (510, 158, 400, "pfa"), *[(*g, "fft") for g in FFT_GEOMETRIES],
+    *[(*g, "generic") for g in OTHER_GEOMETRIES]])
+def test_crm_istft_valid_t_kernels_zero_past_the_reach(cuda_device, n_fft,
+                                                       hop, win, instance):
+    """K3's valid_t instances at a 256-frame bucket, rows of the whole
+    bucket, 2, 1 and 0 frames and some between: within the plain
+    version's atol 1e-4 + rtol 1e-4 on the samples a caller keeps, j <
+    (valid_t - 1) hop (past them only the tail of the last frame reaches
+    a sample, and the divide by its squared window value amplifies fp32
+    rounding: chip_smoke.py `within_valid`), and exactly 0 from each
+    row's live reach on (the last sample its last live frame reaches),
+    where their dead blocks store zeros without computing."""
+    bucket = 256
+    gen = torch.Generator().manual_seed(n_fft + 7)
+    spec = (torch.randn(6, bucket, 2 * (n_fft // 2 + 1), generator=gen)
+            * 0.3).to(cuda_device)
+    crm = (torch.rand(spec.shape, generator=gen) * 0.98 + 0.01).to(cuda_device)
+    valid_t = torch.tensor([bucket, 2, 1, 0, 131, 57]).to(cuda_device)
+    key = ("crm_istft_valid_t" if instance == "pfa"
+           else f"crm_istft_{instance}_valid_t")
+    before = LAUNCHES[key]
+    got = stft.crm_istft(crm, spec, n_fft, hop, win, valid_t=valid_t)
+    assert LAUNCHES[key] == before + 1
+    ref = stft.crm_istft_plain(crm, spec, n_fft, hop, win, valid_t)
+    for b, v in enumerate(valid_t.tolist()):
+        kept = max(0, (v - 1) * hop)
+        torch.testing.assert_close(got[b, :kept], ref[b, :kept], atol=1e-4,
+                                   rtol=1e-4)
+        reach = max(0, (v - 1) * hop + n_fft - n_fft // 2) if v else 0
+        assert not got[b, reach:].any(), (b, v)
+
+
 STFT_SHAPES = [(b, n) for b in (1, 3, 5) for n in (28000, 14000 + 97)]
 
 
@@ -781,12 +815,131 @@ def test_bilstm_gradients_card_match_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_bilstm_kernel_refuses_hidden_past_its_plan(cuda_device):
-    xp = torch.zeros(2, 5, 1200, device=cuda_device)
-    w = torch.zeros(1200, 300, device=cuda_device)
+    """Past the register plans (H 224) K4 refuses nothing: H 300 takes
+    the wide route (one launch, counted apart) and matches the plain
+    version."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, 2, 5, 300, 9)
     before = dict(LAUNCHES)
-    with pytest.raises(ValueError, match="fits no K4 plan"):
-        lstm.bilstm_recurrence(xp, xp, w, w)
-    assert LAUNCHES == before
+    got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+            if LAUNCHES[k] != before[k]} == {"bilstm_wide": 1}
+    with exact_fp32():
+        ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+
+
+# the wide route (csrc/bilstm_wide.cu): phase 3's shapes (B 16, T 178 at
+# H 256 and 512), rows a task of 2 and H % 4 != 0 (229), rows staged in
+# chunks (B 40 at H 512: K4b stages 16 rows at a time), and columns staged
+# in chunks (H 5000 forward, H 2048 backward: rows past the shared budget)
+WIDE_SHAPES = [(16, 178, 256), (16, 178, 512), (2, 12, 229), (40, 20, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch,steps,hidden", WIDE_SHAPES + [(8, 3, 5000)])
+def test_bilstm_wide_kernel_matches_plain(cuda_device, batch, steps, hidden,
+                                          masked):
+    """K4 on the wide route, without and with per-row lengths (the
+    longest row at 0.6 T, one row of 1 step): within K4's atol 5e-5 of
+    the plain version, padding steps exactly 0."""
+    plan = lstm.recurrence_plan(batch, hidden)
+    assert isinstance(plan, lstm.WidePlan)
+    assert len(plan.column_chunks()) == (2 if hidden == 5000 else 1)
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, batch + hidden)
+    lengths = None
+    if masked:
+        gen = torch.Generator().manual_seed(hidden)
+        lengths = torch.randint(1, max(2, int(0.6 * steps)) + 1, (batch,),
+                                generator=gen)
+        lengths[0], lengths[-1] = max(1, int(0.6 * steps)), 1
+        lengths = lengths.to(cuda_device)
+    key = "bilstm_wide" if lengths is None else "bilstm_lengths_wide"
+    before = dict(LAUNCHES)
+    got = lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b, lengths)
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+            if LAUNCHES[k] != before[k]} == {key: 1}
+    with exact_fp32():
+        ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+    if masked:
+        for b, n in enumerate(lengths.tolist()):
+            assert not got[b, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", WIDE_SHAPES)
+def test_bilstm_wide_train_kernel_matches_plain(cuda_device, batch, steps,
+                                                hidden):
+    """K4's training instance on the wide route: h bit-identical to the
+    wide inference instance's; c and the gates within 1e-6 of one step
+    from the kernel's own state and within 5e-5 of the plain training
+    forward."""
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, batch + hidden)
+    before = dict(LAUNCHES)
+    out, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+    assert LAUNCHES["bilstm_train_wide"] == before["bilstm_train_wide"] + 1
+    assert torch.equal(out, lstm.bilstm_recurrence(xp_f, xp_b, w_f, w_b))
+    with exact_fp32():
+        refs = lstm.bilstm_recurrence_train_plain(xp_f, xp_b, w_f, w_b)
+        step_c, step_gates = lstm.bilstm_step_states(xp_f, xp_b, w_f, w_b,
+                                                     out, c)
+    for got, ref in zip((out, c, gates), refs):
+        torch.testing.assert_close(got, ref, atol=5e-5, rtol=0)
+    torch.testing.assert_close(gates, step_gates, atol=1e-6, rtol=0)
+    torch.testing.assert_close(c, step_c, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,hidden", WIDE_SHAPES + [(8, 3, 2048)])
+def test_bilstm_wide_backward_kernel_matches_plain(cuda_device, batch, steps,
+                                                   hidden):
+    """K4b on the wide route against its plain version on the same saved
+    state: d xp within 5e-5."""
+    plan = lstm.backward_plan(batch, hidden)
+    assert isinstance(plan, lstm.WidePlan) and plan.backward
+    xp_f, xp_b, w_f, w_b = _recurrence_inputs(cuda_device, batch, steps,
+                                              hidden, 7 * batch + hidden)
+    _, c, gates = lstm.bilstm_recurrence_train(xp_f, xp_b, w_f, w_b)
+    dout = torch.randn(batch, steps, 2 * hidden, device=cuda_device)
+    before = LAUNCHES["bilstm_bwd_wide"]
+    got = lstm.bilstm_recurrence_backward(dout, gates, c, w_f, w_b)
+    assert LAUNCHES["bilstm_bwd_wide"] == before + 1
+    with exact_fp32():
+        ref = lstm.bilstm_recurrence_backward_plain(dout, gates, c, w_f, w_b)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilstm_wide_gradients_card_match_cpu(cuda_device):
+    """`BiLSTM(24, 256)` with a gradient on the card (the wide route's
+    training instance, K4b and the dW_hh product) against the same module
+    on the CPU: every gradient within 1e-4 of its tensor's max |g|."""
+    model = lstm.BiLSTM(24, 256)
+    model.reset_parameters(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    x, weight = torch.randn(2, 60, 24, generator=gen), torch.randn(
+        2, 60, 512, generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        m = lstm.BiLSTM(24, 256).to(dev)
+        m.load_state_dict(model.state_dict())
+        xt = x.detach().to(dev).clone().requires_grad_(True)
+        before = dict(LAUNCHES)
+        with exact_fp32():
+            (m(xt) * weight.to(dev)).sum().backward()
+        if dev != "cpu":
+            assert LAUNCHES["bilstm_train_wide"] == before["bilstm_train_wide"] + 1
+            assert LAUNCHES["bilstm_bwd_wide"] == before["bilstm_bwd_wide"] + 1
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+        grads[str(dev)]["x"] = xt.grad.cpu()
+    for name, ref in grads["cpu"].items():
+        got = grads[str(cuda_device)][name]
+        assert float((got - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max()), name
 
 
 def test_kernel_wrappers_launch_through_on_device():

@@ -63,6 +63,26 @@ def test_lstm_scan_matches_sos_tpu(reverse, masked):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("reverse,masked", [(False, False), (True, True)])
+def test_lstm_scan_matches_sos_tpu_at_hidden_256(reverse, masked):
+    """The plain path at a hidden size past K4's register plans (the wide
+    route's, H 256) against sos_tpu's `lstm_scan`: atol 1e-4 (sums of 256
+    products in another order)."""
+    hidden, steps = 256, 5
+    rng = np.random.default_rng(5)
+    xp = rng.standard_normal((steps, B, 4 * hidden)).astype(np.float32)
+    w_hh = (rng.uniform(-1, 1, (hidden, 4 * hidden))
+            / np.sqrt(hidden)).astype(np.float32)
+    mask = (np.arange(steps) < 3).astype(np.float32) if masked else None
+    ref = np.asarray(jax_lstm_scan(
+        jnp.asarray(xp), jnp.asarray(w_hh), reverse=reverse,
+        step_mask=None if mask is None else jnp.asarray(mask)))
+    got = tlstm.lstm_scan(torch.from_numpy(xp), torch.from_numpy(w_hh),
+                          reverse=reverse,
+                          step_mask=None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
 def test_bilstm_recurrence_layout():
     """Output is (B, T, 2H) = [forward | backward] of the per-direction scans."""
     rng = np.random.default_rng(4)

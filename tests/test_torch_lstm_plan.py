@@ -26,8 +26,20 @@ way against `bilstm_recurrence_backward_plain` (`emulate_backward`):
 the sum runs over the gate-interleaved dgates columns, each cell's four
 dgates go to every rank as one 16-byte store, and c_t is carried from
 the step before's c_prev.
+
+Past H 224 both plans are the wide route's (`wide_plan`,
+`csrc/bilstm_wide.cu`), emulated by `emulate_wide` and
+`emulate_wide_backward`: each step the blocks of a direction run one
+after another in a random order (the barrier ends the step), each
+staging rows of the read parity's buffer in the plan's row and column
+chunks, its warps' tasks summing lane by lane over the lanes' float4
+columns against the task's matrix rows (W_hh's gate rows, or W_hh^T's
+rows), the butterfly leaving each owner its row's four sums, the owners
+writing the other parity; with a single buffer a block that runs later
+reads what an earlier one wrote, and the result leaves the plain one.
 """
 
+import functools
 import random
 import re
 
@@ -37,7 +49,7 @@ import torch
 
 from sos_tpu_torch.kernels import build as kbuild
 from sos_tpu_torch.ops import lstm
-from sos_tpu_torch.ops.lstm import RecurrencePlan, recurrence_plan
+from sos_tpu_torch.ops.lstm import RecurrencePlan, WidePlan, recurrence_plan
 
 T = 12
 
@@ -166,9 +178,9 @@ def emulate(plan: RecurrencePlan, xp_f, xp_b, w_f, w_b, lengths=None,
     return out
 
 
-def _inputs(batch, hidden, seed):
+def _inputs(batch, hidden, seed, steps=T):
     rng = np.random.default_rng(seed)
-    xp = [torch.from_numpy(rng.standard_normal((batch, T, 4 * hidden))
+    xp = [torch.from_numpy(rng.standard_normal((batch, steps, 4 * hidden))
                            .astype(np.float32)) for _ in range(2)]
     w = [torch.from_numpy((rng.uniform(-1, 1, (4 * hidden, hidden))
                            / np.sqrt(hidden)).astype(np.float32))
@@ -279,8 +291,7 @@ def test_every_plan_has_an_instance_within_the_card():
             assert sum(plan.sent_bytes(r) for r in range(plan.cluster)) \
                 == plan.step_bytes == 4 * plan.bt * hidden
             assert plan.cluster == 1 or all(n >= 4 for _, n in plan.units)
-    with pytest.raises(ValueError, match="fits no K4 plan"):
-        recurrence_plan(1, 225)
+    assert isinstance(recurrence_plan(1, 225), WidePlan)
 
 
 @pytest.mark.parametrize("batch,steps,hidden,cluster,bt", [
@@ -345,8 +356,13 @@ def test_lanes_update_every_cell_once(batch, hidden):
 
 
 def test_plan_refuses_hidden_past_a_cluster():
-    with pytest.raises(ValueError, match="fits no K4 plan"):
-        recurrence_plan(128, 300)
+    """Past the registers of a cluster of 8 (H 224) K4 refuses nothing:
+    the plan is the wide route's, one block an SM over both directions."""
+    for batch, hidden in ((128, 300), (1, 225)):
+        plan = recurrence_plan(batch, hidden)
+        assert isinstance(plan, WidePlan) and not plan.backward
+        assert plan.blocks == min(hidden // 4, lstm.WIDE_BLOCKS)
+        assert plan.width == -(-hidden // 4) * 4
 
 
 def test_parity_alternates():
@@ -461,11 +477,11 @@ def emulate_backward(plan: lstm.BackwardPlan, dout, gates, c, w_f, w_b,
     return tuple(o.view(tiles * bt, steps, 4 * hidden)[:batch] for o in out)
 
 
-def _backward_inputs(batch, hidden, seed):
-    (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, seed)
+def _backward_inputs(batch, hidden, seed, steps=T):
+    (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, seed, steps)
     _, c, gates = lstm.bilstm_recurrence_train_plain(xp_f, xp_b, w_f, w_b)
     dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
-        (batch, T, 2 * hidden)).astype(np.float32))
+        (batch, steps, 2 * hidden)).astype(np.float32))
     return dout, gates, c, w_f, w_b
 
 
@@ -571,8 +587,12 @@ def test_backward_lanes_update_every_cell_once(batch, hidden):
 
 
 def test_backward_plan_refuses_hidden_past_a_cluster():
-    with pytest.raises(ValueError, match="fits no K4b plan"):
-        lstm.backward_plan(40, 225)
+    """Past H 224 K4b refuses nothing either: the wide route's plan, its
+    rows the 4H dgates."""
+    for batch, hidden in ((40, 225), (15, 300)):
+        plan = lstm.backward_plan(batch, hidden)
+        assert isinstance(plan, WidePlan) and plan.backward
+        assert plan.width == 4 * hidden
 
 
 def test_recurrence_plan_of_the_joint_denoiser():
@@ -585,3 +605,250 @@ def test_recurrence_plan_of_the_joint_denoiser():
     assert sum(n for _, n in plan.units) == 200
     assert plan.blocks == 2 * 4 * 8  # directions x tiles x ranks
     assert plan.blocks // plan.cluster <= lstm.CLUSTER_SLOTS[8]
+
+
+# -- the wide route (`csrc/bilstm_wide.cu`, plan `wide_plan`) ---------------
+
+
+# the wide route's emulations walk fewer steps: 64 blocks a direction
+WIDE_T = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_masks(columns: int) -> torch.Tensor:
+    """(32, columns) 0/1: the columns of a chunk each lane sums."""
+    mask = torch.zeros(WidePlan.split, columns)
+    for q in range(WidePlan.split):
+        mask[q, WidePlan.k_columns(q, columns)] = 1.0
+    return mask
+
+
+def _wide_sums(plan: WidePlan, reduce, buf, rows, m):
+    """The sums of one block's tasks at one staging of `rows` (first row,
+    count) against matrix rows `m` (groups, 4, K): each lane's partials
+    over its columns of every column chunk, then the butterfly -> (bt, 4,
+    tiles, groups). `buf` is the read parity's (B, width) buffer; rows
+    past B stage zeros."""
+    r0, rn = rows
+    tiles, groups = rn // plan.bt, m.shape[0]
+    staged = torch.zeros(rn, plan.width)
+    staged[:max(0, min(rn, buf.shape[0] - r0))] = buf[r0:r0 + rn]
+    part = torch.zeros(plan.split, rn, groups, 4)
+    for k0, kn in plan.column_chunks():
+        lanes = _lane_masks(kn)
+        k = min(kn, max(0, m.shape[-1] - k0))  # matrix columns past K: 0
+        prod = staged[:, None, None, k0:k0 + k] * m[None, :, :, k0:k0 + k]
+        part += torch.einsum("rgik,qk->qrgi", prod, lanes[:, :k])
+    # (lane, row in the tile, tile, group, 4) -> the owners' sums
+    part = part.view(plan.split, tiles, plan.bt, groups, 4)
+    got = reduce(part.permute(0, 2, 4, 1, 3))  # (bt, 4, tiles, groups)
+    seen = [(w, t, g) for w, t, g in plan.tasks(0, rn)]
+    assert len({(t, g) for _, t, g in seen}) == len(seen)
+    return got
+
+
+def emulate_wide(plan: WidePlan, xp_f, xp_b, w_f, w_b, lengths=None,
+                 seed=0, single_buffer=False):
+    """`(B, T, 2H)` as the wide route's blocks compute it (see the module
+    docstring); with lengths the walk stops at the longest row and the
+    blocks store zeros past it."""
+    batch, steps, _ = xp_f.shape
+    hidden = plan.hidden
+    rng = random.Random(seed)
+    reduce = _butterfly_plan(plan)
+    out = torch.full((batch, steps, 2 * hidden), float("nan"))
+    row_len = torch.full((batch,), steps)
+    if lengths is not None:
+        row_len = lengths.clamp(0, steps)
+    walk = int(row_len.max()) if lengths is not None else steps
+    for d, (xp, w) in enumerate(((xp_f, w_f), (xp_b, w_b))):
+        buf = torch.zeros(2, batch, plan.width)  # zeros past H
+        c = torch.zeros(batch, hidden)
+        for u0, n in plan.units:  # each block's zero fill
+            out[:, walk:, d * hidden + u0:d * hidden + u0 + n] = 0.0
+        for s in range(walk):
+            t = walk - 1 - s if d else s
+            read, write = plan.parity(s)
+            if single_buffer:
+                write = read
+            order = list(range(plan.blocks))
+            rng.shuffle(order)
+            for blk in order:  # one after another: the barrier ends the step
+                u0, n = plan.units[blk]
+                # the units' four gate rows of W_hh: (units, 4, H)
+                m = torch.stack([w[g * hidden + u0:g * hidden + u0 + n]
+                                 for g in range(4)], 1)
+                for r0, rn in plan.chunks():
+                    sums = (_wide_sums(plan, reduce, buf[read], (r0, rn), m)
+                            if s else torch.zeros(plan.bt, 4, rn // plan.bt,
+                                                  n))
+                    # (rows of the staging, 4, units), rows past B dropped
+                    sums = sums.permute(2, 0, 1, 3).reshape(rn, 4, n)
+                    rows = list(range(r0, min(batch, r0 + rn)))
+                    if not rows:
+                        continue
+                    sums = sums[:len(rows)]
+                    pre = xp[rows, t].view(len(rows), 4, hidden)[..., u0:u0 + n]
+                    i, f, g, o = (pre + sums).unbind(1)
+                    cc = (torch.sigmoid(f) * c[rows, u0:u0 + n]
+                          + torch.sigmoid(i) * torch.tanh(g))
+                    h = torch.sigmoid(o) * torch.tanh(cc)
+                    mask = (t < row_len[rows]).float()[:, None]
+                    h, cc = h * mask, cc * mask
+                    c[rows, u0:u0 + n] = cc
+                    if s + 1 < walk:
+                        buf[write][rows, u0:u0 + n] = h
+                    out[rows, t, d * hidden + u0:d * hidden + u0 + n] = h
+    return out
+
+
+def emulate_wide_backward(plan: WidePlan, dout, gates, c, w_f, w_b, seed=0,
+                          single_buffer=False):
+    """`(dxp_f, dxp_b)` as the wide route's K4b blocks compute them: a
+    task's matrix rows are W_hh^T's rows of a quad of units (the last
+    quad of the last block zero-padded), the staged rows the read
+    parity's dgates in torch's gate layout."""
+    batch, steps, _ = dout.shape
+    hidden = plan.hidden
+    rng = random.Random(seed)
+    reduce = _butterfly_plan(plan)
+    out = [torch.full((batch, steps, 4 * hidden), float("nan"))
+           for _ in range(2)]
+    for d, w in enumerate((w_f, w_b)):
+        buf = torch.zeros(2, batch, plan.width)
+        dc = torch.zeros(batch, hidden)
+        wt = w.t()  # (H, 4H)
+        for s in range(steps):
+            t = s if d else steps - 1 - s
+            tp = t + 1 if d else t - 1
+            read, write = plan.parity(s)
+            if single_buffer:
+                write = read
+            order = list(range(plan.blocks))
+            rng.shuffle(order)
+            for blk in order:
+                u0, n = plan.units[blk]
+                nq = plan.groups(blk)
+                m = torch.zeros(4 * nq, 4 * hidden)
+                m[:n] = wt[u0:u0 + n]
+                m = m.view(nq, 4, 4 * hidden)
+                for r0, rn in plan.chunks():
+                    sums = (_wide_sums(plan, reduce, buf[read], (r0, rn), m)
+                            if s else torch.zeros(plan.bt, 4, rn // plan.bt,
+                                                  nq))
+                    # (rows, units of the block), rows past B dropped
+                    sums = sums.permute(2, 0, 3, 1).reshape(rn, 4 * nq)[:, :n]
+                    rows = list(range(r0, min(batch, r0 + rn)))
+                    if not rows:
+                        continue
+                    rec = sums[:len(rows)]
+                    sg = gates[d][rows, t].view(len(rows), 4, hidden)[..., u0:u0 + n]
+                    i, f, g, o = sg.unbind(1)
+                    ct = c[d][rows, t, u0:u0 + n]
+                    c_prev = (c[d][rows, tp, u0:u0 + n] if s + 1 < steps
+                              else torch.zeros_like(ct))
+                    dh = dout[rows, t, d * hidden + u0:d * hidden + u0 + n] + rec
+                    tc = torch.tanh(ct)
+                    d_o = dh * tc
+                    dcv = dc[rows, u0:u0 + n] + dh * o * (1 - tc * tc)
+                    dc[rows, u0:u0 + n] = dcv * f
+                    new = torch.stack([dcv * g * i * (1 - i),
+                                       dcv * c_prev * f * (1 - f),
+                                       dcv * i * (1 - g * g),
+                                       d_o * o * (1 - o)], 1)  # (rows, 4, n)
+                    for gi in range(4):
+                        cols = slice(gi * hidden + u0, gi * hidden + u0 + n)
+                        if s + 1 < steps:
+                            buf[write][rows, cols] = new[:, gi]
+                        out[d][rows, t, cols] = new[:, gi]
+    return out[0], out[1]
+
+
+WIDE_CASES = [(3, 256, None), (9, 256, "some at T"), (2, 229, "all short")]
+
+
+@pytest.mark.parametrize("batch,hidden,masked", WIDE_CASES)
+def test_wide_plan_emulation_matches_plain(batch, hidden, masked):
+    """The wide route at H 256 (4-row tasks; 8-row tasks with a ragged
+    last tile and per-row lengths) and at H 229 (H % 4 to the last block,
+    every row shorter than T) against the plain recurrence."""
+    (xp_f, xp_b), (w_f, w_b) = _inputs(batch, hidden, batch + hidden, WIDE_T)
+    lengths = None
+    if masked:  # the walk at the longest row: T, or 5 of 6 steps
+        lengths = torch.tensor([WIDE_T, 1, 3, 5, 2, WIDE_T, 4, 1, 2]
+                               if masked == "some at T" else [5, 2])[:batch]
+    plan = recurrence_plan(batch, hidden)
+    assert isinstance(plan, WidePlan)
+    got = emulate_wide(plan, xp_f, xp_b, w_f, w_b, lengths, seed=batch)
+    ref = lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b, lengths)
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+    if masked:
+        for b, n in enumerate(lengths.tolist()):
+            assert not got[b, n:].any()
+
+
+@pytest.mark.parametrize("batch,hidden", [(3, 256), (9, 256), (2, 229)])
+def test_wide_backward_plan_emulation_matches_plain(batch, hidden):
+    args = _backward_inputs(batch, hidden, batch * 10 + hidden, WIDE_T)
+    plan = lstm.backward_plan(batch, hidden)
+    assert isinstance(plan, WidePlan)
+    got = emulate_wide_backward(plan, *args, seed=batch)
+    ref = lstm.bilstm_recurrence_backward_plain(*args)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+def test_wide_single_buffer_would_race(kind):
+    """With one buffer a block that runs later in a step reads the h (or
+    dgates) an earlier block of the same step wrote: the result leaves the
+    plain one."""
+    if kind == "forward":
+        (xp_f, xp_b), (w_f, w_b) = _inputs(3, 256, 11, WIDE_T)
+        plan = recurrence_plan(3, 256)
+        got = emulate_wide(plan, xp_f, xp_b, w_f, w_b, seed=2,
+                           single_buffer=True)
+        err = (got - lstm.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)).abs()
+    else:
+        args = _backward_inputs(3, 256, 12, WIDE_T)
+        got = emulate_wide_backward(lstm.backward_plan(3, 256), *args, seed=2,
+                                    single_buffer=True)
+        ref = lstm.bilstm_recurrence_backward_plain(*args)
+        err = torch.stack([(g - r).abs().max() for g, r in zip(got, ref)])
+    assert float(err.max()) > 1e-3
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_wide_plans_cover_and_fit_the_card(backward):
+    """Every wide plan, from H 225 past what a card's memory holds for
+    W_hh (H 60,000: 115 GB in fp32): units split in whole quads (H % 4 to
+    the last block), at most one block an SM over both directions,
+    staging within the shared memory a block may take, tasks in whole
+    tiles of the padded rows, each chunk's columns summed by exactly one
+    lane, every (tile, group) of a staging once."""
+    for hidden in (225, 226, 229, 256, 300, 512, 1000, 4096, 20000, 60000):
+        for batch in (1, 2, 3, 8, 9, 15, 16, 40, 128, 600):
+            plan = (lstm.backward_plan(batch, hidden) if backward
+                    else recurrence_plan(batch, hidden))
+            assert isinstance(plan, WidePlan) and plan.backward == backward
+            units = [u for u0, n in plan.units for u in range(u0, u0 + n)]
+            assert units == list(range(hidden))
+            assert all(u0 % 4 == 0 and n >= 4 for u0, n in plan.units)
+            assert 2 * plan.blocks <= lstm.BLOCK_SLOTS
+            assert plan.smem_bytes <= lstm.WIDE_STAGE_BYTES <= lstm.SMEM_LIMIT
+            assert plan.nr % plan.bt == 0 and plan.kc % 4 == 0
+            assert plan.width % 4 == 0 and plan.width >= hidden
+            assert [r for r0, rn in plan.chunks()
+                    for r in range(r0, r0 + rn)] == list(range(plan.padded_rows))
+            assert [k for k0, kn in plan.column_chunks()
+                    for k in range(k0, k0 + kn)] == list(range(plan.width))
+            if hidden <= 512 and batch <= 16:  # one staging a step
+                assert len(plan.chunks()) == len(plan.column_chunks()) == 1
+    for kn in (900, 128, 4096, 228):
+        cols = sorted(k for q in range(32) for k in WidePlan.k_columns(q, kn))
+        assert cols == list(range(kn))
+    plan = recurrence_plan(16, 512)
+    tasks = plan.tasks(0, 16)
+    assert sorted((t, g) for _, t, g in tasks) == [
+        (t, g) for t in range(2) for g in range(plan.groups(0))]
+    assert [w for w, _, _ in tasks] == [i % 8 for i in range(len(tasks))]

@@ -25,7 +25,8 @@ from sos_tpu_torch.models.convert import denoiser_from_jax, detector_from_jax
 from sos_tpu_torch.models.layers import UpConvBlock, init_state_dict
 from sos_tpu_torch.ops.resize import nearest_resize_1d, nearest_resize_2d
 
-from tests.torch_port_fixtures import make_clips, oracle_variables, tiny_configs
+from tests.torch_port_fixtures import (make_clips, oracle_states,
+                                      oracle_variables, tiny_configs)
 
 jstft = importlib.import_module("sos_tpu.dsp.stft")
 
@@ -96,6 +97,64 @@ def test_denoiser_packed_head_is_the_mask_layout(env):
         _, packed = model.forward_packed(s.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2))
     torch.testing.assert_close(packed[..., :256], mask[..., 0].transpose(1, 2), atol=0, rtol=0)
     torch.testing.assert_close(packed[..., 256:], mask[..., 1].transpose(1, 2), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("stage", ["detector", "denoiser"])
+def test_fast_profile_padded_import_matches_sos_tpu(env, tmp_path, stage):
+    """The fast profiles (`import_checkpoint --fast_profile`): the port's
+    `fast_*_config` are sos_tpu's; a reference `.pth` imported widened
+    (here the tiny trunk's 4 channels to 8) equals sos_tpu's padded tree,
+    converted, tensor for tensor; one f32 call of the widened model
+    matches the unwidened port model (the padding is lossless; that model
+    is held against sos_tpu above) and, for the detector, sos_tpu's
+    widened model (the models' tolerances)."""
+    from sos_tpu import config as jconfig
+    from sos_tpu.models import torch_import as jimport
+    from sos_tpu_torch import config as pconfig
+    from sos_tpu_torch.models import torch_import as pimport
+    cfg, port_cfg, det_vars, den_vars, spec, gated = env
+    for name in ("fast_detector_config", "fast_denoiser_config"):
+        assert dataclasses.asdict(getattr(pconfig, name)()) == \
+            dataclasses.asdict(getattr(jconfig, name)())
+    state = oracle_states(cfg, seed=3)[stage == "denoiser"]
+    path = tmp_path / "ckpt.pth"
+    torch.save({"model_state_dict": {k: torch.from_numpy(v)
+                                     for k, v in state.items()}}, path)
+    if stage == "detector":
+        wide, port_wide = (dataclasses.replace(c.detector, nf=8)
+                           for c in (cfg, port_cfg))
+        got = pimport.import_detector_checkpoint(str(path), nf=8)
+        ref_vars = jimport.detector_torch_to_flax(state, nf=8)
+        want = detector_from_jax(ref_vars)
+        args = (spec,)
+        ref = [JaxSilenceDetector(wide).apply(ref_vars, jnp.asarray(spec))]
+        model = _port(SilenceDetector(port_wide), got)
+        narrow = _port(SilenceDetector(port_cfg.detector),
+                       detector_from_jax(det_vars))
+        tol = dict(atol=5e-5, rtol=1e-4)
+    else:
+        port_wide = dataclasses.replace(port_cfg.denoiser, nf_noise=8)
+        got = pimport.import_denoiser_checkpoint(str(path), nf_noise=8)
+        ref_vars = jimport.denoiser_torch_to_flax(state, nf_noise=8)
+        want = denoiser_from_jax(ref_vars)
+        args = (spec, gated)
+        ref = ()
+        model = _port(JointDenoiser(port_wide), got)
+        narrow = _port(JointDenoiser(port_cfg.denoiser),
+                       denoiser_from_jax(den_vars))
+        tol = {}
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert any(got[k].shape != narrow.state_dict()[k].shape for k in got)
+    with torch.no_grad():
+        outs = model(*(torch.from_numpy(a) for a in args))
+        lossless = narrow(*(torch.from_numpy(a) for a in args))
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    lossless = lossless if isinstance(lossless, tuple) else (lossless,)
+    for o, n in zip(outs, lossless):
+        np.testing.assert_allclose(o.numpy(), n.numpy(), atol=1e-5, rtol=0)
+    for o, r in zip(outs, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **tol)
 
 
 def test_converter_takes_flax_init_trees():

@@ -65,12 +65,11 @@ def test_backward_plain_matches_autograd(hidden):
     torch.testing.assert_close(dxp_b, xs[1].grad, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-def test_backward_plain_matches_jax_vjp(reverse):
-    """One direction at a time against `jax.vjp` of `lstm_scan`: d xp
-    from K4b's plain version and dW_hh from the Function's product."""
-    hidden = 8
+def _vjp_against_jax(hidden, reverse, atol, steps=T):
+    """One direction of `BiLSTMRecurrence` (CPU: the plain versions)
+    against `jax.vjp` of `lstm_scan`: h, d xp and dW_hh."""
     (xp_f, xp_b), (w_f, w_b), dout = _recurrence_inputs(hidden, 21)
+    xp_f, xp_b, dout = xp_f[:, :steps], xp_b[:, :steps], dout[:, :steps]
     xp, w = (xp_b, w_b) if reverse else (xp_f, w_f)
     d_one = dout[..., hidden:] if reverse else dout[..., :hidden]
     # sos_tpu: (T, B, 4H) projections, w_hh (H, 4H)
@@ -82,7 +81,7 @@ def test_backward_plain_matches_jax_vjp(reverse):
     out = tlstm.BiLSTMRecurrence.apply(*xs)
     half = out.detach()[..., hidden:] if reverse else out.detach()[..., :hidden]
     np.testing.assert_allclose(half.numpy(),
-                               np.asarray(hs).transpose(1, 0, 2), atol=1e-5)
+                               np.asarray(hs).transpose(1, 0, 2), atol=atol)
     grad = np.zeros_like(dout)
     if reverse:
         grad[..., hidden:] = d_one
@@ -92,9 +91,24 @@ def test_backward_plain_matches_jax_vjp(reverse):
     k = 1 if reverse else 0
     np.testing.assert_allclose(xs[k].grad.numpy(),
                                np.asarray(dxp_ref).transpose(1, 0, 2),
-                               atol=1e-5)
+                               atol=atol)
     np.testing.assert_allclose(xs[2 + k].grad.numpy(), np.asarray(dw_ref).T,
-                               atol=1e-5)
+                               atol=atol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_plain_matches_jax_vjp(reverse):
+    """One direction at a time against `jax.vjp` of `lstm_scan`: d xp
+    from K4b's plain version and dW_hh from the Function's product."""
+    _vjp_against_jax(8, reverse, 1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_plain_matches_jax_vjp_at_hidden_256(reverse):
+    """The same at a hidden size past the register plans (the wide
+    route's, H 256), 5 steps: atol 1e-4 (sums of 256 and 1,024 products
+    in another order)."""
+    _vjp_against_jax(256, reverse, 1e-4, steps=5)
 
 
 def _bilstm_params(hidden, seed):

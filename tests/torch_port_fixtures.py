@@ -52,6 +52,13 @@ def _np_state(module):
 
 def oracle_variables(cfg, seed: int = 0):
     """(detector, denoiser) flax variables from seeded torch oracles."""
+    det, den = oracle_states(cfg, seed)
+    return detector_torch_to_flax(det), denoiser_torch_to_flax(den)
+
+
+def oracle_states(cfg, seed: int = 0):
+    """(detector, denoiser) reference-layout state dicts (numpy) of seeded
+    torch oracles: what `oracle_variables` converts."""
     torch.manual_seed(seed)
     gen = torch.Generator().manual_seed(seed + 100)
     d, n = cfg.detector, cfg.denoiser
@@ -65,8 +72,7 @@ def oracle_variables(cfg, seed: int = 0):
     with torch.no_grad():
         randomize_bn_stats(det, gen)
         randomize_bn_stats(den, gen)
-    return (detector_torch_to_flax(_np_state(det)),
-            denoiser_torch_to_flax(_np_state(den)))
+    return _np_state(det), _np_state(den)
 
 
 def port_states(det_vars, den_vars):
